@@ -6,8 +6,9 @@
 Phases, each printing one JSON line (any failure raises and exits non-zero):
 
 1. device and build — the card, its power limit, and the time ``nvcc``
-   takes to build every kernel from ``src/repro_torch/kernels/*/csrc``;
-2. kernels against their plain versions on the card — ``enoki_merge_rows``
+   takes to build every kernel from ``src/repro_torch/kernels/*/csrc``
+   (one ``nvcc`` per source, all started together);
+2. the merge kernel against its plain version on the card — ``enoki_merge_rows``
    bit-exact over a sweep of shapes, payload dtypes (f32, bf16, int32,
    uint8) and snapshot counts K, then timed (CUDA events, medians, L2
    flushed between launches, the host's enqueue cost reported apart) at
@@ -15,7 +16,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    slot-aligned arenas of 64 slots with random versions, with rows of
    100 KB (25,600 f32) and 1 MB (262,144 f32), beside its device-memory
    byte bound at 3.35 TB/s, its plain version and one ``torch.where``;
-3. the main path, served — a ``Cluster`` on the paper topology with a
+3. ``flash_attention_bhsd`` against its plain version on the card: f32
+   (2e-5) and bf16 (2e-2, the reference's own tolerances) over the
+   reference's sweep shapes, a ragged S=100, Sq=128 against Skv=256 and the
+   main-path geometry, causal, non-causal and window 64, directly and
+   through the model-layout wrapper; then timed at the main-path geometry
+   (B=4, S=4096, H=16, KV=8, D=128, bf16, causal) beside its tensor-core
+   FLOP bound, its plain version and ``scaled_dot_product_attention``;
+4. the FaaS main path, served — a ``Cluster`` on the paper topology with a
    REPLICATED 64-slot keygroup of 100 KB rows on the two edges, a
    Listing-1-style mutating handler whose static key set fills the arena
    and a read-only handler at the far edge; >= 512 requests through
@@ -23,7 +31,15 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    256-request buckets both run); replication flushed; replicas byte-identical, aligned
    merges only, the kernel launched exactly once per merge, and a CPU twin
    of the same requests (plain versions) ending in the same arenas;
-4. the ``{"kernels": [...]}`` line, then the card's name and power limit
+5. the sessions path, served — internlm2-1.8b at full width and depth with
+   bf16 weights from a seed: 2 pods x 4 sessions prefill 4,096-token
+   prompts through the kernel (2 x 24 launches), the FLASH prefill's logits
+   agree with the REFERENCE path's (rel < 5e-2), 60 greedy decode steps with
+   ``replicate_sessions`` every R=8, pod 0 fails and ``migrate_sessions``
+   restores it from its peer's backup with staleness 4 <= R, 4 more steps;
+   then one pod's prefill and one pod's decode step under ``torch.profiler``
+   (device ms by kernel kind, idle share, launches);
+6. the ``{"kernels": [...]}`` line, then the card's name and power limit
    as ``nvidia-smi`` reports them, then ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -53,6 +69,25 @@ SPIN_CYCLES = 2_000_000         # ~1 ms of card time: longer than any enqueue
 WINDOW_MS = 20.0
 MERGE_SOURCE = "src/repro_torch/kernels/enoki_merge/csrc/enoki_merge.cu"
 MERGE_REPLACES = "src/repro/kernels/enoki_merge/kernel.py:37"
+FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                "flash_attention.cu")
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:75"
+BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores (data sheet)
+FLASH_BQ = 64                   # query-tile granularity of the causal FLOP count
+# (B, Sq, Skv, H, KV, D): tests/test_kernels.py's sweep, a ragged S, Sq != Skv,
+# and the main path's prefill geometry
+FLASH_CASES = [(1, 128, 128, 4, 4, 32), (2, 256, 256, 4, 2, 64),
+               (1, 512, 512, 8, 2, 32), (2, 128, 128, 2, 1, 128),
+               (1, 100, 100, 4, 2, 64), (1, 128, 256, 4, 2, 64),
+               (4, 4096, 4096, 16, 8, 128)]
+FLASH_MASKS = [(True, 0), (False, 0), (True, 64), (False, 64)]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+MAIN_FLASH = (4, 4096, 16, 8, 128)   # B, S, H, KV, D of one prefill layer
+# sessions path: internlm2-1.8b, 2 pods x 4 sessions, 4,096-token prompts
+ARCH = "internlm2-1.8b"
+N_PODS, SESSIONS, PROMPT, CACHE_LEN = 2, 4, 4096, 4160
+DECODE_STEPS, FAILOVER_STEPS = 60, 4
+PREFILL_REL_TOL = 5e-2          # tests/test_arch_smoke.py's prefill/decode bound
 
 
 def emit(obj) -> None:
@@ -200,7 +235,102 @@ def time_geometry(torch, kernel, width, k, flush, reps=20):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path, served
+# phase 3: the flash-attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _qkv(torch, gen, B, Sq, Skv, H, KV, D, dtype):
+    tdt = getattr(torch, dtype)
+    return (torch.randn((B, H, Sq, D), generator=gen, device="cuda").to(tdt),
+            torch.randn((B, KV, Skv, D), generator=gen, device="cuda").to(tdt),
+            torch.randn((B, KV, Skv, D), generator=gen, device="cuda").to(tdt))
+
+
+def _flash_close(torch, got, want, dtype, what):
+    """max |got - want|; raises unless allclose at the dtype's tolerance."""
+    tol = FLASH_TOL[dtype]
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    if not (torch.isfinite(got).all() and
+            torch.allclose(got, want, rtol=tol, atol=tol)):
+        raise AssertionError(f"flash kernel != plain at {what}: max abs err "
+                             f"{err} (tol {tol})")
+    return err
+
+
+def check_flash_sweep(torch, fk, fops):
+    """Kernel vs plain over FLASH_CASES x dtypes x FLASH_MASKS, in the kernel
+    layout; the model-layout wrapper (strided reads, no transposes) on the
+    first and last cases.  Returns (max abs err per dtype, cases)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst, cases = {d: 0.0 for d in FLASH_TOL}, 0
+    for i, (B, Sq, Skv, H, KV, D) in enumerate(FLASH_CASES):
+        for dtype in FLASH_TOL:
+            q, k, v = _qkv(torch, gen, B, Sq, Skv, H, KV, D, dtype)
+            for causal, window in FLASH_MASKS:
+                what = (f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} "
+                        f"{dtype} causal={causal} window={window}")
+                want = fk.flash_attention_bhsd_plain(q, k, v, causal=causal,
+                                                     window=window)
+                got = fk.flash_attention_bhsd(q, k, v, causal=causal,
+                                              window=window)
+                torch.cuda.synchronize()
+                worst[dtype] = max(worst[dtype],
+                                   _flash_close(torch, got, want, dtype, what))
+                cases += 1
+                if i in (0, len(FLASH_CASES) - 1) and window == 0:
+                    got = fops.flash_attention(
+                        q.transpose(1, 2).contiguous(),
+                        k.transpose(1, 2).contiguous(),
+                        v.transpose(1, 2).contiguous(), causal=causal,
+                        window=window).transpose(1, 2)
+                    torch.cuda.synchronize()
+                    worst[dtype] = max(worst[dtype], _flash_close(
+                        torch, got, want, dtype, what + " (model layout)"))
+                    cases += 1
+            del q, k, v
+    return worst, cases
+
+
+def time_flash(torch, fk, flush, reps=20):
+    """The kernel at one prefill layer's geometry, beside its bound, its
+    plain version and one SDPA call on the same inputs."""
+    B, S, H, KV, D = MAIN_FLASH
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = _qkv(torch, gen, B, S, S, H, KV, D, "bfloat16")
+    want = fk.flash_attention_bhsd_plain(q, k, v, causal=True)
+    got = fk.flash_attention_bhsd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = _flash_close(torch, got, want, "bfloat16", "the main geometry")
+    del want, got
+    # causal work at 64-row granularity: every 64-row query tile runs the
+    # keys up to and including its diagonal tile
+    flops = 4.0 * B * H * S * S * D * (0.5 + FLASH_BQ / (2.0 * S))
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    flop_ms = flops / BF16_FLOPS_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    none = lambda: None
+    ms, host_ms = _median_ms(
+        torch, lambda: fk.flash_attention_bhsd(q, k, v, causal=True), none,
+        flush, reps)
+    plain_ms, _ = _median_ms(
+        torch, lambda: fk.flash_attention_bhsd_plain(q, k, v, causal=True),
+        none, flush, 5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms, _ = _median_ms(
+        torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), none,
+        flush, reps)
+    return {"B": B, "S": S, "H": H, "KV": KV, "D": D, "dtype": "bfloat16",
+            "causal": True, "flops": flops, "bytes": nbytes, "ms": ms,
+            "host_ms": host_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(flop_ms, byte_ms),
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "tflops_per_s": flops / (ms * 1e-3) / 1e12,
+            "share_of_bound": max(flop_ms, byte_ms) / ms,
+            "max_abs_err": err}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the FaaS main path, served
 # ---------------------------------------------------------------------------
 
 def register_handlers(torch, enoki_function, width):
@@ -323,18 +453,20 @@ def serve(cluster, plan):
 def run_main_path(torch, kernel, width, device, plan):
     """Fill, serve, flush on ``device``; returns (cluster, stats dict)."""
     from repro_torch.device import synchronize
+    from repro_torch.kernels.flash_attention import kernel as fk
     c = build_cluster(device, width, measure_compute=True)
     prewarm = c.engine.prewarm()
     buckets = set()
     record_buckets(c, buckets)
     # -- the counted run: counts zeroed just before the path is driven
-    kernel.enoki_merge_rows.launches = 0
+    kernel.enoki_merge_rows.launches = fk.flash_attention_bhsd.launches = 0
     d0 = c.stats.merge_dispatches
     c.invoke("smoke_fill", "edge", torch.ones(8).numpy())
     results, lat, wall = serve(c, plan)
     c.flush_replication()
     synchronize(c.device)
     launches = kernel.enoki_merge_rows.launches
+    assert fk.flash_attention_bhsd.launches == 0, "attention on the FaaS path"
     merges = c.stats.merge_dispatches - d0
     return c, {"prewarm_runs": prewarm, "buckets": sorted(buckets),
                "results": results, "lat": lat, "wall": wall,
@@ -394,6 +526,185 @@ def time_batches(cluster, plan):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the sessions path, served
+# ---------------------------------------------------------------------------
+
+def _wall_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _all_on_card(tree) -> bool:
+    leaves = tree.values() if isinstance(tree, dict) else [tree]
+    return all(_all_on_card(x) if isinstance(x, dict) else x.is_cuda
+               for x in leaves)
+
+
+GEMM_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "cublas")
+
+
+def profile_device(torch, fn):
+    """One ``fn()`` under ``torch.profiler``: its wall ms, the device ms of
+    its kernels by kind (the flash kernel, cuBLAS GEMMs, everything else),
+    the device's idle share of the wall, and its kernel launches.  The
+    device fields are None when the trace holds no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ms = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    launches = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        kind = ("flash_attention" if "flash_fwd" in name else "gemm"
+                if any(t in name for t in GEMM_NAMES) else "other")
+        ms[kind] += e.self_device_time_total / 1e3
+        launches += e.count
+    busy = sum(ms.values())
+    return {"wall_ms": wall, "device_ms": ms if launches else None,
+            "device_busy_ms": busy if launches else None,
+            "idle_share": 1.0 - busy / wall if launches else None,
+            "kernel_launches": launches or None}
+
+
+def _rel_err(torch, a, b) -> float:
+    """max |a - b| / max |b| over (B, S, V) logits, one sequence at a time."""
+    num = den = 0.0
+    for i in range(a.shape[0]):
+        x, y = a[i].float(), b[i].float()
+        num = max(num, float((x - y).abs().max()))
+        den = max(den, float(y.abs().max()))
+    return num / (den + 1e-6)
+
+
+def run_sessions(torch, fk, mk):
+    """Prefill, decode with replication, failover; every check raises."""
+    from repro_torch.configs import (AttnImpl, EnokiConfig, ShapeConfig,
+                                     StepKind, get_arch)
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo as zoo
+    arch = get_arch(ARCH)
+    enoki = EnokiConfig()
+    R = enoki.replication_period
+    pshape = ShapeConfig("sessions_prefill", PROMPT, SESSIONS,
+                         StepKind.PREFILL)
+    torch.cuda.reset_peak_memory_stats()
+    params = zoo.init_params(arch, seed=0, dtype=serve.serve_param_dtype(arch),
+                             device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    prompts = torch.randint(0, arch.vocab_size, (N_PODS, SESSIONS, PROMPT),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    prefill = serve.make_prefill_step(arch, pshape, impl=AttnImpl.FLASH,
+                                      device="cuda")
+    step = serve.make_decode_step(arch, n_pods=N_PODS, device="cuda")
+    replicate = serve.make_replicate_sessions_step(device="cuda")
+    migrate = serve.make_migrate_sessions_step(device="cuda")
+    prefill(params, {"tokens": prompts[0, :1, :256]})       # warm the path
+
+    # -- the counted run: counts zeroed just before the path is driven
+    fk.flash_attention_bhsd.launches = mk.enoki_merge_rows.launches = 0
+    live = zoo.init_cache(arch, SESSIONS, CACHE_LEN, device="cuda")
+    live = {k: torch.stack([v] * N_PODS) for k, v in live.items()}
+    first, prefill_ms = [], 0.0
+    for pod in range(N_PODS):
+        (logits, cache), ms = _wall_ms(
+            torch, lambda: prefill(params, {"tokens": prompts[pod]}))
+        prefill_ms += ms
+        # pad to CACHE_LEN positions, as tests/test_arch_smoke.py pads
+        live["k"][pod, :, :, :PROMPT].copy_(cache["k"])
+        live["v"][pod, :, :, :PROMPT].copy_(cache["v"])
+        live["length"][pod] = cache["length"]
+        assert torch.isfinite(logits.float()).all(), "prefill logits"
+        first.append(torch.argmax(logits[:, -1, :], dim=-1)[:, None])
+        del cache
+    token = torch.stack(first).to(torch.int32)
+    decode_ms, backup, replicate_ms, replications = [], None, [], 0
+    for t in range(DECODE_STEPS):
+        (token, live), ms = _wall_ms(torch, lambda: step(params, live, token))
+        decode_ms.append(ms)
+        if (t + 1) % R == 0:
+            backup, ms = _wall_ms(torch, lambda: replicate(live))
+            replicate_ms.append(ms)
+            replications += 1
+            for key in ("k", "v", "length"):   # pod 1's slot backs up pod 0
+                assert torch.equal(backup[key][1], live[key][0]), key
+    lost = live["length"].clone()
+    dead = torch.tensor([True] + [False] * (N_PODS - 1), device="cuda")
+    restored, migrate_ms = _wall_ms(torch, lambda: migrate(live, backup, dead))
+    for key in ("k", "v", "length"):
+        assert torch.equal(restored[key][0], backup[key][0]), key
+        assert torch.equal(restored[key][1:], live[key][1:]), key
+    staleness = int(lost[0]) - int(restored["length"][0])
+    assert 0 <= staleness <= R and staleness == DECODE_STEPS % R, staleness
+    del live, backup
+    for _ in range(FAILOVER_STEPS):
+        (token, restored), ms = _wall_ms(
+            torch, lambda: step(params, restored, token))
+        decode_ms.append(ms)
+    torch.cuda.synchronize()
+    launches = {"flash_attention_bhsd": fk.flash_attention_bhsd.launches,
+                "enoki_merge_rows": mk.enoki_merge_rows.launches}
+    # -- end of the counted run
+    assert launches["flash_attention_bhsd"] == N_PODS * arch.num_layers, \
+        launches
+    assert _all_on_card(params) and _all_on_card(restored) and token.is_cuda
+    assert int((token < 0).sum() + (token >= arch.vocab_size).sum()) == 0
+    assert torch.equal(restored["length"], lost - torch.tensor(
+        [staleness] + [0] * (N_PODS - 1), device="cuda",
+        dtype=lost.dtype) + FAILOVER_STEPS)
+    # where the time goes: one pod's decode step and one pod's prefill,
+    # profiled after the counted run
+    pod_cache = {k: v[1].clone() for k, v in restored.items()}
+    out = {}
+    decode_profile = profile_device(torch, lambda: out.setdefault(
+        "logits", zoo.decode_step(arch, params, pod_cache, token[1])[0]))
+    assert torch.isfinite(out["logits"].float()).all(), "decode logits"
+    del restored, pod_cache, out
+    prefill_profile = profile_device(
+        torch, lambda: prefill(params, {"tokens": prompts[0]}))
+
+    # FLASH against the REFERENCE path (plain torch) on pod 0's prompts
+    flash_logits, _, _ = zoo.forward_seq(arch, params, prompts[0],
+                                         impl=AttnImpl.FLASH)
+    ref_logits, _, _ = zoo.forward_seq(arch, params, prompts[0],
+                                       impl=AttnImpl.REFERENCE)
+    rel = _rel_err(torch, flash_logits, ref_logits)
+    assert rel < PREFILL_REL_TOL, f"FLASH vs REFERENCE prefill: rel {rel}"
+    del flash_logits, ref_logits
+
+    tokens_in = N_PODS * SESSIONS * PROMPT
+    mflops = zoo.model_flops(arch, ShapeConfig(
+        "p", PROMPT, N_PODS * SESSIONS, StepKind.PREFILL))
+    step_ms = statistics.median(decode_ms)
+    return {"arch": ARCH, "params": arch.param_count(), "pods": N_PODS,
+            "sessions_per_pod": SESSIONS, "prompt": PROMPT,
+            "cache_len": CACHE_LEN, "launches": launches,
+            "prefill_ms": prefill_ms,
+            "prefill_tokens_per_s": tokens_in / (prefill_ms * 1e-3),
+            "prefill_model_flops_share": mflops / (prefill_ms * 1e-3)
+            / BF16_FLOPS_PER_S,
+            "decode_steps": len(decode_ms), "decode_ms_per_step": step_ms,
+            "decode_tokens_per_s": N_PODS * SESSIONS / (step_ms * 1e-3),
+            "replications": replications,
+            "replicate_ms": statistics.median(replicate_ms),
+            "migrate_ms": migrate_ms, "staleness_tokens": staleness,
+            "replication_period": R, "flash_vs_reference_rel_err": rel,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "profile_prefill_one_pod": prefill_profile,
+            "profile_decode_one_pod": decode_profile}
+
+
 def main() -> int:
     try:
         import torch
@@ -407,10 +718,16 @@ def main() -> int:
         from repro_torch.core import enoki_function
         from repro_torch.kernels import build
         from repro_torch.kernels.enoki_merge import kernel
+        from repro_torch.kernels.flash_attention import kernel as fk
+        from repro_torch.kernels.flash_attention import ops as fops
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
+
+    # f32 products in full f32 on the card (the tolerances assume it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # -- 1. device and build
     smi = nvidia_smi_line()
@@ -421,7 +738,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc_s": built, "build_s": time.perf_counter() - t0})
 
-    # -- 2. kernels against their plain versions
+    # -- 2. the merge kernel against its plain version
     worst, cases = check_sweep(torch, kernel)
     emit({"phase": "kernel_sweep", "kernel": "enoki_merge_rows",
           "cases": cases, "max_abs_err": worst})
@@ -433,9 +750,16 @@ def main() -> int:
                                                     flush)
             emit({"phase": "kernel_time", "kernel": "enoki_merge_rows",
                   "geometry": label, "nvidia_smi": smi, **t})
+    # -- 3. the flash-attention kernel against its plain version
+    fworst, fcases = check_flash_sweep(torch, fk, fops)
+    emit({"phase": "kernel_sweep", "kernel": "flash_attention_bhsd",
+          "cases": fcases, "max_abs_err": fworst, "tolerance": FLASH_TOL})
+    ft = time_flash(torch, fk, flush)
+    emit({"phase": "kernel_time", "kernel": "flash_attention_bhsd",
+          "geometry": "prefill layer", "nvidia_smi": smi, **ft})
     del flush
 
-    # -- 3. the main path, served
+    # -- 4. the FaaS main path, served
     register_handlers(torch, enoki_function, ROW_100KB)
     plan = request_plan(N_REQUESTS)
     c, st = run_main_path(torch, kernel, ROW_100KB, "cuda", plan)
@@ -458,14 +782,27 @@ def main() -> int:
           "replicas_identical": True, "cpu_twin_identical": True,
           "nvidia_smi": smi})
 
-    # -- 4. the kernels line, the card, the result
+    del c, twin
+
+    # -- 5. the sessions path, served
+    ss = run_sessions(torch, fk, kernel)
+    emit({"phase": "sessions", "nvidia_smi": smi, **ss})
+
+    # -- 6. the kernels line, the card, the result
     t = timings[("100KB", 1)]
     emit({"kernels": [{
         "name": "enoki_merge_rows", "route": "cuda", "source": MERGE_SOURCE,
         "replaces": MERGE_REPLACES, "launches": st["launches"],
         "max_abs_err": max(worst, t["max_abs_err"]), "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"]}]})
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]}, {
+        "name": "flash_attention_bhsd", "route": "cuda",
+        "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+        "launches": ss["launches"]["flash_attention_bhsd"],
+        "max_abs_err": max(max(fworst.values()), ft["max_abs_err"]),
+        "ms": ft["ms"], "plain_ms": ft["plain_ms"],
+        "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
+        "library_ms": ft["library_ms"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

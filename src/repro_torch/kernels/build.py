@@ -26,6 +26,7 @@ BUILD_DIR = _PKG.parents[2] / "build"
 #: kernel name -> its CUDA source
 KERNEL_SOURCES: Dict[str, pathlib.Path] = {
     "enoki_merge": _PKG / "enoki_merge" / "csrc" / "enoki_merge.cu",
+    "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

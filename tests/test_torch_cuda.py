@@ -1,9 +1,10 @@
-"""The port's CUDA kernel on the card: ``enoki_merge_rows`` against its
-plain version on the same card inputs, and the served merge path launching
-it once per fused merge.
+"""The port's CUDA kernels on the card: ``enoki_merge_rows`` and
+``flash_attention_bhsd`` against their plain versions on the same card
+inputs, the served merge path launching the merge once per fused merge, and
+a prefill launching the attention kernel once per layer.
 
 Every test here is marked ``cuda`` and skips, with its reason, on a host
-without a card (the kernel has no CPU mode).  The file imports no jax, so
+without a card (a kernel has no CPU mode).  The file imports no jax, so
 it runs where the card is:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -103,3 +104,84 @@ def test_fused_delivery_merge_launches_once(card):
     n0 = enoki_merge_rows.launches
     merge_snapshots_fused(acc, [cuda_store] * 3, aligned=True)
     assert enoki_merge_rows.launches == n0 + 1
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+_FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,D", [
+    (1, 128, 128, 4, 4, 32), (2, 256, 256, 4, 2, 64), (1, 512, 512, 8, 2, 32),
+    (2, 128, 128, 2, 1, 128), (1, 100, 100, 4, 2, 64),
+    (1, 128, 256, 4, 2, 64)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64)])
+def test_flash_kernel_matches_plain_on_cuda(card, B, Sq, Skv, H, KV, D,
+                                            dtype, causal, window):
+    """One launch per call, within the reference's tolerance of the plain
+    version on the same card inputs."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    rng = np.random.default_rng(B + Sq + Skv + H + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(card, _TORCH[dtype])
+               for s in ((B, H, Sq, D), (B, KV, Skv, D), (B, KV, Skv, D)))
+    want = fk.flash_attention_bhsd_plain(q, k, v, causal=causal,
+                                         window=window)
+    n0 = fk.flash_attention_bhsd.launches
+    got = fk.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fk.flash_attention_bhsd.launches == n0 + 1
+    tol = _FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_the_model_layout(card):
+    """``ops.flash_attention`` hands the kernel strided views of (B,S,H,D)
+    tensors and an output view: the same numbers as the contiguous call."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn((2, 192, 8, 128), generator=g, device=card).bfloat16()
+    k = torch.randn((2, 192, 4, 128), generator=g, device=card).bfloat16()
+    v = torch.randn((2, 192, 4, 128), generator=g, device=card).bfloat16()
+    got = flash_attention(q, k, v, causal=True)
+    want = fk.flash_attention_bhsd(*(t.transpose(1, 2).contiguous()
+                                     for t in (q, k, v)), causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want.transpose(1, 2))
+    with pytest.raises(ValueError, match="head dim"):
+        fk.flash_attention_bhsd(*(torch.zeros((1, 2, 64, 48), device=card)
+                                  for _ in range(3)))
+
+
+@pytest.mark.cuda
+def test_prefill_launches_the_kernel_once_per_layer(card):
+    """A FLASH prefill of reduced internlm2 on the card: one kernel launch
+    per layer, agreeing with the REFERENCE path (plain torch)."""
+    from repro_torch.configs import (AttnImpl, ShapeConfig, StepKind,
+                                     get_arch, reduced)
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo as zoo
+    arch = reduced(get_arch("internlm2-1.8b"))
+    params = zoo.init_params(arch, seed=0, dtype=torch.bfloat16)
+    tokens = torch.randint(0, arch.vocab_size, (2, 128), device=card,
+                           dtype=torch.int32)
+    shape = ShapeConfig("p", 128, 2, StepKind.PREFILL)
+    out = {}
+    for impl in (AttnImpl.FLASH, AttnImpl.REFERENCE):
+        n0 = fk.flash_attention_bhsd.launches
+        logits, cache = serve.make_prefill_step(arch, shape, impl=impl)(
+            params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        n = fk.flash_attention_bhsd.launches - n0
+        assert n == (arch.num_layers if impl is AttnImpl.FLASH else 0)
+        assert cache["k"].is_cuda and int(cache["length"]) == 128
+        out[impl] = logits.float()
+    err = (out[AttnImpl.FLASH] - out[AttnImpl.REFERENCE]).abs().max()
+    assert float(err / out[AttnImpl.REFERENCE].abs().max()) < 5e-2

@@ -47,6 +47,21 @@ def test_port_imports_no_jax_and_no_reference():
     assert json.loads(proc.stdout.splitlines()[-1]) == []
 
 
+def test_no_kernel_library_loads_at_import():
+    """Importing every module of the port builds and loads no kernel: a
+    library is built and opened at a wrapper's first CUDA launch only."""
+    code = ("import importlib, sys\n"
+            f"for m in {_modules()!r}: importlib.import_module(m)\n"
+            "from repro_torch.kernels import build\n"
+            "assert not build._loaded and not build.BUILD_SECONDS\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "assert 'build/lib' not in maps, 'a kernel library is mapped'\n"
+            "print(','.join(sorted(build.KERNEL_SOURCES)))\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "enoki_merge,flash_attention"
+
+
 def test_no_jax_or_reference_import_anywhere():
     """Every import statement of the port and of ``chip_smoke.py``,
     function-level ones included (the smoke imports the port inside
