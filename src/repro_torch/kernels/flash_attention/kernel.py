@@ -40,16 +40,15 @@ _fn = None
 
 def flash_attention_bhsd_plain(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, causal: bool = True,
-                               window: int = 0, bq: int = 256,
-                               bk: int = 512) -> torch.Tensor:
+                               window: int = 0) -> torch.Tensor:
     """The same online softmax in plain PyTorch, over the reference's
-    ``bq``/``bk`` blocks (``min(256, Sq)``/``min(512, Skv)``; a ragged last
-    block is sliced short).  Causal blocks strictly above the diagonal are
-    skipped, as ``pl.when(run)`` skips them."""
+    default blocks (``min(256, Sq)`` query rows, ``min(512, Skv)`` keys; a
+    ragged last block is sliced short).  Causal blocks strictly above the
+    diagonal are skipped, as ``pl.when(run)`` skips them."""
     B, H, Sq, d = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     G = H // KV
-    bq, bk = min(bq, Sq), min(bk, Skv)
+    bq, bk = min(256, Sq), min(512, Skv)
     scale = d ** -0.5
     out = torch.empty_like(q)
     for qi in range(0, Sq, bq):

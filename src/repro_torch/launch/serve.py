@@ -31,7 +31,7 @@ loop (every R decode steps).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict
 
 import torch
 
@@ -88,39 +88,31 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
 # Decode
 # ---------------------------------------------------------------------------
 
-def make_decode_step(arch: ArchConfig, n_pods: Optional[int] = None,
-                     device=None, compute_dtype=torch.bfloat16
+def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
+                     compute_dtype=torch.bfloat16
                      ) -> Callable[[dict, Cache, torch.Tensor], tuple]:
     """``step(params, cache, token) -> (next_token, cache)``, greedy.
 
-    ``n_pods=None``: one pod; the cache is ``init_cache``'s and ``token``
-    is (B, 1).  ``n_pods=P``: the cache is pod-stacked (leading dim P,
-    ``length`` of shape (P,)), ``token`` is (P, B, 1), and the one
-    ``params`` tree serves every pod.  The cache is written in place and
-    returned."""
+    The cache is pod-stacked (``init_cache``'s leaves stacked on a leading
+    dim of ``n_pods``, ``length`` of shape (n_pods,)), ``token`` is
+    (n_pods, B, 1), and the one ``params`` tree serves every pod.  The
+    cache is written in place and returned."""
     dev = resolve_device(device)
-
-    def one_pod(params, cache, token):
-        logits, new_cache = zoo.decode_step(arch, params, cache, token,
-                                            compute_dtype=compute_dtype)
-        next_token = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
-        return next_token.to(torch.int32), new_cache["length"]
 
     def step(params: dict, cache: Cache, token: torch.Tensor):
         _on(dev, params, "params")
         _on(dev, cache, "cache")
         _on(dev, token, "token")
-        if n_pods is None:
-            next_token, length = one_pod(params, cache, token)
-            cache["length"] = length
-            return next_token, cache
         if cache["length"].shape != (n_pods,) or token.shape[0] != n_pods:
             raise ValueError(f"pod-stacked state must lead with {n_pods} pods")
         out = torch.empty(token.shape, dtype=torch.int32, device=dev)
         for pod in range(n_pods):
             pod_cache = {k: v[pod] for k, v in cache.items()}
-            out[pod], length = one_pod(params, pod_cache, token[pod])
-            cache["length"][pod] = length
+            logits, pod_cache = zoo.decode_step(arch, params, pod_cache,
+                                                token[pod],
+                                                compute_dtype=compute_dtype)
+            out[pod] = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+            cache["length"][pod] = pod_cache["length"]
         return out, cache
 
     return step

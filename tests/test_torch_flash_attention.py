@@ -99,14 +99,18 @@ def test_port_oracle_matches_reference_oracle(causal, window):
 
 
 def test_plain_version_blocks_like_the_reference():
-    """The plain version over the reference's default 256/512 blocks and
-    over 64/64 blocks: the same function up to f32 summation order."""
-    _, (q, k, v), tol = _inputs(4, 1, 512, 512, 4, 2, 64, "float32")
+    """The plain version over several of the reference's 256/512 blocks,
+    each ragged at its end (S=600: query blocks of 256, 256, 88; key blocks
+    of 512, 88), against the reference's oracle: the same function up to
+    f32 summation order."""
+    (jq, jk, jv), (q, k, v), tol = _inputs(4, 1, 600, 600, 4, 2, 64,
+                                           "float32")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    a = fk.flash_attention_bhsd_plain(qt, kt, vt, causal=True, window=100)
-    b = fk.flash_attention_bhsd_plain(qt, kt, vt, causal=True, window=100,
-                                      bq=64, bk=64)
-    _close(a, b, tol, "block sizes")
+    for causal, window in ((True, 100), (True, 0), (False, 0)):
+        got = fk.flash_attention_bhsd_plain(qt, kt, vt, causal=causal,
+                                            window=window).transpose(1, 2)
+        _close(got, ref_oracle(jq, jk, jv, causal=causal, window=window),
+               tol, f"causal={causal} window={window}")
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():

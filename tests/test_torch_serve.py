@@ -121,19 +121,22 @@ def test_prefill_then_decode_continuation(model, impl):
     logits, pc = prefill(params_t, {"tokens": torch.from_numpy(tokens)})
     assert logits.shape == (B, 1, arch_t.vocab_size)
     assert int(pc["length"]) == S
-    cache = zoo.init_cache(arch_t, B, cache_len, dtype=torch.float32,
-                           device="cpu")
-    cache["k"][:, :, :S] = pc["k"]
-    cache["v"][:, :, :S] = pc["v"]
-    cache["length"] = pc["length"]
+    # one pod: init_cache's leaves stacked on a leading pod dim of 1
+    cache = {k: v[None] for k, v in zoo.init_cache(
+        arch_t, B, cache_len, dtype=torch.float32, device="cpu").items()}
+    cache["k"][0, :, :, :S] = pc["k"]
+    cache["v"][0, :, :, :S] = pc["v"]
+    cache["length"][0] = pc["length"]
     k_buf = cache["k"]
     tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
     got = [tok.numpy()]
     for _ in range(steps):
-        tok, cache = step(params_t, cache, tok)
+        tok, cache = step(params_t, cache, tok[None])
+        tok = tok[0]
         got.append(tok.numpy())
     assert cache["k"] is k_buf, "decode writes the cache it is handed"
     assert int(cache["length"]) == S + steps
+    cache = {k: v[0] for k, v in cache.items()}
     np.testing.assert_array_equal(np.concatenate(got, axis=1), want_tokens)
     # the continuation's logits, against the reference step's and against
     # one forward over prompt + generated tokens
