@@ -26,23 +26,34 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    of the same requests (plain versions) ending in the same arenas;
 4. ``flash_attention_bhsd`` against its plain version on the card: f32
    (2e-5) and bf16 (2e-2, the reference's own tolerances) over the
-   reference's sweep shapes, a ragged S=100, Sq=128 against Skv=256 and the
-   main-path geometry, causal, non-causal and window 64, directly and
-   through the model-layout wrapper; every bf16 case is also held, row by
-   row at the output's own scale, to the error that the plain version's
-   bf16 rounding makes against the same function in f32; then timed at the
-   main-path geometry (B=4, S=4096, H=16, KV=8, D=128, bf16, causal) beside
+   reference's sweep shapes, head dim 112, a ragged S=100, Sq=128 against
+   Skv=256 and the internlm2 prefill geometry, causal, non-causal and
+   window 64, directly and through the model-layout wrapper, and zamba2's
+   shared-block geometry (B=4, S=4096, H=KV=32, D=112, bf16, causal, window
+   4096); every bf16 case is also held, row by row at the output's own
+   scale, to the error that the plain version's bf16 rounding makes against
+   the same function in f32; then timed at both prefill geometries beside
    its tensor-core FLOP bound, its plain version and
    ``scaled_dot_product_attention``;
-5. the sessions path, served — internlm2-1.8b at full width and depth with
-   bf16 weights from a seed: 2 pods x 4 sessions prefill 4,096-token
-   prompts through the kernel (2 x 24 launches), the FLASH prefill's logits
-   agree with the REFERENCE path's (rel < 5e-2), 60 greedy decode steps with
-   ``replicate_sessions`` every R=8, pod 0 fails and ``migrate_sessions``
-   restores it from its peer's backup with staleness 4 <= R, 4 more steps;
-   then one pod's prefill and one pod's decode step under ``torch.profiler``
-   (device ms by kernel kind, idle share, launches);
-6. the ``{"kernels": [...]}`` line, then the card's name and power limit
+5. ``ssd_chunk_bhcp`` against its plain version on the card, y and the
+   final state: f32 (1e-4) and bf16 (5e-2, the reference's tolerances) over
+   the reference's sweep shapes, ragged S and the main-path geometry (B=4,
+   H=112, S=4096, P=N=64, chunk 128, f32), directly and through the
+   model-layout wrapper; then timed there beside its f32 FMA bound and its
+   plain version (no single PyTorch call computes the scan);
+6. the sessions path, served, for each of two models at full width and
+   depth with bf16 weights from a seed — internlm2-1.8b (dense), then
+   zamba2-7b (hybrid: Mamba-2 states and a ring-cached shared attention
+   block): 2 pods x 4 sessions prefill 4,096-token prompts through the
+   kernels (internlm2: 2 x 24 attention launches; zamba2: 2 x 81 SSD and
+   2 x 13 attention launches), the FLASH prefill's logits agree with the
+   REFERENCE path's (rel < 5e-2), 60 greedy decode steps (zamba2's wrap its
+   4,096-slot ring) with ``replicate_sessions`` every R=8 and every leaf of
+   each backup equal to its peer's live state, pod 0 fails and
+   ``migrate_sessions`` restores it with staleness 4 <= R, 4 more steps;
+   then one pod's prefill and one pod's decode step under
+   ``torch.profiler`` (device ms by kernel kind, idle share, launches);
+7. the ``{"kernels": [...]}`` line, then the card's name and power limit
    as ``nvidia-smi`` reports them, then ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -75,13 +86,16 @@ MERGE_REPLACES = "src/repro/kernels/enoki_merge/kernel.py:37"
 FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                 "flash_attention.cu")
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:75"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_chunk/kernel.py:65"
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores (data sheet)
-# (B, Sq, Skv, H, KV, D): tests/test_kernels.py's sweep, a ragged S, Sq != Skv,
-# and the main path's prefill geometry
+F32_FLOPS_PER_S = 66.9e12       # H100 SXM f32 FMAs, no tensor cores (data sheet)
+# (B, Sq, Skv, H, KV, D): tests/test_kernels.py's sweep, head dim 112 (zamba2's
+# shared block), a ragged S, Sq != Skv, and internlm2's prefill geometry
 FLASH_CASES = [(1, 128, 128, 4, 4, 32), (2, 256, 256, 4, 2, 64),
                (1, 512, 512, 8, 2, 32), (2, 128, 128, 2, 1, 128),
-               (1, 100, 100, 4, 2, 64), (1, 128, 256, 4, 2, 64),
-               (4, 4096, 4096, 16, 8, 128)]
+               (1, 128, 128, 4, 4, 112), (1, 100, 100, 4, 2, 64),
+               (1, 128, 256, 4, 2, 64), (4, 4096, 4096, 16, 8, 128)]
 FLASH_MASKS = [(True, 0), (False, 0), (True, 64), (False, 64)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # bf16 outputs are held to at most this multiple of the plain version's own
@@ -89,9 +103,20 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the kernel rounds at the same points (p, the output), so its error is that
 # rounding up to summation order; a mis-weighted tile shows as a multiple
 BF16_ROUNDING_FACTOR = 2.0
-MAIN_FLASH = (4, 4096, 16, 8, 128)   # B, S, H, KV, D of one prefill layer
-# sessions path: internlm2-1.8b, 2 pods x 4 sessions, 4,096-token prompts
-ARCH = "internlm2-1.8b"
+# B, S, H, KV, D, window of one prefill attention layer: internlm2-1.8b's,
+# and zamba2-7b's shared block (bf16, causal)
+MAIN_FLASH = (4, 4096, 16, 8, 128, 0)
+ZAMBA_FLASH = (4, 4096, 32, 32, 112, 4096)
+# (B, H, S, P, N, chunk): tests/test_kernels.py's sweep, ragged S (a last
+# chunk of 72 and of 4 rows), in f32 and bf16; then the main path's geometry
+# (zamba2-7b's Mamba-2 prefill, f32 as the model feeds it)
+SSD_CASES = [(1, 2, 128, 32, 16, 32), (2, 4, 256, 64, 64, 64),
+             (1, 1, 64, 16, 8, 16), (1, 3, 200, 64, 64, 128),
+             (2, 2, 100, 32, 16, 32)]
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+MAIN_SSD = (4, 112, 4096, 64, 64, 128)
+# sessions path: 2 pods x 4 sessions, 4,096-token prompts, for each model
+SESSION_ARCHS = ("internlm2-1.8b", "zamba2-7b")
 N_PODS, SESSIONS, PROMPT, CACHE_LEN = 2, 4, 4096, 4160
 DECODE_STEPS, FAILOVER_STEPS = 60, 4
 PREFILL_REL_TOL = 5e-2          # tests/test_arch_smoke.py's prefill/decode bound
@@ -366,12 +391,14 @@ def run_main_path(torch, kernel, width, device, plan):
     """Fill, serve, flush on ``device``; returns (cluster, stats dict)."""
     from repro_torch.device import synchronize
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_chunk import kernel as sk
     c = build_cluster(device, width, measure_compute=True)
     prewarm = c.engine.prewarm()
     buckets = set()
     record_buckets(c, buckets)
     # -- the counted run: counts zeroed just before the path is driven
     kernel.enoki_merge_rows.launches = fk.flash_attention_bhsd.launches = 0
+    sk.ssd_chunk_bhcp.launches = 0
     d0 = c.stats.merge_dispatches
     c.invoke("smoke_fill", "edge", torch.ones(8).numpy())
     results, lat, wall = serve(c, plan)
@@ -379,6 +406,7 @@ def run_main_path(torch, kernel, width, device, plan):
     synchronize(c.device)
     launches = kernel.enoki_merge_rows.launches
     assert fk.flash_attention_bhsd.launches == 0, "attention on the FaaS path"
+    assert sk.ssd_chunk_bhcp.launches == 0, "an SSD scan on the FaaS path"
     merges = c.stats.merge_dispatches - d0
     return c, {"prewarm_runs": prewarm, "buckets": sorted(buckets),
                "results": results, "lat": lat, "wall": wall,
@@ -486,15 +514,19 @@ def _flash_close(torch, fk, q, k, v, got, want, causal, window, what):
 
 def check_flash_sweep(torch, fk, fops):
     """Kernel vs plain over FLASH_CASES x dtypes x FLASH_MASKS, in the kernel
-    layout; the model-layout wrapper (strided reads, no transposes) on the
-    first and last cases.  Returns (max abs err per dtype, the largest bf16
+    layout, then zamba2's geometry (bf16, causal, its window); the
+    model-layout wrapper (strided reads, no transposes) on the first and
+    the last two cases.  Returns (max abs err per dtype, the largest bf16
     ratio to the rounding control, cases)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst, cases, worst_ratio = {d: 0.0 for d in FLASH_TOL}, 0, 0.0
-    for i, (B, Sq, Skv, H, KV, D) in enumerate(FLASH_CASES):
-        for dtype in FLASH_TOL:
+    B, S, H, KV, D, win = ZAMBA_FLASH
+    runs = [(c, tuple(FLASH_TOL), FLASH_MASKS) for c in FLASH_CASES] + [
+        ((B, S, S, H, KV, D), ("bfloat16",), [(True, win)])]
+    for i, ((B, Sq, Skv, H, KV, D), dtypes, masks) in enumerate(runs):
+        for dtype in dtypes:
             q, k, v = _qkv(torch, gen, B, Sq, Skv, H, KV, D, dtype)
-            for causal, window in FLASH_MASKS:
+            for causal, window in masks:
                 what = (f"B={B} Sq={Sq} Skv={Skv} H={H} KV={KV} D={D} "
                         f"{dtype} causal={causal} window={window}")
                 want = fk.flash_attention_bhsd_plain(q, k, v, causal=causal,
@@ -502,7 +534,8 @@ def check_flash_sweep(torch, fk, fops):
                 got = fk.flash_attention_bhsd(q, k, v, causal=causal,
                                               window=window)
                 checks = [(got, what)]
-                if i in (0, len(FLASH_CASES) - 1) and window == 0:
+                if i in (0, len(runs) - 2, len(runs) - 1) and \
+                        window in (0, Sq):
                     checks.append((fops.flash_attention(
                         q.transpose(1, 2).contiguous(),
                         k.transpose(1, 2).contiguous(),
@@ -521,37 +554,43 @@ def check_flash_sweep(torch, fk, fops):
     return worst, worst_ratio, cases
 
 
-def time_flash(torch, fk, flush, reps=20):
-    """The kernel at one prefill layer's geometry, beside its bound, its
-    plain version and one SDPA call on the same inputs."""
-    B, S, H, KV, D = MAIN_FLASH
+def time_flash(torch, fk, flush, geometry, reps=20):
+    """The kernel at one prefill layer's ``geometry`` (B, S, H, KV, D,
+    window; bf16, causal), beside its bound, its plain version and one SDPA
+    call on the same inputs."""
+    B, S, H, KV, D, window = geometry
+    if 0 < window < S:      # the pair count and SDPA's mask below assume it
+        raise ValueError(f"window {window} < S {S} is not timed here")
     gen = torch.Generator(device="cuda").manual_seed(2)
     q, k, v = _qkv(torch, gen, B, S, S, H, KV, D, "bfloat16")
-    want = fk.flash_attention_bhsd_plain(q, k, v, causal=True)
-    got = fk.flash_attention_bhsd(q, k, v, causal=True)
+    run = lambda: fk.flash_attention_bhsd(q, k, v, causal=True,
+                                          window=window)
+    want = fk.flash_attention_bhsd_plain(q, k, v, causal=True, window=window)
+    got = run()
     torch.cuda.synchronize()
-    err, ratio = _flash_close(torch, fk, q, k, v, got, want, True, 0,
-                              "the main geometry")
+    err, ratio = _flash_close(torch, fk, q, k, v, got, want, True, window,
+                              f"the D={D} prefill geometry")
     del want, got
     # causal attention needs the S(S+1)/2 query-key pairs on or below the
-    # diagonal: 2·D FLOPs for q·k and 2·D for p·v each, per head
+    # diagonal (a window >= S masks none of them): 2·D FLOPs for q·k and
+    # 2·D for p·v each, per head
     flops = 4.0 * B * H * D * S * (S + 1) / 2
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
     flop_ms = flops / BF16_FLOPS_PER_S * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     none = lambda: None
-    ms, host_ms = _median_ms(
-        torch, lambda: fk.flash_attention_bhsd(q, k, v, causal=True), none,
-        flush, reps)
+    ms, host_ms = _median_ms(torch, run, none, flush, reps)
     plain_ms, _ = _median_ms(
-        torch, lambda: fk.flash_attention_bhsd_plain(q, k, v, causal=True),
+        torch, lambda: fk.flash_attention_bhsd_plain(q, k, v, causal=True,
+                                                     window=window),
         none, flush, 5)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms, _ = _median_ms(
         torch, lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), none,
         flush, reps)
-    return {"B": B, "S": S, "H": H, "KV": KV, "D": D, "dtype": "bfloat16",
-            "causal": True, "flops": flops, "bytes": nbytes, "ms": ms,
+    return {"B": B, "S": S, "H": H, "KV": KV, "D": D, "window": window,
+            "dtype": "bfloat16", "causal": True, "flops": flops,
+            "bytes": nbytes, "ms": ms,
             "host_ms": host_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(flop_ms, byte_ms),
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
@@ -561,7 +600,120 @@ def time_flash(torch, fk, flush, reps=20):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the sessions path, served
+# phase 5: the SSD chunk kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(torch, gen, B, H, S, P, N, dtype):
+    """tests/test_kernels.py's inputs: x normal, a_dt = -softplus(normal)/2,
+    b and c normal * 0.3, made on the card."""
+    tdt = getattr(torch, dtype)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    return (rnd(B, H, S, P).to(tdt),
+            (-torch.nn.functional.softplus(rnd(B, H, S)) * 0.5).to(tdt),
+            (rnd(B, 1, S, N) * 0.3).to(tdt), (rnd(B, 1, S, N) * 0.3).to(tdt))
+
+
+def _ssd_close(torch, got, want, dtype, what):
+    """max |got - want| over y and the final state; raises unless both are
+    finite and allclose at the dtype's tolerance."""
+    tol, err = SSD_TOL[dtype], 0.0
+    for g, w, name in zip(got, want, ("y", "final state")):
+        err = max(err, float((g.float() - w.float()).abs().max()))
+        if not (torch.isfinite(g.float()).all() and torch.allclose(
+                g.float(), w.float(), rtol=tol, atol=tol)):
+            raise AssertionError(f"ssd kernel != plain ({name}) at {what}: "
+                                 f"max abs err {err} (tol {tol})")
+    return err
+
+
+def check_ssd_sweep(torch, sk, sops):
+    """Kernel vs plain over SSD_CASES x dtypes and the main geometry in f32,
+    in the kernel layout; the model-layout wrapper (strided reads of x,
+    a_dt and y; dt weighting) on a ragged case and at the main geometry.
+    Returns (max abs err per dtype, cases)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst, cases = {d: 0.0 for d in SSD_TOL}, 0
+    runs = [(c, tuple(SSD_TOL)) for c in SSD_CASES] + [(MAIN_SSD,
+                                                        ("float32",))]
+    for i, ((B, H, S, P, N, chunk), dtypes) in enumerate(runs):
+        for dtype in dtypes:
+            what = f"B={B} H={H} S={S} P={P} N={N} chunk={chunk} {dtype}"
+            x, a, b, c = _ssd_inputs(torch, gen, B, H, S, P, N, dtype)
+            want = sk.ssd_chunk_bhcp_plain(x, a, b, c, chunk=chunk)
+            got = sk.ssd_chunk_bhcp(x, a, b, c, chunk=chunk)
+            torch.cuda.synchronize()
+            worst[dtype] = max(worst[dtype], _ssd_close(torch, got, want,
+                                                        dtype, what))
+            cases += 1
+            if i in (3, len(runs) - 1) and dtype == "float32":
+                # the model layout: x (B,S,H,P) with dt apart, b/c (B,S,N)
+                dt = torch.rand((B, S, H), generator=gen, device="cuda") + 0.5
+                xm = x.transpose(1, 2).contiguous()
+                am = (a.transpose(1, 2) * dt).contiguous()
+                got = sops.ssd_chunk(xm, am, b[:, 0], c[:, 0], dt,
+                                     chunk=chunk)
+                want = sk.ssd_chunk_bhcp_plain(
+                    (xm * dt[..., None]).transpose(1, 2), am.transpose(1, 2),
+                    b, c, chunk=chunk)
+                torch.cuda.synchronize()
+                worst[dtype] = max(worst[dtype], _ssd_close(
+                    torch, (got[0].transpose(1, 2), got[1]), want, dtype,
+                    what + " (model layout)"))
+                cases += 1
+            del x, a, b, c, want, got
+    return worst, cases
+
+
+def ssd_work(B, H, S, P, N, chunk, itemsize):
+    """(FLOPs, bytes) the chunked scan needs on these shapes.  Per chunk of
+    l rows: C Bᵀ over the l(l+1)/2 pairs on or below the diagonal at 2N
+    FLOPs, once per (b, chunk) since B and C are shared across heads; per
+    (b, h, chunk) the (S ⊙ L) x product over the same pairs at 2P, and
+    2·l·N·P each for C stateᵀ and the state update.  The elementwise terms
+    (mask, decays, exps) are left out, so the bound stays a lower bound.
+    Bytes: x, a_dt, b, c read once, y and the f32 state written once."""
+    flops = 0.0
+    for s0 in range(0, S, chunk):
+        l = min(chunk, S - s0)
+        pairs = l * (l + 1) / 2
+        flops += B * pairs * 2 * N + B * H * (pairs * 2 * P + 4 * l * N * P)
+    nbytes = itemsize * (2 * B * H * S * P + B * H * S + 2 * B * S * N) \
+        + 4 * B * H * P * N
+    return flops, nbytes
+
+
+def time_ssd(torch, sk, flush, reps=20):
+    """The kernel at the main-path geometry (one Mamba-2 layer's prefill,
+    f32), beside its bound and its plain version.  No single PyTorch call
+    computes the chunked scan, so there is no library time."""
+    B, H, S, P, N, chunk = MAIN_SSD
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x, a, b, c = _ssd_inputs(torch, gen, B, H, S, P, N, "float32")
+    run = lambda: sk.ssd_chunk_bhcp(x, a, b, c, chunk=chunk)
+    err = _ssd_close(torch, run(), sk.ssd_chunk_bhcp_plain(
+        x, a, b, c, chunk=chunk), "float32", "the main geometry")
+    flops, nbytes = ssd_work(B, H, S, P, N, chunk, 4)
+    flop_ms = flops / F32_FLOPS_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    none = lambda: None
+    ms, host_ms = _median_ms(torch, run, none, flush, reps)
+    plain_ms, _ = _median_ms(
+        torch, lambda: sk.ssd_chunk_bhcp_plain(x, a, b, c, chunk=chunk),
+        none, flush, 5)
+    return {"B": B, "H": H, "S": S, "P": P, "N": N, "chunk": chunk,
+            "dtype": "float32", "flops": flops, "bytes": nbytes, "ms": ms,
+            "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": None,
+            "library_note": "no single PyTorch call computes the chunked "
+                            "SSD scan",
+            "bound_ms": max(flop_ms, byte_ms),
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "tflops_per_s": flops / (ms * 1e-3) / 1e12,
+            "share_of_bound": max(flop_ms, byte_ms) / ms,
+            "max_abs_err": err}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the sessions path, served
 # ---------------------------------------------------------------------------
 
 def _wall_ms(torch, fn):
@@ -572,10 +724,12 @@ def _wall_ms(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _all_on_card(tree) -> bool:
-    leaves = tree.values() if isinstance(tree, dict) else [tree]
-    return all(_all_on_card(x) if isinstance(x, dict) else x.is_cuda
-               for x in leaves)
+def _leaves(tree):
+    """The tensors of a nested dict, with their paths."""
+    if isinstance(tree, dict):
+        return [(f"{k}/{p}" if p else k, x) for k, v in tree.items()
+                for p, x in _leaves(v)]
+    return [("", tree)]
 
 
 GEMM_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "cublas")
@@ -583,9 +737,10 @@ GEMM_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "cublas")
 
 def profile_device(torch, fn):
     """One ``fn()`` under ``torch.profiler``: its wall ms, the device ms of
-    its kernels by kind (the flash kernel, cuBLAS GEMMs, everything else),
-    the device's idle share of the wall, and its kernel launches.  The
-    device fields are None when the trace holds no kernel."""
+    its kernels by kind (the flash and SSD kernels, cuBLAS GEMMs, everything
+    else) and of the costliest "other" kernels by name, the device's idle
+    share of the wall, and its kernel launches.  The device fields are None
+    when the trace holds no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -595,18 +750,24 @@ def profile_device(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    ms = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
-    launches = 0
+    ms = {"flash_attention": 0.0, "ssd_chunk": 0.0, "gemm": 0.0, "other": 0.0}
+    launches, other = 0, []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         name = e.key.lower()
-        kind = ("flash_attention" if "flash_fwd" in name else "gemm"
+        kind = ("flash_attention" if "flash_fwd" in name else "ssd_chunk"
+                if "ssd_chunk" in name else "gemm"
                 if any(t in name for t in GEMM_NAMES) else "other")
         ms[kind] += e.self_device_time_total / 1e3
         launches += e.count
+        if kind == "other":
+            other.append((e.self_device_time_total / 1e3, e.count,
+                          e.key[:90]))
     busy = sum(ms.values())
     return {"wall_ms": wall, "device_ms": ms if launches else None,
+            "other_top": [{"ms": t, "launches": n, "kernel": k}
+                          for t, n, k in sorted(other, reverse=True)[:8]],
             "device_busy_ms": busy if launches else None,
             "idle_share": 1.0 - busy / wall if launches else None,
             "kernel_launches": launches or None}
@@ -622,17 +783,22 @@ def _rel_err(torch, a, b) -> float:
     return num / (den + 1e-6)
 
 
-def run_sessions(torch, fk, mk):
-    """Prefill, decode with replication, failover; every check raises."""
+def run_sessions(torch, arch_id, counters, expect):
+    """One model's sessions path: prefill, decode with replication,
+    failover; every check raises.  ``counters`` maps each kernel's name to
+    its wrapper; ``expect`` gives the launches of the counted run (the
+    others must be 0)."""
     from repro_torch.configs import (AttnImpl, EnokiConfig, ShapeConfig,
                                      StepKind, get_arch)
+    from repro_torch.core.tree import tree_map
     from repro_torch.launch import serve
     from repro_torch.models import model_zoo as zoo
-    arch = get_arch(ARCH)
+    arch = get_arch(arch_id)
     enoki = EnokiConfig()
     R = enoki.replication_period
     pshape = ShapeConfig("sessions_prefill", PROMPT, SESSIONS,
                          StepKind.PREFILL)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = zoo.init_params(arch, seed=0, dtype=serve.serve_param_dtype(arch),
                              device="cuda")
@@ -647,18 +813,20 @@ def run_sessions(torch, fk, mk):
     prefill(params, {"tokens": prompts[0, :1, :256]})       # warm the path
 
     # -- the counted run: counts zeroed just before the path is driven
-    fk.flash_attention_bhsd.launches = mk.enoki_merge_rows.launches = 0
-    live = zoo.init_cache(arch, SESSIONS, CACHE_LEN, device="cuda")
-    live = {k: torch.stack([v] * N_PODS) for k, v in live.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    live = tree_map(lambda v: torch.stack([v] * N_PODS), zoo.init_cache(
+        arch, SESSIONS, CACHE_LEN, device="cuda"))
     first, prefill_ms = [], 0.0
     for pod in range(N_PODS):
         (logits, cache), ms = _wall_ms(
             torch, lambda: prefill(params, {"tokens": prompts[pod]}))
         prefill_ms += ms
-        # pad to CACHE_LEN positions, as tests/test_arch_smoke.py pads
-        live["k"][pod, :, :, :PROMPT].copy_(cache["k"])
-        live["v"][pod, :, :, :PROMPT].copy_(cache["v"])
-        live["length"][pod] = cache["length"]
+        # into the decode cache's leading corner: internlm2's K/V fill the
+        # first PROMPT of CACHE_LEN positions (as tests/test_arch_smoke.py
+        # pads them); zamba2's ring of 4,096 slots takes its 4,096 positions
+        tree_map(lambda dst, src: dst[pod][tuple(
+            slice(0, n) for n in src.shape)].copy_(src), live, cache)
         assert torch.isfinite(logits.float()).all(), "prefill logits"
         first.append(torch.argmax(logits[:, -1, :], dim=-1)[:, None])
         del cache
@@ -671,14 +839,15 @@ def run_sessions(torch, fk, mk):
             backup, ms = _wall_ms(torch, lambda: replicate(live))
             replicate_ms.append(ms)
             replications += 1
-            for key in ("k", "v", "length"):   # pod 1's slot backs up pod 0
-                assert torch.equal(backup[key][1], live[key][0]), key
+            for (path, b), (_, x) in zip(_leaves(backup), _leaves(live)):
+                # pod 1's slot backs up pod 0
+                assert torch.equal(b[1], x[0]), f"backup {path}"
     lost = live["length"].clone()
     dead = torch.tensor([True] + [False] * (N_PODS - 1), device="cuda")
     restored, migrate_ms = _wall_ms(torch, lambda: migrate(live, backup, dead))
-    for key in ("k", "v", "length"):
-        assert torch.equal(restored[key][0], backup[key][0]), key
-        assert torch.equal(restored[key][1:], live[key][1:]), key
+    for (path, r), (_, b), (_, x) in zip(_leaves(restored), _leaves(backup),
+                                         _leaves(live)):
+        assert torch.equal(r[0], b[0]) and torch.equal(r[1:], x[1:]), path
     staleness = int(lost[0]) - int(restored["length"][0])
     assert 0 <= staleness <= R and staleness == DECODE_STEPS % R, staleness
     del live, backup
@@ -687,19 +856,19 @@ def run_sessions(torch, fk, mk):
             torch, lambda: step(params, restored, token))
         decode_ms.append(ms)
     torch.cuda.synchronize()
-    launches = {"flash_attention_bhsd": fk.flash_attention_bhsd.launches,
-                "enoki_merge_rows": mk.enoki_merge_rows.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     # -- end of the counted run
-    assert launches["flash_attention_bhsd"] == N_PODS * arch.num_layers, \
-        launches
-    assert _all_on_card(params) and _all_on_card(restored) and token.is_cuda
+    assert launches == {name: expect.get(name, 0) for name in counters}, \
+        (launches, expect)
+    assert all(x.is_cuda for tree in (params, restored)
+               for _, x in _leaves(tree)) and token.is_cuda
     assert int((token < 0).sum() + (token >= arch.vocab_size).sum()) == 0
     assert torch.equal(restored["length"], lost - torch.tensor(
         [staleness] + [0] * (N_PODS - 1), device="cuda",
         dtype=lost.dtype) + FAILOVER_STEPS)
     # where the time goes: one pod's decode step and one pod's prefill,
     # profiled after the counted run
-    pod_cache = {k: v[1].clone() for k, v in restored.items()}
+    pod_cache = tree_map(lambda v: v[1].clone(), restored)
     out = {}
     decode_profile = profile_device(torch, lambda: out.setdefault(
         "logits", zoo.decode_step(arch, params, pod_cache, token[1])[0]))
@@ -720,13 +889,22 @@ def run_sessions(torch, fk, mk):
     tokens_in = N_PODS * SESSIONS * PROMPT
     mflops = zoo.model_flops(arch, ShapeConfig(
         "p", PROMPT, N_PODS * SESSIONS, StepKind.PREFILL))
+    # model_flops counts every parameter once; zamba2 applies its one
+    # shared block (counted once) after each of its groups
+    shared = sum(x.numel() for _, x in _leaves(params.get("shared", {})))
+    groups = zoo.transformer.plan(arch).get("groups", 1)
+    applied = mflops + 2.0 * (groups - 1) * shared * tokens_in
     step_ms = statistics.median(decode_ms)
-    return {"arch": ARCH, "params": arch.param_count(), "pods": N_PODS,
+    return {"arch": arch_id, "params": arch.param_count(),
+            "shared_block_params": shared, "shared_block_applications":
+            groups if shared else 0, "pods": N_PODS,
             "sessions_per_pod": SESSIONS, "prompt": PROMPT,
             "cache_len": CACHE_LEN, "launches": launches,
             "prefill_ms": prefill_ms,
             "prefill_tokens_per_s": tokens_in / (prefill_ms * 1e-3),
             "prefill_model_flops_share": mflops / (prefill_ms * 1e-3)
+            / BF16_FLOPS_PER_S,
+            "prefill_applied_flops_share": applied / (prefill_ms * 1e-3)
             / BF16_FLOPS_PER_S,
             "decode_steps": len(decode_ms), "decode_ms_per_step": step_ms,
             "decode_tokens_per_s": N_PODS * SESSIONS / (step_ms * 1e-3),
@@ -749,11 +927,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     try:
+        from repro_torch.configs import get_arch
         from repro_torch.core import enoki_function
         from repro_torch.kernels import build
         from repro_torch.kernels.enoki_merge import kernel
         from repro_torch.kernels.flash_attention import kernel as fk
         from repro_torch.kernels.flash_attention import ops as fops
+        from repro_torch.kernels.ssd_chunk import kernel as sk
+        from repro_torch.kernels.ssd_chunk import ops as sops
+        from repro_torch.models.transformer import plan as layer_plan
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -818,16 +1000,44 @@ def main() -> int:
           "bf16_ratio_to_rounding": fratio,
           "bf16_ratio_limit": BF16_ROUNDING_FACTOR})
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device="cuda")
-    ft = time_flash(torch, fk, flush)
+    ft = time_flash(torch, fk, flush, MAIN_FLASH)
     emit({"phase": "kernel_time", "kernel": "flash_attention_bhsd",
-          "geometry": "prefill layer", "nvidia_smi": smi, **ft})
+          "geometry": "internlm2-1.8b prefill layer", "nvidia_smi": smi,
+          **ft})
+    fz = time_flash(torch, fk, flush, ZAMBA_FLASH)
+    emit({"phase": "kernel_time", "kernel": "flash_attention_bhsd",
+          "geometry": "zamba2-7b shared block, prefill", "nvidia_smi": smi,
+          **fz})
+
+    # -- 5. the SSD chunk kernel against its plain version
+    sworst, scases = check_ssd_sweep(torch, sk, sops)
+    emit({"phase": "kernel_sweep", "kernel": "ssd_chunk_bhcp",
+          "cases": scases, "max_abs_err": sworst, "tolerance": SSD_TOL})
+    sd = time_ssd(torch, sk, flush)
+    emit({"phase": "kernel_time", "kernel": "ssd_chunk_bhcp",
+          "geometry": "zamba2-7b Mamba-2 layer, prefill", "nvidia_smi": smi,
+          **sd})
     del flush
 
-    # -- 5. the sessions path, served
-    ss = run_sessions(torch, fk, kernel)
-    emit({"phase": "sessions", "nvidia_smi": smi, **ss})
+    # -- 6. the sessions path, served, for each model
+    counters = {"enoki_merge_rows": kernel.enoki_merge_rows,
+                "flash_attention_bhsd": fk.flash_attention_bhsd,
+                "ssd_chunk_bhcp": sk.ssd_chunk_bhcp}
+    sessions = {}
+    for arch_id in SESSION_ARCHS:
+        arch = get_arch(arch_id)
+        p = layer_plan(arch)
+        expect = ({"flash_attention_bhsd": N_PODS * p["layers"]}
+                  if p["kind"] == "dense" else
+                  {"flash_attention_bhsd": N_PODS * p["groups"],
+                   "ssd_chunk_bhcp": N_PODS * arch.num_layers})
+        sessions[arch_id] = ss = run_sessions(torch, arch_id, counters,
+                                              expect)
+        emit({"phase": "sessions", "nvidia_smi": smi, **ss})
 
-    # -- 6. the kernels line, the card, the result
+    # -- 7. the kernels line, the card, the result
+    flash_launches = {a: ss["launches"]["flash_attention_bhsd"]
+                      for a, ss in sessions.items()}
     t = timings[("100KB", 1)]
     emit({"kernels": [{
         "name": "enoki_merge_rows", "route": "cuda", "source": MERGE_SOURCE,
@@ -837,11 +1047,20 @@ def main() -> int:
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}, {
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
-        "launches": ss["launches"]["flash_attention_bhsd"],
-        "max_abs_err": max(max(fworst.values()), ft["max_abs_err"]),
+        "launches": sum(flash_launches.values()),
+        "launches_by_path": flash_launches,
+        "max_abs_err": max(max(fworst.values()), ft["max_abs_err"],
+                           fz["max_abs_err"]),
         "ms": ft["ms"], "plain_ms": ft["plain_ms"],
         "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
-        "library_ms": ft["library_ms"]}]})
+        "library_ms": ft["library_ms"]}, {
+        "name": "ssd_chunk_bhcp", "route": "cuda", "source": SSD_SOURCE,
+        "replaces": SSD_REPLACES,
+        "launches": sessions["zamba2-7b"]["launches"]["ssd_chunk_bhcp"],
+        "max_abs_err": max(max(sworst.values()), sd["max_abs_err"]),
+        "ms": sd["ms"], "plain_ms": sd["plain_ms"],
+        "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
+        "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,7 @@ values, never framework objects of the reference.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs.base import ReplicationPolicy
 from repro_torch.core.keygroup import KeygroupSpec
 from repro_torch.core.store import Store, to_numpy
+from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -76,27 +77,47 @@ def params_from_numpy(arch, tree: dict, device=None,
                       dtype: Optional[torch.dtype] = None) -> dict:
     """The port's parameter tree from the reference's (nested dicts of
     numpy arrays, e.g. ``jax.device_get(params)``), key for key and
-    shape for shape.  ``dtype`` casts every floating leaf (bfloat16 leaves
-    arrive as bfloat16 unless it says otherwise)."""
+    shape for shape: dense ``blocks``, or zamba2's ``blocks`` (G, per, ...),
+    ``tail`` and the one ``shared`` block.  ``dtype`` casts every floating
+    leaf (bfloat16 leaves arrive as bfloat16 unless it says otherwise)."""
     from repro_torch.models.transformer import plan
-    plan(arch)                          # only ported families carry over
-    missing = {"embed", "final_norm", "blocks"} - set(tree)
-    if missing or (not arch.tie_embeddings and "lm_head" not in tree):
+    p = plan(arch)                      # only ported families carry over
+    need = {"embed", "final_norm", "blocks"}
+    if not arch.tie_embeddings:
+        need.add("lm_head")
+    if p["kind"] == "zamba":
+        need |= {"shared", "tail"} if p["tail"] else {"shared"}
+    if need - set(tree):
         raise ValueError(f"not a {arch.name} parameter tree: keys "
                          f"{sorted(tree)}")
     return _tree_from_numpy(tree, resolve_device(device), dtype)
 
 
+#: decode-cache leaves that ``dtype`` casts; the SSM ``state`` stays f32 and
+#: ``shared_pos``/``length`` stay int32, as the reference keeps them
+_CACHE_CAST = frozenset({"k", "v", "shared_k", "shared_v", "conv_x", "conv_B",
+                         "conv_C"})
+
+
 def cache_from_numpy(tree: dict, device=None,
-                     dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
-    """A decode cache (``k``, ``v``, int ``length``) from numpy arrays;
-    ``dtype`` casts ``k``/``v``, ``length`` stays int32."""
+                     dtype: Optional[torch.dtype] = None) -> dict:
+    """A decode cache from (nested dicts of) numpy arrays: dense ``k``,
+    ``v``, ``length``, or zamba2's ``mamba``/``tail`` states and the shared
+    block's ring.  ``dtype`` casts the K/V and conv-window leaves only;
+    ``length`` is int32."""
     dev = resolve_device(device)
-    out = {k: _tensor(v, dev, dtype) for k, v in tree.items()}
+
+    def walk(t, key=None):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        return _tensor(t, dev, dtype if key in _CACHE_CAST else None)
+
+    out = walk(tree)
     out["length"] = out["length"].to(torch.int32)
     return out
 
 
-def cache_to_numpy(cache: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """A decode cache as host arrays (bfloat16 widens to float32)."""
-    return {k: to_numpy(v) for k, v in cache.items()}
+def cache_to_numpy(cache: dict) -> dict:
+    """A decode cache as (nested dicts of) host arrays (bfloat16 widens to
+    float32)."""
+    return tree_map(to_numpy, cache)

@@ -504,6 +504,7 @@ extern "C" int flash_attention_bhsd_launch(
   switch (D) {
     case 32: return (int)launch<32>(p, bf16, s);
     case 64: return (int)launch<64>(p, bf16, s);
+    case 112: return (int)launch<112>(p, bf16, s);   // zamba2's shared block
     case 128: return (int)launch<128>(p, bf16, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -14,7 +14,8 @@ contiguous (and whose other strides keep 16-byte rows) is taken as it is.
 ``flash_attention_bhsd.launches`` counts kernel launches (the chip smoke
 reads it to show that prefill went through the kernel).
 
-Head dims 32, 64 and 128, float32 and bfloat16; anything else raises
+Head dims 32, 64, 112 (zamba2's shared block) and 128, float32 and
+bfloat16; anything else raises
 ``ValueError`` on every device, so the CPU refuses what the card would.
 """
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
 

@@ -31,15 +31,18 @@ loop (every R decode steps).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, AttnImpl, ShapeConfig
+from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import model_zoo as zoo
 
-Cache = Dict[str, torch.Tensor]
+#: a (nested) dict of tensors: dense ``k``/``v``, or zamba2's ``mamba``,
+#: ``tail`` and shared-block ring; ``length`` always
+Cache = dict
 
 
 def serve_param_dtype(arch: ArchConfig):
@@ -66,8 +69,8 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
                       compute_dtype=torch.bfloat16
                       ) -> Callable[[dict, dict], tuple]:
     """``prefill(params, batch) -> (logits (B, 1, V), cache)`` for one pod:
-    ``batch["tokens"]`` is (B, shape.seq_len); the cache's ``length`` is
-    ``shape.seq_len``."""
+    ``batch["tokens"]`` is (B, shape.seq_len); the cache is
+    ``forward_seq``'s, with ``length`` = ``shape.seq_len``."""
     dev = resolve_device(device)
 
     def prefill(params: dict, batch: dict):
@@ -107,7 +110,7 @@ def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
             raise ValueError(f"pod-stacked state must lead with {n_pods} pods")
         out = torch.empty(token.shape, dtype=torch.int32, device=dev)
         for pod in range(n_pods):
-            pod_cache = {k: v[pod] for k, v in cache.items()}
+            pod_cache = tree_map(lambda v: v[pod], cache)
             logits, pod_cache = zoo.decode_step(arch, params, pod_cache,
                                                 token[pod],
                                                 compute_dtype=compute_dtype)
@@ -123,14 +126,14 @@ def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
 # ---------------------------------------------------------------------------
 
 def make_replicate_sessions_step(device=None) -> Callable[[Cache], Cache]:
-    """``replicate(live) -> backup``: every leaf ``torch.roll(·, 1, 0)``
-    over the pod dim (pod i's backup slot holds pod i-1's sessions); the
-    backup is a fresh copy, off the decode path."""
+    """``replicate(live) -> backup``: every leaf of the (nested) tree
+    ``torch.roll(·, 1, 0)`` over the pod dim (pod i's backup slot holds pod
+    i-1's sessions); the backup is a fresh copy, off the decode path."""
     dev = resolve_device(device)
 
     def replicate(live: Cache) -> Cache:
         _on(dev, live, "live sessions")
-        return {k: torch.roll(v, 1, 0) for k, v in live.items()}
+        return tree_map(lambda v: torch.roll(v, 1, 0), live)
 
     return replicate
 
@@ -138,8 +141,8 @@ def make_replicate_sessions_step(device=None) -> Callable[[Cache], Cache]:
 def make_migrate_sessions_step(device=None
                                ) -> Callable[[Cache, Cache, torch.Tensor],
                                              Cache]:
-    """``migrate(live, backup, dead) -> live'``: every leaf
-    ``torch.where(dead[pod], backup, live)``, keygroup restore from the
+    """``migrate(live, backup, dead) -> live'``: every leaf of the (nested)
+    tree ``torch.where(dead[pod], backup, live)``, keygroup restore from the
     surviving replica (paper §2)."""
     dev = resolve_device(device)
 
@@ -152,6 +155,6 @@ def make_migrate_sessions_step(device=None
         def sel(l, b):
             return torch.where(dead.reshape((n_pods,) + (1,) * (l.ndim - 1)),
                                b, l)
-        return {k: sel(live[k], backup[k]) for k in live}
+        return tree_map(sel, live, backup)
 
     return migrate

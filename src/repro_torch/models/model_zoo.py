@@ -10,18 +10,12 @@ from typing import Tuple
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig, StepKind
 from repro_torch.models import transformer
+from repro_torch.models.ssm import ssm_dims
 
 init_params = transformer.init_params
 forward_seq = transformer.forward_seq
 decode_step = transformer.decode_step
 init_cache = transformer.init_cache
-
-
-def ssm_dims(arch: ArchConfig) -> Tuple[int, int, int]:
-    """(d_inner, n_heads, state_dim) of a Mamba2 block (``models/ssm.py``)."""
-    cfg = arch.ssm
-    d_inner = cfg.expand * arch.d_model
-    return d_inner, d_inner // cfg.head_dim, cfg.state_dim
 
 
 def mlstm_dims(arch: ArchConfig) -> Tuple[int, int, int]:

@@ -1,19 +1,24 @@
 """Layer-stack orchestrator: the counterpart of ``repro.models.transformer``
-for the dense family.
+for the dense and hybrid (zamba2) families.
 
-A dense model is one segment of L identical [attn + mlp] layers whose
-parameters are stacked on a leading axis (``blocks.attn.wq`` is
-``(L, d, H*Dh)``), so a parameter tree carries across from the reference
-key for key.  The reference's ``lax.scan`` over the stack is a Python loop
-(``_scan``).  Params and caches are plain nested dicts of tensors.
+Segment plans (family -> structure):
+  dense              L x [attn + mlp]
+  hybrid (zamba2)    G x [6 x mamba2; SHARED attn+mlp] (+ tail of mamba2)
+
+Parameters of a homogeneous run of layers are stacked on a leading axis
+(``blocks.attn.wq`` is ``(L, d, H*Dh)``; zamba2's ``blocks.mamba.w_x`` is
+``(G, 6, d, d_inner)``), so a parameter tree carries across from the
+reference key for key.  The reference's ``lax.scan`` over the stack is a
+Python loop (``_scan``).  Params and caches are plain nested dicts of
+tensors.
 
 Both modes of a block:
   seq(params, x, positions)           -> y            (train / prefill)
   decode(params, x1, cache, length)   -> y, cache     (one token; the cache
                                                        is written in place)
 
-The moe, xlstm, zamba2, vlm and whisper plans raise ``NotImplementedError``
-naming their ROADMAP item.
+The moe, xlstm, vlm and whisper plans raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -24,10 +29,11 @@ import torch
 from repro_torch.configs.base import ArchConfig, AttnImpl
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import dense_init, mlp_apply, mlp_init, rmsnorm
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (apply_rope, dense_init, mlp_apply,
+                                       mlp_init, rmsnorm)
 
 _NOT_PORTED = {
-    "hybrid": "the zamba2 serving path (ROADMAP, open item 1)",
     "ssm": "the xlstm serving path (ROADMAP, open item 2)",
     "moe": "the rest of the model zoo: moe (ROADMAP, open item 8)",
     "vlm": "the rest of the model zoo: vlm (ROADMAP, open item 8)",
@@ -43,6 +49,12 @@ def plan(arch: ArchConfig) -> Dict[str, Any]:
     """Static structure of the layer stack."""
     if arch.family == "dense":
         return {"kind": "dense", "layers": arch.num_layers}
+    if arch.family == "hybrid":     # zamba2
+        per = arch.shared_attn_every
+        groups = arch.num_layers // per
+        tail = arch.num_layers - groups * per
+        return {"kind": "zamba", "groups": groups, "mamba_per": per,
+                "tail": tail}
     if arch.family in _NOT_PORTED:
         raise NotImplementedError(
             f"repro_torch: family {arch.family!r} ({arch.name}) is not ported "
@@ -88,6 +100,13 @@ def _dense_layer_init(gen: torch.Generator, arch: ArchConfig, dtype) -> dict:
     }
 
 
+def _mamba_layer_init(gen: torch.Generator, arch: ArchConfig, dtype) -> dict:
+    return {
+        "ln": torch.zeros((arch.d_model,), dtype=dtype, device=gen.device),
+        "mamba": ssm_mod.mamba2_init(gen, arch, dtype=dtype),
+    }
+
+
 def _stack_init(layer_init, gen: torch.Generator, n: int, arch: ArchConfig,
                 dtype) -> dict:
     return _stack([layer_init(gen, arch, dtype) for _ in range(n)])
@@ -111,8 +130,17 @@ def init_params(arch: ArchConfig, seed: int = 0, dtype=torch.float32,
     if not arch.tie_embeddings:
         params["lm_head"] = dense_init(gen, (arch.d_model, arch.vocab_size),
                                        dtype=dtype)
-    params["blocks"] = _stack_init(_dense_layer_init, gen, p["layers"], arch,
-                                   dtype)
+    if p["kind"] == "dense":
+        params["blocks"] = _stack_init(_dense_layer_init, gen, p["layers"],
+                                       arch, dtype)
+    else:   # zamba: (G, per, ...) mamba stacks, a tail, ONE shared block
+        params["blocks"] = _stack([
+            _stack_init(_mamba_layer_init, gen, p["mamba_per"], arch, dtype)
+            for _ in range(p["groups"])])
+        if p["tail"]:
+            params["tail"] = _stack_init(_mamba_layer_init, gen, p["tail"],
+                                         arch, dtype)
+        params["shared"] = _dense_layer_init(gen, arch, dtype)
     return params
 
 
@@ -120,9 +148,9 @@ def init_params(arch: ArchConfig, seed: int = 0, dtype=torch.float32,
 # Sequence forward (train / prefill).  Returns (logits, aux_loss, cache|None)
 # ---------------------------------------------------------------------------
 
-def _dense_block_seq(lp, x, positions, arch, impl):
+def _dense_block_seq(lp, x, positions, arch, impl, window=0, causal=True):
     x = x + attn.self_attention(lp["attn"], rmsnorm(x, lp["ln1"]), positions,
-                                arch, impl=impl)
+                                arch, causal=causal, window=window, impl=impl)
     x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]), arch.activation)
     return x
 
@@ -162,25 +190,70 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
                 impl: AttnImpl = AttnImpl.REFERENCE,
                 return_cache: bool = False,
                 compute_dtype=torch.bfloat16):
-    """tokens (B, S) int -> (logits (B, S, V), aux 0.0, cache | None); the
-    cache holds the layer-stacked (L, B, S, KV, Dh) ``k`` and ``v``.
-    Positions are 0..S-1 in every row."""
+    """tokens (B, S) int -> (logits (B, S, V), aux 0.0, cache | None).
+    Positions are 0..S-1 in every row.  ``impl`` picks the attention path
+    and, in the Mamba-2 layers, the scan (FLASH: the kernels).
+
+    The dense cache holds the layer-stacked (L, B, S, KV, Dh) ``k`` and
+    ``v``.  The zamba2 cache holds ``mamba`` (G, per, ...) and ``tail``
+    (the conv windows and f32 states), and the shared block's
+    ``shared_k``/``shared_v`` (G, B, win, KV, Dh) of the last ``win``
+    positions with their ``shared_pos`` (G, B, win), ``win`` being the
+    sliding window when it is shorter than S, else S."""
     p = plan(arch)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     x = _embed(arch, params, tokens, compute_dtype)
-
-    def body(x, lp):
-        lp = _cast(lp, compute_dtype)
-        y = _dense_block_seq(lp, x, positions, arch, impl)
-        return y, (_layer_kv(lp, x, positions, arch) if return_cache
-                   else None)
-
-    x, kv = _scan(body, x, params["blocks"], p["layers"])
     cache = None
-    if return_cache:
-        cache = {"k": kv[0], "v": kv[1]}
+
+    if p["kind"] == "dense":
+        def body(x, lp):
+            lp = _cast(lp, compute_dtype)
+            y = _dense_block_seq(lp, x, positions, arch, impl)
+            return y, (_layer_kv(lp, x, positions, arch) if return_cache
+                       else None)
+
+        x, kv = _scan(body, x, params["blocks"], p["layers"])
+        if return_cache:
+            cache = {"k": kv[0], "v": kv[1]}
+    else:
+        shared = _cast(params["shared"], compute_dtype)
+        win = arch.sliding_window if 0 < arch.sliding_window < S else S
+
+        def mamba_body(x, lp):
+            y = ssm_mod.mamba2_seq(lp["mamba"], rmsnorm(x, lp["ln"]), arch,
+                                   return_state=return_cache, impl=impl)
+            if return_cache:
+                y, mc = y
+                return x + y, mc
+            return x + y, None
+
+        def group(x, gp):
+            gp = _cast(gp, compute_dtype)
+            x, mcs = _scan(mamba_body, x, gp, p["mamba_per"])
+            x_pre = x
+            x = _dense_block_seq(shared, x, positions, arch, impl,
+                                 window=arch.sliding_window)
+            if not return_cache:
+                return x, None
+            k, v = _layer_kv(shared, x_pre, positions, arch)
+            # ring layout: position p -> slot p % win; the last `win`
+            # positions land on slots (S-win+i) % win == i when win | S
+            return x, (mcs, k[:, -win:].clone(), v[:, -win:].clone())
+
+        x, gcs = _scan(group, x, params["blocks"], p["groups"])
+        if return_cache:
+            mcs, k, v = gcs
+            pos = torch.arange(S - win, S, dtype=torch.int32,
+                               device=x.device)
+            cache = {"mamba": mcs, "shared_k": k, "shared_v": v,
+                     "shared_pos": pos.expand(p["groups"], B, win).clone()}
+        if p["tail"]:
+            x, tcs = _scan(lambda x, lp: mamba_body(
+                x, _cast(lp, compute_dtype)), x, params["tail"], p["tail"])
+            if return_cache:
+                cache["tail"] = tcs
     logits = _head(arch, params, x, compute_dtype)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device), cache
 
@@ -206,15 +279,36 @@ def _layer_kv(lp, x_in, positions, arch):
 
 def init_cache(arch: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Zeroed layer-stacked (L, B, max_len, KV, Dh) ``k``/``v`` and a 0-d
-    int32 ``length``, on ``device`` (``None``: the CUDA card)."""
+    """A zeroed decode cache with a 0-d int32 ``length``, on ``device``
+    (``None``: the CUDA card).  Dense: layer-stacked (L, B, max_len, KV,
+    Dh) ``k``/``v``.  zamba2: ``mamba`` (G, per, ...) and ``tail`` states
+    (conv windows in ``dtype``, SSM states f32), and the shared block's
+    ``shared_k``/``shared_v`` (G, B, W, KV, Dh) with ``shared_pos`` (G, B,
+    W) = -1 (empty), W being a ring of ``sliding_window`` slots when that is
+    shorter than ``max_len``, else ``max_len``."""
     p = plan(arch)
     dev = resolve_device(device)
-    shape = (p["layers"], batch, max_len, arch.num_kv_heads,
-             arch.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev),
-            "length": torch.zeros((), dtype=torch.int32, device=dev)}
+    kv = arch.num_kv_heads, arch.resolved_head_dim
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
+    length = torch.zeros((), dtype=torch.int32, device=dev)
+    if p["kind"] == "dense":
+        return {"k": zeros(p["layers"], batch, max_len, *kv),
+                "v": zeros(p["layers"], batch, max_len, *kv),
+                "length": length}
+    g, m = p["groups"], p["mamba_per"]
+    mamba = lambda n: _stack([ssm_mod.mamba2_cache_init(
+        arch, batch, dtype, device=dev) for _ in range(n)])
+    win = arch.sliding_window
+    slots = win if 0 < win < max_len else max_len
+    out = {"mamba": _stack([mamba(m) for _ in range(g)]),
+           "shared_k": zeros(g, batch, slots, *kv),
+           "shared_v": zeros(g, batch, slots, *kv),
+           "shared_pos": torch.full((g, batch, slots), -1, dtype=torch.int32,
+                                    device=dev),
+           "length": length}
+    if p["tail"]:
+        out["tail"] = mamba(p["tail"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -225,22 +319,75 @@ def decode_step(arch: ArchConfig, params: dict, cache: dict,
                 token: torch.Tensor, compute_dtype=torch.bfloat16):
     """token (B, 1) int -> (logits (B, 1, V), cache').
 
-    Each layer's new K/V are written into ``cache["k"]``/``cache["v"]`` IN
-    PLACE (the counterpart of the reference step's donated cache); the
-    returned dict shares those tensors and carries ``length + 1``.  Decode
-    attention is the einsum path (the reference's ``impl`` argument does
-    not reach it either)."""
+    Every cache leaf is written IN PLACE (the counterpart of the reference
+    step's donated cache): each layer's K/V, and in zamba2 the Mamba-2
+    conv windows and states and the shared block's ring (K/V and positions
+    at slot ``length % W``); the returned dict shares those tensors and
+    carries ``length + 1``.  Decode attention is the einsum path (the
+    reference's ``impl`` argument does not reach it either)."""
     p = plan(arch)
     length = cache["length"]
     x = _embed(arch, params, token, compute_dtype)
-    for i in range(p["layers"]):
-        lp = _cast(_layer(params["blocks"], i), compute_dtype)
-        xn = rmsnorm(x, lp["ln1"])
-        y, _, _ = attn.decode_self_attention(lp["attn"], xn, cache["k"][i],
-                                             cache["v"][i], length, arch)
-        x = x + y
-        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]), arch.activation)
+    if p["kind"] == "dense":
+        for i in range(p["layers"]):
+            lp = _cast(_layer(params["blocks"], i), compute_dtype)
+            xn = rmsnorm(x, lp["ln1"])
+            y, _, _ = attn.decode_self_attention(
+                lp["attn"], xn, cache["k"][i], cache["v"][i], length, arch)
+            x = x + y
+            x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]),
+                              arch.activation)
+    else:
+        shared = _cast(params["shared"], compute_dtype)
+
+        def mamba(x, lp, c):
+            y, _ = ssm_mod.mamba2_decode(lp["mamba"], rmsnorm(x, lp["ln"]),
+                                         c, arch)
+            return x + y
+
+        for g in range(p["groups"]):
+            gp = _cast(_layer(params["blocks"], g), compute_dtype)
+            gc = _layer(cache["mamba"], g)
+            for i in range(p["mamba_per"]):
+                x = mamba(x, _layer(gp, i), _layer(gc, i))
+            xn = rmsnorm(x, shared["ln1"])
+            x = x + _ring_decode_attn(shared["attn"], xn,
+                                      cache["shared_k"][g],
+                                      cache["shared_v"][g],
+                                      cache["shared_pos"][g], length, arch)
+            x = x + mlp_apply(shared["mlp"], rmsnorm(x, shared["ln2"]),
+                              arch.activation)
+        for i in range(p["tail"]):
+            x = mamba(x, _cast(_layer(params["tail"], i), compute_dtype),
+                      _layer(cache["tail"], i))
     logits = _head(arch, params, x, compute_dtype)
     new_cache = dict(cache)
     new_cache["length"] = length + 1
     return logits, new_cache
+
+
+def _ring_decode_attn(ap, x1, ck, cv, cpos, length, arch):
+    """Sliding-window decode with a ring cache.  ck/cv (B, W, KV, Dh);
+    cpos (B, W) holds the absolute position in each slot (-1: empty).  The
+    new K/V and position go IN PLACE to slot ``length % W`` (a device
+    index: no host sync); slots holding positions in [0, length] attend."""
+    B = x1.shape[0]
+    dh = arch.resolved_head_dim
+    pos = length.reshape(1, 1).expand(B, 1).to(torch.int32)
+    q, k, v = attn._project_qkv(ap, x1, x1, arch)
+    if arch.rope_theta > 0:
+        q = apply_rope(q, pos, arch.rope_theta)
+        k = apply_rope(k, pos, arch.rope_theta)
+    W, KV = ck.shape[1], ck.shape[2]
+    slot = torch.remainder(length, W).reshape(1).long()
+    ck.index_copy_(1, slot, k.to(ck.dtype))
+    cv.index_copy_(1, slot, v.to(cv.dtype))
+    cpos.index_copy_(1, slot, pos)
+    G = arch.num_heads // KV
+    qg = attn._scaled(q, dh ** -0.5).reshape(B, 1, KV, G, dh)
+    s = attn._einsum_f32("bqkgd,bskd->bqkgs", qg, ck)
+    valid = (cpos >= 0) & (cpos <= length)
+    s = torch.where(valid[:, None, None, None, :], s, attn.NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = attn._einsum_f32("bqkgs,bskd->bqkgd", p.to(cv.dtype), cv)
+    return out.reshape(B, 1, -1).to(x1.dtype) @ ap["wo"]

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels on the card: ``enoki_merge_rows`` and
-``flash_attention_bhsd`` against their plain versions on the same card
-inputs, the served merge path launching the merge once per fused merge, and
-a prefill launching the attention kernel once per layer.
+"""The port's CUDA kernels on the card: ``enoki_merge_rows``,
+``flash_attention_bhsd`` and ``ssd_chunk_bhcp`` against their plain versions
+on the same card inputs, the served merge path launching the merge once per
+fused merge, and a prefill launching the attention kernel once per
+attention layer and the SSD kernel once per Mamba-2 layer.
 
 Every test here is marked ``cuda`` and skips, with its reason, on a host
 without a card (a kernel has no CPU mode).  The file imports no jax, so
@@ -118,7 +119,8 @@ _FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
 @pytest.mark.parametrize("B,Sq,Skv,H,KV,D", [
     (1, 128, 128, 4, 4, 32), (2, 256, 256, 4, 2, 64), (1, 512, 512, 8, 2, 32),
     (2, 128, 128, 2, 1, 128), (1, 100, 100, 4, 2, 64),
-    (1, 128, 256, 4, 2, 64)])
+    (1, 128, 256, 4, 2, 64), (1, 128, 128, 4, 4, 112),
+    (2, 100, 100, 4, 2, 112)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64)])
 def test_flash_kernel_matches_plain_on_cuda(card, B, Sq, Skv, H, KV, D,
                                             dtype, causal, window):
@@ -182,6 +184,105 @@ def test_prefill_launches_the_kernel_once_per_layer(card):
         n = fk.flash_attention_bhsd.launches - n0
         assert n == (arch.num_layers if impl is AttnImpl.FLASH else 0)
         assert cache["k"].is_cuda and int(cache["length"]) == 128
+        out[impl] = logits.float()
+    err = (out[AttnImpl.FLASH] - out[AttnImpl.REFERENCE]).abs().max()
+    assert float(err / out[AttnImpl.REFERENCE].abs().max()) < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# ssd chunk
+# ---------------------------------------------------------------------------
+
+_SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}     # tests/test_kernels.py
+
+
+def _ssd_inputs(card, B, H, S, P, N, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    arrs = (rng.standard_normal((B, H, S, P)),
+            -np.logaddexp(rng.standard_normal((B, H, S)), 0) * 0.5,
+            rng.standard_normal((B, 1, S, N)) * 0.3,
+            rng.standard_normal((B, 1, S, N)) * 0.3)
+    return [torch.from_numpy(a.astype(np.float32)).to(card, _TORCH[dtype])
+            for a in arrs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,S,P,N,chunk", [
+    (1, 2, 128, 32, 16, 32), (2, 4, 256, 64, 64, 64), (1, 1, 64, 16, 8, 16),
+    (1, 3, 200, 64, 64, 128), (2, 2, 100, 32, 16, 32),
+    (1, 8, 1024, 64, 64, 128)])
+def test_ssd_kernel_matches_plain_on_cuda(card, B, H, S, P, N, chunk, dtype):
+    """y and the final state, one launch per call, within the reference's
+    tolerance of the plain version on the same card inputs (ragged last
+    chunks included)."""
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    x, a, b, c = _ssd_inputs(card, B, H, S, P, N, dtype, B + H + S)
+    want_y, want_s = sk.ssd_chunk_bhcp_plain(x, a, b, c, chunk=chunk)
+    n0 = sk.ssd_chunk_bhcp.launches
+    got_y, got_s = sk.ssd_chunk_bhcp(x, a, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sk.ssd_chunk_bhcp.launches == n0 + 1
+    assert got_y.dtype == x.dtype and got_s.dtype == torch.float32
+    tol = _SSD_TOL[dtype]
+    torch.testing.assert_close(got_y.float(), want_y.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(got_s, want_s, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reads_the_model_layout(card):
+    """``ops.ssd_chunk`` hands the kernel strided views of (B,S,H,P) and
+    (B,S,H) tensors and a y view: the same numbers as the contiguous
+    kernel-layout call on the dt-weighted input."""
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.kernels.ssd_chunk.ops import ssd_chunk
+    g = torch.Generator(device=card).manual_seed(0)
+    B, S, H, P, N = 2, 320, 6, 64, 64
+    x = torch.randn((B, S, H, P), generator=g, device=card)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=card) - 2)
+    b, c = (torch.randn((B, S, N), generator=g, device=card) * 0.3
+            for _ in range(2))
+    y, state = ssd_chunk(x, -dt, b, c, dt, chunk=128)
+    want_y, want_s = sk.ssd_chunk_bhcp(
+        (x * dt[..., None]).transpose(1, 2).contiguous(),
+        (-dt).transpose(1, 2).contiguous(), b[:, None], c[:, None])
+    torch.cuda.synchronize()
+    assert torch.equal(y, want_y.transpose(1, 2))
+    assert torch.equal(state, want_s)
+
+
+@pytest.mark.cuda
+def test_zamba_prefill_launches_both_kernels(card):
+    """A FLASH prefill of reduced zamba2 on the card: one SSD launch per
+    Mamba-2 layer, one attention launch per shared-block application, and
+    no launch under REFERENCE; the two paths agree."""
+    from repro_torch.configs import (AttnImpl, ShapeConfig, StepKind,
+                                     get_arch, reduced)
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.transformer import plan
+    arch = reduced(get_arch("zamba2-7b"))
+    params = zoo.init_params(arch, seed=0, dtype=torch.bfloat16)
+    tokens = torch.randint(0, arch.vocab_size, (2, 128), device=card,
+                           dtype=torch.int32)
+    shape = ShapeConfig("p", 128, 2, StepKind.PREFILL)
+    out = {}
+    for impl in (AttnImpl.FLASH, AttnImpl.REFERENCE):
+        n0 = (sk.ssd_chunk_bhcp.launches, fk.flash_attention_bhsd.launches)
+        logits, cache = serve.make_prefill_step(arch, shape, impl=impl)(
+            params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        flash = impl is AttnImpl.FLASH
+        assert sk.ssd_chunk_bhcp.launches - n0[0] == (
+            arch.num_layers if flash else 0)
+        assert fk.flash_attention_bhsd.launches - n0[1] == (
+            plan(arch)["groups"] if flash else 0)
+        assert cache["mamba"]["state"].is_cuda and \
+            cache["mamba"]["state"].dtype == torch.float32
         out[impl] = logits.float()
     err = (out[AttnImpl.FLASH] - out[AttnImpl.REFERENCE]).abs().max()
     assert float(err / out[AttnImpl.REFERENCE].abs().max()) < 5e-2

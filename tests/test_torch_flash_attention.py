@@ -47,7 +47,7 @@ def _close(got, want, tol, what):
 
 @pytest.mark.parametrize("B,S,H,KV,D", [
     (1, 128, 4, 4, 32), (2, 256, 4, 2, 64), (1, 512, 8, 2, 32),
-    (2, 128, 2, 1, 128),
+    (2, 128, 2, 1, 128), (1, 128, 4, 4, 112),     # 112: zamba2's shared block
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])

@@ -76,18 +76,36 @@ def test_analytic_counts_match(arch_id):
                 == ref_zoo.model_flops(arch_r, shape))
 
 
-@pytest.mark.parametrize("arch_id", [a for a in rc.ARCH_IDS
-                                     if rc.get_arch(a).family != "dense"])
+@pytest.mark.parametrize("arch_id", [
+    a for a in rc.ARCH_IDS
+    if rc.get_arch(a).family not in ("dense", "hybrid")])
 def test_unported_families_raise(arch_id):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.plan(tc.get_arch(arch_id))
 
 
+@pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "zamba2-7b"])
+@pytest.mark.parametrize("size", ["full", "reduced"])
+def test_plan_matches_reference(arch_id, size):
+    """The ported plans, full and reduced: zamba2-7b is 13 groups of 6
+    Mamba-2 layers and the shared block, then a tail of 3."""
+    from repro.models import transformer as ref_transformer
+    arch_t, arch_r = tc.get_arch(arch_id), rc.get_arch(arch_id)
+    if size == "reduced":
+        arch_t, arch_r = tc.reduced(arch_t), rc.reduced(arch_r)
+    assert transformer.plan(arch_t) == ref_transformer.plan(arch_r)
+    if arch_id == "zamba2-7b" and size == "full":
+        assert transformer.plan(arch_t) == {"kind": "zamba", "groups": 13,
+                                            "mamba_per": 6, "tail": 3}
+
+
 @pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "gemma-7b",
-                                     "qwen1.5-32b"])
+                                     "qwen1.5-32b", "zamba2-7b"])
 def test_param_tree_matches_reference(arch_id):
-    """Same keys and layer-stacked shapes as the reference's tree (qkv
-    biases for qwen, tied embeddings and GeGLU for gemma)."""
+    """Same keys, layer-stacked shapes and dtypes as the reference's tree
+    (qkv biases for qwen, tied embeddings and GeGLU for gemma; zamba2's
+    (G, per, ...) Mamba-2 stacks, tail and one shared block, with A_log, D
+    and dt_bias f32 in a bf16 tree)."""
     arch_r, arch_t = rc.reduced(rc.get_arch(arch_id)), tc.reduced(
         tc.get_arch(arch_id))
     ref = jax.eval_shape(lambda: ref_zoo.init_params(
@@ -96,6 +114,13 @@ def test_param_tree_matches_reference(arch_id):
     ref_shapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), ref)
     port_shapes = transformer._map(lambda t: tuple(t.shape), port)
     assert port_shapes == ref_shapes
+    ref16 = jax.eval_shape(lambda: ref_zoo.init_params(
+        arch_r, jax.random.PRNGKey(0), dtype=jnp.bfloat16))
+    port16 = model_zoo.init_params(arch_t, seed=0, dtype=torch.bfloat16,
+                                   device="cpu")
+    assert transformer._map(lambda t: str(t.dtype).removeprefix("torch."),
+                            port16) == jax.tree_util.tree_map(
+        lambda a: a.dtype.name, ref16)
     carried = params_from_numpy(arch_t, jax.tree_util.tree_map(
         lambda a: np.zeros(a.shape, np.float32), ref), device="cpu")
     assert transformer._map(lambda t: tuple(t.shape), carried) == ref_shapes

@@ -29,6 +29,7 @@ from repro.models import model_zoo as ref_zoo
 from repro_torch import configs as tc
 from repro_torch.core.carry import (cache_from_numpy, cache_to_numpy,
                                     params_from_numpy)
+from repro_torch.core.tree import tree_map
 from repro_torch.launch import serve
 from repro_torch.models import model_zoo as zoo
 from torch_parity import port_lockdep, to_np  # noqa: F401  (autouse fixture)
@@ -261,3 +262,213 @@ def test_steps_run_on_their_device_only(model, monkeypatch):
     replicate = serve.make_replicate_sessions_step(device="cuda:0")
     with pytest.raises(ValueError, match="runs on cuda:0"):
         replicate(cache_from_numpy(_stacked_cache(arch_t, 7), device="cpu"))
+
+
+# ---------------------------------------------------------------------------
+# zamba2 (hybrid): Mamba-2 states, the shared block's ring cache
+# ---------------------------------------------------------------------------
+#
+# zamba2-7b reduced: 5 layers as 2 groups of 2 Mamba-2 layers + the shared
+# attention block, then a tail of 1; d 128, 4 heads (kv 4) of 32, sliding
+# window 64.  Prompts of S=128 > 64 tokens, so the prefill cache keeps the
+# last 64 positions and decode wraps the 64-slot ring.
+
+ZAMBA = "zamba2-7b"
+Z_B, Z_S, Z_STEPS = 2, 128, 20
+
+
+@pytest.fixture(scope="module")
+def zamba():
+    arch_r = rc.reduced(rc.get_arch(ZAMBA))
+    arch_t = tc.reduced(tc.get_arch(ZAMBA))
+    params_r = ref_zoo.init_params(arch_r, jax.random.PRNGKey(1))
+    params_t = params_from_numpy(arch_t, jax.device_get(params_r),
+                                 device="cpu")
+    return arch_r, arch_t, params_r, params_t
+
+
+def _tree_rel(got, want, tol, path=""):
+    """Every leaf of two nested trees: same keys and shapes, rel <= tol
+    (integer leaves equal)."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _tree_rel(got[k], want[k], tol, f"{path}/{k}")
+        return
+    g, w = to_np(got), to_np(want)
+    assert g.shape == w.shape, (path, g.shape, w.shape)
+    if np.issubdtype(w.dtype, np.integer):
+        np.testing.assert_array_equal(g, w, err_msg=path)
+    else:
+        assert _rel(got, want) <= tol, path
+
+
+@pytest.fixture(scope="module")
+def zamba_reference_run(zamba):
+    """The reference's prefill (f32) of two pods' prompts and Z_STEPS
+    greedy decode steps (a jitted step): per pod (tokens, final cache)."""
+    import functools
+    arch_r, _, params_r, _ = zamba
+    step = jax.jit(functools.partial(ref_zoo.decode_step, arch_r,
+                                     compute_dtype=jnp.float32))
+    out = []
+    for pod in range(2):
+        tokens = _prompt(10 + pod, Z_B, Z_S, arch_r.vocab_size)
+        logits, _, cache = ref_zoo.forward_seq(
+            arch_r, params_r, jnp.asarray(tokens), return_cache=True,
+            compute_dtype=jnp.float32)
+        cache = {**cache, "length": jnp.asarray(Z_S, jnp.int32)}
+        tok = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
+        got = [np.asarray(tok)]
+        for _ in range(Z_STEPS):
+            logits, cache = step(params_r, cache, tok)
+            tok = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(
+                jnp.int32)
+            got.append(np.asarray(tok))
+        out.append((np.concatenate(got, axis=1), jax.device_get(cache)))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["flash", "reference"])
+def test_zamba_forward_seq_logits_and_cache_match(zamba, impl, dtype):
+    """Logits and the whole prefill cache tree (Mamba-2 conv windows and
+    states per group and in the tail, the shared block's last-64 K/V and
+    their positions) against the reference's, FLASH being the SSD and
+    attention kernels' plain versions here and the Pallas attention kernel
+    in interpret mode there."""
+    arch_r, arch_t, params_r, params_t = zamba
+    jdt, tdt, tol = DTYPES[dtype]
+    tokens = _prompt(1, Z_B, Z_S, arch_r.vocab_size)
+    want, _, wcache = ref_zoo.forward_seq(
+        arch_r, params_r, jnp.asarray(tokens), impl=rc.AttnImpl(impl),
+        return_cache=True, compute_dtype=jdt)
+    got, aux, gcache = zoo.forward_seq(
+        arch_t, params_t, torch.from_numpy(tokens), impl=tc.AttnImpl(impl),
+        return_cache=True, compute_dtype=tdt)
+    assert got.dtype == tdt and float(aux) == 0.0
+    assert _rel(got, want) < tol
+    assert gcache["shared_k"].shape[2] == 64
+    _tree_rel(gcache, wcache, tol)
+
+
+@pytest.mark.parametrize("impl", ["flash", "reference"])
+def test_zamba_greedy_decode_wraps_the_ring(zamba, zamba_reference_run,
+                                            impl):
+    """Two pods, each prefilled through the port's prefill step and decoded
+    Z_STEPS greedy steps in one pod-stacked cache (positions 128..147 go to
+    ring slots 0..19): the tokens equal the reference's in f32 and every
+    cache leaf agrees; decode writes the tree it is handed."""
+    arch_r, arch_t, params_r, params_t = zamba
+    pshape = tc.ShapeConfig("p", Z_S, Z_B, tc.StepKind.PREFILL)
+    prefill = serve.make_prefill_step(arch_t, pshape, impl=tc.AttnImpl(impl),
+                                      device="cpu",
+                                      compute_dtype=torch.float32)
+    step = serve.make_decode_step(arch_t, n_pods=2, device="cpu",
+                                  compute_dtype=torch.float32)
+    caches, first = [], []
+    for pod in range(2):
+        tokens = _prompt(10 + pod, Z_B, Z_S, arch_r.vocab_size)
+        logits, pc = prefill(params_t, {"tokens": torch.from_numpy(tokens)})
+        assert int(pc["length"]) == Z_S
+        caches.append(pc)
+        first.append(torch.argmax(logits[:, -1, :], dim=-1)[:, None])
+    cache = tree_map(lambda *v: torch.stack(v), *caches)
+    state_buf, ring_buf = cache["mamba"]["state"], cache["shared_k"]
+    tok = torch.stack(first).to(torch.int32)
+    got = [tok.numpy()]
+    for _ in range(Z_STEPS):
+        tok, cache = step(params_t, cache, tok)
+        got.append(tok.numpy())
+    assert cache["mamba"]["state"] is state_buf and \
+        cache["shared_k"] is ring_buf, "decode writes the cache in place"
+    got = np.concatenate(got, axis=2)
+    for pod, (want_tokens, want_cache) in enumerate(zamba_reference_run):
+        np.testing.assert_array_equal(got[pod], want_tokens)
+        _tree_rel(tree_map(lambda v: v[pod], cache), want_cache, 1e-4)
+    assert to_np(cache["shared_pos"]).max() == Z_S + Z_STEPS - 1
+
+
+def test_zamba_prefill_then_decode_continuation(zamba):
+    """``tests/test_arch_smoke.py``'s check on the port: prefill S tokens,
+    decode one more; the step's logits match one forward over S+1 tokens
+    (f32), so the emitted prefill cache is the decode state."""
+    arch_r, arch_t, params_r, params_t = zamba
+    tokens = torch.from_numpy(_prompt(3, 1, Z_S + 1, arch_r.vocab_size))
+    full, _, _ = zoo.forward_seq(arch_t, params_t, tokens,
+                                 compute_dtype=torch.float32)
+    _, _, cache = zoo.forward_seq(arch_t, params_t, tokens[:, :Z_S],
+                                  return_cache=True,
+                                  compute_dtype=torch.float32)
+    cache["length"] = torch.tensor(Z_S, dtype=torch.int32)
+    want = zoo.init_cache(arch_t, 1, Z_S + 1, dtype=torch.float32,
+                          device="cpu")
+    assert tree_map(lambda v: v.shape, cache) == \
+        tree_map(lambda v: v.shape, want)
+    step, _ = zoo.decode_step(arch_t, params_t, cache, tokens[:, Z_S:],
+                              compute_dtype=torch.float32)
+    assert _rel(step[:, 0], full[:, -1]) < 1e-4
+
+
+def test_zamba_init_cache_matches_reference(zamba):
+    """The decode cache's tree, shapes and dtypes: a ring of
+    ``sliding_window`` slots when that is shorter than max_len, else
+    max_len slots; empty slots at position -1; f32 SSM states."""
+    arch_r, arch_t, _, _ = zamba
+    for max_len in (200, 40):
+        want = jax.device_get(ref_zoo.init_cache(arch_r, 2, max_len))
+        got = zoo.init_cache(arch_t, 2, max_len, device="cpu")
+        assert tree_map(lambda t: (tuple(t.shape), str(t.dtype)),
+                               got) == jax.tree.map(
+            lambda a: (a.shape, "torch." + a.dtype.name), want)
+        _tree_rel(got, want, 0.0)
+
+
+def test_zamba_replicate_and_migrate_nested(zamba):
+    """``replicate``/``migrate`` map over every leaf of the nested
+    pod-stacked tree: ``jnp.roll``/``jnp.where`` on each leaf of the
+    reference's tree, bit for bit."""
+    _, arch_t, _, _ = zamba
+    rng = np.random.default_rng(8)
+    empty = zoo.init_cache(arch_t, 2, 200, device="cpu")
+    live_np = tree_map(lambda v: rng.standard_normal(
+        (3,) + tuple(v.shape)).astype(np.float32), empty)
+    live_np["shared_pos"] = rng.integers(
+        -1, 99, (3,) + tuple(empty["shared_pos"].shape)).astype(np.int32)
+    live_np["length"] = np.array([7, 9, 11], np.int32)
+    live = cache_from_numpy(live_np, device="cpu")
+    backup = serve.make_replicate_sessions_step(device="cpu")(live)
+    ref_live = jax.tree.map(jnp.asarray, live_np)
+    ref_backup = jax.tree.map(lambda c: jnp.roll(c, 1, axis=0), ref_live)
+    _tree_rel(backup, ref_backup, 0.0)
+    np.testing.assert_array_equal(to_np(backup["mamba"]["state"][1]),
+                                  live_np["mamba"]["state"][0])
+    dead = np.array([True, False, False])
+    restored = serve.make_migrate_sessions_step(device="cpu")(
+        live, backup, torch.from_numpy(dead))
+    ref_restored = jax.tree.map(
+        lambda l, b: jnp.where(jnp.asarray(dead).reshape(
+            (3,) + (1,) * (l.ndim - 1)), b, l), ref_live, ref_backup)
+    _tree_rel(restored, ref_restored, 0.0)
+    np.testing.assert_array_equal(to_np(restored["length"]), [11, 9, 11])
+
+
+def test_zamba_cache_carries_across(zamba):
+    """A reference prefill cache round-trips through ``cache_from_numpy``
+    and ``cache_to_numpy``; ``dtype`` casts the K/V and conv windows only,
+    the SSM states stay f32 and the positions and length int32."""
+    arch_r, _, params_r, _ = zamba
+    tokens = _prompt(4, Z_B, Z_S, arch_r.vocab_size)
+    _, _, wcache = ref_zoo.forward_seq(arch_r, params_r, jnp.asarray(tokens),
+                                       return_cache=True)
+    wcache = jax.device_get({**wcache, "length": jnp.asarray(Z_S, jnp.int32)})
+    for dtype in (None, torch.bfloat16):
+        cache = cache_from_numpy(wcache, device="cpu", dtype=dtype)
+        kv = dtype or torch.bfloat16      # the reference's bf16 compute dtype
+        assert cache["shared_k"].dtype == cache["mamba"]["conv_x"].dtype \
+            == cache["tail"]["conv_B"].dtype == kv
+        assert cache["mamba"]["state"].dtype == torch.float32
+        assert cache["tail"]["state"].dtype == torch.float32
+        assert cache["shared_pos"].dtype == cache["length"].dtype \
+            == torch.int32
+        _tree_rel(cache_to_numpy(cache), wcache, 0.0)
