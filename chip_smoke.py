@@ -41,19 +41,27 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    H=112, S=4096, P=N=64, chunk 128, f32), directly and through the
    model-layout wrapper; then timed there beside its f32 FMA bound and its
    plain version (no single PyTorch call computes the scan);
-6. the sessions path, served, for each of two models at full width and
-   depth with bf16 weights from a seed — internlm2-1.8b (dense), then
-   zamba2-7b (hybrid: Mamba-2 states and a ring-cached shared attention
-   block): 2 pods x 4 sessions prefill 4,096-token prompts through the
-   kernels (internlm2: 2 x 24 attention launches; zamba2: 2 x 81 SSD and
-   2 x 13 attention launches), the FLASH prefill's logits agree with the
-   REFERENCE path's (rel < 5e-2), 60 greedy decode steps (zamba2's wrap its
-   4,096-slot ring) with ``replicate_sessions`` every R=8 and every leaf of
-   each backup equal to its peer's live state, pod 0 fails and
-   ``migrate_sessions`` restores it with staleness 4 <= R, 4 more steps;
-   then one pod's prefill and one pod's decode step under
+6. ``mlstm_chunk_bhsd`` against its plain version on the card, h and the
+   final carry (C, n, m): f32 (1e-4) and bf16 (5e-2, the reference's
+   tolerances) over the reference's sweep shapes, head dims 128 and 512, and
+   the main-path geometry (B=4, H=4, S=2048, d=512, chunk 64, f32), directly
+   and through the model-layout wrapper; then timed there beside its f32
+   FMA bound and its plain version (no single PyTorch call computes the
+   chunkwise mLSTM);
+7. the sessions path, served, for each of three models at full width and
+   depth with bf16 weights from a seed — internlm2-1.8b (dense), zamba2-7b
+   (hybrid: Mamba-2 states and a ring-cached shared attention block), then
+   xlstm-350m (recurrent: mLSTM matrix memories and sLSTM cells): 2 pods x 4
+   sessions prefill 4,096-token prompts (xlstm: 2,048) through the kernels
+   (internlm2: 2 x 24 attention launches; zamba2: 2 x 81 SSD and 2 x 13
+   attention launches; xlstm: 2 x 21 mLSTM launches), the FLASH prefill's
+   logits agree with the REFERENCE path's (rel < 5e-2), 60 greedy decode
+   steps (zamba2's wrap its 4,096-slot ring) with ``replicate_sessions``
+   every R=8 and every leaf of each backup equal to its peer's live state,
+   pod 0 fails and ``migrate_sessions`` restores it with staleness 4 <= R, 4
+   more steps; then one pod's prefill and one pod's decode step under
    ``torch.profiler`` (device ms by kernel kind, idle share, launches);
-7. the ``{"kernels": [...]}`` line, then the card's name and power limit
+8. the ``{"kernels": [...]}`` line, then the card's name and power limit
    as ``nvidia-smi`` reports them, then ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -88,6 +96,8 @@ FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:75"
 SSD_SOURCE = "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_chunk/kernel.py:65"
+MLSTM_SOURCE = "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu"
+MLSTM_REPLACES = "src/repro/kernels/mlstm_chunk/kernel.py:80"
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores (data sheet)
 F32_FLOPS_PER_S = 66.9e12       # H100 SXM f32 FMAs, no tensor cores (data sheet)
 # (B, Sq, Skv, H, KV, D): tests/test_kernels.py's sweep, head dim 112 (zamba2's
@@ -115,9 +125,19 @@ SSD_CASES = [(1, 2, 128, 32, 16, 32), (2, 4, 256, 64, 64, 64),
              (2, 2, 100, 32, 16, 32)]
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 MAIN_SSD = (4, 112, 4096, 64, 64, 128)
-# sessions path: 2 pods x 4 sessions, 4,096-token prompts, for each model
-SESSION_ARCHS = ("internlm2-1.8b", "zamba2-7b")
-N_PODS, SESSIONS, PROMPT, CACHE_LEN = 2, 4, 4096, 4160
+# (B, H, S, d, chunk): tests/test_kernels.py's sweep, reduced xlstm-350m's
+# head dim 128 and xlstm-350m's 512, in f32 and bf16; then the main path's
+# geometry (one xlstm-350m mLSTM layer's prefill, f32 as the model feeds it)
+MLSTM_CASES = [(1, 2, 128, 32, 32), (2, 2, 64, 64, 16), (1, 4, 256, 16, 64),
+               (2, 2, 128, 128, 16), (1, 2, 256, 512, 64)]
+MLSTM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+MAIN_MLSTM = (4, 4, 2048, 512, 64)
+# sessions path: 2 pods x 4 sessions for each model; 4,096-token prompts,
+# 2,048 for xlstm-350m (the xLSTM paper's training context, which also keeps
+# its sequential sLSTM loop inside the smoke's time)
+SESSION_ARCHS = ("internlm2-1.8b", "zamba2-7b", "xlstm-350m")
+PROMPTS = {"internlm2-1.8b": 4096, "zamba2-7b": 4096, "xlstm-350m": 2048}
+N_PODS, SESSIONS, CACHE_EXTRA = 2, 4, 64
 DECODE_STEPS, FAILOVER_STEPS = 60, 4
 PREFILL_REL_TOL = 5e-2          # tests/test_arch_smoke.py's prefill/decode bound
 
@@ -391,6 +411,7 @@ def run_main_path(torch, kernel, width, device, plan):
     """Fill, serve, flush on ``device``; returns (cluster, stats dict)."""
     from repro_torch.device import synchronize
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
     from repro_torch.kernels.ssd_chunk import kernel as sk
     c = build_cluster(device, width, measure_compute=True)
     prewarm = c.engine.prewarm()
@@ -398,7 +419,7 @@ def run_main_path(torch, kernel, width, device, plan):
     record_buckets(c, buckets)
     # -- the counted run: counts zeroed just before the path is driven
     kernel.enoki_merge_rows.launches = fk.flash_attention_bhsd.launches = 0
-    sk.ssd_chunk_bhcp.launches = 0
+    sk.ssd_chunk_bhcp.launches = mk.mlstm_chunk_bhsd.launches = 0
     d0 = c.stats.merge_dispatches
     c.invoke("smoke_fill", "edge", torch.ones(8).numpy())
     results, lat, wall = serve(c, plan)
@@ -407,6 +428,7 @@ def run_main_path(torch, kernel, width, device, plan):
     launches = kernel.enoki_merge_rows.launches
     assert fk.flash_attention_bhsd.launches == 0, "attention on the FaaS path"
     assert sk.ssd_chunk_bhcp.launches == 0, "an SSD scan on the FaaS path"
+    assert mk.mlstm_chunk_bhsd.launches == 0, "an mLSTM on the FaaS path"
     merges = c.stats.merge_dispatches - d0
     return c, {"prewarm_runs": prewarm, "buckets": sorted(buckets),
                "results": results, "lat": lat, "wall": wall,
@@ -713,7 +735,117 @@ def time_ssd(torch, sk, flush, reps=20):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the sessions path, served
+# phase 6: the mLSTM chunk kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _mlstm_inputs(torch, gen, B, H, S, d, dtype):
+    """tests/test_kernels.py's inputs: q/k/v normal, log_i =
+    log_sigmoid(normal - 2), log_f = log_sigmoid(normal + 2) in f32, made
+    on the card."""
+    tdt = getattr(torch, dtype)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    logsig = torch.nn.functional.logsigmoid
+    return (rnd(B, H, S, d).to(tdt), rnd(B, H, S, d).to(tdt),
+            rnd(B, H, S, d).to(tdt), logsig(rnd(B, H, S) - 2.0),
+            logsig(rnd(B, H, S) + 2.0))
+
+
+def _mlstm_close(torch, got, want, dtype, what):
+    """max |got - want| over h, C, n and m; raises unless each is finite and
+    allclose at the dtype's tolerance."""
+    tol, err = MLSTM_TOL[dtype], 0.0
+    (gh, gcarry), (wh, wcarry) = got, want
+    for g, w, name in zip((gh, *gcarry), (wh, *wcarry), ("h", "C", "n", "m")):
+        err = max(err, float((g.float() - w.float()).abs().max()))
+        if not (torch.isfinite(g.float()).all() and torch.allclose(
+                g.float(), w.float(), rtol=tol, atol=tol)):
+            raise AssertionError(f"mlstm kernel != plain ({name}) at {what}: "
+                                 f"max abs err {err} (tol {tol})")
+    return err
+
+
+def check_mlstm_sweep(torch, mk, mops):
+    """Kernel vs plain over MLSTM_CASES x dtypes and the main geometry in
+    f32, in the kernel layout; the model-layout wrapper (strided reads of
+    q/k/v and the gates, h written through a view) at d=128 and at the main
+    geometry.  Returns (max abs err per dtype, cases)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst, cases = {d: 0.0 for d in MLSTM_TOL}, 0
+    runs = [(c, tuple(MLSTM_TOL)) for c in MLSTM_CASES] + [(MAIN_MLSTM,
+                                                            ("float32",))]
+    for i, ((B, H, S, d, chunk), dtypes) in enumerate(runs):
+        for dtype in dtypes:
+            what = f"B={B} H={H} S={S} d={d} chunk={chunk} {dtype}"
+            ins = _mlstm_inputs(torch, gen, B, H, S, d, dtype)
+            want = mk.mlstm_chunk_bhsd_plain(*ins, chunk=chunk)
+            got = mk.mlstm_chunk_bhsd(*ins, chunk=chunk)
+            torch.cuda.synchronize()
+            worst[dtype] = max(worst[dtype], _mlstm_close(
+                torch, got, want, dtype, what))
+            cases += 1
+            if i in (3, len(runs) - 1) and dtype == "float32":
+                # the model layout: q/k/v (B,S,H,d), gates (B,S,H)
+                model = [x.transpose(1, 2).contiguous() for x in ins]
+                h, carry = mops.mlstm_chunk(*model, chunk=chunk)
+                torch.cuda.synchronize()
+                worst[dtype] = max(worst[dtype], _mlstm_close(
+                    torch, (h.transpose(1, 2), carry), want, dtype,
+                    what + " (model layout)"))
+                cases += 1
+            del ins, want, got
+    return worst, cases
+
+
+def mlstm_work(B, H, S, d, chunk, itemsize):
+    """(FLOPs, bytes) the chunkwise mLSTM needs on these shapes.  Per chunk
+    of l rows and per (b, h): q kᵀ and W v over the l(l+1)/2 query-key
+    pairs on or below the diagonal at 2d FLOPs each, 2·l·d² each for q C
+    and the carry update (k w)ᵀ v.  The elementwise terms (gates, decays,
+    normaliser) are left out, so the bound stays a lower bound.  Bytes:
+    q, k, v and the f32 gates read once, h and the f32 final carry written
+    once."""
+    flops = 0.0
+    for _ in range(0, S, chunk):
+        pairs = chunk * (chunk + 1) / 2
+        flops += B * H * (2 * pairs * 2 * d + 2 * 2 * chunk * d * d)
+    nbytes = itemsize * 4 * B * H * S * d + 4 * 2 * B * H * S \
+        + 4 * B * H * (d * d + d + 1)
+    return flops, nbytes
+
+
+def time_mlstm(torch, mk, flush, reps=20):
+    """The kernel at the main-path geometry (one xlstm-350m mLSTM layer's
+    prefill, f32), beside its bound and its plain version.  No single
+    PyTorch call computes the chunkwise mLSTM, so there is no library
+    time."""
+    B, H, S, d, chunk = MAIN_MLSTM
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ins = _mlstm_inputs(torch, gen, B, H, S, d, "float32")
+    run = lambda: mk.mlstm_chunk_bhsd(*ins, chunk=chunk)
+    err = _mlstm_close(torch, run(), mk.mlstm_chunk_bhsd_plain(
+        *ins, chunk=chunk), "float32", "the main geometry")
+    flops, nbytes = mlstm_work(B, H, S, d, chunk, 4)
+    flop_ms = flops / F32_FLOPS_PER_S * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    none = lambda: None
+    ms, host_ms = _median_ms(torch, run, none, flush, reps)
+    plain_ms, _ = _median_ms(
+        torch, lambda: mk.mlstm_chunk_bhsd_plain(*ins, chunk=chunk), none,
+        flush, 5)
+    return {"B": B, "H": H, "S": S, "d": d, "chunk": chunk,
+            "dtype": "float32", "flops": flops, "bytes": nbytes, "ms": ms,
+            "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": None,
+            "library_note": "no single PyTorch call computes the chunkwise "
+                            "mLSTM",
+            "bound_ms": max(flop_ms, byte_ms),
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "tflops_per_s": flops / (ms * 1e-3) / 1e12,
+            "share_of_bound": max(flop_ms, byte_ms) / ms,
+            "max_abs_err": err}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the sessions path, served
 # ---------------------------------------------------------------------------
 
 def _wall_ms(torch, fn):
@@ -737,10 +869,11 @@ GEMM_NAMES = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "cublas")
 
 def profile_device(torch, fn):
     """One ``fn()`` under ``torch.profiler``: its wall ms, the device ms of
-    its kernels by kind (the flash and SSD kernels, cuBLAS GEMMs, everything
-    else) and of the costliest "other" kernels by name, the device's idle
-    share of the wall, and its kernel launches.  The device fields are None
-    when the trace holds no kernel."""
+    its kernels by kind (the flash, SSD and mLSTM kernels, cuBLAS GEMMs,
+    everything else) and of the costliest "other" kernels by name, the
+    device's idle share of the wall, its kernel launches, and the seconds
+    spent reading the trace.  The device fields are None when the trace
+    holds no kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -750,14 +883,17 @@ def profile_device(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    ms = {"flash_attention": 0.0, "ssd_chunk": 0.0, "gemm": 0.0, "other": 0.0}
+    ms = {"flash_attention": 0.0, "ssd_chunk": 0.0, "mlstm_chunk": 0.0,
+          "gemm": 0.0, "other": 0.0}
     launches, other = 0, []
+    t_read = time.perf_counter()
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
         name = e.key.lower()
         kind = ("flash_attention" if "flash_fwd" in name else "ssd_chunk"
-                if "ssd_chunk" in name else "gemm"
+                if "ssd_chunk" in name else "mlstm_chunk"
+                if "mlstm_chunk" in name else "gemm"
                 if any(t in name for t in GEMM_NAMES) else "other")
         ms[kind] += e.self_device_time_total / 1e3
         launches += e.count
@@ -765,7 +901,8 @@ def profile_device(torch, fn):
             other.append((e.self_device_time_total / 1e3, e.count,
                           e.key[:90]))
     busy = sum(ms.values())
-    return {"wall_ms": wall, "device_ms": ms if launches else None,
+    return {"wall_ms": wall, "trace_read_s": time.perf_counter() - t_read,
+            "device_ms": ms if launches else None,
             "other_top": [{"ms": t, "launches": n, "kernel": k}
                           for t, n, k in sorted(other, reverse=True)[:8]],
             "device_busy_ms": busy if launches else None,
@@ -796,14 +933,23 @@ def run_sessions(torch, arch_id, counters, expect):
     arch = get_arch(arch_id)
     enoki = EnokiConfig()
     R = enoki.replication_period
-    pshape = ShapeConfig("sessions_prefill", PROMPT, SESSIONS,
+    prompt = PROMPTS[arch_id]
+    cache_len = prompt + CACHE_EXTRA
+    pshape = ShapeConfig("sessions_prefill", prompt, SESSIONS,
                          StepKind.PREFILL)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = zoo.init_params(arch, seed=0, dtype=serve.serve_param_dtype(arch),
                              device="cuda")
+    if zoo.transformer.plan(arch)["kind"] == "xlstm":
+        # the reference's init zeroes the xLSTM groupnorm scales, which
+        # multiply (no 1 + scale), so every block would add 0 and the
+        # prefill's logits would not see the mLSTM kernel: unit scales
+        blocks = params["blocks"]
+        for cell in (blocks["mlstm"]["cell"], blocks["slstm"]["cell"]):
+            cell["norm"].fill_(1.0)
     gen = torch.Generator(device="cuda").manual_seed(3)
-    prompts = torch.randint(0, arch.vocab_size, (N_PODS, SESSIONS, PROMPT),
+    prompts = torch.randint(0, arch.vocab_size, (N_PODS, SESSIONS, prompt),
                             generator=gen, device="cuda", dtype=torch.int32)
     prefill = serve.make_prefill_step(arch, pshape, impl=AttnImpl.FLASH,
                                       device="cuda")
@@ -816,15 +962,16 @@ def run_sessions(torch, arch_id, counters, expect):
     for fn in counters.values():
         fn.launches = 0
     live = tree_map(lambda v: torch.stack([v] * N_PODS), zoo.init_cache(
-        arch, SESSIONS, CACHE_LEN, device="cuda"))
+        arch, SESSIONS, cache_len, device="cuda"))
     first, prefill_ms = [], 0.0
     for pod in range(N_PODS):
         (logits, cache), ms = _wall_ms(
             torch, lambda: prefill(params, {"tokens": prompts[pod]}))
         prefill_ms += ms
         # into the decode cache's leading corner: internlm2's K/V fill the
-        # first PROMPT of CACHE_LEN positions (as tests/test_arch_smoke.py
-        # pads them); zamba2's ring of 4,096 slots takes its 4,096 positions
+        # first prompt of cache_len positions (as tests/test_arch_smoke.py
+        # pads them); zamba2's ring of 4,096 slots takes its 4,096 positions;
+        # xlstm's recurrent states have no positions
         tree_map(lambda dst, src: dst[pod][tuple(
             slice(0, n) for n in src.shape)].copy_(src), live, cache)
         assert torch.isfinite(logits.float()).all(), "prefill logits"
@@ -874,8 +1021,10 @@ def run_sessions(torch, arch_id, counters, expect):
         "logits", zoo.decode_step(arch, params, pod_cache, token[1])[0]))
     assert torch.isfinite(out["logits"].float()).all(), "decode logits"
     del restored, pod_cache, out
+    t_prof = time.perf_counter()
     prefill_profile = profile_device(
         torch, lambda: prefill(params, {"tokens": prompts[0]}))
+    prefill_profile["profile_s"] = time.perf_counter() - t_prof
 
     # FLASH against the REFERENCE path (plain torch) on pod 0's prompts
     flash_logits, _, _ = zoo.forward_seq(arch, params, prompts[0],
@@ -886,9 +1035,9 @@ def run_sessions(torch, arch_id, counters, expect):
     assert rel < PREFILL_REL_TOL, f"FLASH vs REFERENCE prefill: rel {rel}"
     del flash_logits, ref_logits
 
-    tokens_in = N_PODS * SESSIONS * PROMPT
+    tokens_in = N_PODS * SESSIONS * prompt
     mflops = zoo.model_flops(arch, ShapeConfig(
-        "p", PROMPT, N_PODS * SESSIONS, StepKind.PREFILL))
+        "p", prompt, N_PODS * SESSIONS, StepKind.PREFILL))
     # model_flops counts every parameter once; zamba2 applies its one
     # shared block (counted once) after each of its groups
     shared = sum(x.numel() for _, x in _leaves(params.get("shared", {})))
@@ -898,8 +1047,8 @@ def run_sessions(torch, arch_id, counters, expect):
     return {"arch": arch_id, "params": arch.param_count(),
             "shared_block_params": shared, "shared_block_applications":
             groups if shared else 0, "pods": N_PODS,
-            "sessions_per_pod": SESSIONS, "prompt": PROMPT,
-            "cache_len": CACHE_LEN, "launches": launches,
+            "sessions_per_pod": SESSIONS, "prompt": prompt,
+            "cache_len": cache_len, "launches": launches,
             "prefill_ms": prefill_ms,
             "prefill_tokens_per_s": tokens_in / (prefill_ms * 1e-3),
             "prefill_model_flops_share": mflops / (prefill_ms * 1e-3)
@@ -933,6 +1082,8 @@ def main() -> int:
         from repro_torch.kernels.enoki_merge import kernel
         from repro_torch.kernels.flash_attention import kernel as fk
         from repro_torch.kernels.flash_attention import ops as fops
+        from repro_torch.kernels.mlstm_chunk import kernel as mk
+        from repro_torch.kernels.mlstm_chunk import ops as mops
         from repro_torch.kernels.ssd_chunk import kernel as sk
         from repro_torch.kernels.ssd_chunk import ops as sops
         from repro_torch.models.transformer import plan as layer_plan
@@ -1017,25 +1168,37 @@ def main() -> int:
     emit({"phase": "kernel_time", "kernel": "ssd_chunk_bhcp",
           "geometry": "zamba2-7b Mamba-2 layer, prefill", "nvidia_smi": smi,
           **sd})
+
+    # -- 6. the mLSTM chunk kernel against its plain version
+    mworst, mcases = check_mlstm_sweep(torch, mk, mops)
+    emit({"phase": "kernel_sweep", "kernel": "mlstm_chunk_bhsd",
+          "cases": mcases, "max_abs_err": mworst, "tolerance": MLSTM_TOL})
+    ml = time_mlstm(torch, mk, flush)
+    emit({"phase": "kernel_time", "kernel": "mlstm_chunk_bhsd",
+          "geometry": "xlstm-350m mLSTM layer, prefill", "nvidia_smi": smi,
+          **ml})
     del flush
 
-    # -- 6. the sessions path, served, for each model
+    # -- 7. the sessions path, served, for each model
     counters = {"enoki_merge_rows": kernel.enoki_merge_rows,
                 "flash_attention_bhsd": fk.flash_attention_bhsd,
-                "ssd_chunk_bhcp": sk.ssd_chunk_bhcp}
+                "ssd_chunk_bhcp": sk.ssd_chunk_bhcp,
+                "mlstm_chunk_bhsd": mk.mlstm_chunk_bhsd}
     sessions = {}
     for arch_id in SESSION_ARCHS:
         arch = get_arch(arch_id)
         p = layer_plan(arch)
         expect = ({"flash_attention_bhsd": N_PODS * p["layers"]}
                   if p["kind"] == "dense" else
+                  {"mlstm_chunk_bhsd": N_PODS * p["groups"] * p["mlstm_per"]}
+                  if p["kind"] == "xlstm" else
                   {"flash_attention_bhsd": N_PODS * p["groups"],
                    "ssd_chunk_bhcp": N_PODS * arch.num_layers})
         sessions[arch_id] = ss = run_sessions(torch, arch_id, counters,
                                               expect)
         emit({"phase": "sessions", "nvidia_smi": smi, **ss})
 
-    # -- 7. the kernels line, the card, the result
+    # -- 8. the kernels line, the card, the result
     flash_launches = {a: ss["launches"]["flash_attention_bhsd"]
                       for a, ss in sessions.items()}
     t = timings[("100KB", 1)]
@@ -1060,6 +1223,13 @@ def main() -> int:
         "max_abs_err": max(max(sworst.values()), sd["max_abs_err"]),
         "ms": sd["ms"], "plain_ms": sd["plain_ms"],
         "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
+        "library_ms": None}, {
+        "name": "mlstm_chunk_bhsd", "route": "cuda", "source": MLSTM_SOURCE,
+        "replaces": MLSTM_REPLACES,
+        "launches": sessions["xlstm-350m"]["launches"]["mlstm_chunk_bhsd"],
+        "max_abs_err": max(max(mworst.values()), ml["max_abs_err"]),
+        "ms": ml["ms"], "plain_ms": ml["plain_ms"],
+        "bound_ms": ml["bound_ms"], "bound_by": ml["bound_by"],
         "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -77,7 +77,8 @@ def params_from_numpy(arch, tree: dict, device=None,
                       dtype: Optional[torch.dtype] = None) -> dict:
     """The port's parameter tree from the reference's (nested dicts of
     numpy arrays, e.g. ``jax.device_get(params)``), key for key and
-    shape for shape: dense ``blocks``, or zamba2's ``blocks`` (G, per, ...),
+    shape for shape: dense ``blocks``, xlstm's ``blocks`` (``mlstm`` (G, 7,
+    ...) and ``slstm`` (G, ...)), or zamba2's ``blocks`` (G, per, ...),
     ``tail`` and the one ``shared`` block.  ``dtype`` casts every floating
     leaf (bfloat16 leaves arrive as bfloat16 unless it says otherwise)."""
     from repro_torch.models.transformer import plan
@@ -93,18 +94,20 @@ def params_from_numpy(arch, tree: dict, device=None,
     return _tree_from_numpy(tree, resolve_device(device), dtype)
 
 
-#: decode-cache leaves that ``dtype`` casts; the SSM ``state`` stays f32 and
-#: ``shared_pos``/``length`` stay int32, as the reference keeps them
+#: decode-cache leaves that ``dtype`` casts (K/V, conv windows, the sLSTM
+#: hidden state ``h``); the SSM ``state``, the mLSTM ``C``/``n``/``m`` and the
+#: sLSTM ``c``/``n``/``m`` stay f32 and ``shared_pos``/``length`` int32, as
+#: the reference keeps them
 _CACHE_CAST = frozenset({"k", "v", "shared_k", "shared_v", "conv_x", "conv_B",
-                         "conv_C"})
+                         "conv_C", "conv", "h"})
 
 
 def cache_from_numpy(tree: dict, device=None,
                      dtype: Optional[torch.dtype] = None) -> dict:
     """A decode cache from (nested dicts of) numpy arrays: dense ``k``,
-    ``v``, ``length``, or zamba2's ``mamba``/``tail`` states and the shared
-    block's ring.  ``dtype`` casts the K/V and conv-window leaves only;
-    ``length`` is int32."""
+    ``v``, ``length``, xlstm's ``mlstm``/``slstm`` states, or zamba2's
+    ``mamba``/``tail`` states and the shared block's ring.  ``dtype`` casts
+    the K/V, conv-window and sLSTM ``h`` leaves only; ``length`` is int32."""
     dev = resolve_device(device)
 
     def walk(t, key=None):

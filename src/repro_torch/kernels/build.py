@@ -28,6 +28,7 @@ KERNEL_SOURCES: Dict[str, pathlib.Path] = {
     "enoki_merge": _PKG / "enoki_merge" / "csrc" / "enoki_merge.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "ssd_chunk": _PKG / "ssd_chunk" / "csrc" / "ssd_chunk.cu",
+    "mlstm_chunk": _PKG / "mlstm_chunk" / "csrc" / "mlstm_chunk.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,12 +1,14 @@
 """Serving: sessions are Enoki keygroups; the counterpart of
 ``repro.launch.serve`` on one device.
 
-A decode session's KV cache is a keygroup whose home is the pod serving it:
-the decode hot path touches only pod-local state, the paper's core
-property.  Four steps, each made by a ``make_*`` factory:
+A decode session's state is a keygroup whose home is the pod serving it:
+a KV cache (dense), recurrent states (xlstm: per-layer mLSTM matrix memories
+and sLSTM cells) or both (zamba2).  The decode hot path touches only
+pod-local state, the paper's core property.  Four steps, each made by a
+``make_*`` factory:
 
   prefill                   builds a session batch from prompts (last-position
-                            logits + the layer-stacked cache)
+                            logits + the layer-stacked session state)
   decode                    one greedy token for every session of every pod
   replicate_sessions        anti-entropy: ring-copy session state to the next
                             pod (pod i backs up pod i-1) into a backup copy;
@@ -40,8 +42,9 @@ from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import model_zoo as zoo
 
-#: a (nested) dict of tensors: dense ``k``/``v``, or zamba2's ``mamba``,
-#: ``tail`` and shared-block ring; ``length`` always
+#: a (nested) dict of tensors: dense ``k``/``v``, xlstm's ``mlstm`` and
+#: ``slstm`` recurrent states, or zamba2's ``mamba``, ``tail`` and
+#: shared-block ring; ``length`` always
 Cache = dict
 
 

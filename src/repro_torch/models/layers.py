@@ -1,10 +1,10 @@
 """Shared neural-net building blocks (plain torch, dict params): the
 counterpart of ``repro.models.layers``.
 
-The f32 upcasts sit where the reference has them: the norm and RoPE
+The f32 upcasts sit where the reference has them: the norms and RoPE
 compute in float32 and cast back to the input's dtype.  The reference's
-``layernorm``, ``groupnorm_heads``, ``sinusoidal_positions`` and
-``cross_entropy_loss`` come with the whisper, xlstm and training slices.
+``layernorm``, ``sinusoidal_positions`` and ``cross_entropy_loss`` come with
+the whisper and training slices.
 """
 from __future__ import annotations
 
@@ -27,6 +27,19 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.float())).to(dtype)
+
+
+def groupnorm_heads(x: torch.Tensor, scale: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """Per-head groupnorm over the feature dim.  x: (..., H, Dh).  The
+    population variance (``jnp.var``), where ``torch.var`` defaults to the
+    unbiased one; the scale multiplies (no ``1 +`` as in rmsnorm)."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------

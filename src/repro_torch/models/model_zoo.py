@@ -6,23 +6,15 @@ have no counterpart: the port allocates what it runs.
 """
 from __future__ import annotations
 
-from typing import Tuple
-
 from repro_torch.configs.base import ArchConfig, ShapeConfig, StepKind
 from repro_torch.models import transformer
 from repro_torch.models.ssm import ssm_dims
+from repro_torch.models.xlstm import mlstm_dims
 
 init_params = transformer.init_params
 forward_seq = transformer.forward_seq
 decode_step = transformer.decode_step
 init_cache = transformer.init_cache
-
-
-def mlstm_dims(arch: ArchConfig) -> Tuple[int, int, int]:
-    """(d_inner, heads, head dim) of an mLSTM block (``models/xlstm.py``)."""
-    cfg = arch.xlstm
-    di = int(cfg.proj_factor_mlstm * arch.d_model)
-    return di, cfg.num_heads, di // cfg.num_heads
 
 
 # ---------------------------------------------------------------------------

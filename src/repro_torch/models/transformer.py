@@ -1,24 +1,26 @@
 """Layer-stack orchestrator: the counterpart of ``repro.models.transformer``
-for the dense and hybrid (zamba2) families.
+for the dense, ssm (xlstm) and hybrid (zamba2) families.
 
 Segment plans (family -> structure):
   dense              L x [attn + mlp]
+  ssm (xlstm)        G x [7 x mlstm; slstm]                       (G = L/8)
   hybrid (zamba2)    G x [6 x mamba2; SHARED attn+mlp] (+ tail of mamba2)
 
 Parameters of a homogeneous run of layers are stacked on a leading axis
 (``blocks.attn.wq`` is ``(L, d, H*Dh)``; zamba2's ``blocks.mamba.w_x`` is
-``(G, 6, d, d_inner)``), so a parameter tree carries across from the
-reference key for key.  The reference's ``lax.scan`` over the stack is a
-Python loop (``_scan``).  Params and caches are plain nested dicts of
-tensors.
+``(G, 6, d, d_inner)``; xlstm's ``blocks.mlstm.cell.w_q`` is ``(G, 7, di,
+di)`` and ``blocks.slstm.cell.r`` ``(G, 4, H, dh, dh)``), so a parameter tree
+carries across from the reference key for key.  The reference's
+``lax.scan`` over the stack is a Python loop (``_scan``).  Params and
+caches are plain nested dicts of tensors.
 
 Both modes of a block:
   seq(params, x, positions)           -> y            (train / prefill)
   decode(params, x1, cache, length)   -> y, cache     (one token; the cache
                                                        is written in place)
 
-The moe, xlstm, vlm and whisper plans raise ``NotImplementedError`` naming
-their ROADMAP item.
+The moe, vlm and whisper plans raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -30,11 +32,11 @@ from repro_torch.configs.base import ArchConfig, AttnImpl
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (apply_rope, dense_init, mlp_apply,
                                        mlp_init, rmsnorm)
 
 _NOT_PORTED = {
-    "ssm": "the xlstm serving path (ROADMAP, open item 2)",
     "moe": "the rest of the model zoo: moe (ROADMAP, open item 8)",
     "vlm": "the rest of the model zoo: vlm (ROADMAP, open item 8)",
     "audio": "the rest of the model zoo: whisper (ROADMAP, open item 8)",
@@ -49,6 +51,10 @@ def plan(arch: ArchConfig) -> Dict[str, Any]:
     """Static structure of the layer stack."""
     if arch.family == "dense":
         return {"kind": "dense", "layers": arch.num_layers}
+    if arch.family == "ssm":        # xlstm
+        per = arch.xlstm.slstm_every
+        groups = max(1, arch.num_layers // per)
+        return {"kind": "xlstm", "groups": groups, "mlstm_per": per - 1}
     if arch.family == "hybrid":     # zamba2
         per = arch.shared_attn_every
         groups = arch.num_layers // per
@@ -107,6 +113,23 @@ def _mamba_layer_init(gen: torch.Generator, arch: ArchConfig, dtype) -> dict:
     }
 
 
+def _mlstm_layer_init(gen: torch.Generator, arch: ArchConfig, dtype) -> dict:
+    return {
+        "ln": torch.zeros((arch.d_model,), dtype=dtype, device=gen.device),
+        "cell": xlstm_mod.mlstm_init(gen, arch, dtype=dtype),
+    }
+
+
+def _xlstm_group_init(gen: torch.Generator, arch: ArchConfig, dtype) -> dict:
+    per = plan(arch)["mlstm_per"]
+    return {
+        "mlstm": _stack_init(_mlstm_layer_init, gen, per, arch, dtype),
+        "slstm": {"ln": torch.zeros((arch.d_model,), dtype=dtype,
+                                    device=gen.device),
+                  "cell": xlstm_mod.slstm_init(gen, arch, dtype=dtype)},
+    }
+
+
 def _stack_init(layer_init, gen: torch.Generator, n: int, arch: ArchConfig,
                 dtype) -> dict:
     return _stack([layer_init(gen, arch, dtype) for _ in range(n)])
@@ -132,6 +155,9 @@ def init_params(arch: ArchConfig, seed: int = 0, dtype=torch.float32,
                                        dtype=dtype)
     if p["kind"] == "dense":
         params["blocks"] = _stack_init(_dense_layer_init, gen, p["layers"],
+                                       arch, dtype)
+    elif p["kind"] == "xlstm":     # (G, 7, ...) mLSTM and (G, ...) sLSTM
+        params["blocks"] = _stack_init(_xlstm_group_init, gen, p["groups"],
                                        arch, dtype)
     else:   # zamba: (G, per, ...) mamba stacks, a tail, ONE shared block
         params["blocks"] = _stack([
@@ -192,11 +218,13 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
                 compute_dtype=torch.bfloat16):
     """tokens (B, S) int -> (logits (B, S, V), aux 0.0, cache | None).
     Positions are 0..S-1 in every row.  ``impl`` picks the attention path
-    and, in the Mamba-2 layers, the scan (FLASH: the kernels).
+    and, in the Mamba-2 and mLSTM layers, the scan (FLASH: the kernels).
 
     The dense cache holds the layer-stacked (L, B, S, KV, Dh) ``k`` and
-    ``v``.  The zamba2 cache holds ``mamba`` (G, per, ...) and ``tail``
-    (the conv windows and f32 states), and the shared block's
+    ``v``.  The xlstm cache holds ``mlstm`` (G, 7, ...: the conv window and
+    the f32 C, n, m) and ``slstm`` (G, ...: f32 c, n, m and h).  The zamba2
+    cache holds ``mamba`` (G, per, ...) and ``tail`` (the conv windows and
+    f32 states), and the shared block's
     ``shared_k``/``shared_v`` (G, B, win, KV, Dh) of the last ``win``
     positions with their ``shared_pos`` (G, B, win), ``win`` being the
     sliding window when it is shorter than S, else S."""
@@ -217,6 +245,29 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
         x, kv = _scan(body, x, params["blocks"], p["layers"])
         if return_cache:
             cache = {"k": kv[0], "v": kv[1]}
+    elif p["kind"] == "xlstm":
+        def mbody(x, lp):
+            y = xlstm_mod.mlstm_seq(lp["cell"], rmsnorm(x, lp["ln"]), arch,
+                                    return_state=return_cache, impl=impl)
+            if return_cache:
+                y, mc = y
+                return x + y, mc
+            return x + y, None
+
+        def group(x, gp):
+            gp = _cast(gp, compute_dtype)
+            x, mcs = _scan(mbody, x, gp["mlstm"], p["mlstm_per"])
+            sp = gp["slstm"]
+            y = xlstm_mod.slstm_seq(sp["cell"], rmsnorm(x, sp["ln"]), arch,
+                                    return_state=return_cache)
+            if return_cache:
+                y, sc = y
+                return x + y, (mcs, sc)
+            return x + y, None
+
+        x, gcs = _scan(group, x, params["blocks"], p["groups"])
+        if return_cache:
+            cache = {"mlstm": gcs[0], "slstm": gcs[1]}
     else:
         shared = _cast(params["shared"], compute_dtype)
         win = arch.sliding_window if 0 < arch.sliding_window < S else S
@@ -281,8 +332,11 @@ def init_cache(arch: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """A zeroed decode cache with a 0-d int32 ``length``, on ``device``
     (``None``: the CUDA card).  Dense: layer-stacked (L, B, max_len, KV,
-    Dh) ``k``/``v``.  zamba2: ``mamba`` (G, per, ...) and ``tail`` states
-    (conv windows in ``dtype``, SSM states f32), and the shared block's
+    Dh) ``k``/``v``.  xlstm: ``mlstm`` (G, 7, ...) conv windows in
+    ``dtype`` and f32 C, n, m, ``slstm`` (G, ...) f32 c, n, m and h in
+    ``dtype``; no leaf grows with ``max_len``.  zamba2: ``mamba`` (G, per,
+    ...) and ``tail`` states (conv windows in ``dtype``, SSM states f32),
+    and the shared block's
     ``shared_k``/``shared_v`` (G, B, W, KV, Dh) with ``shared_pos`` (G, B,
     W) = -1 (empty), W being a ring of ``sliding_window`` slots when that is
     shorter than ``max_len``, else ``max_len``."""
@@ -295,6 +349,15 @@ def init_cache(arch: ArchConfig, batch: int, max_len: int,
         return {"k": zeros(p["layers"], batch, max_len, *kv),
                 "v": zeros(p["layers"], batch, max_len, *kv),
                 "length": length}
+    if p["kind"] == "xlstm":
+        g, m = p["groups"], p["mlstm_per"]
+        return {
+            "mlstm": _stack([_stack([xlstm_mod.mlstm_cache_init(
+                arch, batch, dtype, device=dev) for _ in range(m)])
+                for _ in range(g)]),
+            "slstm": _stack([xlstm_mod.slstm_cache_init(
+                arch, batch, dtype, device=dev) for _ in range(g)]),
+            "length": length}
     g, m = p["groups"], p["mamba_per"]
     mamba = lambda n: _stack([ssm_mod.mamba2_cache_init(
         arch, batch, dtype, device=dev) for _ in range(n)])
@@ -320,7 +383,8 @@ def decode_step(arch: ArchConfig, params: dict, cache: dict,
     """token (B, 1) int -> (logits (B, 1, V), cache').
 
     Every cache leaf is written IN PLACE (the counterpart of the reference
-    step's donated cache): each layer's K/V, and in zamba2 the Mamba-2
+    step's donated cache): each layer's K/V; in xlstm the mLSTM conv
+    windows, C, n and m and the sLSTM c, n, m and h; in zamba2 the Mamba-2
     conv windows and states and the shared block's ring (K/V and positions
     at slot ``length % W``); the returned dict shares those tensors and
     carries ``length + 1``.  Decode attention is the einsum path (the
@@ -337,6 +401,19 @@ def decode_step(arch: ArchConfig, params: dict, cache: dict,
             x = x + y
             x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]),
                               arch.activation)
+    elif p["kind"] == "xlstm":
+        for g in range(p["groups"]):
+            gp = _cast(_layer(params["blocks"], g), compute_dtype)
+            mc = _layer(cache["mlstm"], g)
+            for i in range(p["mlstm_per"]):
+                lp = _layer(gp["mlstm"], i)
+                y, _ = xlstm_mod.mlstm_decode(lp["cell"], rmsnorm(x, lp["ln"]),
+                                              _layer(mc, i), arch)
+                x = x + y
+            sp = gp["slstm"]
+            y, _ = xlstm_mod.slstm_decode(sp["cell"], rmsnorm(x, sp["ln"]),
+                                          _layer(cache["slstm"], g), arch)
+            x = x + y
     else:
         shared = _cast(params["shared"], compute_dtype)
 

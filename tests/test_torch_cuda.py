@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card: ``enoki_merge_rows``,
-``flash_attention_bhsd`` and ``ssd_chunk_bhcp`` against their plain versions
-on the same card inputs, the served merge path launching the merge once per
-fused merge, and a prefill launching the attention kernel once per
-attention layer and the SSD kernel once per Mamba-2 layer.
+``flash_attention_bhsd``, ``ssd_chunk_bhcp`` and ``mlstm_chunk_bhsd`` against
+their plain versions on the same card inputs, the served merge path
+launching the merge once per fused merge, and a prefill launching the
+attention kernel once per attention layer, the SSD kernel once per Mamba-2
+layer and the mLSTM kernel once per mLSTM layer.
 
 Every test here is marked ``cuda`` and skips, with its reason, on a host
 without a card (a kernel has no CPU mode).  The file imports no jax, so
@@ -286,3 +287,150 @@ def test_zamba_prefill_launches_both_kernels(card):
         out[impl] = logits.float()
     err = (out[AttnImpl.FLASH] - out[AttnImpl.REFERENCE]).abs().max()
     assert float(err / out[AttnImpl.REFERENCE].abs().max()) < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# mlstm chunk
+# ---------------------------------------------------------------------------
+
+_MLSTM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}   # tests/test_kernels.py
+
+
+def _mlstm_inputs(card, B, H, S, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    logsig = lambda x: -np.logaddexp(0.0, -x)
+    qkv = [torch.from_numpy(rng.standard_normal((B, H, S, d)).astype(
+        np.float32)).to(card, _TORCH[dtype]) for _ in range(3)]
+    gates = [torch.from_numpy(logsig(rng.standard_normal((B, H, S)) + shift)
+                              .astype(np.float32)).to(card)
+             for shift in (-2.0, 2.0)]
+    return qkv + gates
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,S,d,chunk", [
+    (1, 2, 128, 32, 32), (2, 2, 64, 64, 16), (1, 4, 256, 16, 64),
+    (2, 2, 128, 128, 16), (1, 2, 256, 512, 64), (2, 4, 512, 512, 64),
+    (1, 3, 100, 48, 20)])
+def test_mlstm_kernel_matches_plain_on_cuda(card, B, H, S, d, chunk, dtype):
+    """h and the final carry (C, n, m), one launch per call, within the
+    reference's tolerance of the plain version on the same card inputs
+    (head dims 16 to 512, a partial column tile at d=48, chunks 16 to 64)."""
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    ins = _mlstm_inputs(card, B, H, S, d, dtype, B + H + S + d)
+    want_h, want_c = mk.mlstm_chunk_bhsd_plain(*ins, chunk=chunk)
+    n0 = mk.mlstm_chunk_bhsd.launches
+    got_h, got_c = mk.mlstm_chunk_bhsd(*ins, chunk=chunk)
+    torch.cuda.synchronize()
+    assert mk.mlstm_chunk_bhsd.launches == n0 + 1
+    assert got_h.dtype == ins[0].dtype
+    tol = _MLSTM_TOL[dtype]
+    torch.testing.assert_close(got_h.float(), want_h.float(), rtol=tol,
+                               atol=tol)
+    for got, want in zip(got_c, want_c):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_mlstm_kernel_reads_the_model_layout(card):
+    """``ops.mlstm_chunk`` hands the kernel strided views of (B,S,H,d) and
+    (B,S,H) tensors and an h view: the same numbers as the contiguous
+    kernel-layout call; what the kernel does not take raises on the card
+    too."""
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
+    ins = _mlstm_inputs(card, 2, 4, 192, 128, "float32", 1)
+    model = [x.transpose(1, 2).contiguous() for x in ins]
+    h, carry = mlstm_chunk(*model, chunk=64)
+    want_h, want_c = mk.mlstm_chunk_bhsd(*ins, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(h, want_h.transpose(1, 2))
+    for got, want in zip(carry, want_c):
+        assert torch.equal(got, want)
+    n0 = mk.mlstm_chunk_bhsd.launches
+    with pytest.raises(ValueError, match="does not divide"):
+        mk.mlstm_chunk_bhsd(*ins, chunk=50)
+    with pytest.raises(ValueError, match="head dim"):
+        z = torch.zeros((2, 4, 192, 40), device=card)
+        mk.mlstm_chunk_bhsd(z, z, z, ins[3], ins[4])
+    with pytest.raises(ValueError, match="float32"):
+        mk.mlstm_chunk_bhsd(*ins[:3], ins[3].bfloat16(), ins[4])
+    assert mk.mlstm_chunk_bhsd.launches == n0
+
+
+@pytest.mark.cuda
+def test_mlstm_seq_launches_the_kernel_once(card):
+    """One ``mlstm_seq(impl=FLASH)`` on the card launches the kernel once
+    and agrees with REFERENCE (the plain cell), which launches nothing."""
+    from repro_torch.configs import AttnImpl, get_arch, reduced
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.models import xlstm
+    arch = reduced(get_arch("xlstm-350m"))
+    params = xlstm.mlstm_init(torch.Generator(device=card).manual_seed(0),
+                              arch)
+    params["norm"].fill_(1.0)
+    x = torch.randn((2, 96, arch.d_model), device=card)
+    out = {}
+    for impl in (AttnImpl.FLASH, AttnImpl.REFERENCE):
+        n0 = mk.mlstm_chunk_bhsd.launches
+        y, cache = xlstm.mlstm_seq(params, x, arch, return_state=True,
+                                   impl=impl)
+        torch.cuda.synchronize()
+        assert mk.mlstm_chunk_bhsd.launches - n0 == (
+            1 if impl is AttnImpl.FLASH else 0)
+        out[impl] = (y, cache)
+    (yf, cf), (yr, cr) = out[AttnImpl.FLASH], out[AttnImpl.REFERENCE]
+    torch.testing.assert_close(yf, yr, rtol=1e-4, atol=1e-4)
+    for key in ("C", "n", "m"):
+        torch.testing.assert_close(cf[key], cr[key], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_xlstm_prefill_and_decode_on_cuda(card):
+    """A FLASH prefill of reduced xlstm on the card: one mLSTM launch per
+    mLSTM layer, none under REFERENCE, the two paths agreeing; then a few
+    decode steps on the card from the prefill's session state."""
+    from repro_torch.configs import (AttnImpl, ShapeConfig, StepKind,
+                                     get_arch, reduced)
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.transformer import plan
+    arch = reduced(get_arch("xlstm-350m"))
+    params = zoo.init_params(arch, seed=0, dtype=torch.bfloat16)
+    for cell in (params["blocks"]["mlstm"]["cell"],
+                 params["blocks"]["slstm"]["cell"]):
+        cell["norm"].fill_(1.0)     # the reference's init zeroes them
+    tokens = torch.randint(0, arch.vocab_size, (2, 128), device=card,
+                           dtype=torch.int32)
+    shape = ShapeConfig("p", 128, 2, StepKind.PREFILL)
+    p = plan(arch)
+    out = {}
+    for impl in (AttnImpl.FLASH, AttnImpl.REFERENCE):
+        n0 = mk.mlstm_chunk_bhsd.launches
+        logits, cache = serve.make_prefill_step(arch, shape, impl=impl)(
+            params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        assert mk.mlstm_chunk_bhsd.launches - n0 == (
+            p["groups"] * p["mlstm_per"] if impl is AttnImpl.FLASH else 0)
+        assert cache["mlstm"]["C"].is_cuda and \
+            cache["mlstm"]["C"].dtype == torch.float32
+        out[impl] = (logits.float(), cache)
+    ref = out[AttnImpl.REFERENCE][0]
+    err = (out[AttnImpl.FLASH][0] - ref).abs().max()
+    assert float(err / ref.abs().max()) < 5e-2
+    cache = {k: (v[None] if k == "length" else
+                 {kk: vv[None] for kk, vv in v.items()})
+             for k, v in out[AttnImpl.FLASH][1].items()}
+    step = serve.make_decode_step(arch)
+    tok = torch.argmax(out[AttnImpl.FLASH][0][:, -1], dim=-1)[None, :, None]
+    tok = tok.to(torch.int32)
+    n0 = mk.mlstm_chunk_bhsd.launches
+    for _ in range(4):
+        tok, cache = step(params, cache, tok)
+    torch.cuda.synchronize()
+    assert mk.mlstm_chunk_bhsd.launches == n0, "decode runs the step cell"
+    assert int(cache["length"][0]) == 132
+    assert bool(((tok >= 0) & (tok < arch.vocab_size)).all())

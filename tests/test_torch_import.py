@@ -39,7 +39,11 @@ def test_port_imports_no_jax_and_no_reference():
     assert "repro_torch.core.cluster" in mods and len(mods) > 20
     assert {"repro_torch.models.ssm", "repro_torch.kernels.ssd_chunk.kernel",
             "repro_torch.kernels.ssd_chunk.ops",
-            "repro_torch.kernels.ssd_chunk.ref"} <= set(mods)
+            "repro_torch.kernels.ssd_chunk.ref",
+            "repro_torch.models.xlstm",
+            "repro_torch.kernels.mlstm_chunk.kernel",
+            "repro_torch.kernels.mlstm_chunk.ops",
+            "repro_torch.kernels.mlstm_chunk.ref"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
@@ -62,7 +66,8 @@ def test_no_kernel_library_loads_at_import():
             "print(','.join(sorted(build.KERNEL_SOURCES)))\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split()[-1] == "enoki_merge,flash_attention,ssd_chunk"
+    assert proc.stdout.split()[-1] == \
+        "enoki_merge,flash_attention,mlstm_chunk,ssd_chunk"
 
 
 def test_no_jax_or_reference_import_anywhere():

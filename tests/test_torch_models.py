@@ -78,17 +78,19 @@ def test_analytic_counts_match(arch_id):
 
 @pytest.mark.parametrize("arch_id", [
     a for a in rc.ARCH_IDS
-    if rc.get_arch(a).family not in ("dense", "hybrid")])
+    if rc.get_arch(a).family not in ("dense", "hybrid", "ssm")])
 def test_unported_families_raise(arch_id):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         transformer.plan(tc.get_arch(arch_id))
 
 
-@pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "zamba2-7b"])
+@pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "zamba2-7b",
+                                     "xlstm-350m"])
 @pytest.mark.parametrize("size", ["full", "reduced"])
 def test_plan_matches_reference(arch_id, size):
     """The ported plans, full and reduced: zamba2-7b is 13 groups of 6
-    Mamba-2 layers and the shared block, then a tail of 3."""
+    Mamba-2 layers and the shared block, then a tail of 3; xlstm-350m is 3
+    groups of 7 mLSTM layers and 1 sLSTM layer."""
     from repro.models import transformer as ref_transformer
     arch_t, arch_r = tc.get_arch(arch_id), rc.get_arch(arch_id)
     if size == "reduced":
@@ -97,15 +99,21 @@ def test_plan_matches_reference(arch_id, size):
     if arch_id == "zamba2-7b" and size == "full":
         assert transformer.plan(arch_t) == {"kind": "zamba", "groups": 13,
                                             "mamba_per": 6, "tail": 3}
+    if arch_id == "xlstm-350m":
+        assert transformer.plan(arch_t) == {
+            "kind": "xlstm", "groups": 3 if size == "full" else 1,
+            "mlstm_per": 7}
 
 
 @pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "gemma-7b",
-                                     "qwen1.5-32b", "zamba2-7b"])
+                                     "qwen1.5-32b", "zamba2-7b",
+                                     "xlstm-350m"])
 def test_param_tree_matches_reference(arch_id):
     """Same keys, layer-stacked shapes and dtypes as the reference's tree
     (qkv biases for qwen, tied embeddings and GeGLU for gemma; zamba2's
     (G, per, ...) Mamba-2 stacks, tail and one shared block, with A_log, D
-    and dt_bias f32 in a bf16 tree)."""
+    and dt_bias f32 in a bf16 tree; xlstm's (G, 7, ...) mLSTM and (G, ...)
+    sLSTM stacks, with w_if, b_i, b_f and the sLSTM bias f32)."""
     arch_r, arch_t = rc.reduced(rc.get_arch(arch_id)), tc.reduced(
         tc.get_arch(arch_id))
     ref = jax.eval_shape(lambda: ref_zoo.init_params(

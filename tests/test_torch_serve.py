@@ -472,3 +472,219 @@ def test_zamba_cache_carries_across(zamba):
         assert cache["shared_pos"].dtype == cache["length"].dtype \
             == torch.int32
         _tree_rel(cache_to_numpy(cache), wcache, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# xlstm (ssm): recurrent session state, mLSTM matrix memories, sLSTM cells
+# ---------------------------------------------------------------------------
+#
+# xlstm-350m reduced: 8 layers as 1 group of 7 mLSTM layers + 1 sLSTM layer;
+# d 128, mLSTM 2 heads of 128 (chunk 16), sLSTM 2 heads of 64; vocab 512.
+# The reference initialises the groupnorm scales to 0, which multiply the
+# normalised cell output, so every block would add 0: the scales are drawn
+# by numpy around 1 for both packages.  Prompts of 64 tokens (4 chunks).
+
+XLSTM = "xlstm-350m"
+X_B, X_S, X_STEPS = 2, 64, 12
+
+
+def _xlstm_norms(params_np, seed):
+    """``params_np`` with every groupnorm scale drawn around 1."""
+    rng = np.random.default_rng(seed)
+    blocks = params_np["blocks"]
+    for cell in (blocks["mlstm"]["cell"], blocks["slstm"]["cell"]):
+        cell["norm"] = (1.0 + 0.1 * rng.standard_normal(cell["norm"].shape)
+                        ).astype(np.float32)
+    return params_np
+
+
+@pytest.fixture(scope="module")
+def xlstm_model():
+    arch_r = rc.reduced(rc.get_arch(XLSTM))
+    arch_t = tc.reduced(tc.get_arch(XLSTM))
+    params_np = _xlstm_norms(jax.device_get(ref_zoo.init_params(
+        arch_r, jax.random.PRNGKey(2))), 5)
+    params_r = jax.tree.map(jnp.asarray, params_np)
+    params_t = params_from_numpy(arch_t, params_np, device="cpu")
+    return arch_r, arch_t, params_r, params_t
+
+
+@pytest.fixture(scope="module")
+def xlstm_reference_run(xlstm_model):
+    """The reference's prefill (f32) of two pods' prompts and X_STEPS
+    greedy decode steps (a jitted step): per pod (tokens, final cache)."""
+    import functools
+    arch_r, _, params_r, _ = xlstm_model
+    step = jax.jit(functools.partial(ref_zoo.decode_step, arch_r,
+                                     compute_dtype=jnp.float32))
+    out = []
+    for pod in range(2):
+        tokens = _prompt(20 + pod, X_B, X_S, arch_r.vocab_size)
+        logits, _, cache = ref_zoo.forward_seq(
+            arch_r, params_r, jnp.asarray(tokens), return_cache=True,
+            compute_dtype=jnp.float32)
+        cache = {**cache, "length": jnp.asarray(X_S, jnp.int32)}
+        tok = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
+        got = [np.asarray(tok)]
+        for _ in range(X_STEPS):
+            logits, cache = step(params_r, cache, tok)
+            tok = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(
+                jnp.int32)
+            got.append(np.asarray(tok))
+        out.append((np.concatenate(got, axis=1), jax.device_get(cache)))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["flash", "reference"])
+def test_xlstm_forward_seq_logits_and_cache_match(xlstm_model, impl, dtype):
+    """Logits and the whole prefill cache tree (per mLSTM layer the conv
+    window and the f32 C, n, m; per sLSTM layer c, n, m and h) against the
+    reference's, FLASH being the mLSTM kernel's plain version here and the
+    reference's own jnp cell there (its model calls no kernel)."""
+    arch_r, arch_t, params_r, params_t = xlstm_model
+    jdt, tdt, tol = DTYPES[dtype]
+    tokens = _prompt(1, X_B, X_S, arch_r.vocab_size)
+    want, _, wcache = ref_zoo.forward_seq(
+        arch_r, params_r, jnp.asarray(tokens), impl=rc.AttnImpl(impl),
+        return_cache=True, compute_dtype=jdt)
+    got, aux, gcache = zoo.forward_seq(
+        arch_t, params_t, torch.from_numpy(tokens), impl=tc.AttnImpl(impl),
+        return_cache=True, compute_dtype=tdt)
+    assert got.dtype == tdt and float(aux) == 0.0
+    assert _rel(got, want) < tol
+    assert gcache["mlstm"]["C"].shape == (1, 7, X_B, 2, 128, 128)
+    _tree_rel(gcache, wcache, tol)
+
+
+@pytest.mark.parametrize("impl", ["flash", "reference"])
+def test_xlstm_greedy_decode_matches(xlstm_model, xlstm_reference_run,
+                                     impl):
+    """Two pods, each prefilled through the port's prefill step and decoded
+    X_STEPS greedy steps in one pod-stacked cache: the tokens equal the
+    reference's in f32 and every cache leaf agrees; decode writes the tree
+    it is handed."""
+    arch_r, arch_t, params_r, params_t = xlstm_model
+    pshape = tc.ShapeConfig("p", X_S, X_B, tc.StepKind.PREFILL)
+    prefill = serve.make_prefill_step(arch_t, pshape, impl=tc.AttnImpl(impl),
+                                      device="cpu",
+                                      compute_dtype=torch.float32)
+    step = serve.make_decode_step(arch_t, n_pods=2, device="cpu",
+                                  compute_dtype=torch.float32)
+    caches, first = [], []
+    for pod in range(2):
+        tokens = _prompt(20 + pod, X_B, X_S, arch_r.vocab_size)
+        logits, pc = prefill(params_t, {"tokens": torch.from_numpy(tokens)})
+        assert int(pc["length"]) == X_S
+        caches.append(pc)
+        first.append(torch.argmax(logits[:, -1, :], dim=-1)[:, None])
+    cache = tree_map(lambda *v: torch.stack(v), *caches)
+    bufs = [x for _, x in sorted(_flat(cache).items())]
+    tok = torch.stack(first).to(torch.int32)
+    got = [tok.numpy()]
+    for _ in range(X_STEPS):
+        tok, cache = step(params_t, cache, tok)
+        got.append(tok.numpy())
+    assert all(a is b for a, b in zip(
+        [x for _, x in sorted(_flat(cache).items())], bufs)), \
+        "decode writes the cache in place"
+    got = np.concatenate(got, axis=2)
+    for pod, (want_tokens, want_cache) in enumerate(xlstm_reference_run):
+        np.testing.assert_array_equal(got[pod], want_tokens)
+        _tree_rel(tree_map(lambda v: v[pod], cache), want_cache, 1e-4)
+
+
+def _flat(tree, path=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{path}/{k}"))
+        return out
+    return {path: tree}
+
+
+def test_xlstm_prefill_then_decode_continuation(xlstm_model):
+    """``tests/test_arch_smoke.py``'s check on the port: prefill S tokens,
+    decode one more; the step's logits match one forward over S+1 tokens
+    (f32), so the emitted prefill cache is the decode state."""
+    arch_r, arch_t, params_r, params_t = xlstm_model
+    tokens = torch.from_numpy(_prompt(3, 1, X_S + 1, arch_r.vocab_size))
+    full, _, _ = zoo.forward_seq(arch_t, params_t, tokens,
+                                 compute_dtype=torch.float32)
+    _, _, cache = zoo.forward_seq(arch_t, params_t, tokens[:, :X_S],
+                                  impl=tc.AttnImpl.FLASH, return_cache=True,
+                                  compute_dtype=torch.float32)
+    cache["length"] = torch.tensor(X_S, dtype=torch.int32)
+    want = zoo.init_cache(arch_t, 1, X_S + 1, dtype=torch.float32,
+                          device="cpu")
+    assert tree_map(lambda v: (v.shape, v.dtype), cache) == \
+        tree_map(lambda v: (v.shape, v.dtype), want)
+    step, _ = zoo.decode_step(arch_t, params_t, cache, tokens[:, X_S:],
+                              compute_dtype=torch.float32)
+    assert _rel(step[:, 0], full[:, -1]) < 1e-4
+
+
+def test_xlstm_init_cache_matches_reference(xlstm_model):
+    """The decode cache's tree, shapes and dtypes: (G, 7, ...) mLSTM and
+    (G, ...) sLSTM states, conv windows and the sLSTM h in the cache dtype,
+    C, n, m and c f32, all zero; no leaf depends on max_len."""
+    arch_r, arch_t, _, _ = xlstm_model
+    for max_len in (200, 40):
+        want = jax.device_get(ref_zoo.init_cache(arch_r, 2, max_len))
+        got = zoo.init_cache(arch_t, 2, max_len, device="cpu")
+        assert tree_map(lambda t: (tuple(t.shape), str(t.dtype)),
+                        got) == jax.tree.map(
+            lambda a: (a.shape, "torch." + a.dtype.name), want)
+        _tree_rel(got, want, 0.0)
+
+
+def test_xlstm_replicate_and_migrate_nested(xlstm_model):
+    """``replicate``/``migrate`` map over every leaf of the nested
+    pod-stacked recurrent tree: ``jnp.roll``/``jnp.where`` on each leaf of
+    the reference's tree, bit for bit."""
+    _, arch_t, _, _ = xlstm_model
+    rng = np.random.default_rng(9)
+    empty = zoo.init_cache(arch_t, 2, 64, device="cpu")
+    live_np = tree_map(lambda v: rng.standard_normal(
+        (3,) + tuple(v.shape)).astype(np.float32), empty)
+    live_np["length"] = np.array([7, 9, 11], np.int32)
+    live = cache_from_numpy(live_np, device="cpu")
+    backup = serve.make_replicate_sessions_step(device="cpu")(live)
+    ref_live = jax.tree.map(jnp.asarray, live_np)
+    ref_backup = jax.tree.map(lambda c: jnp.roll(c, 1, axis=0), ref_live)
+    _tree_rel(backup, ref_backup, 0.0)
+    np.testing.assert_array_equal(to_np(backup["mlstm"]["C"][1]),
+                                  live_np["mlstm"]["C"][0])
+    dead = np.array([False, True, False])
+    restored = serve.make_migrate_sessions_step(device="cpu")(
+        live, backup, torch.from_numpy(dead))
+    ref_restored = jax.tree.map(
+        lambda l, b: jnp.where(jnp.asarray(dead).reshape(
+            (3,) + (1,) * (l.ndim - 1)), b, l), ref_live, ref_backup)
+    _tree_rel(restored, ref_restored, 0.0)
+    np.testing.assert_array_equal(to_np(restored["slstm"]["h"][1]),
+                                  live_np["slstm"]["h"][0])
+    np.testing.assert_array_equal(to_np(restored["length"]), [7, 7, 11])
+
+
+def test_xlstm_cache_carries_across(xlstm_model):
+    """A reference prefill cache round-trips through ``cache_from_numpy``
+    and ``cache_to_numpy``; ``dtype`` casts the conv windows and the sLSTM
+    h only, the mLSTM C, n, m and the sLSTM c, n, m stay f32 and the length
+    int32."""
+    arch_r, _, params_r, _ = xlstm_model
+    tokens = _prompt(4, X_B, X_S, arch_r.vocab_size)
+    _, _, wcache = ref_zoo.forward_seq(arch_r, params_r, jnp.asarray(tokens),
+                                       return_cache=True)
+    wcache = jax.device_get({**wcache, "length": jnp.asarray(X_S, jnp.int32)})
+    for dtype in (None, torch.bfloat16):
+        cache = cache_from_numpy(wcache, device="cpu", dtype=dtype)
+        cast = dtype or torch.bfloat16    # the reference's bf16 compute dtype
+        assert cache["mlstm"]["conv"].dtype == cache["slstm"]["h"].dtype \
+            == cast
+        for key in ("C", "n", "m"):
+            assert cache["mlstm"][key].dtype == torch.float32, key
+        for key in ("c", "n", "m"):
+            assert cache["slstm"][key].dtype == torch.float32, key
+        assert cache["length"].dtype == torch.int32
+        _tree_rel(cache_to_numpy(cache), wcache, 0.0)
