@@ -7,7 +7,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 
 1. device and build — the card, its power limit, and the time ``nvcc``
    takes to build every kernel from ``src/repro_torch/kernels/*/csrc``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together); then the registers,
+   static shared memory and spills that ``-Xptxas=-v`` reported for the
+   wgmma flash kernel and the three SSD kernels;
 2. the merge kernel against its plain version on the card — ``enoki_merge_rows``
    bit-exact over a sweep of shapes, payload dtypes (f32, bf16, int32,
    uint8) and snapshot counts K, then timed (CUDA events, medians, L2
@@ -35,11 +37,12 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    the same function in f32; then timed at both prefill geometries beside
    its tensor-core FLOP bound, its plain version and
    ``scaled_dot_product_attention``;
-5. ``ssd_chunk_bhcp`` against its plain version on the card, y and the
-   final state: f32 (1e-4) and bf16 (5e-2, the reference's tolerances) over
-   the reference's sweep shapes, ragged S and the main-path geometry (B=4,
-   H=112, S=4096, P=N=64, chunk 128, f32), directly and through the
-   model-layout wrapper; then timed there beside its f32 FMA bound and its
+5. ``ssd_chunk_bhcp`` (three kernels a call) against its plain version
+   on the card, y and the final state: f32 (1e-4) and bf16 (5e-2, the
+   reference's tolerances) over the reference's sweep shapes, ragged S and
+   the main-path geometry (B=4, H=112, S=4096, P=N=64, chunk 128, f32),
+   directly and through the model-layout wrapper; then timed there beside
+   its bound (3xTF32 tensor cores or bytes), its f32 FMA bound and its
    plain version (no single PyTorch call computes the scan);
 6. ``mlstm_chunk_bhsd`` against its plain version on the card, h and the
    final carry (C, n, m): f32 (1e-4) and bf16 (5e-2, the reference's
@@ -100,6 +103,15 @@ MLSTM_SOURCE = "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu"
 MLSTM_REPLACES = "src/repro/kernels/mlstm_chunk/kernel.py:80"
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores (data sheet)
 F32_FLOPS_PER_S = 66.9e12       # H100 SXM f32 FMAs, no tensor cores (data sheet)
+TF32_FLOPS_PER_S = 495e12       # H100 SXM dense TF32 tensor cores (data sheet)
+# the SSD kernels run every product as three TF32 products (3xTF32)
+SSD_PRODUCT_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
+# the kernels whose registers, shared memory and spills the build reports:
+# (library, kernel)
+RESOURCE_KERNELS = (("flash_attention", "flash_fwd_bf16_wgmma"),
+                    ("ssd_chunk", "ssd_chunk_state_kernel"),
+                    ("ssd_chunk", "ssd_chunk_pass_kernel"),
+                    ("ssd_chunk", "ssd_chunk_scan_kernel"))
 # (B, Sq, Skv, H, KV, D): tests/test_kernels.py's sweep, head dim 112 (zamba2's
 # shared block), a ragged S, Sq != Skv, and internlm2's prefill geometry
 FLASH_CASES = [(1, 128, 128, 4, 4, 32), (2, 256, 256, 4, 2, 64),
@@ -499,6 +511,26 @@ def _qkv(torch, gen, B, Sq, Skv, H, KV, D, dtype):
             torch.randn((B, KV, Skv, D), generator=gen, device="cuda").to(tdt))
 
 
+def resource_report(build):
+    """ptxas's registers, static shared memory and spills (bytes) of the
+    RESOURCE_KERNELS, from the build's ``-Xptxas=-v`` log, by kernel name
+    with its template argument; dynamic shared memory is set at launch."""
+    import re
+    args = {"f": "float", "13__nv_bfloat16": "bf16"}
+    out = {}
+    for lib, kernel in RESOURCE_KERNELS:
+        for mangled, usage in build.resource_usage(
+                build.build_log(lib)).items():
+            m = re.search(kernel + r"(?:I(\w+?)E)?E", mangled)
+            if m is None:
+                continue
+            arg = m.group(1)
+            name = kernel if arg is None else \
+                f"{kernel}<{args.get(arg, arg.removeprefix('Li'))}>"
+            out[name] = usage
+    return out
+
+
 def _row_scaled(torch, x, oracle):
     """(max, mean) over output rows of max_d |x - oracle| / rms_d(oracle)."""
     e = ((x.float() - oracle).abs().amax(dim=-1)
@@ -705,9 +737,13 @@ def ssd_work(B, H, S, P, N, chunk, itemsize):
 
 
 def time_ssd(torch, sk, flush, reps=20):
-    """The kernel at the main-path geometry (one Mamba-2 layer's prefill,
-    f32), beside its bound and its plain version.  No single PyTorch call
-    computes the chunked scan, so there is no library time."""
+    """The kernels at the main-path geometry (one Mamba-2 layer's prefill,
+    f32), beside their bound and their plain version.  The bound takes the
+    products at the TF32 tensor-core rate spent three times a product
+    (3xTF32, as the kernels run them) and the bytes at the memory rate;
+    ``fma_bound_ms`` takes the products on f32 FMAs instead, the units of
+    the one-kernel version before it.  No single PyTorch call computes the
+    chunked scan, so there is no library time."""
     B, H, S, P, N, chunk = MAIN_SSD
     gen = torch.Generator(device="cuda").manual_seed(5)
     x, a, b, c = _ssd_inputs(torch, gen, B, H, S, P, N, "float32")
@@ -715,7 +751,8 @@ def time_ssd(torch, sk, flush, reps=20):
     err = _ssd_close(torch, run(), sk.ssd_chunk_bhcp_plain(
         x, a, b, c, chunk=chunk), "float32", "the main geometry")
     flops, nbytes = ssd_work(B, H, S, P, N, chunk, 4)
-    flop_ms = flops / F32_FLOPS_PER_S * 1e3
+    flop_ms = flops / SSD_PRODUCT_FLOPS_PER_S * 1e3
+    fma_ms = flops / F32_FLOPS_PER_S * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     none = lambda: None
     ms, host_ms = _median_ms(torch, run, none, flush, reps)
@@ -729,6 +766,8 @@ def time_ssd(torch, sk, flush, reps=20):
                             "SSD scan",
             "bound_ms": max(flop_ms, byte_ms),
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "bound_units": "3xTF32 tensor cores (495/3 TFLOP/s) or 3.35 TB/s",
+            "fma_bound_ms": max(fma_ms, byte_ms),
             "tflops_per_s": flops / (ms * 1e-3) / 1e12,
             "share_of_bound": max(flop_ms, byte_ms) / ms,
             "max_abs_err": err}
@@ -1104,6 +1143,7 @@ def main() -> int:
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc_s": built, "build_s": time.perf_counter() - t0})
+    emit({"phase": "resources", "kernels": resource_report(build)})
 
     # -- 2. the merge kernel against its plain version
     worst, cases = check_sweep(torch, kernel)
@@ -1223,6 +1263,7 @@ def main() -> int:
         "max_abs_err": max(max(sworst.values()), sd["max_abs_err"]),
         "ms": sd["ms"], "plain_ms": sd["plain_ms"],
         "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
+        "bound_units": sd["bound_units"], "fma_bound_ms": sd["fma_bound_ms"],
         "library_ms": None}, {
         "name": "mlstm_chunk_bhsd", "route": "cuda", "source": MLSTM_SOURCE,
         "replaces": MLSTM_REPLACES,

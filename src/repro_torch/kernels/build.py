@@ -14,6 +14,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -32,7 +33,7 @@ KERNEL_SOURCES: Dict[str, pathlib.Path] = {
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: seconds each library took to compile in this process (absent: loaded
 #: from an earlier build)
@@ -56,6 +57,40 @@ def library_path(name: str) -> pathlib.Path:
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build_log(name: str) -> str:
+    """What ``nvcc`` printed when it built the library now in use (kept
+    beside it), ptxas's report of every kernel among it; "" if none."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def resource_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """ptxas's report in an ``nvcc -Xptxas=-v`` log, by kernel (the mangled
+    name): registers, static shared memory bytes, spill stores and loads
+    in bytes.  Dynamic shared memory is set at launch and is not in it."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn is None:
+            continue
+        rec = out.setdefault(fn, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rec["spill_stores"], rec["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            rec["static_smem"] = int(m.group(1)) if m else 0
+    return {k: v for k, v in out.items() if "registers" in v}
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
@@ -82,6 +117,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         BUILD_SECONDS[name] = time.perf_counter() - t0
     if failed:

@@ -14,29 +14,65 @@
 // Bound at the main-path shape (prefill of internlm2-1.8b: B=4, S=4096,
 // H=16, KV=8, D=128, bf16, causal): tensor-core FLOPs.  4*B*H*S^2*D/2 is
 // ~275 GFLOP against 64 MB of q/k/v/o, ~4,300 FLOP per byte, far above the
-// H100's ~295 FLOP/byte ridge.  What the design does about it:
-//   * the TPU kernel's sequential kv grid axis, with (m, l, acc) in VMEM
-//     scratch, becomes a loop inside one block: one block per (b, h,
-//     128-row query tile), 8 warps of 16 query rows; each 64-key K/V tile
-//     streams through shared memory once per block and is read by all eight
-//     warps, double-buffered with cp.async so the next tile's copy overlaps
-//     this tile's products;
-//   * bf16 runs on the tensor cores (mma.sync m16n8k16, bf16 operands, f32
-//     accumulation); S stays in registers and is re-packed as the A operand
-//     of the PV product, so scores never touch shared or device memory;
-//     V's B fragments come from ldmatrix.trans; the softmax runs in base 2
-//     (the scale folded with log2 e), which is the same function;
-//   * under `causal` the loop stops at the diagonal tile (the counterpart of
-//     the reference's `pl.when(run)` skip) and the heaviest query tiles are
-//     scheduled first;
-//   * the mask is computed only on tiles that need it (diagonal, window
-//     edge, ragged end); keys past Skv score -inf so a ragged last tile
-//     contributes nothing, and query rows past Sq are computed on zeros and
-//     never stored: every (Sq, Skv) the reference takes is taken here;
-//   * q/k/v/o are read through strides (the head dim contiguous), so the
-//     model's (B,S,H,D) layout needs no transpose.
-// f32 runs on plain FMAs in 64-row tiles (the sweep's dtype, not the main
-// path's).  wgmma, TMA and warp specialisation are later work.
+// H100's ~295 FLOP/byte ridge; only wgmma reaches the tensor cores' full
+// rate.  The bf16 kernel (`flash_fwd_bf16_wgmma`) is shaped for that:
+//   * one block per (b, h, 128-row query tile), heaviest causal tiles
+//     first; three warpgroups: two consumers of 64 query rows each, and a
+//     producer warpgroup one thread of which issues every copy.
+//     setmaxnreg moves registers from the producer (40 a thread) to the
+//     consumers (232); the role is taken from a shuffle, so the compiler
+//     sees it is warp-uniform;
+//   * the producer loads the Q tile once, then streams K and V tiles of 96
+//     keys (64 at D <= 64) with TMA (cp.async.bulk.tensor) into a ring of
+//     three stages (four), each stage with full and empty mbarriers for K
+//     and for V; no consumer thread computes an address or issues a copy,
+//     and only the mbarriers order the warpgroups;
+//   * S = Q K^T is wgmma m64n96k16 with Q and K read from shared memory
+//     (K-major); the online softmax runs on S in registers, in base 2 with
+//     the scale folded in (one FMA and one ex2 a score on unmasked tiles);
+//     P is rounded to bf16 in registers and is the A operand of O += P V
+//     (wgmma m64nDk16), V the B operand read from shared memory in its
+//     (keys, D) layout, MN-major, which wgmma transposes as it reads
+//     (allowed for 16-bit types);
+//   * each consumer issues QK_j^T and then P_{j-1} V_{j-1}, and runs tile
+//     j's softmax while that PV product is in flight (the first tile is
+//     peeled, so every wait is unconditional).  Nothing but the products
+//     writes their registers while they run: a write there makes ptxas
+//     serialise every wgmma (warning C7515).  A row whose max did not move
+//     keeps o as it is, and a warp skips the rescale when none of its rows
+//     moved.  ptxas allocates the consumers 168 registers, whatever
+//     setmaxnreg grants: 128-key tiles spilled S and P and serialised the
+//     products, 96-key tiles fit at D=112 and spill a few bytes at D=128;
+//   * the tensor maps are built on the host over the strided (B,H,S,D)
+//     views the wrapper is handed (the model's (B,S,H,D) buffers, no
+//     copy), four dimensions with the views' own byte strides, and passed
+//     as __grid_constant__ parameters.  cuTensorMapEncodeTiled is taken
+//     through cudaGetDriverEntryPoint, so the library needs no -lcuda;
+//   * tiles land 128-byte swizzled (64-byte at D=32, whose rows are 64
+//     bytes), which wgmma's descriptors read without bank conflicts.  A
+//     swizzled row spans 64 bf16 columns, so D=128 loads as two 64-column
+//     slabs.  D=112 loads as two slabs too: columns 112-127 of the second
+//     lie outside the tensor map and TMA fills them with zeros.  The
+//     products skip them: QK^T takes 7 steps of 16 columns, not 8, and PV
+//     is m64n112k16, so D=112 does the products it needs and no more;
+//   * TMA zero-fills rows past Sq and Skv; a zero key scores 0, not -inf,
+//     so keys past Skv are masked to -inf here, and query rows past Sq are
+//     computed on zeros and never stored.  The mask is computed only on
+//     tiles that need it (diagonal, window edge, ragged end); under
+//     `causal` the loop stops at the diagonal tile, and the first consumer
+//     skips the block's last tile, which its rows never see;
+//   * the reduction order depends on the tile positions only, never on the
+//     strides, so every layout of the same numbers gives the same output.
+// Left for later: a persistent grid of one block an SM (one tile's
+// epilogue over the next one's loads), 128-key tiles (which need the
+// consumers' registers past 168), the output stored through shared memory
+// with TMA, and FP8.  Ping-pong scheduling of the two consumers (named
+// barriers) was tried and moved nothing measurable.
+//
+// f32 runs on plain FMAs in 64-row tiles (`flash_fwd_f32`; the sweep's
+// dtype, not the main path's), reading its operands through element
+// strides.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,9 +80,8 @@
 
 namespace {
 
-constexpr int BQ_BF16 = 128;   // query rows per block: 8 warps of 16
 constexpr int BQ_F32 = 64;     // query rows per block: 16 x 16 threads
-constexpr int BK = 64;         // keys per kv tile
+constexpr int BK = 64;         // keys per kv tile (f32)
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -81,49 +116,148 @@ __device__ __forceinline__ int kv_tiles(const Params& p, int q0) {
   return p.causal ? min(n, (q0 + BQ - 1) / BK + 1) : n;
 }
 
-__device__ __forceinline__ float apply_mask(float s, int qp, int kp,
-                                            const Params& p) {
-  if (kp >= p.Skv) return -INFINITY;   // past the ragged end: contributes 0
-  bool keep = !p.causal || qp >= kp;
-  if (p.window > 0) keep = keep && (qp - kp) < p.window;
+__device__ __forceinline__ float mask_score(float s, int qp, int kp, int Skv,
+                                            int causal, int window) {
+  if (kp >= Skv) return -INFINITY;   // past the ragged end: contributes 0
+  bool keep = !causal || qp >= kp;
+  if (window > 0) keep = keep && (qp - kp) < window;
   return keep ? s : kNegInf;
 }
 
-// Start copying rows [row0, row0 + ROWS) of a (rows, D) slab into shared
-// memory with row stride LD, 16 bytes a cp.async; rows past `nrows` are
-// zero-filled (a zero-byte source read, from the slab's first row).
-template <typename T, int D, int LD, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile_async(T* dst, const T* src,
-                                                long long stride, int row0,
-                                                int nrows) {
-  constexpr int PER = 16 / sizeof(T);
-  constexpr int CH = D / PER;
-  for (int c = threadIdx.x; c < ROWS * CH; c += THREADS) {
-    const int r = c / CH, cc = c % CH;
-    const bool in = row0 + r < nrows;
-    const T* g = src + (long long)(in ? row0 + r : 0) * stride + cc * PER;
-    const uint32_t d = static_cast<uint32_t>(
-        __cvta_generic_to_shared(dst + r * LD + cc * PER));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(d), "l"(g), "r"(in ? 16 : 0));
+__device__ __forceinline__ float apply_mask(float s, int qp, int kp,
+                                            const Params& p) {
+  return mask_score(s, qp, kp, p.Skv, p.causal, p.window);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma fed by TMA, warp-specialised
+// ---------------------------------------------------------------------------
+
+constexpr int TQ = 128;        // query rows per block: 2 consumers x 64
+constexpr int CONSUMERS = 2;   // consumer warpgroups
+constexpr int THREADS_BF16 = 128 * (CONSUMERS + 1);  // + the producer
+
+// Shared-memory geometry of one head dim: tiles are slabs of SW-byte
+// swizzled rows (SW / 2 columns each).
+template <int D>
+struct Geo {
+  // keys a K/V tile and the ring's depth: 96 x 3 at D=112 and 128, where
+  // the larger tile pays (D=128 spills a few bytes of P, and is still
+  // faster than with 64 keys), 64 x 4 below
+  static constexpr int TK = D >= 112 ? 96 : 64;
+  static constexpr int STAGES = D >= 112 ? 3 : 4;
+  static constexpr int SW = D == 32 ? 64 : 128;
+  static constexpr int SLAB = SW / 2;                    // columns a slab
+  static constexpr int NSLAB = (D + SLAB - 1) / SLAB;
+  static constexpr int Q_BYTES = TQ * SW * NSLAB;
+  static constexpr int KV_BYTES = TK * SW * NSLAB;       // one K or V tile
+  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
+  // 1 KB of slack to align the tiles to the swizzle's 1 KB period
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;  // B128 or B64
+};
+
+// Which coordinate of a tensor map is the sequence, head and batch index
+// (the head dim is always coordinate 0): the maps order their dimensions
+// by stride, which the host chose.
+struct MapOrder {
+  int s, h, b;
+};
+
+struct TmaParams {
+  void* o;
+  int H, KV, Sq, Skv;
+  long long os_b, os_h, os_s;   // output strides in elements (head dim: 1)
+  int causal, window;
+  float sl2;                    // scale * log2(e)
+  MapOrder qo, ko, vo;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.  A phase that
+// never completes (a lost arrival or copy) traps after 2^26 polls, each a
+// suspended try_wait (seconds; a block's waits are on its own copies and
+// warps, microseconds), instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (polls == (1u << 26)) __trap();
   }
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// One TMA box of a 4-d tensor map into shared memory, completing on `bar`.
+// (col, row, h, b) are placed at the map's own coordinates.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         const MapOrder& o, int col, int row,
+                                         int h, int b, uint64_t* bar) {
+  const int c1 = o.s == 1 ? row : o.h == 1 ? h : b;
+  const int c2 = o.s == 2 ? row : o.h == 2 ? h : b;
+  const int c3 = o.s == 3 ? row : o.h == 3 ? h : b;
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(col), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle layout.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void fence_words(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -131,185 +265,529 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// c += a (16x16, row) * b (16x8, col); bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
+// d (64 x 96, f32) (+)= A (64 x 16, shared, K-major) * B (96 x 16, shared,
+// K-major)^T; d is overwritten when `accumulate` is 0
+__device__ __forceinline__ void wgmma_ss_n96(float* d, uint64_t da,
+                                              uint64_t db, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// d (64 x 96, f32) = A (64 x 16, shared, K-major) * B (96 x 16, shared,
+// K-major)^T: the first product of a chain, which reads nothing of d
+__device__ __forceinline__ void wgmma_ss_n96_zero(float* d, uint64_t da,
+                                                   uint64_t db) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      :
+        "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
+        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
+        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16, shared, K-major) * B (64 x 16, shared,
+// K-major)^T; d is overwritten when `accumulate` is 0
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) = A (64 x 16, shared, K-major) * B (64 x 16, shared,
+// K-major)^T: the first product of a chain, which reads nothing of d
+__device__ __forceinline__ void wgmma_ss_n64_zero(float* d, uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// d (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128, shared,
+// MN-major: transposed as it is read, which wgmma allows for 16-bit types)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 112, f32) += A (64 x 16, bf16 in registers) * B (16 x 112, shared,
+// MN-major: transposed as it is read, which wgmma allows for 16-bit types)
+__device__ __forceinline__ void wgmma_rs_n112(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64, shared,
+// MN-major: transposed as it is read, which wgmma allows for 16-bit types)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 32, f32) += A (64 x 16, bf16 in registers) * B (16 x 32, shared,
+// MN-major: transposed as it is read, which wgmma allows for 16-bit types)
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int TK>
+__device__ __forceinline__ void wgmma_qk_zero(float* s, uint64_t da,
+                                              uint64_t db) {
+  if constexpr (TK == 96) wgmma_ss_n96_zero(s, da, db);
+  else wgmma_ss_n64_zero(s, da, db);
+}
+
+template <int TK>
+__device__ __forceinline__ void wgmma_qk(float* s, uint64_t da, uint64_t db) {
+  if constexpr (TK == 96) wgmma_ss_n96(s, da, db, 1);
+  else wgmma_ss_n64(s, da, db, 1);
 }
 
 template <int D>
-__global__ void __launch_bounds__(256)
-    flash_fwd_bf16(const Params p) {
-  constexpr int BQ = BQ_BF16;
-  constexpr int LD = D + 8;   // padded rows: conflict-free fragment loads
-  extern __shared__ __align__(16) unsigned char smem[];
-  // Q, then two stages of (K, V)
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* KVs = Qs + BQ * LD;
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (D == 128) wgmma_rs_n128(o, a, db);
+  else if constexpr (D == 112) wgmma_rs_n112(o, a, db);
+  else if constexpr (D == 64) wgmma_rs_n64(o, a, db);
+  else wgmma_rs_n32(o, a, db);
+}
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;   // heaviest tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KV);
-  const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.qs_b + h * p.qs_h;
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.ks_b + kvh * p.ks_h;
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.vs_b + kvh * p.vs_h;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g;          // this thread's rows: r0, r0 + 8
-  const int qp0 = q0 + r0, qp1 = qp0 + 8;
-  const float sl2 = p.scale * kLog2e;    // scores in base 2
+// The online softmax of one consumer thread's two rows (qp0, qp1) over a
+// TK-key tile at k0, in base 2 with the scale folded in.  s[i] holds row
+// (i % 4 < 2 ? qp0 : qp1), key k0 + 8 (i / 4) + 2t + (i % 2).  Nothing but
+// the products writes s (a write there while PV runs would serialise every
+// wgmma): the scaled, masked score is formed twice, for the max and for p.
+// The mask is computed only on tiles that need it (diagonal, window edge,
+// ragged end).
+template <int TK>
+struct Softmax {
+  const TmaParams& p;
+  int qlo, qp0, qp1, t;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: this thread's
+  float c0 = 1.f, c1 = 1.f;   // the last tile's correction of o and l
 
-  const int n_tiles = kv_tiles<BQ>(p, q0);
-  load_tile_async<__nv_bfloat16, D, LD, BQ, 256>(Qs, qg, p.qs_s, q0, p.Sq);
-  load_tile_async<__nv_bfloat16, D, LD, BK, 256>(KVs, kg, p.ks_s, 0, p.Skv);
-  load_tile_async<__nv_bfloat16, D, LD, BK, 256>(KVs + BK * LD, vg, p.vs_s, 0,
-                                                 p.Skv);
-  cp_async_commit();
+  __device__ __forceinline__ Softmax(const TmaParams& p_, int qlo_, int qp0_,
+                                     int qp1_, int t_)
+      : p(p_), qlo(qlo_), qp0(qp0_), qp1(qp1_), t(t_) {}
 
-  uint32_t qf[D / 16][4];
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  template <bool MASK>
+  __device__ __forceinline__ float score(const float* s, int i, int k0) const {
+    const float x = s[i] * p.sl2;
+    if (!MASK) return x;
+    return mask_score(x, (i & 2) ? qp1 : qp0,
+                      k0 + 8 * (i >> 2) + 2 * t + (i & 1), p.Skv, p.causal,
+                      p.window);
+  }
 
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BK;
-    if (j + 1 < n_tiles) {   // prefetch the next tile into the other stage
-      __nv_bfloat16* nxt = KVs + ((j + 1) & 1) * 2 * BK * LD;
-      load_tile_async<__nv_bfloat16, D, LD, BK, 256>(nxt, kg, p.ks_s, k0 + BK,
-                                                     p.Skv);
-      load_tile_async<__nv_bfloat16, D, LD, BK, 256>(nxt + BK * LD, vg,
-                                                     p.vs_s, k0 + BK, p.Skv);
-      cp_async_commit();
-      cp_async_wait<1>();    // everything but that prefetch has landed
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* base = Qs + kk * 16 + 2 * t;
-        qf[kk][0] = ld32(base + r0 * LD);
-        qf[kk][1] = ld32(base + (r0 + 8) * LD);
-        qf[kk][2] = ld32(base + r0 * LD + 8);
-        qf[kk][3] = ld32(base + (r0 + 8) * LD + 8);
-      }
-    }
-    const __nv_bfloat16* Ks = KVs + (j & 1) * 2 * BK * LD;
-    const __nv_bfloat16* Vs = Ks + BK * LD;
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        const __nv_bfloat16* kb = Ks + (n * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_16816(s[n], qf[kk], ld32(kb), ld32(kb + 8));
-      }
-    }
-
-    const bool need = tile_needs_mask<BQ>(p, q0, k0);
+  template <bool MASK>
+  __device__ __forceinline__ void run(const float* s, float* pr, int k0) {
+    // unmasked, the max is taken over the raw scores (the scale is
+    // positive) and p = 2^(s * scale - m) is one FMA and one exp2
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * sl2;
-        if (need)
-          x = apply_mask(x, e < 2 ? qp0 : qp1, k0 + n * 8 + 2 * t + (e & 1), p);
-        s[n][e] = x;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    for (int i = 0; i < TK / 2; ++i) {
+      const float x = MASK ? score<MASK>(s, i, k0) : s[i];
+      if (i & 2) mx1 = fmaxf(mx1, x);
+      else mx0 = fmaxf(mx0, x);
     }
-    // the four threads of a group hold a row's 64 scores between them
+    if (!MASK) {
+      mx0 *= p.sl2;
+      mx1 *= p.sl2;
+    }
+    // the four threads of a quad hold a row's scores between them
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = exp2f(m0 - mn0), c1 = exp2f(m1 - mn1);
+    c0 = ex2(m0 - mn0);
+    c1 = ex2(m1 - mn1);
     float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = exp2f(s[n][0] - mn0);
-      s[n][1] = exp2f(s[n][1] - mn0);
-      s[n][2] = exp2f(s[n][2] - mn1);
-      s[n][3] = exp2f(s[n][3] - mn1);
-      sum0 += s[n][0] + s[n][1];
-      sum1 += s[n][2] + s[n][3];
+    for (int i = 0; i < TK / 2; ++i) {
+      const float mn = (i & 2) ? mn1 : mn0;
+      pr[i] = ex2(MASK ? score<MASK>(s, i, k0) - mn : fmaf(s[i], p.sl2, -mn));
+      if (i & 2) sum1 += pr[i];
+      else sum0 += pr[i];
     }
-    l0 = l0 * c0 + sum0;   // this thread's share of the row sum
+    l0 = l0 * c0 + sum0;
     l1 = l1 * c1 + sum1;
     m0 = mn0;
     m1 = mn1;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= c0;
-      o[n][1] *= c0;
-      o[n][2] *= c1;
-      o[n][3] *= c1;
-    }
-
-    // O += P V: P (rounded to bf16) is the A operand straight from registers
-#pragma unroll
-    for (int ks = 0; ks < BK / 16; ++ks) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
-      a[1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
-      a[2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
-      a[3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
-      const __nv_bfloat16* vrow =
-          Vs + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-          (lane >> 4) * 8;
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vrow + dn * 16);
-        mma_16816(o[2 * dn], a, bv[0], bv[1]);
-        mma_16816(o[2 * dn + 1], a, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();   // every warp is done with this stage before refill
   }
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.os_b + h * p.os_h;
+  __device__ __forceinline__ void tile(const float* s, float* pr, int k0) {
+    const bool need = k0 + TK > p.Skv || (p.causal && k0 + TK - 1 > qlo) ||
+                      (p.window > 0 && qlo + 63 - k0 >= p.window);
+    if (need) run<true>(s, pr, k0);
+    else run<false>(s, pr, k0);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS_BF16, 1)
+    flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const TmaParams p) {
+  using G = Geo<D>;
+  constexpr int TK = G::TK, STAGES = G::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = base;
+  unsigned char* Ks = base + G::Q_BYTES;                       // STAGES tiles
+  unsigned char* Vs = Ks + STAGES * G::KV_BYTES;               // STAGES tiles
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + G::BAR_OFF);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* k_empty = v_full + STAGES;
+  uint64_t* v_empty = k_empty + STAGES;
+
+  // one block per (query tile, h, b), the query tile slowest: the heaviest
+  // causal tiles of every head go first, the light ones fill the tail
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TQ;   // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (p.H / p.KV);
+  const int n_all = (p.Skv + TK - 1) / TK;
+  const int n_tiles = p.causal ? min(n_all, (q0 + TQ - 1) / TK + 1) : n_all;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_empty + s, CONSUMERS * 4);   // one arrival a consumer warp
+      mbar_init(v_empty + s, CONSUMERS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup's role, warp-uniform by construction (a shuffle), so the
+  // compiler gives each branch the register budget its setmaxnreg sets
+  const int role = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (role == CONSUMERS) {
+    // ---- producer warpgroup: one thread issues every copy.  A K
+    // stage is refilled once both consumers' QK^T have read it, a V stage
+    // once their PV has ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 128 * CONSUMERS) {
+      mbar_expect_tx(q_full, G::Q_BYTES);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int d = n * 8 + 2 * t;
-    if (qp0 < p.Sq)
-      *reinterpret_cast<uint32_t*>(og + qp0 * p.os_s + d) =
-          pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
-    if (qp1 < p.Sq)
-      *reinterpret_cast<uint32_t*>(og + qp1 * p.os_s + d) =
-          pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
+      for (int s = 0; s < G::NSLAB; ++s)
+        tma_load(Qs + s * TQ * G::SW, &qmap, p.qo, s * G::SLAB, q0, h, b,
+                 q_full);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % STAGES, use = j / STAGES;
+        unsigned char* kd = Ks + st * G::KV_BYTES;
+        unsigned char* vd = Vs + st * G::KV_BYTES;
+        if (use > 0) mbar_wait(k_empty + st, (use - 1) & 1);
+        mbar_expect_tx(k_full + st, G::KV_BYTES);
+#pragma unroll
+        for (int s = 0; s < G::NSLAB; ++s)
+          tma_load(kd + s * TK * G::SW, &kmap, p.ko, s * G::SLAB, j * TK,
+                   kvh, b, k_full + st);
+        if (use > 0) mbar_wait(v_empty + st, (use - 1) & 1);
+        mbar_expect_tx(v_full + st, G::KV_BYTES);
+#pragma unroll
+        for (int s = 0; s < G::NSLAB; ++s)
+          tma_load(vd + s * TK * G::SW, &vmap, p.vo, s * G::SLAB, j * TK,
+                   kvh, b, v_full + st);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each.  Iteration j issues QK_j^T, then
+    // P_{j-1} V_{j-1}, and runs tile j's softmax while the PV product is in
+    // flight; the first tile is peeled, so every wait is unconditional ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = role;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int qlo = q0 + wg * 64;             // this warpgroup's first row
+    const int qp0 = qlo + warp * 16 + g;      // this thread's rows: qp0, +8
+    const int qp1 = qp0 + 8;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    Softmax<TK> sm(p, qlo, qp0, qp1, t);
+    uint32_t pa[TK / 16][4];   // P of the last tile, bf16 A fragments
+    float s[TK / 2], pr[TK / 2];
+
+    // descriptors of stage 0's tiles (Q: this warpgroup's 64 rows); a
+    // descriptor steps by its byte offset >> 4 in the address field
+    const uint64_t q_desc = gmma_desc(smem_u32(Qs) + wg * 64 * G::SW, 16,
+                                      8 * G::SW, G::LAYOUT);
+    const uint64_t k_desc = gmma_desc(smem_u32(Ks), 16, 8 * G::SW, G::LAYOUT);
+    const uint64_t v_desc = gmma_desc(smem_u32(Vs), TK * G::SW, 8 * G::SW,
+                                      G::LAYOUT);
+    // S = Q K_j^T (64 rows x TK keys) over the slabs of the head dim, and
+    // O += P V_j (V MN-major, 16 keys a step, the slabs LBO apart).  Each
+    // batch is fenced on its own, and no other instruction defines a
+    // register of a product while one runs
+    auto issue_qk = [&](int j) {
+      const int st = j % STAGES;
+      mbar_wait(k_full + st, (j / STAGES) & 1);
+      fence_regs<D / 2>(o);         // settled while no product is in flight
+      fence_words<TK / 4>(&pa[0][0]);
+      wgmma_fence();
+#pragma unroll
+      for (int sl = 0; sl < G::NSLAB; ++sl) {
+#pragma unroll
+        for (int kk = 0; kk < G::SLAB / 16; ++kk) {
+          if (sl * G::SLAB + kk * 16 >= D) break;   // D=112's zero columns
+          const uint64_t da = q_desc + ((sl * TQ * G::SW + kk * 32) >> 4);
+          const uint64_t db = k_desc + ((st * G::KV_BYTES + sl * TK * G::SW +
+                                         kk * 32) >> 4);
+          if (sl == 0 && kk == 0) wgmma_qk_zero<TK>(s, da, db);
+          else wgmma_qk<TK>(s, da, db);
+        }
+      }
+      wgmma_commit();
+    };
+    auto issue_pv = [&](int j) {
+      const int st = j % STAGES;
+      mbar_wait(v_full + st, (j / STAGES) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk)
+        wgmma_pv<D>(o, pa[kk],
+                        v_desc + ((st * G::KV_BYTES + kk * 16 * G::SW) >> 4));
+      wgmma_commit();
+    };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);   // this warp is done with the stage
+    };
+    // P rounded to bf16, in the A-operand layout of m64k16: the accumulator
+    // of keys 16kk..16kk+15 is that fragment already
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(pr[8 * kk + 0], pr[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(pr[8 * kk + 2], pr[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(pr[8 * kk + 4], pr[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(pr[8 * kk + 6], pr[8 * kk + 7]);
+      }
+    };
+
+    mbar_wait(q_full, 0);
+    // under `causal` the first warpgroup's rows end a tile before the
+    // block's: it skips that last, fully masked tile (no later tile
+    // refills its stage, so nothing waits for its release)
+    const int n_mine =
+        p.causal ? min(n_tiles, (qlo + 63) / TK + 1) : n_tiles;
+    issue_qk(0);
+    wgmma_wait<0>();
+    fence_regs<TK / 2>(s);
+    release(k_empty);
+    sm.tile(s, pr, 0);
+    pack_p();
+    for (int j = 1; j < n_mine; ++j) {
+      issue_qk(j);
+      issue_pv(j - 1);
+      wgmma_wait<1>();              // QK_j^T is done; PV_{j-1} may run on
+      fence_regs<TK / 2>(s);
+      release(k_empty + j % STAGES);
+      sm.tile(s, pr, j * TK);
+      wgmma_wait<0>();              // PV_{j-1} is done: o and pa are free
+      fence_regs<D / 2>(o);
+      release(v_empty + (j - 1) % STAGES);
+      // a row whose max did not move keeps o as it is (c = 1 exactly); the
+      // warp skips the rescale when none of its rows moved
+      if (__any_sync(0xffffffffu, sm.c0 != 1.f || sm.c1 != 1.f)) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? sm.c1 : sm.c0;
+      }
+      pack_p();
+    }
+    issue_pv(n_mine - 1);
+    wgmma_wait<0>();
+    fence_regs<D / 2>(o);
+
+    float l0 = sm.l0, l1 = sm.l1;
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.os_b +
+                        h * p.os_h;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int d = n * 8 + 2 * t;
+      if (qp0 < p.Sq)
+        *reinterpret_cast<uint32_t*>(og + qp0 * p.os_s + d) =
+            pack_bf16(o[4 * n] * inv0, o[4 * n + 1] * inv0);
+      if (qp1 < p.Sq)
+        *reinterpret_cast<uint32_t*>(og + qp1 * p.os_s + d) =
+            pack_bf16(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
+    }
   }
 }
 
@@ -447,38 +925,128 @@ __global__ void __launch_bounds__(256)
 }
 
 template <int D>
-cudaError_t launch(const Params& p, bool bf16, cudaStream_t stream) {
-  cudaError_t err;
-  if (bf16) {
-    constexpr int smem = (BQ_BF16 + 4 * BK) * (D + 8) * 2;   // Q + 2 x (K, V)
-    err = cudaFuncSetAttribute(flash_fwd_bf16<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.Sq + BQ_BF16 - 1) / BQ_BF16, p.H, p.B);
-    flash_fwd_bf16<D><<<grid, 256, smem, stream>>>(p);
-  } else {
-    constexpr int smem =
-        (2 * BQ_F32 * (D + 1) + BK * D + BQ_F32 * (BK + 1)) * 4;
-    err = cudaFuncSetAttribute(flash_fwd_f32<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.Sq + BQ_F32 - 1) / BQ_F32, p.H, p.B);
-    flash_fwd_f32<D><<<grid, 256, smem, stream>>>(p);
-  }
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  constexpr int smem =
+      (2 * BQ_F32 * (D + 1) + BK * D + BQ_F32 * (BK + 1)) * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + BQ_F32 - 1) / BQ_F32, p.H, p.B);
+  flash_fwd_f32<D><<<grid, 256, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// Error codes past the runtime's: a tensor map the driver refused
+// (kMapError + its CUresult), or no driver entry point.
+constexpr int kMapError = 100000;
+constexpr int kNoEntryPoint = 99999;
+
+// One (B,H,S,D) bf16 view's tensor map.  geo: 4 dims (innermost first; the
+// head dim is dim 0), 3 byte strides of dims 1-3, 4 box dims, the swizzle
+// bytes, then which map coordinate is s, h and b: 15 values, from the
+// wrapper's `_tma_geometry`.
+int encode_map(CUtensorMap* map, const void* ptr, const long long* geo,
+               int box_rows, int swizzle, MapOrder* order) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return kNoEntryPoint;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4], elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    dims[i] = static_cast<cuuint64_t>(geo[i]);
+    box[i] = static_cast<cuuint32_t>(geo[7 + i]);
+  }
+  for (int i = 0; i < 3; ++i) strides[i] = static_cast<cuuint64_t>(geo[4 + i]);
+  order->s = static_cast<int>(geo[12]);
+  order->h = static_cast<int>(geo[13]);
+  order->b = static_cast<int>(geo[14]);
+  // the kernel's tiles: one swizzled slab wide, box_rows rows
+  if (geo[11] != swizzle || box[0] * 2 != static_cast<cuuint32_t>(swizzle) ||
+      box[order->s] != static_cast<cuuint32_t>(box_rows) ||
+      box[order->h] != 1 || box[order->b] != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(r);
+}
+
+template <int D>
+int launch_bf16(const Params& p, const long long* geo, cudaStream_t stream) {
+  using G = Geo<D>;
+  CUtensorMap qmap, kmap, vmap;
+  TmaParams tp;
+  int err = encode_map(&qmap, p.q, geo, TQ, G::SW, &tp.qo);
+  if (err == 0) err = encode_map(&kmap, p.k, geo + 15, G::TK, G::SW, &tp.ko);
+  if (err == 0) err = encode_map(&vmap, p.v, geo + 30, G::TK, G::SW, &tp.vo);
+  if (err != 0) return err;
+  tp.o = p.o;
+  tp.H = p.H;
+  tp.KV = p.KV;
+  tp.Sq = p.Sq;
+  tp.Skv = p.Skv;
+  tp.os_b = p.os_b;
+  tp.os_h = p.os_h;
+  tp.os_s = p.os_s;
+  tp.causal = p.causal;
+  tp.window = p.window;
+  tp.sl2 = p.scale * kLog2e;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_bf16_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((p.Sq + TQ - 1) / TQ, p.H, p.B);
+  flash_fwd_bf16_wgmma<D><<<grid, THREADS_BF16, G::SMEM, stream>>>(
+      qmap, kmap, vmap, tp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const Params& p, bool bf16, const long long* geo,
+           cudaStream_t stream) {
+  return bf16 ? launch_bf16<D>(p, geo, stream)
+              : static_cast<int>(launch_f32<D>(p, stream));
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  strides: 12 element strides, (b, h, s) of
-// q, k, v and o in turn; the head dim is contiguous.  Returns
-// cudaGetLastError() after the launch (0 on success); the caller raises on
-// anything else.
+// q, k, v and o in turn; the head dim is contiguous.  tma (bfloat16 only):
+// 3 x 15 values, the tensor-map geometry of q, k and v (see encode_map).
+// Returns 0 on success, else cudaGetLastError() after the launch, or a
+// code past 99,998 for a tensor map (see kMapError); the caller raises.
 extern "C" int flash_attention_bhsd_launch(
     int device, int dtype, const void* q, const void* k, const void* v,
     void* o, int B, int H, int KV, int Sq, int Skv, int D,
-    const long long* strides, int causal, int window, float scale,
-    void* stream) {
+    const long long* strides, const long long* tma, int causal, int window,
+    float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Params p;
@@ -499,13 +1067,14 @@ extern "C" int flash_attention_bhsd_launch(
   p.window = window;
   p.scale = scale;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const bool bf16 = dtype == 1;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  const bool bf16 = dtype == 1;
+  if (bf16 && tma == nullptr) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 32: return (int)launch<32>(p, bf16, s);
-    case 64: return (int)launch<64>(p, bf16, s);
-    case 112: return (int)launch<112>(p, bf16, s);   // zamba2's shared block
-    case 128: return (int)launch<128>(p, bf16, s);
+    case 32: return launch<32>(p, bf16, tma, s);
+    case 64: return launch<64>(p, bf16, tma, s);
+    case 112: return launch<112>(p, bf16, tma, s);   // zamba2's shared block
+    case 128: return launch<128>(p, bf16, tma, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -8,9 +8,12 @@ positions counted from 0, masked scores at -1e30, m/l/acc in f32, p rounded
 to v's dtype before the PV product, and l clamped at 1e-30.
 
 ``flash_attention_bhsd`` takes the plain version for CPU tensors only; for
-CUDA tensors it launches ``csrc/flash_attention.cu`` once (or raises).  The
-kernel reads its operands through strides, so any view whose head dim is
-contiguous (and whose other strides keep 16-byte rows) is taken as it is.
+CUDA tensors it launches ``csrc/flash_attention.cu`` once (or raises):
+bfloat16 runs the wgmma kernel fed by TMA, float32 the FMA kernel; the
+dtype alone decides.  Both read their operands through strides, so any view
+whose head dim is contiguous (and whose other strides keep 16-byte rows) is
+taken as it is: the bf16 kernel's tensor maps are built over the view's
+own byte strides (``_tma_geometry``).
 ``flash_attention_bhsd.launches`` counts kernel launches (the chip smoke
 reads it to show that prefill went through the kernel).
 
@@ -22,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +36,11 @@ NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
+#: rows of a TMA box: the bf16 kernel's query tile
+Q_TILE_ROWS = 128
+_MAX_TMA_STRIDE = 1 << 40      # byte strides must stay below it
+_MAX_TMA_DIM = 1 << 32
+_MAP_ERROR = 100_000           # the C side's code for a refused tensor map
 
 _count_lock = threading.Lock()
 _bind_lock = threading.Lock()
@@ -123,13 +131,76 @@ def _check(q, k, v, out) -> None:
             raise ValueError(f"B={B}, H={H}: at most {_MAX_GRID_YZ} each")
 
 
+class TmaGeometry(NamedTuple):
+    """What the C side encodes into one tensor map of a (B,H,S,D) view:
+    ``dims`` innermost first (the head dim is dim 0, the rest ordered by
+    stride), the byte ``strides`` of dims 1-3, the ``box`` of one tile (a
+    swizzled slab of the head dim by the tile's rows), the ``swizzle`` in
+    bytes (the slab's row bytes), and ``order``: which map dimension is the
+    sequence, head and batch index."""
+    dims: Tuple[int, int, int, int]
+    strides: Tuple[int, int, int]
+    box: Tuple[int, int, int, int]
+    swizzle: int
+    order: Tuple[int, int, int]
+
+    def packed(self) -> Tuple[int, ...]:
+        """The 15 values ``encode_map`` in the CUDA source reads."""
+        return (*self.dims, *self.strides, *self.box, self.swizzle,
+                *self.order)
+
+
+def kv_tile_rows(d: int) -> int:
+    """Keys of the bf16 kernel's K/V tile at head dim ``d`` (``Geo::TK`` in
+    the CUDA source): 96 at D=112 and 128, 64 below."""
+    return 96 if d >= 112 else 64
+
+
+def _tma_geometry(view: torch.Tensor, rows: int) -> TmaGeometry:
+    """The tensor map of a (B,H,S,D) bf16 view read in tiles of ``rows``
+    sequence positions, or ``ValueError`` for what
+    TMA refuses.  A row of the head dim lands 128-byte swizzled, a slab of
+    64 bf16 columns (D=128 and D=112 load as two slabs; TMA fills D=112's
+    columns past 112 with zeros); D=32's 64-byte rows take the 64-byte
+    swizzle.  Dims of size 1 take a harmless stride (the view's extent), as
+    torch may give them any."""
+    if view.ndim != 4:
+        raise ValueError("a tensor map is built over a (B, H, S, D) view")
+    es = view.element_size()
+    B, H, S, D = view.shape
+    if view.stride(3) != 1:
+        raise ValueError("the head dim must be contiguous (stride 1)")
+    if (D * es) % 16:
+        raise ValueError(f"TMA needs 16-byte rows: D={D} is {D * es} bytes")
+    swizzle = 64 if D * es <= 64 else 128
+    sizes = {"s": S, "h": H, "b": B}
+    raw = {"s": view.stride(2) * es, "h": view.stride(1) * es,
+           "b": view.stride(0) * es}
+    extent = max([D * es] + [raw[r] * sizes[r] for r in raw if sizes[r] > 1])
+    strides = {r: raw[r] if sizes[r] > 1 else extent for r in raw}
+    for r, st in strides.items():
+        if st <= 0 or st % 16 or st >= _MAX_TMA_STRIDE:
+            raise ValueError(f"TMA refuses a byte stride of {st} (dim {r}): "
+                             "positive multiples of 16 below 2**40 only")
+    if max(B, H, S, D) >= _MAX_TMA_DIM:
+        raise ValueError(f"TMA refuses dims of 2**32 or more: {view.shape}")
+    roles = sorted("shb", key=lambda r: (strides[r], "shb".index(r)))
+    box_of = {"s": rows, "h": 1, "b": 1}
+    return TmaGeometry(
+        dims=(D, *(sizes[r] for r in roles)),
+        strides=tuple(strides[r] for r in roles),
+        box=(swizzle // es, *(box_of[r] for r in roles)),
+        swizzle=swizzle,
+        order=tuple(1 + roles.index(r) for r in "shb"))
+
+
 def _bind():
     global _fn
     with _bind_lock:
         if _fn is None:
             fn = build.load("flash_attention").flash_attention_bhsd_launch
             p, i = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i, i, p, i, i,
+            fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i, i, p, p, i, i,
                            ctypes.c_float, p]
             fn.restype = ctypes.c_int
             _fn = fn
@@ -142,12 +213,25 @@ def _launch(q, k, v, out, causal: bool, window: int) -> None:
     KV, Skv = k.shape[1], k.shape[2]
     strides = np.array([s for t in (q, k, v, out) for s in t.stride()[:3]],
                        np.int64)
+    tma = None
+    if q.dtype == torch.bfloat16:
+        kv_rows = kv_tile_rows(d)
+        tma = np.array([x for t, rows in ((q, Q_TILE_ROWS), (k, kv_rows),
+                                          (v, kv_rows))
+                        for x in _tma_geometry(t, rows).packed()], np.int64)
     dev = q.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(dev.index if dev.index is not None else torch.cuda.current_device(),
              _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), B, H, KV, Sq, Skv, d, strides.ctypes.data,
-             int(causal), int(window), float(d ** -0.5), stream)
+             None if tma is None else tma.ctypes.data, int(causal),
+             int(window), float(d ** -0.5), stream)
+    if err >= _MAP_ERROR:
+        raise RuntimeError(f"flash_attention_bhsd: the driver refused a "
+                           f"tensor map (CUresult {err - _MAP_ERROR})")
+    if err == _MAP_ERROR - 1:
+        raise RuntimeError("flash_attention_bhsd: no driver entry point for "
+                           "cuTensorMapEncodeTiled")
     if err != 0:
         raise RuntimeError(f"flash_attention_bhsd: CUDA error {err} at launch")
     with _count_lock:

@@ -19,10 +19,14 @@ every S is taken, a ragged last chunk being masked, where the reference
 asserts that the chunk divides S.
 
 ``ssd_chunk_bhcp`` takes the plain version for CPU tensors only; for CUDA
-tensors it launches ``csrc/ssd_chunk.cu`` once (or raises).  The kernel
-reads its operands through strides (the P and N dims contiguous), so a
-transposed view of the model layout is taken as it is.
-``ssd_chunk_bhcp.launches`` counts kernel launches.
+tensors it runs ``csrc/ssd_chunk.cu`` once (or raises): one call is three
+kernels, the chunk states, the state passing and the outputs, through a
+scratch of every chunk's state (B, H, n_chunks, P, N) f32 that the wrapper
+allocates (``ssd_chunk_bhcp_passes_plain`` is the same three passes in
+plain PyTorch, for the tests).  The kernels read their operands through
+strides (the P and N dims contiguous), so a transposed view of the model
+layout is taken as it is.  ``ssd_chunk_bhcp.launches`` counts calls that
+ran the kernels, one per call.
 
 chunk <= 128, P <= 64 and N <= 64, float32 or bfloat16 (all four operands
 alike); anything else raises ``ValueError`` on every device, so the CPU
@@ -41,6 +45,7 @@ from repro_torch.kernels import build
 
 MAX_CHUNK, MAX_P, MAX_N = 128, 64, 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID_YZ = 65535        # the kernels' grids: chunks in y, batches in z
 
 _count_lock = threading.Lock()
 _bind_lock = threading.Lock()
@@ -82,6 +87,56 @@ def ssd_chunk_bhcp_plain(x: torch.Tensor, a_dt: torch.Tensor,
     return y, state
 
 
+def ssd_chunk_bhcp_passes_plain(x: torch.Tensor, a_dt: torch.Tensor,
+                                b: torch.Tensor, c: torch.Tensor, *,
+                                chunk: int = 128
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernels' three passes in plain PyTorch, with the same
+    scratch layout and entering-state convention: (a) every chunk's a_cum,
+    its last value and its contribution ``(x ⊙ w)ᵀ B`` with ``w =
+    exp(a_cum[-1] - a_cum)`` into a scratch (B, H, n_chunks, P, N); (b) the
+    state passing ``s_in[k] = s; s = s·exp(a_last[k]) + contrib[k]``, each
+    entering state written over its contribution; (c) every chunk's
+    ``y = ((C Bᵀ) ⊙ L) x + (C s_inᵀ) ⊙ exp(a_cum)``.  Returns (y (B,H,S,P)
+    in x's dtype, final state (B,H,P,N) f32).  Nothing on the main path
+    calls it."""
+    B, H, S, P = x.shape
+    N = b.shape[-1]
+    chunk = min(chunk, S)
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    # a ragged last chunk padded with zeros, as the kernels stage it
+    xf = torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+    af = torch.nn.functional.pad(a_dt.float(), (0, pad))
+    bf = torch.nn.functional.pad(b[:, 0].float(), (0, 0, 0, pad))
+    cf = torch.nn.functional.pad(c[:, 0].float(), (0, 0, 0, pad))
+    xc = xf.reshape(B, H, nc, chunk, P)
+    bc = bf.reshape(B, nc, chunk, N)
+    cc = cf.reshape(B, nc, chunk, N)
+    a_cum = torch.cumsum(af.reshape(B, H, nc, chunk), dim=-1)
+    a_last = a_cum[..., -1]                                  # (B,H,nc)
+    # (a) chunk states
+    w = torch.exp(a_last[..., None] - a_cum)                 # (B,H,nc,l)
+    scratch = torch.einsum("bhklp,bkln->bhkpn", xc * w[..., None], bc)
+    # (b) state passing, in place
+    s = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    for k in range(nc):
+        contrib = scratch[:, :, k].clone()
+        scratch[:, :, k] = s
+        s = s * torch.exp(a_last[:, :, k])[..., None, None] + contrib
+    # (c) outputs
+    tril = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=x.device).tril()
+    L = torch.where(tril, torch.exp(a_cum[..., :, None]
+                                    - a_cum[..., None, :]), 0.0)
+    cb = torch.einsum("bkin,bkjn->bkij", cc, bc)
+    y_diag = torch.einsum("bhkij,bhkjp->bhkip", cb[:, None] * L, xc)
+    y_off = torch.einsum("bkin,bhkpn->bhkip", cc, scratch)
+    y = y_diag + y_off * torch.exp(a_cum)[..., None]
+    y = y.reshape(B, H, nc * chunk, P)[:, :, :S]
+    return y.to(x.dtype), s
+
+
 def _check(x, a_dt, b, c, chunk: int, y) -> int:
     """Raises on what the kernel does not take; returns the chunk,
     ``min(chunk, S)`` as the reference takes it."""
@@ -116,6 +171,9 @@ def _check(x, a_dt, b, c, chunk: int, y) -> int:
     for t in (x, b, c) if y is None else (x, b, c, y):
         if t.stride(3) != 1:
             raise ValueError("the P and N dims must be contiguous (stride 1)")
+    if x.device.type == "cuda" and max(B, -(-S // chunk)) > _MAX_GRID_YZ:
+        raise ValueError(f"B={B}, S={S}, chunk={chunk}: the kernels take at "
+                         f"most {_MAX_GRID_YZ} batches and chunks")
     return chunk
 
 
@@ -125,7 +183,8 @@ def _bind():
         if _fn is None:
             fn = build.load("ssd_chunk").ssd_chunk_bhcp_launch
             p, i = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, i, i, p, p]
+            fn.argtypes = [i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                           p, p]
             fn.restype = ctypes.c_int
             _fn = fn
         return _fn
@@ -139,11 +198,17 @@ def _launch(x, a_dt, b, c, y, state, chunk: int) -> None:
                         b.stride(2), c.stride(0), c.stride(2),
                         *y.stride()[:3]], np.int64)
     dev = x.device
+    nc = -(-S // chunk)
+    # every chunk's contribution, then its entering state; every chunk's
+    # a_cum[-1]
+    scratch = torch.empty((B, H, nc, P, N), dtype=torch.float32, device=dev)
+    alast = torch.empty((B, H, nc), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(dev.index if dev.index is not None else torch.cuda.current_device(),
              _DTYPES[x.dtype], x.data_ptr(), a_dt.data_ptr(), b.data_ptr(),
-             c.data_ptr(), y.data_ptr(), state.data_ptr(), B, H, S, P, N,
-             chunk, strides.ctypes.data, stream)
+             c.data_ptr(), y.data_ptr(), state.data_ptr(), scratch.data_ptr(),
+             alast.data_ptr(), B, H, S, P, N, chunk, strides.ctypes.data,
+             stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunk_bhcp: CUDA error {err} at launch")
     with _count_lock:
@@ -158,7 +223,7 @@ def ssd_chunk_bhcp(x: torch.Tensor, a_dt: torch.Tensor, b: torch.Tensor,
     (B,H,S,P) in x's dtype, written into ``y`` when given (any view of the
     right shape, e.g. a transposed model-layout buffer), final state
     (B,H,P,N) f32).  CPU tensors take ``ssd_chunk_bhcp_plain``; CUDA
-    tensors launch the kernel once (or raise)."""
+    tensors run the three kernels once (or raise)."""
     chunk = _check(x, a_dt, b, c, chunk, y)
     if x.device.type == "cpu":
         res, state = ssd_chunk_bhcp_plain(x, a_dt, b, c, chunk=chunk)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: ``enoki_merge_rows``,
-``flash_attention_bhsd``, ``ssd_chunk_bhcp`` and ``mlstm_chunk_bhsd`` against
-their plain versions on the same card inputs, the served merge path
+``flash_attention_bhsd`` (wgmma, TMA), ``ssd_chunk_bhcp`` (three kernels a
+call) and ``mlstm_chunk_bhsd`` against their plain versions on the same card
+inputs, at the main paths' full geometries too, the served merge path
 launching the merge once per fused merge, and a prefill launching the
 attention kernel once per attention layer, the SSD kernel once per Mamba-2
 layer and the mLSTM kernel once per mLSTM layer.
@@ -143,6 +144,47 @@ def test_flash_kernel_matches_plain_on_cuda(card, B, Sq, Skv, H, KV, D,
 
 
 @pytest.mark.cuda
+def test_flash_kernel_at_the_internlm2_prefill_geometry(card):
+    """One internlm2-1.8b prefill layer (B=4, S=4096, H=16, KV=8, D=128,
+    bf16, causal): the wgmma kernel within the reference's bf16 tolerance
+    of the plain version, one launch."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    g = torch.Generator(device=card).manual_seed(1)
+    q = torch.randn((4, 16, 4096, 128), generator=g, device=card).bfloat16()
+    k, v = (torch.randn((4, 8, 4096, 128), generator=g, device=card)
+            .bfloat16() for _ in range(2))
+    want = fk.flash_attention_bhsd_plain(q, k, v, causal=True)
+    n0 = fk.flash_attention_bhsd.launches
+    got = fk.flash_attention_bhsd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fk.flash_attention_bhsd.launches == n0 + 1
+    tol = _FLASH_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 96)])
+def test_flash_kernel_head_dim_112_with_ragged_sq_and_skv(card, causal,
+                                                         window):
+    """D=112 loads as two 64-column slabs whose last 16 columns TMA fills
+    with zeros, and ragged Sq and Skv leave zero-filled rows in the last
+    tiles: every output finite and within tolerance of plain."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    g = torch.Generator(device=card).manual_seed(2)
+    q = torch.randn((2, 4, 200, 112), generator=g, device=card).bfloat16()
+    k, v = (torch.randn((2, 2, 300, 112), generator=g, device=card)
+            .bfloat16() for _ in range(2))
+    want = fk.flash_attention_bhsd_plain(q, k, v, causal=causal,
+                                         window=window)
+    got = fk.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    tol = _FLASH_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
 def test_flash_kernel_reads_the_model_layout(card):
     """``ops.flash_attention`` hands the kernel strided views of (B,S,H,D)
     tensors and an output view: the same numbers as the contiguous call."""
@@ -228,6 +270,43 @@ def test_ssd_kernel_matches_plain_on_cuda(card, B, H, S, P, N, chunk, dtype):
     tol = _SSD_TOL[dtype]
     torch.testing.assert_close(got_y.float(), want_y.float(), rtol=tol,
                                atol=tol)
+    torch.testing.assert_close(got_s, want_s, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,chunk", [(128, 128), (100, 128)])
+def test_ssd_kernels_with_one_chunk(card, S, chunk, dtype):
+    """chunk >= S: one chunk, so the state-passing kernel only hands the
+    chunk's contribution on as the final state, and every entering state
+    is zero."""
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    x, a, b, c = _ssd_inputs(card, 2, 5, S, 64, 64, dtype, S)
+    want_y, want_s = sk.ssd_chunk_bhcp_plain(x, a, b, c, chunk=chunk)
+    n0 = sk.ssd_chunk_bhcp.launches
+    got_y, got_s = sk.ssd_chunk_bhcp(x, a, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert sk.ssd_chunk_bhcp.launches == n0 + 1
+    tol = _SSD_TOL[dtype]
+    torch.testing.assert_close(got_y.float(), want_y.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(got_s, want_s, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_ssd_kernels_at_the_zamba2_prefill_geometry(card):
+    """One zamba2-7b Mamba-2 prefill layer in f32 (B=4, H=112, S=4096,
+    P=N=64, chunk 128): y and the final state within the reference's f32
+    tolerance of the plain version, one counted call."""
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    x, a, b, c = _ssd_inputs(card, 4, 112, 4096, 64, 64, "float32", 9)
+    want_y, want_s = sk.ssd_chunk_bhcp_plain(x, a, b, c, chunk=128)
+    n0 = sk.ssd_chunk_bhcp.launches
+    got_y, got_s = sk.ssd_chunk_bhcp(x, a, b, c, chunk=128)
+    torch.cuda.synchronize()
+    assert sk.ssd_chunk_bhcp.launches == n0 + 1
+    tol = _SSD_TOL["float32"]
+    torch.testing.assert_close(got_y, want_y, rtol=tol, atol=tol)
     torch.testing.assert_close(got_s, want_s, rtol=tol, atol=tol)
 
 

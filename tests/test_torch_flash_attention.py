@@ -129,3 +129,54 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
                                 kt, vt)
     with pytest.raises(ValueError, match="device"):
         fk.flash_attention_bhsd(qt.to("meta"), kt.to("meta"), vt.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernel's tensor maps, as the host builds them
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("D", [32, 64, 112, 128])
+@pytest.mark.parametrize("layout", ["contiguous", "model"])
+def test_tma_geometry_of_the_kernel_and_model_layouts(D, layout):
+    """The contiguous (B,H,S,D) layout and the transposed (B,S,H,D) model
+    layout: the head dim innermost, the rest ordered by stride, byte
+    strides of the view's own, a box of one swizzled slab by the tile's
+    rows, and the order the kernel reads the s, h and b coordinates by."""
+    B, H, S = 2, 3, 100
+    if layout == "contiguous":
+        view = torch.zeros((B, H, S, D), dtype=torch.bfloat16)
+        want_sizes, roles = (S, H, B), "shb"
+    else:
+        view = torch.zeros((B, S, H, D), dtype=torch.bfloat16).transpose(1, 2)
+        want_sizes, roles = (H, S, B), "hsb"
+    kv_rows = fk.kv_tile_rows(D)
+    assert kv_rows == (96 if D >= 112 else 64)
+    geo = fk._tma_geometry(view, kv_rows)
+    swizzle = 64 if D == 32 else 128
+    assert geo.swizzle == swizzle
+    assert geo.dims == (D, *want_sizes)
+    strides = {"s": view.stride(2) * 2, "h": view.stride(1) * 2,
+               "b": view.stride(0) * 2}
+    assert geo.strides == tuple(strides[r] for r in roles)
+    assert list(geo.strides) == sorted(geo.strides)
+    rows = {"s": kv_rows, "h": 1, "b": 1}
+    assert geo.box == (swizzle // 2, *(rows[r] for r in roles))
+    assert geo.order == tuple(1 + roles.index(r) for r in "shb")
+    packed = geo.packed()
+    assert len(packed) == 15 and packed[11] == swizzle
+    q_geo = fk._tma_geometry(view, fk.Q_TILE_ROWS)
+    assert q_geo.box[geo.order[0]] == fk.Q_TILE_ROWS
+
+
+def test_tma_geometry_refuses_what_tma_refuses():
+    """A row stride that is not a multiple of 16 bytes, a head dim that is
+    not contiguous, and a size-1 dim's stride taken as the view's extent."""
+    base = torch.zeros((1, 2, 64, 72), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fk._tma_geometry(torch.zeros((1, 2, 64, 68), dtype=torch.bfloat16)
+                         [..., :64], 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk._tma_geometry(base[..., :64].transpose(2, 3), 64)
+    one = fk._tma_geometry(torch.zeros((1, 1, 5, 64), dtype=torch.bfloat16),
+                           64)
+    assert one.dims == (64, 5, 1, 1) and one.strides == (128, 640, 640)

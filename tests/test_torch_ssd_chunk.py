@@ -161,3 +161,52 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         sk.ssd_chunk_bhcp(torch.zeros(1, 2, 32, 64).transpose(2, 3), a, b, c)
     with pytest.raises(ValueError, match="device"):
         sk.ssd_chunk_bhcp(*(t.to("meta") for t in (x, a, b, c)))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' three passes, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+_PASSES_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+
+
+@pytest.mark.parametrize("B,H,S,P,N,chunk", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_three_passes_match_plain_and_pallas(B, H, S, P, N, chunk, dtype):
+    """``ssd_chunk_bhcp_passes_plain`` (chunk states, state passing, outputs,
+    through the kernels' scratch) against the one-pass plain version, y and
+    the final state, and its y against the Pallas kernel in interpret
+    mode."""
+    _, jin, tin, _ = _inputs(6, B, H, S, P, N, dtype)
+    tol = _PASSES_TOL[dtype]
+    y, state = sk.ssd_chunk_bhcp_passes_plain(*tin, chunk=chunk)
+    assert y.dtype == tin[0].dtype and state.dtype == torch.float32
+    want_y, want_s = sk.ssd_chunk_bhcp_plain(*tin, chunk=chunk)
+    _close(y, want_y, tol, "y against plain")
+    _close(state, want_s, tol, "state against plain")
+    _close(y, ref_kernel(*jin, chunk=chunk, interpret=True), tol,
+           "y against the Pallas kernel")
+
+
+@pytest.mark.parametrize("S,chunk,last", [(200, 128, 72), (100, 32, 4)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_three_passes_take_a_ragged_last_chunk(S, chunk, last, dtype):
+    """A ragged last chunk (72 and 4 rows), which the kernels pad with
+    zeros: y and the final state against the one-pass plain version, and
+    in f32 against the reference scan (which takes the largest divisor of
+    S, and computes in the inputs' dtype); the Pallas kernel takes no
+    ragged S."""
+    assert S % chunk == last
+    _, (jx, ja, jb, jc), tin, _ = _inputs(7, 2, 3, S, 32, 16, dtype)
+    tol = _PASSES_TOL[dtype]
+    y, state = sk.ssd_chunk_bhcp_passes_plain(*tin, chunk=chunk)
+    want_y, want_s = sk.ssd_chunk_bhcp_plain(*tin, chunk=chunk)
+    _close(y, want_y, tol, f"y S={S}")
+    _close(state, want_s, tol, f"state S={S}")
+    if dtype == "float32":
+        xs, a = jx.transpose(0, 2, 1, 3), ja.transpose(0, 2, 1)
+        wy, ws = ref_ssm.ssd_scan(xs, a, jb[:, 0], jc[:, 0],
+                                  jnp.ones_like(a), chunk)
+        # the reference's own f32 tolerance: another chunking of S
+        _close(y, wy.transpose(0, 2, 1, 3), 1e-4, f"y vs scan S={S}")
+        _close(state, ws, 1e-4, f"state vs scan S={S}")
