@@ -9,10 +9,13 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    takes to build every kernel from ``src/repro_torch/kernels/*/csrc``
    (one ``nvcc`` per source, all started together); then the registers,
    static shared memory and spills that ``-Xptxas=-v`` reported for the
-   wgmma flash kernel and the three SSD kernels;
+   wgmma flash kernel, the three SSD kernels, the two mLSTM kernels and
+   the merge kernel;
 2. the merge kernel against its plain version on the card — ``enoki_merge_rows``
-   bit-exact over a sweep of shapes, payload dtypes (f32, bf16, int32,
-   uint8) and snapshot counts K, then timed (CUDA events, medians, L2
+   (snapshot pointers by value, a row's chunk blocks one cluster) bit-exact
+   over a sweep of shapes, payload dtypes (f32, bf16, int32, uint8) and
+   snapshot counts K, K = 65 folding in two launches, then timed (CUDA
+   events, medians, L2
    flushed between launches, the host's enqueue cost reported apart) at
    the main path's geometry: fully populated
    slot-aligned arenas of 64 slots with random versions, with rows of
@@ -44,13 +47,15 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    directly and through the model-layout wrapper; then timed there beside
    its bound (3xTF32 tensor cores or bytes), its f32 FMA bound and its
    plain version (no single PyTorch call computes the scan);
-6. ``mlstm_chunk_bhsd`` against its plain version on the card, h and the
-   final carry (C, n, m): f32 (1e-4) and bf16 (5e-2, the reference's
-   tolerances) over the reference's sweep shapes, head dims 128 and 512, and
-   the main-path geometry (B=4, H=4, S=2048, d=512, chunk 64, f32), directly
-   and through the model-layout wrapper; then timed there beside its f32
-   FMA bound and its plain version (no single PyTorch call computes the
-   chunkwise mLSTM);
+6. ``mlstm_chunk_bhsd`` (q kᵀ of every chunk at once, then ceil(d/64) CTAs
+   per (b, h) for the chunk loop, 3xTF32 tensor cores) against its plain
+   version on the card, h and the final
+   carry (C, n, m): f32 (1e-4) and bf16 (5e-2, the reference's tolerances)
+   over the reference's sweep shapes, head dims 80 (a ragged column tile),
+   128 and 512, and the main-path geometry (B=4, H=4, S=2048, d=512, chunk
+   64, f32), directly and through the model-layout wrapper; then timed there
+   beside its bound (3xTF32 tensor cores or bytes), its f32 FMA bound, its
+   plain version (no single PyTorch call computes the chunkwise mLSTM);
 7. the sessions path, served, for each of three models at full width and
    depth with bf16 weights from a seed — internlm2-1.8b (dense), zamba2-7b
    (hybrid: Mamba-2 states and a ring-cached shared attention block), then
@@ -87,7 +92,7 @@ ROW_100KB, ROW_1MB = 25_600, 262_144
 SWEEP_SHAPES = [(256, 128), (512, 256), (64, 128),
                 # odd widths: 4-byte and byte paths, a row over two chunks
                 (7, 3), (5, 3), (64, 100), (33, 2049)]
-SWEEP_K = (1, 2, 5, 8)
+SWEEP_K = (1, 2, 5, 8, 65)     # 65: past the 64 records a launch takes
 DTYPES = ("float32", "bfloat16", "int32", "uint8")
 N_REQUESTS, BURST, CONCURRENCY = 544, 320, 32
 SPIN_CYCLES = 2_000_000         # ~1 ms of card time: longer than any enqueue
@@ -104,14 +109,17 @@ MLSTM_REPLACES = "src/repro/kernels/mlstm_chunk/kernel.py:80"
 BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores (data sheet)
 F32_FLOPS_PER_S = 66.9e12       # H100 SXM f32 FMAs, no tensor cores (data sheet)
 TF32_FLOPS_PER_S = 495e12       # H100 SXM dense TF32 tensor cores (data sheet)
-# the SSD kernels run every product as three TF32 products (3xTF32)
+# the SSD and mLSTM kernels run every product as three TF32 products (3xTF32)
 SSD_PRODUCT_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 # the kernels whose registers, shared memory and spills the build reports:
 # (library, kernel)
 RESOURCE_KERNELS = (("flash_attention", "flash_fwd_bf16_wgmma"),
                     ("ssd_chunk", "ssd_chunk_state_kernel"),
                     ("ssd_chunk", "ssd_chunk_pass_kernel"),
-                    ("ssd_chunk", "ssd_chunk_scan_kernel"))
+                    ("ssd_chunk", "ssd_chunk_scan_kernel"),
+                    ("mlstm_chunk", "mlstm_qk_kernel"),
+                    ("mlstm_chunk", "mlstm_chunk_kernel"),
+                    ("enoki_merge", "enoki_merge_rows_kernel"))
 # (B, Sq, Skv, H, KV, D): tests/test_kernels.py's sweep, head dim 112 (zamba2's
 # shared block), a ragged S, Sq != Skv, and internlm2's prefill geometry
 FLASH_CASES = [(1, 128, 128, 4, 4, 32), (2, 256, 256, 4, 2, 64),
@@ -138,10 +146,12 @@ SSD_CASES = [(1, 2, 128, 32, 16, 32), (2, 4, 256, 64, 64, 64),
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 MAIN_SSD = (4, 112, 4096, 64, 64, 128)
 # (B, H, S, d, chunk): tests/test_kernels.py's sweep, reduced xlstm-350m's
-# head dim 128 and xlstm-350m's 512, in f32 and bf16; then the main path's
+# head dim 128, xlstm-350m's 512 and a ragged column tile (d=80: two CTAs a
+# (b, h), the second 16 columns wide; chunk 20), in f32 and bf16; then the
+# main path's
 # geometry (one xlstm-350m mLSTM layer's prefill, f32 as the model feeds it)
 MLSTM_CASES = [(1, 2, 128, 32, 32), (2, 2, 64, 64, 16), (1, 4, 256, 16, 64),
-               (2, 2, 128, 128, 16), (1, 2, 256, 512, 64)]
+               (2, 2, 128, 128, 16), (1, 2, 256, 512, 64), (1, 3, 100, 80, 20)]
 MLSTM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 MAIN_MLSTM = (4, 4, 2048, 512, 64)
 # sessions path: 2 pods x 4 sessions for each model; 4,096-token prompts,
@@ -854,9 +864,12 @@ def mlstm_work(B, H, S, d, chunk, itemsize):
 
 def time_mlstm(torch, mk, flush, reps=20):
     """The kernel at the main-path geometry (one xlstm-350m mLSTM layer's
-    prefill, f32), beside its bound and its plain version.  No single
-    PyTorch call computes the chunkwise mLSTM, so there is no library
-    time."""
+    prefill, f32), beside its bound and its plain version.  The bound takes
+    the products at the TF32 tensor-core rate spent three times a product
+    (3xTF32, as the kernel runs them) and the bytes at the memory rate;
+    ``fma_bound_ms`` takes the products on f32 FMAs instead, the units of
+    the kernel before it.  No single PyTorch call computes the chunkwise
+    mLSTM, so there is no library time."""
     B, H, S, d, chunk = MAIN_MLSTM
     gen = torch.Generator(device="cuda").manual_seed(7)
     ins = _mlstm_inputs(torch, gen, B, H, S, d, "float32")
@@ -864,7 +877,8 @@ def time_mlstm(torch, mk, flush, reps=20):
     err = _mlstm_close(torch, run(), mk.mlstm_chunk_bhsd_plain(
         *ins, chunk=chunk), "float32", "the main geometry")
     flops, nbytes = mlstm_work(B, H, S, d, chunk, 4)
-    flop_ms = flops / F32_FLOPS_PER_S * 1e3
+    flop_ms = flops / SSD_PRODUCT_FLOPS_PER_S * 1e3
+    fma_ms = flops / F32_FLOPS_PER_S * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     none = lambda: None
     ms, host_ms = _median_ms(torch, run, none, flush, reps)
@@ -878,6 +892,9 @@ def time_mlstm(torch, mk, flush, reps=20):
                             "mLSTM",
             "bound_ms": max(flop_ms, byte_ms),
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "bound_units": "3xTF32 tensor cores (495/3 TFLOP/s) or 3.35 TB/s",
+            "fma_bound_ms": max(fma_ms, byte_ms),
+            "blocks": B * H * mk.column_tiles(d),
             "tflops_per_s": flops / (ms * 1e-3) / 1e12,
             "share_of_bound": max(flop_ms, byte_ms) / ms,
             "max_abs_err": err}
@@ -1271,6 +1288,7 @@ def main() -> int:
         "max_abs_err": max(max(mworst.values()), ml["max_abs_err"]),
         "ms": ml["ms"], "plain_ms": ml["plain_ms"],
         "bound_ms": ml["bound_ms"], "bound_by": ml["bound_by"],
+        "bound_units": ml["bound_units"], "fma_bound_ms": ml["fma_bound_ms"],
         "library_ms": None}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

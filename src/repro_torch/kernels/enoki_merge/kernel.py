@@ -3,7 +3,8 @@
 Port of the Pallas TPU kernel ``repro.kernels.enoki_merge.kernel.
 enoki_merge_rows``.  Where the reference merges two replicas into fresh
 arrays, the port folds K snapshots into an accumulator IN PLACE, in order,
-with one launch (``csrc/enoki_merge.cu`` says how):
+with one launch for up to ``MAX_K`` snapshots (``csrc/enoki_merge.cu`` says
+how; more fold in consecutive launches of ``MAX_K``, ``snapshot_groups``):
 
     per row: the first snapshot holding the maximum version among those
              strictly greater than the accumulator's wins the row (ties
@@ -16,17 +17,19 @@ and vv.  ``values`` is ``(R, ...)`` of any dtype (bytes are copied raw);
 versions, keys and lengths are ``(R,)`` int32, vv is ``(N,)`` int32.
 
 ``enoki_merge_rows`` takes the plain version for CPU tensors only; for CUDA
-tensors it launches the kernel or raises.  ``enoki_merge_rows.launches``
-counts kernel launches (the chip smoke reads it to show that the serving
-path went through the kernel).
+tensors it launches the kernel or raises.  The snapshots' pointers go to
+the kernel by value, as a launch parameter (no device table, no copy), and
+a row wider than ``CHUNK_BYTES`` is split over up to ``MAX_CHUNKS`` blocks
+that form one thread-block cluster (``launch_geometry``).
+``enoki_merge_rows.launches`` counts kernel launches (the chip smoke reads
+it to show that the serving path went through the kernel).
 """
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -34,10 +37,12 @@ from repro_torch.kernels import build
 Rows = Tuple[Optional[torch.Tensor], torch.Tensor, Optional[torch.Tensor],
              torch.Tensor, Optional[torch.Tensor]]
 
-#: payload bytes one block copies of a row (a row wider than this is split
-#: across blocks so a 64-row arena still fills the card)
+#: payload bytes a row takes before it is split over a second block
 CHUNK_BYTES = 8192
-_MAX_GRID_Y = 65535
+#: blocks one row may span: one thread-block cluster, at most the portable 8
+MAX_CHUNKS = 8
+#: snapshot records one launch takes by value (``KMAX`` in the CUDA source)
+MAX_K = 64
 
 _count_lock = threading.Lock()
 _bind_lock = threading.Lock()
@@ -98,10 +103,8 @@ def _bind():
     with _bind_lock:
         if _fn is None:
             fn = build.load("enoki_merge").enoki_merge_rows_launch
-            p, ll = ctypes.c_void_p, ctypes.c_longlong
-            fn.argtypes = [ctypes.c_int, p, p, p, p, p, p, p, ll,
-                           ctypes.c_int, ll, ll, ll, ctypes.c_int,
-                           ctypes.c_int, p]
+            p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+            fn.argtypes = [i, p, p, p, p, p, p, i, ll, ll, ll, i, i, i, p]
             fn.restype = ctypes.c_int
             _fn = fn
         return _fn
@@ -112,56 +115,65 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
 
 
 def launch_geometry(values: torch.Tensor) -> Tuple[int, int, int]:
-    """``(row_bytes, chunk_bytes, chunks)`` of a launch over ``values``."""
+    """``(row_bytes, chunk_bytes, chunks)`` of a launch over ``values``: a
+    row of up to CHUNK_BYTES is one block; a wider one spans up to
+    MAX_CHUNKS blocks (one cluster), its chunk growing with the row, in
+    multiples of 16 bytes."""
     rows = values.shape[0]
-    row_bytes = (values.numel() // rows) * values.element_size()
-    chunk = CHUNK_BYTES
-    if -(-row_bytes // chunk) > _MAX_GRID_Y:
-        chunk = -(-row_bytes // _MAX_GRID_Y)
-        chunk += -chunk % 16
-    return row_bytes, chunk, -(-row_bytes // chunk)
+    row_bytes = (values.numel() // rows) * values.element_size() if rows else 0
+    chunks = max(1, min(MAX_CHUNKS, -(-row_bytes // CHUNK_BYTES)))
+    chunk = -(-row_bytes // chunks)
+    chunk = max(16, chunk + -chunk % 16)
+    return row_bytes, chunk, max(1, -(-row_bytes // chunk))
+
+
+def snapshot_groups(k: int) -> List[Tuple[int, int]]:
+    """The ``[start, stop)`` snapshot ranges of the launches that fold ``k``
+    snapshots: MAX_K at a time, in order (an ordered fold splits into
+    ordered groups)."""
+    return [(i, min(k, i + MAX_K)) for i in range(0, k, MAX_K)]
+
+
+def _vec(row_bytes: int, bases: Sequence[int]) -> int:
+    """The widest access (16, 4 or 1 bytes) every row of every base allows."""
+    for vec in (16, 4):
+        if row_bytes % vec == 0 and all(b % vec == 0 for b in bases):
+            return vec
+    return 1
 
 
 def _launch(acc: Rows, snaps: Sequence[Rows]) -> None:
     fn = _bind()
     keys, values, lengths, versions, vv = acc
-    rows, k = values.shape[0], len(snaps)
-    if rows == 0:
-        raise ValueError("enoki_merge_rows needs at least one row")
+    rows = values.shape[0]
     row_bytes, chunk, chunks = launch_geometry(values)
-    bases = [values.data_ptr()] + [s[1].data_ptr() for s in snaps]
-    if row_bytes % 16 == 0 and all(b % 16 == 0 for b in bases):
-        vec = 16
-    elif row_bytes % 4 == 0 and all(b % 4 == 0 for b in bases):
-        vec = 4
-    else:
-        vec = 1
-    # K pointer records, then one zeroed uint32 ticket per row when a row
-    # spans several chunk blocks (see the .cu file)
-    table = np.zeros(5 * k + ((rows + 1) // 2 if chunks > 1 else 0),
-                     np.int64)
-    for j, (s_keys, s_values, s_lengths, s_versions, s_vv) in enumerate(snaps):
-        table[5 * j:5 * j + 5] = (_ptr(s_values), _ptr(s_versions),
-                                  _ptr(s_keys), _ptr(s_lengths), _ptr(s_vv))
+    vec = _vec(row_bytes, [values.data_ptr()]
+               + [s[1].data_ptr() for s in snaps])
     dev = values.device
-    dev_table = torch.empty(table.nbytes, dtype=torch.uint8, device=dev)
+    dev_index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
     # the engine's pool threads merge too: read the stream per call
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(dev.index if dev.index is not None else torch.cuda.current_device(),
-             values.data_ptr(), versions.data_ptr(), _ptr(keys),
-             _ptr(lengths), _ptr(vv), table.ctypes.data, dev_table.data_ptr(),
-             table.nbytes, k, rows, row_bytes, chunk,
-             0 if vv is None else vv.numel(), vec, stream)
-    if err != 0:
-        raise RuntimeError(f"enoki_merge_rows: CUDA error {err} at launch")
-    with _count_lock:
-        enoki_merge_rows.launches += 1
+    acc_ptrs = (values.data_ptr(), versions.data_ptr(), _ptr(keys),
+                _ptr(lengths), _ptr(vv))
+    nvv = 0 if vv is None else vv.numel()
+    for lo, hi in snapshot_groups(len(snaps)):
+        group = snaps[lo:hi]
+        records = (ctypes.c_ulonglong * (5 * len(group)))(*[
+            _ptr(t) for s_keys, s_values, s_lengths, s_versions, s_vv in group
+            for t in (s_values, s_versions, s_keys, s_lengths, s_vv)])
+        err = fn(dev_index, *acc_ptrs, records, len(group), rows, row_bytes,
+                 chunk, chunks, nvv, vec, stream)
+        if err != 0:
+            raise RuntimeError(f"enoki_merge_rows: CUDA error {err} at launch")
+        with _count_lock:
+            enoki_merge_rows.launches += 1
 
 
 def enoki_merge_rows(acc: Rows, snaps: Sequence[Rows]) -> Rows:
     """Fold ``snaps`` into ``acc`` in place, in order; returns ``acc``.
     CPU operands take ``enoki_merge_rows_plain``; CUDA operands launch the
-    kernel once (or raise)."""
+    kernel once for every ``MAX_K`` snapshots (or raise)."""
     snaps = tuple(snaps)
     _check(acc, snaps)
     if not snaps:

@@ -606,10 +606,14 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
   uint64_t* k_empty = v_full + STAGES;
   uint64_t* v_empty = k_empty + STAGES;
 
-  // one block per (query tile, h, b), the query tile slowest: the heaviest
-  // causal tiles of every head go first, the light ones fill the tail
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TQ;   // heaviest tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
+  // one block per (query tile, h, b), all on grid.x with the tile fastest
+  // (a (tiles, H, B) grid's order, without its 65535 limit on H and B): the
+  // heaviest causal tiles of every head go first, the light ones fill the
+  // tail
+  const int n_qt = (p.Sq + TQ - 1) / TQ;
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x % n_qt)) * TQ;   // heaviest first
+  const int h = (int)((blockIdx.x / n_qt) % p.H);
+  const int b = (int)(blockIdx.x / n_qt / p.H);
   const int kvh = h / (p.H / p.KV);
   const int n_all = (p.Skv + TK - 1) / TK;
   const int n_tiles = p.causal ? min(n_all, (q0 + TQ - 1) / TK + 1) : n_all;
@@ -807,8 +811,10 @@ __global__ void __launch_bounds__(256)
   float* Vs = Ks + BK * LDQ;
   float* Ps = Vs + BK * D;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_qt = (p.Sq + BQ - 1) / BQ;   // grid.x: (query tile, h, b)
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x % n_qt)) * BQ;
+  const int h = (int)((blockIdx.x / n_qt) % p.H);
+  const int b = (int)(blockIdx.x / n_qt / p.H);
   const int kvh = h / (p.H / p.KV);
   const float* qg = static_cast<const float*>(p.q) + b * p.qs_b + h * p.qs_h;
   const float* kg = static_cast<const float*>(p.k) + b * p.ks_b + kvh * p.ks_h;
@@ -931,7 +937,7 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BQ_F32 - 1) / BQ_F32, p.H, p.B);
+  const dim3 grid((unsigned)((p.Sq + BQ_F32 - 1) / BQ_F32) * p.H * p.B);
   flash_fwd_f32<D><<<grid, 256, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -1022,7 +1028,7 @@ int launch_bf16(const Params& p, const long long* geo, cudaStream_t stream) {
       flash_fwd_bf16_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       G::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((p.Sq + TQ - 1) / TQ, p.H, p.B);
+  const dim3 grid((unsigned)((p.Sq + TQ - 1) / TQ) * p.H * p.B);
   flash_fwd_bf16_wgmma<D><<<grid, THREADS_BF16, G::SMEM, stream>>>(
       qmap, kmap, vmap, tp);
   return static_cast<int>(cudaGetLastError());

@@ -11,15 +11,19 @@ to v's dtype before the PV product, and l clamped at 1e-30.
 CUDA tensors it launches ``csrc/flash_attention.cu`` once (or raises):
 bfloat16 runs the wgmma kernel fed by TMA, float32 the FMA kernel; the
 dtype alone decides.  Both read their operands through strides, so any view
-whose head dim is contiguous (and whose other strides keep 16-byte rows) is
-taken as it is: the bf16 kernel's tensor maps are built over the view's
-own byte strides (``_tma_geometry``).
+whose head dim is contiguous and whose rows start on 16 bytes is taken as it
+is: the bf16 kernel's tensor maps are built over the view's own byte strides
+(``_tma_geometry``).
 ``flash_attention_bhsd.launches`` counts kernel launches (the chip smoke
 reads it to show that prefill went through the kernel).
 
 Head dims 32, 64, 112 (zamba2's shared block) and 128, float32 and
 bfloat16; anything else raises
 ``ValueError`` on every device, so the CPU refuses what the card would.
+The card takes every view the CPU takes: an operand whose base or strides
+break the kernels' 16-byte rows is copied into a fresh buffer first (and
+``out`` copied back), and B and H may take any size (the grid walks them
+on its x dimension).
 """
 from __future__ import annotations
 
@@ -35,7 +39,6 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 112, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_YZ = 65535
 #: rows of a TMA box: the bf16 kernel's query tile
 Q_TILE_ROWS = 128
 _MAX_TMA_STRIDE = 1 << 40      # byte strides must stay below it
@@ -121,14 +124,24 @@ def _check(q, k, v, out) -> None:
             raise ValueError("q, k, v and out must be on one device")
         if t.stride(3) != 1:
             raise ValueError("the head dim must be contiguous (stride 1)")
-    if q.device.type == "cuda":
-        per = 16 // q.element_size()
-        for t in tensors:
-            if t.data_ptr() % 16 or any(s % per for s in t.stride()[:3]):
-                raise ValueError("the kernel reads 16-byte rows: base "
-                                 "pointers and strides must keep them aligned")
-        if H > _MAX_GRID_YZ or B > _MAX_GRID_YZ:
-            raise ValueError(f"B={B}, H={H}: at most {_MAX_GRID_YZ} each")
+
+
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Whether every (b, h, s) row of ``t`` starts on 16 bytes, as the
+    kernels read them (the base and the three outer strides)."""
+    per = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        s % per == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or a copy into a fresh (allocator-aligned) buffer
+    when a row would break 16 bytes."""
+    return t if rows_aligned(t) else _fresh(t).copy_(t)
+
+
+def _fresh(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device)
 
 
 class TmaGeometry(NamedTuple):
@@ -254,8 +267,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bhsd: unsupported device {q.device}")
     if out is None:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, causal, window)
-    return out
+    dst = out if rows_aligned(out) else _fresh(out)
+    _launch(_aligned(q), _aligned(k), _aligned(v), dst, causal, window)
+    return out if dst is out else out.copy_(dst)
 
 
 flash_attention_bhsd.launches = 0

@@ -22,10 +22,14 @@ which the TPU kernel keeps in scratch and drops (a prefill needs it for the
 decode cache, so ``mlstm_seq(impl=FLASH)`` never scans twice).
 
 ``mlstm_chunk_bhsd`` takes the plain version for CPU tensors only; for CUDA
-tensors it launches ``csrc/mlstm_chunk.cu`` once (or raises).  The kernel
-reads its operands through strides (the d dim contiguous), so a transposed
-view of the model layout is taken as it is.  ``mlstm_chunk_bhsd.launches``
-counts kernel launches.
+tensors it runs ``csrc/mlstm_chunk.cu`` once (or raises): one call is two
+kernels, q kᵀ of every chunk at once into a scratch the wrapper allocates
+(it needs no carry), then the chunk loop, ``column_tiles(d)`` CTAs per
+(b, h), each keeping 64 columns of C on chip for the whole scan; every
+product runs on the tensor cores as 3xTF32.  The kernels read their
+operands through strides (the d dim contiguous), so a transposed view of
+the model layout is taken as it is.  ``mlstm_chunk_bhsd.launches`` counts
+calls that ran the kernels, one per call.
 
 d a multiple of 16 up to 512, chunk <= 64 dividing S (as the reference
 asserts), q/k/v of one shape and one dtype of float32/bfloat16, f32 gates;
@@ -44,6 +48,8 @@ import torch
 from repro_torch.kernels import build
 
 MAX_CHUNK, MAX_D = 64, 512
+#: columns of C a CTA of the chunk kernel keeps
+COLUMN_TILE = 64
 NEG_INF = -1e30                 # the TPU kernel's mask value
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -142,14 +148,22 @@ def _check(q, k, v, log_i, log_f, chunk: int, h) -> int:
     return chunk
 
 
+def column_tiles(d: int) -> int:
+    """CTAs of the chunk kernel per (b, h) at head dim ``d``, each keeping 64
+    columns of C: ``ceil(d / 64)``, 1 at d <= 64, 8 at d = 512."""
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"head dim {d} is not in 1..{MAX_D}")
+    return -(-d // COLUMN_TILE)
+
+
 def _bind():
     global _fn
     with _bind_lock:
         if _fn is None:
             fn = build.load("mlstm_chunk").mlstm_chunk_bhsd_launch
             p, i = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p,
-                           p]
+            fn.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                           p, p]
             fn.restype = ctypes.c_int
             _fn = fn
         return _fn
@@ -162,11 +176,14 @@ def _launch(q, k, v, log_i, log_f, h, C, n, m, chunk: int) -> None:
                         *log_i.stride(), *log_f.stride(), *h.stride()[:3]],
                        np.int64)
     dev = q.device
+    # q kᵀ of every chunk: its rows i < chunk, 64 keys a row
+    qk = torch.empty(B * H * S * COLUMN_TILE, dtype=torch.float32,
+                     device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(dev.index if dev.index is not None else torch.cuda.current_device(),
              _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              log_i.data_ptr(), log_f.data_ptr(), h.data_ptr(), C.data_ptr(),
-             n.data_ptr(), m.data_ptr(), B, H, S, d, chunk,
+             n.data_ptr(), m.data_ptr(), qk.data_ptr(), B, H, S, d, chunk,
              strides.ctypes.data, stream)
     if err != 0:
         raise RuntimeError(f"mlstm_chunk_bhsd: CUDA error {err} at launch")
@@ -182,7 +199,7 @@ def mlstm_chunk_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype, written into ``h`` when given (any view of the right shape, e.g.
     a transposed model-layout buffer), (C (B,H,d,d), n (B,H,d), m (B,H))
     f32, the carry after the last chunk).  CPU tensors take
-    ``mlstm_chunk_bhsd_plain``; CUDA tensors launch the kernel once (or
+    ``mlstm_chunk_bhsd_plain``; CUDA tensors run the two kernels once (or
     raise)."""
     chunk = _check(q, k, v, log_i, log_f, chunk, h)
     if q.device.type == "cpu":

@@ -269,7 +269,10 @@ __global__ void __launch_bounds__(THREADS_A, 2)
   float* Ws = sm + A_OFF_W;
   // the head tile varies fastest: the blocks in flight together read the
   // same rows of the model layout
-  const int k = blockIdx.y, h0 = blockIdx.x * HT, b = blockIdx.z;
+  const int nht = (p.H + HT - 1) / HT;   // grid.x: (head tile, chunk, b)
+  const int h0 = (int)(blockIdx.x % nht) * HT;
+  const int k = (int)(blockIdx.x / nht % p.n_chunks);
+  const int b = (int)(blockIdx.x / nht / p.n_chunks);
   const int nh = min(HT, p.H - h0);
   const long long s0 = (long long)k * p.L;
   const int rows = min(p.L, p.S - (int)s0);
@@ -423,7 +426,10 @@ __global__ void __launch_bounds__(THREADS_C, 1)
   const int grp = warp >> 3, gtid = threadIdx.x & 255;
   float* Xs = sm + C_OFF_X + grp * LM * LDC;   // group 1's holds B first
   float* Ss = sm + C_OFF_S + grp * PM * LDC;
-  const int k = blockIdx.y, h0 = blockIdx.x * HTC, b = blockIdx.z;
+  const int nht = (p.H + HTC - 1) / HTC;   // grid.x: (head tile, chunk, b)
+  const int h0 = (int)(blockIdx.x % nht) * HTC;
+  const int k = (int)(blockIdx.x / nht % p.n_chunks);
+  const int b = (int)(blockIdx.x / nht / p.n_chunks);
   const int nh = min(HTC, p.H - h0);
   const long long s0 = (long long)k * p.L;
   const int rows = min(p.L, p.S - (int)s0);
@@ -590,7 +596,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              C_SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid_a((p.H + HT - 1) / HT, p.n_chunks, p.B);
+  const dim3 grid_a((unsigned)((p.H + HT - 1) / HT) * p.n_chunks * p.B);
   ssd_chunk_state_kernel<T><<<grid_a, THREADS_A, A_SMEM, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -599,7 +605,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   ssd_chunk_pass_kernel<<<pass_grid, THREADS_B, 0, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_c((p.H + HTC - 1) / HTC, p.n_chunks, p.B);
+  const dim3 grid_c((unsigned)((p.H + HTC - 1) / HTC) * p.n_chunks * p.B);
   ssd_chunk_scan_kernel<T><<<grid_c, THREADS_C, C_SMEM, stream>>>(p);
   return cudaGetLastError();
 }

@@ -30,7 +30,8 @@ ran the kernels, one per call.
 
 chunk <= 128, P <= 64 and N <= 64, float32 or bfloat16 (all four operands
 alike); anything else raises ``ValueError`` on every device, so the CPU
-refuses what the card would.
+refuses what the card would.  B and the chunk count take any size: the
+kernels walk (head tile, chunk, b) on the grid's x dimension.
 """
 from __future__ import annotations
 
@@ -45,7 +46,6 @@ from repro_torch.kernels import build
 
 MAX_CHUNK, MAX_P, MAX_N = 128, 64, 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_YZ = 65535        # the kernels' grids: chunks in y, batches in z
 
 _count_lock = threading.Lock()
 _bind_lock = threading.Lock()
@@ -171,9 +171,6 @@ def _check(x, a_dt, b, c, chunk: int, y) -> int:
     for t in (x, b, c) if y is None else (x, b, c, y):
         if t.stride(3) != 1:
             raise ValueError("the P and N dims must be contiguous (stride 1)")
-    if x.device.type == "cuda" and max(B, -(-S // chunk)) > _MAX_GRID_YZ:
-        raise ValueError(f"B={B}, S={S}, chunk={chunk}: the kernels take at "
-                         f"most {_MAX_GRID_YZ} batches and chunks")
     return chunk
 
 

@@ -513,3 +513,177 @@ def test_xlstm_prefill_and_decode_on_cuda(card):
     assert mk.mlstm_chunk_bhsd.launches == n0, "decode runs the step cell"
     assert int(cache["length"][0]) == 132
     assert bool(((tok >= 0) & (tok < arch.vocab_size)).all())
+
+
+# ---------------------------------------------------------------------------
+# the redesigned merge: pointers by value, a row's blocks one cluster
+# ---------------------------------------------------------------------------
+
+def _fold_plain(acc, snaps):
+    return enoki_merge_rows_plain(
+        tuple(None if t is None else t.clone() for t in acc), snaps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,launches", [(64, 1), (65, 2), (130, 3)])
+def test_merge_past_the_by_value_limit_folds_in_several_launches(
+        card, k, launches):
+    """K above the 64 records a launch takes by value: one launch per group
+    of 64, in order, still equal to the sequential fold."""
+    rng = np.random.default_rng(k)
+    acc = _arena(rng, 16, 40, "float32", card)
+    snaps = [_arena(rng, 16, 40, "float32", card) for _ in range(k)]
+    want = _fold_plain(acc, snaps)
+    n0 = enoki_merge_rows.launches
+    got = enoki_merge_rows(tuple(t.clone() for t in acc), snaps)
+    torch.cuda.synchronize()
+    assert enoki_merge_rows.launches == n0 + launches
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,width,vec", [
+    ("float32", 14340, 16),     # 57,360 bytes: 16-byte path
+    ("float32", 14337, 4),      # 57,348 bytes: 4-byte path
+    ("uint8", 57345, 1),        # byte path
+    ("bfloat16", 28673, 1),     # 57,346 bytes: 2-byte rows, byte path
+    ("int32", 262144, 16)])     # 1 MB rows
+def test_merge_row_over_a_full_cluster(card, dtype, width, vec):
+    """Rows that span the most chunks a cluster takes (8), on each access
+    path: bit-exact against the plain fold, K = 1 and K = 8."""
+    from repro_torch.kernels.enoki_merge import kernel as ek
+    rng = np.random.default_rng(width)
+    acc = _arena(rng, 5, width, dtype, card)
+    row_bytes, _, chunks = ek.launch_geometry(acc[1])
+    assert chunks == ek.MAX_CHUNKS
+    assert ek._vec(row_bytes, [acc[1].data_ptr()]) == vec
+    for k in (1, 8):
+        snaps = [_arena(rng, 5, width, dtype, card) for _ in range(k)]
+        want = _fold_plain(acc, snaps)
+        got = enoki_merge_rows(tuple(t.clone() for t in acc), snaps)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_merge_misaligned_payload_and_empty_arena(card):
+    """A payload base off 16 bytes takes the 4-byte path, and an arena of no
+    rows still folds its version vector: both as the plain fold does."""
+    from repro_torch.kernels.enoki_merge import kernel as ek
+    rng = np.random.default_rng(3)
+    acc = _arena(rng, 8, 33, "float32", card)
+    flat = torch.zeros(8 * 32 + 1, device=card)
+    vals = flat[1:].view(8, 32)
+    vals.copy_(acc[1][:, :32])
+    acc = (acc[0], vals, acc[2], acc[3], acc[4])
+    assert ek._vec(128, [vals.data_ptr()]) == 4
+    snaps = [_arena(rng, 8, 32, "float32", card) for _ in range(3)]
+    want = _fold_plain(acc, snaps)
+    got = enoki_merge_rows(tuple(t.clone() for t in acc), snaps)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    empty = lambda: (None, torch.zeros((0, 4), device=card), None,
+                     torch.zeros(0, dtype=torch.int32, device=card),
+                     torch.from_numpy(rng.integers(0, 9, 6).astype(
+                         np.int32)).to(card))
+    acc, snaps = empty(), [empty() for _ in range(2)]
+    want = _fold_plain(acc, snaps)
+    got = enoki_merge_rows(tuple(None if t is None else t.clone()
+                                 for t in acc), snaps)
+    torch.cuda.synchronize()
+    assert torch.equal(got[4], want[4]) and got[1].shape == (0, 4)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned mLSTM: q k^T of every chunk at once, then one CTA per
+# (b, h, 64 columns of C)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,S,chunk", [(16, 128, 64), (32, 96, 32),
+                                       (64, 128, 64), (80, 128, 64),
+                                       (80, 100, 20), (128, 192, 64),
+                                       (512, 256, 64)])
+def test_mlstm_column_tiles_match_plain_in_the_model_layout(card, d, S, chunk,
+                                                            dtype):
+    """1, 1, 1, 2 (twice: a ragged 16-column tile, and a chunk of 20), 2 and
+    8 CTAs per (b, h), read from the model layout (strided q/k/v and gates,
+    h written through a view): h and the final carry C, n, m within the
+    reference's tolerance of the plain version, one call."""
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
+    assert mk.column_tiles(d) == {16: 1, 32: 1, 64: 1, 80: 2, 128: 2,
+                                  512: 8}[d]
+    ins = _mlstm_inputs(card, 2, 3, S, d, dtype, d + S + chunk)
+    want_h, want_c = mk.mlstm_chunk_bhsd_plain(*ins, chunk=chunk)
+    model = [x.transpose(1, 2).contiguous() for x in ins]
+    n0 = mk.mlstm_chunk_bhsd.launches
+    h, carry = mlstm_chunk(*model, chunk=chunk)
+    torch.cuda.synchronize()
+    assert mk.mlstm_chunk_bhsd.launches == n0 + 1
+    tol = _MLSTM_TOL[dtype]
+    torch.testing.assert_close(h.transpose(1, 2).float(), want_h.float(),
+                               rtol=tol, atol=tol)
+    for got, want in zip(carry, want_c):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# what the card once refused and the CPU took (flash, SSD)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["misaligned_base", "odd_stride",
+                                  "H_65536", "B_65536"])
+def test_flash_takes_what_the_cpu_takes(card, case):
+    """The cases of test_torch_flash_attention.py's
+    test_every_device_takes_misaligned_rows_and_large_grids on the card:
+    equal to the aligned call, and within tolerance of the plain version."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    B, S, H, KV, D = {"misaligned_base": (2, 64, 4, 2, 32),
+                      "odd_stride": (1, 64, 4, 2, 32),
+                      "H_65536": (1, 2, 65536, 1, 32),
+                      "B_65536": (65536, 2, 1, 1, 32)}[case]
+    gen = torch.Generator(device=card).manual_seed(11)
+    q, k, v = (torch.randn((B, h, S, D), generator=gen, device=card)
+               .to(torch.bfloat16) for h in (H, KV, KV))
+    want = fk.flash_attention_bhsd(q, k, v)
+    if case == "misaligned_base":
+        def off(t):
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+            view = buf[1:].view(t.shape)
+            return view.copy_(t)
+        out = off(torch.zeros_like(q))
+        got = fk.flash_attention_bhsd(off(q), off(k), off(v), out=out)
+        assert got is out
+    elif case == "odd_stride":
+        wide = torch.zeros((B, H, S, D + 1), dtype=q.dtype, device=card)
+        wide[..., :D] = q
+        got = fk.flash_attention_bhsd(wide[..., :D], k, v)
+    else:
+        got = want
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    plain = fk.flash_attention_bhsd_plain(q, k, v)
+    torch.testing.assert_close(got.float(), plain.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,chunk", [(65536, 2, 1), (1, 65536, 1)])
+def test_ssd_takes_65536_batches_and_chunks(card, B, S, chunk):
+    """B = 65,536, and 65,536 chunks (chunk 1, S = 65,536, B = H = 1,
+    P = N = 16): the kernels take both, as the CPU does, within the
+    reference's f32 tolerance of the plain version."""
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    x, a, b, c = _ssd_inputs(card, B, 1, S, 16, 16, "float32", 5)
+    want_y, want_s = sk.ssd_chunk_bhcp_plain(x, a, b, c, chunk=chunk)
+    got_y, got_s = sk.ssd_chunk_bhcp(x, a, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_s, want_s, rtol=1e-4, atol=1e-4)

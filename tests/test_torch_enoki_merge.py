@@ -15,7 +15,7 @@ import torch
 from repro.kernels.enoki_merge import ops as ref_ops
 from repro.kernels.enoki_merge.kernel import enoki_merge_rows as ref_rows
 from repro.kernels.enoki_merge.ref import enoki_merge_ref
-from repro_torch.kernels.enoki_merge import ops
+from repro_torch.kernels.enoki_merge import kernel, ops
 from repro_torch.kernels.enoki_merge.kernel import enoki_merge_rows
 from torch_parity import port_lockdep, to_np  # noqa: F401  (autouse fixture)
 
@@ -153,3 +153,66 @@ def test_wrapper_rejects_mismatched_operands():
     with pytest.raises(ValueError):
         enoki_merge_rows(acc, [(None, torch.zeros(4, 8), None,
                                 torch.zeros(4, dtype=torch.int64), None)])
+
+
+# ---------------------------------------------------------------------------
+# the launch's host-side geometry (the kernel itself: test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows,width,dtype,want", [
+    (64, 25600, torch.float32, (102400, 12800, 8)),    # 100 KB rows
+    (64, 262144, torch.float32, (1048576, 131072, 8)),  # 1 MB rows
+    (7, 3, torch.float32, (12, 16, 1)),
+    (33, 2049, torch.float32, (8196, 4112, 2)),
+    (4, 8192, torch.uint8, (8192, 8192, 1)),
+    (4, 8193, torch.uint8, (8193, 4112, 2)),
+    (4, 7 * 8192 + 1, torch.uint8, (57345, 7184, 8)),
+    (0, 16, torch.float32, (0, 16, 1))])
+def test_launch_geometry(rows, width, dtype, want):
+    """A row of up to CHUNK_BYTES is one block; a wider one spans up to 8
+    blocks (one cluster), its chunks growing with it in 16-byte steps."""
+    assert kernel.launch_geometry(torch.zeros(rows, width, dtype=dtype)) \
+        == want
+
+
+def test_launch_geometry_covers_every_row_width():
+    for row_bytes in list(range(1, 600)) + [8191, 8192, 8193, 65535, 65536,
+                                            65537, 10**6, 10**8 + 3]:
+        got, chunk, chunks = kernel.launch_geometry(
+            torch.empty(1, row_bytes, dtype=torch.uint8))
+        assert got == row_bytes and chunk % 16 == 0
+        assert 1 <= chunks <= kernel.MAX_CHUNKS
+        assert (chunks - 1) * chunk < row_bytes <= chunks * chunk
+        assert chunks == 1 or chunk >= kernel.CHUNK_BYTES // 2
+
+
+@pytest.mark.parametrize("k,want", [
+    (1, [(0, 1)]), (64, [(0, 64)]), (65, [(0, 64), (64, 65)]),
+    (130, [(0, 64), (64, 128), (128, 130)])])
+def test_snapshot_groups(k, want):
+    assert kernel.MAX_K == 64
+    assert kernel.snapshot_groups(k) == want
+
+
+@pytest.mark.parametrize("row_bytes,bases,want", [
+    (102400, [0, 4096, 1 << 20], 16), (12, [0, 16], 4), (8196, [0, 64], 4),
+    (4, [0, 2], 1), (7, [0, 16], 1), (32, [0, 8], 4)])
+def test_access_width(row_bytes, bases, want):
+    assert kernel._vec(row_bytes, bases) == want
+
+
+@pytest.mark.parametrize("k", [65, 130])
+def test_grouped_fold_equals_whole_fold(k):
+    """Past the by-value limit the card folds MAX_K snapshots a launch, in
+    order: folding the groups one after the other equals the one fold."""
+    R, V, N = 16, 8, 4
+    rng = np.random.default_rng(200 + k)
+    keys = (1000 + np.arange(R)).astype(np.int32)
+    acc = _snapshot(rng, R, V, N, keys)
+    snaps = [_snapshot(rng, R, V, N, keys) for _ in range(k)]
+    whole = enoki_merge_rows(_clone(acc), snaps)
+    grouped = _clone(acc)
+    for lo, hi in kernel.snapshot_groups(k):
+        enoki_merge_rows(grouped, snaps[lo:hi])
+    for x, y in zip(whole, grouped):
+        assert torch.equal(x, y)

@@ -131,6 +131,49 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         fk.flash_attention_bhsd(qt.to("meta"), kt.to("meta"), vt.to("meta"))
 
 
+def _misaligned(t):
+    """``t``'s numbers in a view whose base sits one element past 16 bytes."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("case", ["misaligned_base", "odd_stride",
+                                  "H_65536", "B_65536"])
+def test_every_device_takes_misaligned_rows_and_large_grids(case):
+    """Inputs the card once refused while the CPU took them: a bf16 base
+    one element off 16 bytes, a row stride that breaks 16-byte rows, and
+    65,536 heads or batches (past a grid's y and z limit).  The wrapper
+    takes each on every device: here the numbers equal the aligned call's
+    and the reference oracle's; ``test_torch_cuda.py`` pins the card."""
+    B, S, H, KV, D = {"misaligned_base": (2, 64, 4, 2, 32),
+                      "odd_stride": (1, 64, 4, 2, 32),
+                      "H_65536": (1, 2, 65536, 1, 32),
+                      "B_65536": (65536, 2, 1, 1, 32)}[case]
+    (jq, jk, jv), (q, k, v), tol = _inputs(11, B, S, S, H, KV, D,
+                                           "bfloat16")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    want = fk.flash_attention_bhsd(qt, kt, vt)
+    if case == "misaligned_base":
+        args = [_misaligned(t) for t in (qt, kt, vt)]
+        out = _misaligned(torch.zeros_like(qt))
+        assert not fk.rows_aligned(out) and not fk.rows_aligned(args[0])
+        got = fk.flash_attention_bhsd(*args, out=out)
+        assert got is out
+    elif case == "odd_stride":
+        # rows of D + 1 elements: every row but the first off 16 bytes
+        wide = torch.zeros(B, H, S, D + 1, dtype=qt.dtype)
+        wide[..., :D] = qt
+        assert not fk.rows_aligned(wide[..., :D])
+        got = fk.flash_attention_bhsd(wide[..., :D], kt, vt)
+    else:
+        got = fk.flash_attention_bhsd(qt, kt, vt)
+    assert torch.equal(got, want)
+    _close(got.transpose(1, 2), ref_oracle(jq, jk, jv, causal=True), tol,
+           case)
+
+
 # ---------------------------------------------------------------------------
 # the bf16 kernel's tensor maps, as the host builds them
 # ---------------------------------------------------------------------------

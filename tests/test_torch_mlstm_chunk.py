@@ -169,3 +169,17 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         mk.mlstm_chunk_bhsd(z, z, z, li, lf)
     with pytest.raises(ValueError, match="device"):
         mk.mlstm_chunk_bhsd(*(t.to("meta") for t in (q, k, v, li, lf)))
+
+
+@pytest.mark.parametrize("d,tiles", [(16, 1), (32, 1), (48, 1), (64, 1),
+                                     (80, 2), (128, 2), (192, 3), (512, 8)])
+def test_column_tiles(d, tiles):
+    """One CTA of the chunk kernel per 64 columns of C: 8 at xlstm-350m's
+    d = 512, 2 at reduced xlstm's 128, 1 at d <= 64."""
+    assert mk.column_tiles(d) == tiles
+
+
+def test_column_tiles_refuse_what_the_kernel_does_not_take():
+    for d in (0, 528):
+        with pytest.raises(ValueError, match="head dim"):
+            mk.column_tiles(d)

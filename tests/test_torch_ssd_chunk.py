@@ -163,6 +163,22 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         sk.ssd_chunk_bhcp(*(t.to("meta") for t in (x, a, b, c)))
 
 
+@pytest.mark.parametrize("chunk", [1, 2])
+def test_every_device_takes_65536_batches(chunk):
+    """B = 65,536 (past a grid's z limit, which the card once refused while
+    the CPU took it) against the reference scan; the kernels walk batches
+    and chunks on the grid's x dimension, and ``test_torch_cuda.py`` pins
+    the card here and at 65,536 chunks (chunk 1, S = 65,536)."""
+    B, H, S, P, N = 65536, 1, 2, 16, 16
+    _, (jx, ja, jb, jc), tin, tol = _inputs(7, B, H, S, P, N)
+    y, state = sk.ssd_chunk_bhcp(*tin, chunk=chunk)
+    xs, a = jx.transpose(0, 2, 1, 3), ja.transpose(0, 2, 1)
+    wy, ws = ref_ssm.ssd_scan(xs, a, jb[:, 0], jc[:, 0], jnp.ones_like(a),
+                              chunk)
+    _close(y, wy.transpose(0, 2, 1, 3), tol, "y")
+    _close(state, ws, tol, "state")
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels' three passes, in plain PyTorch
 # ---------------------------------------------------------------------------
