@@ -29,7 +29,23 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    256-request buckets both run); replication flushed; replicas byte-identical, aligned
    merges only, the kernel launched exactly once per merge, and a CPU twin
    of the same requests (plain versions) ending in the same arenas;
-4. ``flash_attention_bhsd`` against its plain version on the card: f32
+4. crash, partition and checkpoint recovery (``repro_torch.runtime`` and
+   ``repro_torch.checkpoint``) at the served width, every catch-up, drain
+   and delivery merge through ``enoki_merge_rows``: (a) the seeded chaos
+   plan of ``tests/test_partition_tolerance.py`` (seed 7, 12 rounds: lossy
+   links, a partition and a crash + restore of edge2) over the keygroup
+   REPLICATED on edge, edge2 and cloud — accounting balanced, replicas
+   byte-identical with "current" = the number of writes, byte-identical
+   to the fault-free twin on the card and to a CPU twin of the faulty run,
+   aligned merges only and one launch per merge; (b) a PEER_FETCH keygroup
+   of 1 MB rows (64 MB) owned by edge checkpointed, written past the
+   checkpoint, its sole replica crashed and revived on edge2 from the file
+   equal to the checkpointed arena, a routed invoke continuing from it,
+   and the same file restored onto the card and onto the CPU leaf for
+   leaf; (c) 256 requests through ``FaasServer`` with the membership
+   attached, edge2 killed while they are in flight — every one served by
+   edge within 30 s — then edge2 restored byte-identical to edge;
+5. ``flash_attention_bhsd`` against its plain version on the card: f32
    (2e-5) and bf16 (2e-2, the reference's own tolerances) over the
    reference's sweep shapes, head dim 112, a ragged S=100, Sq=128 against
    Skv=256 and the internlm2 prefill geometry, causal, non-causal and
@@ -40,14 +56,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    the same function in f32; then timed at both prefill geometries beside
    its tensor-core FLOP bound, its plain version and
    ``scaled_dot_product_attention``;
-5. ``ssd_chunk_bhcp`` (three kernels a call) against its plain version
+6. ``ssd_chunk_bhcp`` (three kernels a call) against its plain version
    on the card, y and the final state: f32 (1e-4) and bf16 (5e-2, the
    reference's tolerances) over the reference's sweep shapes, ragged S and
    the main-path geometry (B=4, H=112, S=4096, P=N=64, chunk 128, f32),
    directly and through the model-layout wrapper; then timed there beside
    its bound (3xTF32 tensor cores or bytes), its f32 FMA bound and its
    plain version (no single PyTorch call computes the scan);
-6. ``mlstm_chunk_bhsd`` (q kᵀ of every chunk at once, then ceil(d/64) CTAs
+7. ``mlstm_chunk_bhsd`` (q kᵀ of every chunk at once, then ceil(d/64) CTAs
    per (b, h) for the chunk loop, 3xTF32 tensor cores) against its plain
    version on the card, h and the final
    carry (C, n, m): f32 (1e-4) and bf16 (5e-2, the reference's tolerances)
@@ -56,7 +72,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    64, f32), directly and through the model-layout wrapper; then timed there
    beside its bound (3xTF32 tensor cores or bytes), its f32 FMA bound, its
    plain version (no single PyTorch call computes the chunkwise mLSTM);
-7. the sessions path, served, for each of three models at full width and
+8. the sessions path, served, for each of three models at full width and
    depth with bf16 weights from a seed — internlm2-1.8b (dense), zamba2-7b
    (hybrid: Mamba-2 states and a ring-cached shared attention block), then
    xlstm-350m (recurrent: mLSTM matrix memories and sLSTM cells): 2 pods x 4
@@ -69,7 +85,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    pod 0 fails and ``migrate_sessions`` restores it with staleness 4 <= R, 4
    more steps; then one pod's prefill and one pod's decode step under
    ``torch.profiler`` (device ms by kernel kind, idle share, launches);
-8. the ``{"kernels": [...]}`` line, then the card's name and power limit
+9. the smoke's seconds, the ``{"kernels": [...]}`` line (the merge
+   kernel's launches by path: served and runtime), then the card's name and
+   power limit
    as ``nvidia-smi`` reports them, then ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -80,6 +98,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -97,6 +116,10 @@ DTYPES = ("float32", "bfloat16", "int32", "uint8")
 N_REQUESTS, BURST, CONCURRENCY = 544, 320, 32
 SPIN_CYCLES = 2_000_000         # ~1 ms of card time: longer than any enqueue
 WINDOW_MS = 20.0
+# the runtime phase: tests/test_partition_tolerance.py's chaos plan
+CHAOS_SEED, CHAOS_ROUNDS = 7, 12
+RT_NODES = ("edge", "edge2", "cloud")
+N_CRASH_REQUESTS = 256
 MERGE_SOURCE = "src/repro_torch/kernels/enoki_merge/csrc/enoki_merge.cu"
 MERGE_REPLACES = "src/repro/kernels/enoki_merge/kernel.py:37"
 FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
@@ -312,19 +335,20 @@ def time_geometry(torch, kernel, width, k, flush, reps=20):
 # phase 3: the FaaS main path, served
 # ---------------------------------------------------------------------------
 
-def register_handlers(torch, enoki_function, width):
-    """Listing-1-style functions over one 64-slot keygroup whose static key
-    set ("current" + 63 history keys) fills the arena."""
+def register_handlers(torch, enoki_function, width, prefix="smoke"):
+    """Listing-1-style functions ``<prefix>_fill``/``_ingest``/``_peek``
+    over one 64-slot keygroup ``<prefix>_kg`` whose static key set
+    ("current" + 63 history keys) fills the arena."""
     hist = [f"h{i}" for i in range(SLOTS - 1)]
+    kg = [f"{prefix}_kg"]
 
-    @enoki_function(name="smoke_fill", keygroups=["smoke_kg"],
-                    codec_width=width)
+    @enoki_function(name=f"{prefix}_fill", keygroups=kg, codec_width=width)
     def smoke_fill(kv, x):
         for i, key in enumerate(["current"] + hist):
             kv.set(key, (x[0] + i).expand(width))
         return x[:1]
 
-    @enoki_function(name="smoke_ingest", keygroups=["smoke_kg"],
+    @enoki_function(name=f"{prefix}_ingest", keygroups=kg,
                     codec_width=width)
     def smoke_ingest(kv, x):
         cur, _ = kv.get("current")
@@ -332,8 +356,7 @@ def register_handlers(torch, enoki_function, width):
         kv.set("current", cur + x[0])
         return torch.stack([cur[0] + x[0], rows[:, 0].sum()])
 
-    @enoki_function(name="smoke_peek", keygroups=["smoke_kg"],
-                    codec_width=width)
+    @enoki_function(name=f"{prefix}_peek", keygroups=kg, codec_width=width)
     def smoke_peek(kv, x):
         cur, _ = kv.get("current")
         return cur[:2] + x[:2]
@@ -511,7 +534,299 @@ def time_batches(cluster, plan):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the flash-attention kernel against its plain version
+# phase 4: crash, partition and checkpoint recovery (the runtime)
+# ---------------------------------------------------------------------------
+
+def _timed(device, fn, into):
+    """``fn`` with the card synchronised around each call, its wall ms
+    appended to ``into``."""
+    from repro_torch.device import synchronize
+
+    def run(*args, **kwargs):
+        synchronize(device)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        synchronize(device)
+        into.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return run
+
+
+def _zero(counters):
+    for k in counters:
+        k.launches = 0
+
+
+def _merge_launches(counters) -> int:
+    """The merge kernel's count; every other kernel must not have run."""
+    got = {k.__name__: k.launches for k in counters}
+    assert all(v == 0 for name, v in got.items()
+               if name != "enoki_merge_rows"), got
+    return got["enoki_merge_rows"]
+
+
+def chaos_run(device, width, apply_faults, counters=()):
+    """``tests/test_partition_tolerance.py``'s chaos run over the served
+    keygroup, REPLICATED on all three nodes: seed 7, 12 rounds, victim
+    edge2, a +1 write per writer per round each followed by a drain, and a
+    probe at edge2 (the read-only peek, deployed there only).  The
+    ``counters`` are zeroed just before the run and read just after it."""
+    import numpy as np
+    from repro_torch.core import Cluster, get_function
+    from repro_torch.device import synchronize
+    from repro_torch.runtime import (ElasticMembership, FailureInjector,
+                                     chaos_schedule, run_chaos)
+    c = Cluster({n: ("cloud" if n == "cloud" else "edge") for n in RT_NODES},
+                measure_compute=False, fault_seed=CHAOS_SEED, device=device)
+    example = np.zeros(8, np.float32)
+    for fn, nodes in (("smoke_fill", RT_NODES), ("smoke_ingest", RT_NODES),
+                      ("smoke_peek", ("edge2",))):
+        c.deploy(get_function(fn), list(nodes), value_width=width,
+                 example_input=example)
+    c.invoke("smoke_fill", "edge", np.zeros(8, np.float32))  # "current" = 0
+    c.flush_replication()
+    m = ElasticMembership(c)
+    inj = FailureInjector(c, membership=m)
+    plan = chaos_schedule(CHAOS_SEED, CHAOS_ROUNDS, RT_NODES, victim="edge2")
+    times = {"crash_ms": [], "restore_ms": []}
+    m.crash = _timed(c.device, m.crash, times["crash_ms"])
+    m.restore = _timed(c.device, m.restore, times["restore_ms"])
+    one = np.ones(8, np.float32)
+    served, lost = [], []
+
+    def write(node, r, t):
+        c.invoke("smoke_ingest", node, one, t_send=t + 1.0)
+        c.drain_transport(t + 1.0)
+
+    def probe(r, t):
+        ticket = c.engine.submit("smoke_peek", "edge2", one, t_send=t + 2.0)
+        (served if ticket in c.engine.flush() else lost).append(r)
+
+    synchronize(c.device)
+    d0 = c.stats.merge_dispatches
+    _zero(counters)
+    t0 = time.perf_counter()
+    run_chaos(c, m, inj, plan, write, probe=probe, apply_faults=apply_faults)
+    synchronize(c.device)
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = _merge_launches(counters) if counters else None
+    return c, {"plan": plan, "served": served, "lost": lost, "wall_ms": wall,
+               "merges": c.stats.merge_dispatches - d0, "launches": launches,
+               "membership": m, **times}
+
+
+def _same_arenas(torch, a, b, kg, what):
+    """Every leaf of ``kg``'s arena equal, node by node (vv included)."""
+    for node in RT_NODES:
+        for x, y in zip(a.store_of(kg, node), b.store_of(kg, node)):
+            assert torch.equal(x.cpu(), y.cpu()), f"{what} differs at {node}"
+
+
+def check_chaos(torch, counters, width):
+    """Part 1: the seeded chaos run on the card, its fault-free twin on the
+    card, and a CPU twin of the faulty run (plain merges)."""
+    c, r = chaos_run("cuda", width, True, counters)
+    launches = r["launches"]
+    plan, rounds = r["plan"], CHAOS_ROUNDS
+    # (a) the engine's accounting balances; the crash window dropped probes
+    st_ = c.engine.stats
+    assert st_.submitted == st_.requests_flushed + st_.dropped_dead, st_
+    assert r["lost"] and len(r["lost"]) == st_.dropped_dead, r["lost"]
+    assert len(r["served"]) + len(r["lost"]) == rounds
+    assert c.stats.repl_retries > 0, c.stats
+    assert c.stats.repl_dropped > 0 or c.stats.repl_duped > 0, c.stats
+    # (b) all three replicas byte-identical, and no write lost
+    edge = c.store_of("smoke_kg", "edge")
+    for node in RT_NODES:
+        for x, y in zip(edge, c.store_of("smoke_kg", node)):
+            assert x.is_cuda and torch.equal(x, y), f"replica {node} differs"
+    writes = sum(len(plan.writers_for(i)) for i in range(rounds))
+    assert float(edge.values[0, 0]) == writes, (float(edge.values[0, 0]),
+                                                writes)
+    # (e) aligned merges only, one launch per merge dispatch
+    assert c.stats.merge_fallback == 0 and c.stats.merge_aligned > 0, c.stats
+    assert launches == r["merges"] > 0, (launches, r["merges"])
+    # (c) the fault-free twin on the card, byte-identical (vv included)
+    twin, rt_ = chaos_run("cuda", width, False)
+    assert (rt_["served"], rt_["lost"]) == (r["served"], r["lost"])
+    _same_arenas(torch, c, twin, "smoke_kg", "fault-free twin")
+    # (d) a CPU twin of the faulty run, plain merges
+    cpu, rc = chaos_run("cpu", width, True)
+    assert (rc["served"], rc["lost"]) == (r["served"], r["lost"])
+    _same_arenas(torch, c, cpu, "smoke_kg", "CPU twin")
+    assert _stats(cpu.stats) == _stats(c.stats), "transport counters differ"
+    m = r["membership"]
+    return {"rounds": rounds, "writes": writes, "served": len(r["served"]),
+            "lost": len(r["lost"]), "events": len(plan.events),
+            "repl_retries": c.stats.repl_retries,
+            "repl_dropped": c.stats.repl_dropped,
+            "repl_duped": c.stats.repl_duped,
+            "epoch_rejections": c.stats.epoch_rejections,
+            "dropped_deliveries": m.stats.dropped_deliveries,
+            "caught_up": m.stats.caught_up,
+            "merge_dispatches": r["merges"],
+            "merge_snapshots": c.stats.merge_snapshots,
+            "merge_fallback": c.stats.merge_fallback,
+            "kernel_launches": launches, "wall_ms": r["wall_ms"],
+            "crash_ms": r["crash_ms"], "restore_ms": r["restore_ms"],
+            "twin_identical": True, "cpu_twin_identical": True}
+
+
+def _stats(stats) -> dict:
+    import dataclasses
+    return {f.name: getattr(stats, f.name)
+            for f in dataclasses.fields(stats) if not f.name.startswith("_")}
+
+
+def check_checkpoint(torch, counters, ckpt_dir):
+    """Part 2: a PEER_FETCH keygroup of 1 MB rows owned by edge is
+    checkpointed, written past the checkpoint, and its sole replica
+    crashes: the crash revives it on edge2 from the checkpoint
+    (``tests/test_failure_recovery.py``'s checkpoint scenario at full
+    width); then the same file restores onto the CPU."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    from repro_torch.configs.base import ReplicationPolicy
+    from repro_torch.core import Cluster, Router, get_function
+    from repro_torch.core.keygroup import arena_new
+    from repro_torch.core.store import arena_clone, stores_equal
+    from repro_torch.core.versioning import MAX_NODES
+    from repro_torch.device import synchronize
+    from repro_torch.runtime import ElasticMembership
+    c = Cluster({"edge": "edge", "edge2": "edge", "cloud": "cloud"},
+                measure_compute=False, device="cuda")
+    example = np.zeros(8, np.float32)
+    for fn in ("ckpt_fill", "ckpt_ingest"):
+        c.deploy(get_function(fn), ["edge", "edge2"],
+                 policy=ReplicationPolicy.PEER_FETCH, owner="edge",
+                 value_width=ROW_1MB, example_input=example)
+    m = ElasticMembership(c, checkpoint_dir=ckpt_dir)
+    one = np.ones(8, np.float32)
+    d0 = c.stats.merge_dispatches
+    _zero(counters)
+    c.invoke("ckpt_fill", "edge", example)                   # "current" = 0
+    c.invoke("ckpt_ingest", "edge", one, t_send=100.0)       # "current" = 1
+    save_ms = []
+    _timed(c.device, m.checkpoint, save_ms)("edge", 1)
+    expected = arena_clone(c.store_of("ckpt_kg", "edge"))
+    c.invoke("ckpt_ingest", "edge", one, t_send=200.0)       # not in the file
+    crash_ms = []
+    rehomed = _timed(c.device, m.crash, crash_ms)("edge")
+    assert rehomed == {"ckpt_kg": "edge2"}, rehomed
+    assert m.stats.checkpoint_restores == 1, m.stats
+    revived = c.store_of("ckpt_kg", "edge2")
+    assert all(t.is_cuda for t in revived), "the revived arena left the card"
+    assert stores_equal(expected, revived), "revived arena != checkpoint"
+    assert all(torch.equal(x, y) for x, y in zip(expected, revived))
+    assert c.policies["ckpt_kg"].owner == "edge2", c.policies["ckpt_kg"]
+    res = Router(c).invoke("ckpt_ingest", one, t_send=300.0)
+    assert res.node == "edge2" and float(res.output[0]) == 2.0, res
+    synchronize(c.device)
+    launches = _merge_launches(counters)
+    merges = c.stats.merge_dispatches - d0
+    assert launches == merges, (launches, merges)
+    # the same file, restored straight onto the card and onto the CPU
+    mgr = m._ckpt("edge")
+    kspec = c.policies["ckpt_kg"]
+    restore_ms = []
+    card = _timed(c.device, mgr.restore, restore_ms)(
+        {"ckpt_kg": arena_new(kspec, MAX_NODES)})["ckpt_kg"]
+    host = mgr.restore({"ckpt_kg": arena_new(
+        dataclasses.replace(kspec, device="cpu"), MAX_NODES)})["ckpt_kg"]
+    for x, y, z in zip(expected, card, host):
+        assert y.is_cuda and z.device.type == "cpu"
+        assert torch.equal(x, y) and torch.equal(x.cpu(), z), \
+            "a restored leaf differs"
+    raw = sum(t.numel() * t.element_size() for t in expected)
+    path = mgr._path(mgr.latest_step())
+    return {"row_bytes": ROW_1MB * 4, "raw_bytes": raw,
+            "file_bytes": os.path.getsize(path),
+            "codec": "zstd" if _zstd_frame(path) else "zlib",
+            "save_ms": save_ms[0], "crash_ms": crash_ms[0],
+            "restore_ms": restore_ms[0],
+            "save_mb_per_s": raw / 1e6 / (save_ms[0] / 1e3),
+            "restore_mb_per_s": raw / 1e6 / (restore_ms[0] / 1e3),
+            "checkpoint_restores": m.stats.checkpoint_restores,
+            "merge_dispatches": merges, "kernel_launches": launches}
+
+
+def _zstd_frame(path) -> bool:
+    with open(path, "rb") as f:
+        return f.read(4) == b"\x28\xb5\x2f\xfd"
+
+
+def check_crash_serving(torch, counters, width):
+    """Part 3: ``tests/test_faas_server.py``'s node death mid-serving at the
+    served configuration: N_CRASH_REQUESTS ingests through a FaasServer
+    with the membership attached, edge2 killed while they are in flight;
+    then edge2 restored and caught up."""
+    import numpy as np
+    from repro_torch.device import synchronize
+    from repro_torch.launch.faas_server import FaasServer, RequestLost
+    from repro_torch.runtime import ElasticMembership, FailureInjector
+    c = build_cluster("cuda", width, measure_compute=True)
+    c.invoke("smoke_fill", "edge", np.ones(8, np.float32))   # "current" = 1
+    c.flush_replication()
+    c.engine.prewarm()
+    m = ElasticMembership(c)
+    inj = FailureInjector(c, membership=m)
+    one = np.ones(8, np.float32)
+    n = N_CRASH_REQUESTS
+    done = [None] * n
+    synchronize(c.device)
+    d0 = c.stats.merge_dispatches
+    _zero(counters)
+    t_start = time.perf_counter()
+    with FaasServer(c, window_ms=WINDOW_MS, time_scale=1.0,
+                    membership=m) as srv:
+        futs = []
+        for i in range(n):
+            fut = srv.submit("smoke_ingest", one)
+            fut.add_done_callback(
+                lambda _, i=i: done.__setitem__(i, time.perf_counter()))
+            futs.append((time.perf_counter(), fut))
+        kill_ms = []
+        _timed(c.device, inj.kill_node, kill_ms)("edge2")
+        served = lost = 0
+        for _, fut in futs:
+            try:
+                fut.result(timeout=30.0)
+                served += 1
+            except RequestLost:
+                lost += 1
+    wall = time.perf_counter() - t_start
+    assert wall < 30.0, wall
+    assert all(f.done() for _, f in futs)
+    assert served + lost == n and srv.stats.served == served, srv.stats
+    assert served == n and lost == 0, (served, lost)
+    assert m.state["edge2"] == "dead", m.state
+    restore_ms = []
+    assert _timed(c.device, m.restore, restore_ms)("edge2") == ["smoke_kg"]
+    c.flush_replication()
+    synchronize(c.device)
+    launches = _merge_launches(counters)
+    merges = c.stats.merge_dispatches - d0
+    assert c.stats.merge_fallback == 0, c.stats
+    assert launches == merges, (launches, merges)
+    edge, edge2 = (c.store_of("smoke_kg", "edge"),
+                   c.store_of("smoke_kg", "edge2"))
+    assert all(torch.equal(x, y) for x, y in zip(edge, edge2)), \
+        "the restored replica differs"
+    assert float(edge.values[0, 0]) == 1.0 + n, float(edge.values[0, 0])
+    lat = sorted((d - t0) * 1e3 for (t0, _), d in zip(futs, done))
+    return {"requests": n, "served": served, "lost": lost,
+            "requests_per_s": n / wall, "wall_s": wall,
+            "p50_ms": statistics.median(lat),
+            "p99_ms": lat[min(n - 1, int(0.99 * n))],
+            "kill_ms": kill_ms[0], "restore_ms": restore_ms[0],
+            "crashes": m.stats.crashes, "caught_up": m.stats.caught_up,
+            "merge_dispatches": merges, "kernel_launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the flash-attention kernel against its plain version
 # ---------------------------------------------------------------------------
 
 def _qkv(torch, gen, B, Sq, Skv, H, KV, D, dtype):
@@ -664,7 +979,7 @@ def time_flash(torch, fk, flush, geometry, reps=20):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the SSD chunk kernel against its plain version
+# phase 6: the SSD chunk kernel against its plain version
 # ---------------------------------------------------------------------------
 
 def _ssd_inputs(torch, gen, B, H, S, P, N, dtype):
@@ -784,7 +1099,7 @@ def time_ssd(torch, sk, flush, reps=20):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the mLSTM chunk kernel against its plain version
+# phase 7: the mLSTM chunk kernel against its plain version
 # ---------------------------------------------------------------------------
 
 def _mlstm_inputs(torch, gen, B, H, S, d, dtype):
@@ -901,7 +1216,7 @@ def time_mlstm(torch, mk, flush, reps=20):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the sessions path, served
+# phase 8: the sessions path, served
 # ---------------------------------------------------------------------------
 
 def _wall_ms(torch, fn):
@@ -1153,6 +1468,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # -- 1. device and build
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     t0 = time.perf_counter()
     built = build.build_all()
@@ -1201,7 +1517,24 @@ def main() -> int:
 
     del c, twin
 
-    # -- 4. the flash-attention kernel against its plain version
+    # -- 4. crash, partition and checkpoint recovery (the runtime)
+    t_phase = time.perf_counter()
+    register_handlers(torch, enoki_function, ROW_1MB, prefix="ckpt")
+    kernels = (kernel.enoki_merge_rows, fk.flash_attention_bhsd,
+               sk.ssd_chunk_bhcp, mk.mlstm_chunk_bhsd)
+    chaos = check_chaos(torch, kernels, ROW_100KB)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir:
+        ckpt = check_checkpoint(torch, kernels, ckpt_dir)
+    crash = check_crash_serving(torch, kernels, ROW_100KB)
+    runtime_launches = {"chaos": chaos["kernel_launches"],
+                        "checkpoint": ckpt["kernel_launches"],
+                        "crash_serving": crash["kernel_launches"]}
+    emit({"phase": "runtime", "chaos": chaos, "checkpoint": ckpt,
+          "crash_serving": crash, "kernel_launches": runtime_launches,
+          "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    torch.cuda.empty_cache()
+
+    # -- 5. the flash-attention kernel against its plain version
     fworst, fratio, fcases = check_flash_sweep(torch, fk, fops)
     emit({"phase": "kernel_sweep", "kernel": "flash_attention_bhsd",
           "cases": fcases, "max_abs_err": fworst, "tolerance": FLASH_TOL,
@@ -1217,7 +1550,7 @@ def main() -> int:
           "geometry": "zamba2-7b shared block, prefill", "nvidia_smi": smi,
           **fz})
 
-    # -- 5. the SSD chunk kernel against its plain version
+    # -- 6. the SSD chunk kernel against its plain version
     sworst, scases = check_ssd_sweep(torch, sk, sops)
     emit({"phase": "kernel_sweep", "kernel": "ssd_chunk_bhcp",
           "cases": scases, "max_abs_err": sworst, "tolerance": SSD_TOL})
@@ -1226,7 +1559,7 @@ def main() -> int:
           "geometry": "zamba2-7b Mamba-2 layer, prefill", "nvidia_smi": smi,
           **sd})
 
-    # -- 6. the mLSTM chunk kernel against its plain version
+    # -- 7. the mLSTM chunk kernel against its plain version
     mworst, mcases = check_mlstm_sweep(torch, mk, mops)
     emit({"phase": "kernel_sweep", "kernel": "mlstm_chunk_bhsd",
           "cases": mcases, "max_abs_err": mworst, "tolerance": MLSTM_TOL})
@@ -1236,7 +1569,7 @@ def main() -> int:
           **ml})
     del flush
 
-    # -- 7. the sessions path, served, for each model
+    # -- 8. the sessions path, served, for each model
     counters = {"enoki_merge_rows": kernel.enoki_merge_rows,
                 "flash_attention_bhsd": fk.flash_attention_bhsd,
                 "ssd_chunk_bhcp": sk.ssd_chunk_bhcp,
@@ -1255,13 +1588,18 @@ def main() -> int:
                                               expect)
         emit({"phase": "sessions", "nvidia_smi": smi, **ss})
 
-    # -- 8. the kernels line, the card, the result
+    # -- 9. the kernels line, the card, the result
     flash_launches = {a: ss["launches"]["flash_attention_bhsd"]
                       for a, ss in sessions.items()}
+    emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
     t = timings[("100KB", 1)]
+    merge_launches = {"serve": st["launches"],
+                      "runtime": sum(runtime_launches.values())}
     emit({"kernels": [{
         "name": "enoki_merge_rows", "route": "cuda", "source": MERGE_SOURCE,
-        "replaces": MERGE_REPLACES, "launches": st["launches"],
+        "replaces": MERGE_REPLACES,
+        "launches": sum(merge_launches.values()),
+        "launches_by_path": merge_launches,
         "max_abs_err": max(worst, t["max_abs_err"]), "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]}, {

@@ -119,6 +119,10 @@ ORDER_EDGES: Tuple[Tuple[str, str, Optional[str]], ...] = (
     # bump_fence / drop_pending_deliveries run inside membership
     # transitions; the drain acks (outbox surgery) under the node lock
     ("membership.lock", "cluster.outbox_lock", None),
+    # restore() makes the health monitor forget the node's pre-crash
+    # silence inside the transition, before liveness flips back (the
+    # reference's table lacks this edge; its lockdep never runs there)
+    ("membership.lock", "health.lock", None),
     ("cluster.node_lock", "cluster.outbox_lock", None),
     ("cluster.node_lock", "cluster.delivery_lock", None),
     # the transport pump pushes arrivals into the target's delivery queue

@@ -17,8 +17,8 @@ import pytest
 import torch
 
 from repro_torch.core import Cluster, enoki_function, get_function
-from repro_torch.core.store import (arena_clone, merge_snapshots_fused,
-                                    stores_equal)
+from repro_torch.core.store import (Store, arena_clone, kv_set_fold,
+                                    merge_snapshots_fused, stores_equal)
 from repro_torch.kernels.enoki_merge.kernel import (enoki_merge_rows,
                                                     enoki_merge_rows_plain)
 
@@ -687,3 +687,100 @@ def test_ssd_takes_65536_batches_and_chunks(card, B, S, chunk):
     torch.cuda.synchronize()
     torch.testing.assert_close(got_y, want_y, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got_s, want_s, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# runtime and checkpoint: recovery on the card
+# ---------------------------------------------------------------------------
+
+_RT_NODES = ("edge", "edge2", "cloud")
+
+
+@enoki_function(name="tcu_rt_ctr", keygroups=["tcu_rt_kg"], codec_width=256)
+def tcu_rt_ctr(kv, x):
+    cur, found = kv.get("count")
+    new = torch.where(found, cur[0] + x[0], x[0])
+    kv.set("count", new.expand(256))
+    return new.reshape(1)
+
+
+@enoki_function(name="tcu_rt_probe", keygroups=["tcu_rt_probekg"],
+                codec_width=256)
+def tcu_rt_probe(kv, x):
+    cur, _ = kv.get("beacon")
+    return cur[:1] + x[:1]
+
+
+def _chaos_on(device, seed=7, rounds=12):
+    from repro_torch.runtime import (ElasticMembership, FailureInjector,
+                                     chaos_schedule, run_chaos)
+    c = Cluster({n: ("cloud" if n == "cloud" else "edge") for n in _RT_NODES},
+                measure_compute=False, fault_seed=seed, device=device)
+    c.deploy(get_function("tcu_rt_ctr"), list(_RT_NODES))
+    c.deploy(get_function("tcu_rt_probe"), ["edge2"])
+    m = ElasticMembership(c)
+    inj = FailureInjector(c, membership=m)
+    plan = chaos_schedule(seed, rounds, _RT_NODES, victim="edge2")
+    one = np.ones(1, np.float32)
+    lost = []
+
+    def write(node, r, t):
+        c.invoke("tcu_rt_ctr", node, one, t_send=t + 1.0)
+        c.drain_transport(t + 1.0)
+
+    def probe(r, t):
+        ticket = c.engine.submit("tcu_rt_probe", "edge2", one, t_send=t + 2.0)
+        if ticket not in c.engine.flush():
+            lost.append(r)
+
+    n0 = enoki_merge_rows.launches
+    run_chaos(c, m, inj, plan, write, probe=probe)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return c, plan, lost, enoki_merge_rows.launches - n0
+
+
+@pytest.mark.cuda
+def test_chaos_run_on_the_card_equals_the_cpu_run(card):
+    """The seed-7 chaos plan at width 256: every delivery merge an aligned
+    kernel launch, and every arena (vv included) equal to the CPU run's."""
+    gpu, plan, lost, launches = _chaos_on("cuda")
+    cpu, _, lost_cpu, _ = _chaos_on("cpu")
+    assert lost and lost == lost_cpu
+    assert gpu.stats.merge_fallback == 0
+    assert launches == gpu.stats.merge_dispatches > 0
+    writes = sum(len(plan.writers_for(r)) for r in range(plan.rounds))
+    for node in _RT_NODES:
+        g, h = gpu.store_of("tcu_rt_kg", node), cpu.store_of("tcu_rt_kg", node)
+        assert float(g.values[0, 0]) == writes
+        for x, y in zip(g, h):
+            assert x.is_cuda and torch.equal(x.cpu(), y), node
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_arena_checkpoint_restores_on_the_card_and_the_cpu(
+        card, tmp_path, dtype):
+    """A card arena saved, then written in place: the checkpoint restores
+    onto the card and onto the CPU equal to the arena as saved."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.keygroup import KeygroupSpec, arena_new
+    rng = np.random.default_rng(5)
+    acc = _arena(rng, 64, 25600, "float32", card)
+    arena = Store(*(t.to(dtype) if t.is_floating_point() else t
+                    for t in acc))
+    saved = arena_clone(arena)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, {"kg": arena}, blocking=False)
+    kv_set_fold(arena, arena.keys[:2].clone(),
+                torch.full((2, 25600), 7.0, dtype=dtype, device=card),
+                torch.tensor([3, 3], dtype=torch.int32, device=card),
+                torch.tensor(2**22, dtype=torch.int32, device=card), 1)
+    mgr.wait()
+    for device in ("cuda", "cpu"):
+        spec = KeygroupSpec(name="kg", value_width=25600, dtype=dtype,
+                            device=device)
+        got = mgr.restore({"kg": arena_new(spec, 64)})["kg"]
+        for x, y in zip(got, saved):
+            assert x.device.type == device and x.dtype == y.dtype
+            assert torch.equal(x, y.to(device))

@@ -1,9 +1,11 @@
 """Import hygiene and lock discipline of the port.
 
 * Every module of ``repro_torch`` imports in a fresh interpreter without
-  loading ``jax`` or any ``repro.*`` module (the reference package's
-  ``repro/core/__init__.py`` loads jax; the port keeps its own copies),
-  and no import statement of the port or of ``chip_smoke.py`` names them.
+  loading ``jax``, any ``repro.*`` module (the reference package's
+  ``repro/core/__init__.py`` loads jax; the port keeps its own copies) or
+  ``msgpack`` (the checkpoint serializer carries its own codec, so the
+  port runs where it is not installed), and no import statement of the
+  port or of ``chip_smoke.py`` names jax or the reference.
 * The reference's AST lock lint is clean on ``src/repro_torch``.
 * No ``torch.`` call sits lexically under ``self._qlock`` in the port's
   engine: the queue lock is never held across device work (the lint's
@@ -43,12 +45,18 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.models.xlstm",
             "repro_torch.kernels.mlstm_chunk.kernel",
             "repro_torch.kernels.mlstm_chunk.ops",
-            "repro_torch.kernels.mlstm_chunk.ref"} <= set(mods)
+            "repro_torch.kernels.mlstm_chunk.ref",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.serializer",
+            "repro_torch.checkpoint.manager", "repro_torch.runtime",
+            "repro_torch.runtime.health", "repro_torch.runtime.straggler",
+            "repro_torch.runtime.elastic",
+            "repro_torch.runtime.failure"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
-            "or m.startswith('repro.'))))\n")
+            "or m.startswith('repro.') or m == 'msgpack' "
+            "or m.startswith('msgpack.'))))\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.splitlines()[-1]) == []
