@@ -28,7 +28,16 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    ``FaasServer`` (an open-loop burst, then a closed loop, so the 64- and
    256-request buckets both run); replication flushed; replicas byte-identical, aligned
    merges only, the kernel launched exactly once per merge, and a CPU twin
-   of the same requests (plain versions) ending in the same arenas;
+   of the same requests (plain versions) ending in the same arenas.  The
+   batched fold is a captured CUDA graph per (bucket block, arena):
+   ``prewarm`` captures them (count, ms) and serving captures none; then
+   the ``warm`` phase, ``tests/test_perf_paths.py``'s guarantee at the
+   served width: the handlers on three nodes, prewarm, a settling round,
+   3 warm rounds of every bucket on every node with ZERO captures
+   (``analysis.jitprof.CompileCounter``), fold ms a request by bucket,
+   replicas byte-identical and equal to a CPU twin, one launch per merge,
+   and one batched dispatch of 64 at >= 2.5x the throughput of 64
+   sequential invokes (the reference's floor and method);
 4. crash, partition and checkpoint recovery (``repro_torch.runtime`` and
    ``repro_torch.checkpoint``) at the served width, every catch-up, drain
    and delivery merge through ``enoki_merge_rows``: (a) the seeded chaos
@@ -84,7 +93,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    every R=8 and every leaf of each backup equal to its peer's live state,
    pod 0 fails and ``migrate_sessions`` restores it with staleness 4 <= R, 4
    more steps; then one pod's prefill and one pod's decode step under
-   ``torch.profiler`` (device ms by kernel kind, idle share, launches);
+   ``torch.profiler`` (device ms by kernel kind, idle share, launches).
+   Decode is one captured graph a pod-step (2 captures: the live cache,
+   then the migrated one), held against the eager pod-step for 4 steps on
+   copies of the state (tokens and every leaf equal; both timed) and
+   profiled (host graph launches against device kernels); xlstm's sLSTM
+   scan replays 64-step graphs: prefill ms of the capturing pod and the
+   warm one, and the scan against the eager loop, bit for bit, at the
+   prompt's length and at a ragged 100;
 9. the smoke's seconds, the ``{"kernels": [...]}`` line (the merge
    kernel's launches by path: served and runtime), then the card's name and
    power limit
@@ -184,6 +200,7 @@ SESSION_ARCHS = ("internlm2-1.8b", "zamba2-7b", "xlstm-350m")
 PROMPTS = {"internlm2-1.8b": 4096, "zamba2-7b": 4096, "xlstm-350m": 2048}
 N_PODS, SESSIONS, CACHE_EXTRA = 2, 4, 64
 DECODE_STEPS, FAILOVER_STEPS = 60, 4
+GRAPH_CHECK_STEPS = 4           # decode graph against the eager pod-step
 PREFILL_REL_TOL = 5e-2          # tests/test_arch_smoke.py's prefill/decode bound
 
 
@@ -458,24 +475,34 @@ def run_main_path(torch, kernel, width, device, plan):
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.mlstm_chunk import kernel as mk
     from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.analysis.jitprof import CompileCounter
     c = build_cluster(device, width, measure_compute=True)
+    synchronize(c.device)
+    t0 = time.perf_counter()
     prewarm = c.engine.prewarm()
+    prewarm_ms = (time.perf_counter() - t0) * 1e3
+    captures, capture_ms = fold_captures(c)
     buckets = set()
     record_buckets(c, buckets)
     # -- the counted run: counts zeroed just before the path is driven
     kernel.enoki_merge_rows.launches = fk.flash_attention_bhsd.launches = 0
     sk.ssd_chunk_bhcp.launches = mk.mlstm_chunk_bhsd.launches = 0
     d0 = c.stats.merge_dispatches
-    c.invoke("smoke_fill", "edge", torch.ones(8).numpy())
-    results, lat, wall = serve(c, plan)
-    c.flush_replication()
-    synchronize(c.device)
+    with CompileCounter() as cc:
+        c.invoke("smoke_fill", "edge", torch.ones(8).numpy())
+        results, lat, wall = serve(c, plan)
+        c.flush_replication()
+        synchronize(c.device)
+    assert cc.events == 0, f"{cc.events} fold captures while serving"
     launches = kernel.enoki_merge_rows.launches
     assert fk.flash_attention_bhsd.launches == 0, "attention on the FaaS path"
     assert sk.ssd_chunk_bhcp.launches == 0, "an SSD scan on the FaaS path"
     assert mk.mlstm_chunk_bhsd.launches == 0, "an mLSTM on the FaaS path"
     merges = c.stats.merge_dispatches - d0
-    return c, {"prewarm_runs": prewarm, "buckets": sorted(buckets),
+    return c, {"prewarm_runs": prewarm, "prewarm_ms": prewarm_ms,
+               "prewarm_captures": captures,
+               "prewarm_capture_ms": capture_ms, "serve_captures": cc.events,
+               "buckets": sorted(buckets),
                "results": results, "lat": lat, "wall": wall,
                "launches": launches, "merges": merges}
 
@@ -531,6 +558,152 @@ def time_batches(cluster, plan):
         cluster.invoke_batch("smoke_ingest", "edge", xs[:n])
         out[str(n)] = (time.perf_counter() - t0) * 1e3 / n
     return out
+
+
+def fold_steps(cluster):
+    """Every batched handler's fold step cache."""
+    return [bh.steps for nd in cluster.nodes.values()
+            for bh in nd.batched_handlers.values()]
+
+
+def fold_captures(cluster):
+    """(captures, host ms) of the cluster's fold step caches."""
+    steps = fold_steps(cluster)
+    return (sum(st.captures for st in steps),
+            sum(st.capture_ms for st in steps))
+
+
+def warm_cluster(device, width):
+    """The served handlers on three nodes, the keygroup REPLICATED on all
+    three (``tests/test_perf_paths.py``'s warm-serving layout)."""
+    import numpy as np
+    from repro_torch.core import Cluster, get_function
+    c = Cluster({n: ("cloud" if n == "cloud" else "edge") for n in RT_NODES},
+                measure_compute=False, device=device)
+    example = np.zeros(8, np.float32)
+    for fn, nodes in (("smoke_fill", RT_NODES), ("smoke_ingest", RT_NODES),
+                      ("smoke_peek", ("edge2",))):
+        c.deploy(get_function(fn), list(nodes), value_width=width,
+                 example_input=example)
+    c.invoke("smoke_fill", "edge", np.ones(8, np.float32))    # "current" = 1
+    return c
+
+
+def warm_round(cluster, fold_ms=None):
+    """Every bucket of the ingest handler on every node, a peek batch at
+    edge2, replication flushed; each batch's wall ms a request (its outputs
+    are host arrays, so the card is drained) into ``fold_ms[bucket]``."""
+    import numpy as np
+    from repro_torch.core.engine import DEFAULT_BUCKETS
+    x = np.full(8, 2.0, np.float32)
+    for node in RT_NODES:
+        for b in DEFAULT_BUCKETS:
+            t0 = time.perf_counter()
+            cluster.invoke_batch("smoke_ingest", node, [x] * b)
+            if fold_ms is not None:
+                fold_ms.setdefault(b, []).append(
+                    (time.perf_counter() - t0) * 1e3 / b)
+    cluster.invoke_batch("smoke_peek", "edge2", [x] * 8)
+    cluster.flush_replication()
+
+
+def batched_vs_sequential(torch, device, n=64, repeats=5, warmup=1):
+    """``tests/test_perf_paths.py``'s §4.2 measurement through the port on
+    ``device``: one ``invoke_batch`` of ``n`` against ``n`` sequential
+    ``invoke``s of its 8-wide accumulator, each pass ending with the
+    device drained; ``warmup`` unrecorded rounds, then ``repeats`` rounds
+    visiting both in turn; median ops/s of each and their ratio."""
+    import numpy as np
+    from repro_torch.core import Cluster, enoki_function, get_function
+    from repro_torch.core.faas import registry
+    from repro_torch.device import synchronize
+    if "perfthr_acc" not in registry():
+        @enoki_function(name="perfthr_acc", keygroups=["perfthrkg"],
+                        codec_width=8)
+        def perfthr_acc(kv, x):
+            cur, _ = kv.get("acc")
+            kv.set("acc", cur + x)
+            return cur[:1] + x[:1]
+    c = Cluster({"edge": "edge"}, measure_compute=False, device=device)
+    c.deploy(get_function("perfthr_acc"), ["edge"])
+    x = np.ones((8,), np.float32)
+
+    def sequential():
+        for i in range(n):
+            c.invoke("perfthr_acc", "edge", x, t_send=float(i))
+        synchronize(c.device)
+
+    def batched():
+        c.invoke_batch("perfthr_acc", "edge", [x] * n)
+        synchronize(c.device)
+
+    variants = {"sequential": sequential, "batched": batched}
+    for _ in range(warmup):
+        for fn in variants.values():
+            fn()
+    samples = {k: [] for k in variants}
+    for _ in range(repeats):
+        for k, fn in variants.items():
+            t0 = time.perf_counter()
+            fn()
+            samples[k].append(n / (time.perf_counter() - t0))
+    med = {k: statistics.median(v) for k, v in samples.items()}
+    return {"requests": n, "repeats": repeats,
+            "batched_ops_per_s": med["batched"],
+            "sequential_ops_per_s": med["sequential"],
+            "ratio": med["batched"] / med["sequential"]}
+
+
+def check_warm(torch, counters, width):
+    """``tests/test_perf_paths.py``'s zero-compile guarantee at the served
+    width: ``prewarm`` captures every fold graph (count, ms); a settling
+    round; then 3 warm rounds under ``CompileCounter``, which must count 0;
+    replicas byte-identical, equal to a CPU twin of the same rounds, one
+    merge launch per merge."""
+    from repro_torch.analysis.jitprof import CompileCounter
+    from repro_torch.core.store import to_numpy
+    from repro_torch.device import synchronize
+    c = warm_cluster("cuda", width)
+    synchronize(c.device)
+    t0 = time.perf_counter()
+    runs = c.engine.prewarm()
+    prewarm_ms = (time.perf_counter() - t0) * 1e3
+    captures, capture_ms = fold_captures(c)
+    warm_round(c)                                   # settling round
+    d0 = c.stats.merge_dispatches
+    _zero(counters)
+    fold_ms = {}
+    with CompileCounter() as cc:
+        for _ in range(3):
+            warm_round(c, fold_ms)
+        synchronize(c.device)
+    launches = _merge_launches(counters)
+    merges = c.stats.merge_dispatches - d0
+    assert cc.events == 0, f"{cc.events} captures in warm rounds"
+    assert fold_captures(c)[0] == captures
+    assert launches == merges > 0, (launches, merges)
+    assert c.stats.merge_fallback == 0, c.stats
+    twin = warm_cluster("cpu", width)
+    for _ in range(4):
+        warm_round(twin)
+    edge = c.store_of("smoke_kg", "edge")
+    for node in RT_NODES:
+        for x, y, z in zip(edge, c.store_of("smoke_kg", node),
+                           twin.store_of("smoke_kg", node)):
+            assert x.is_cuda and torch.equal(x, y), f"replica {node} differs"
+            assert (to_numpy(y) == to_numpy(z)).all(), \
+                f"CPU twin differs at {node}"
+    ratio = batched_vs_sequential(torch, "cuda")
+    assert ratio["ratio"] >= 2.5, ratio     # tests/test_perf_paths.py's floor
+    return {"prewarm_runs": runs, "prewarm_ms": prewarm_ms,
+            "prewarm_captures": captures, "prewarm_capture_ms": capture_ms,
+            "warm_rounds": 3, "warm_captures": cc.events,
+            "replays": sum(st.replays for st in fold_steps(c)),
+            "fold_ms_per_request": {str(b): statistics.median(v)
+                                    for b, v in fold_ms.items()},
+            "merge_dispatches": merges, "kernel_launches": launches,
+            "replicas_identical": True, "cpu_twin_identical": True,
+            "batched_vs_sequential": ratio}
 
 
 # ---------------------------------------------------------------------------
@@ -757,12 +930,27 @@ def _zstd_frame(path) -> bool:
         return f.read(4) == b"\x28\xb5\x2f\xfd"
 
 
+def _latencies(futs, done):
+    """Sorted ms from each submit to its future's completion."""
+    return sorted((d - t0) * 1e3 for (t0, _), d in zip(futs, done))
+
+
+def _p50_p99(lat):
+    return {"p50_ms": statistics.median(lat),
+            "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))]}
+
+
 def check_crash_serving(torch, counters, width):
     """Part 3: ``tests/test_faas_server.py``'s node death mid-serving at the
     served configuration: N_CRASH_REQUESTS ingests through a FaasServer
     with the membership attached, edge2 killed while they are in flight;
-    then edge2 restored and caught up."""
+    then edge2 restored and caught up WHILE the survivors go on serving
+    (one ingest every 2 ms until the restore returns): the restore makes
+    edge2's fold graphs before the node is routable, and the latencies of
+    the requests it overlapped say what that costs the others; a last
+    wave after it makes no capture."""
     import numpy as np
+    from repro_torch.analysis.jitprof import CompileCounter
     from repro_torch.device import synchronize
     from repro_torch.launch.faas_server import FaasServer, RequestLost
     from repro_torch.runtime import ElasticMembership, FailureInjector
@@ -774,21 +962,25 @@ def check_crash_serving(torch, counters, width):
     inj = FailureInjector(c, membership=m)
     one = np.ones(8, np.float32)
     n = N_CRASH_REQUESTS
-    done = [None] * n
     synchronize(c.device)
     d0 = c.stats.merge_dispatches
     _zero(counters)
-    t_start = time.perf_counter()
-    with FaasServer(c, window_ms=WINDOW_MS, time_scale=1.0,
-                    membership=m) as srv:
-        futs = []
-        for i in range(n):
-            fut = srv.submit("smoke_ingest", one)
-            fut.add_done_callback(
-                lambda _, i=i: done.__setitem__(i, time.perf_counter()))
-            futs.append((time.perf_counter(), fut))
-        kill_ms = []
-        _timed(c.device, inj.kill_node, kill_ms)("edge2")
+    e0 = c.engine.stats.dispatches
+
+    def survivors():
+        return sum(bh.steps.captures for node, nd in c.nodes.items()
+                   if node != "edge2"
+                   for bh in nd.batched_handlers.values())
+
+    def submit(srv, futs, done):
+        i = len(futs)
+        done.append(None)
+        fut = srv.submit("smoke_ingest", one)
+        fut.add_done_callback(
+            lambda _, i=i: done.__setitem__(i, time.perf_counter()))
+        futs.append((time.perf_counter(), fut))
+
+    def settle(futs):
         served = lost = 0
         for _, fut in futs:
             try:
@@ -796,14 +988,48 @@ def check_crash_serving(torch, counters, width):
                 served += 1
             except RequestLost:
                 lost += 1
-    wall = time.perf_counter() - t_start
-    assert wall < 30.0, wall
-    assert all(f.done() for _, f in futs)
-    assert served + lost == n and srv.stats.served == served, srv.stats
-    assert served == n and lost == 0, (served, lost)
-    assert m.state["edge2"] == "dead", m.state
-    restore_ms = []
-    assert _timed(c.device, m.restore, restore_ms)("edge2") == ["smoke_kg"]
+        return served, lost
+
+    t_start = time.perf_counter()
+    with FaasServer(c, window_ms=WINDOW_MS, time_scale=1.0,
+                    membership=m) as srv:
+        futs, done = [], []
+        with CompileCounter() as cc:
+            for _ in range(n):
+                submit(srv, futs, done)
+            kill_ms = []
+            _timed(c.device, inj.kill_node, kill_ms)("edge2")
+            served, lost = settle(futs)
+        wall = time.perf_counter() - t_start
+        assert wall < 30.0, wall
+        assert all(f.done() for _, f in futs)
+        assert served + lost == n and srv.stats.served == served, srv.stats
+        assert served == n and lost == 0, (served, lost)
+        assert m.state["edge2"] == "dead", m.state
+        # the restore, overlapped by a stream of requests to the survivors
+        restore_ms, caught = [], []
+        rfuts, rdone = [], []
+        s0 = survivors()
+        with CompileCounter() as rc:
+            th = threading.Thread(target=lambda: caught.append(_timed(
+                c.device, m.restore, restore_ms)("edge2")))
+            th.start()
+            while th.is_alive():
+                submit(srv, rfuts, rdone)
+                time.sleep(0.002)
+            th.join()
+            rserved, rlost = settle(rfuts)
+        assert caught == [["smoke_kg"]], caught
+        assert (rserved, rlost) == (len(rfuts), 0), (rserved, rlost)
+        assert survivors() == s0, "a survivor captured during the restore"
+        assert rc.events > 0, "the restore made no fold graph"
+        # after it: the restored node serves what it captured
+        afuts, adone = [], []
+        with CompileCounter() as ac:
+            for _ in range(n):
+                submit(srv, afuts, adone)
+            assert settle(afuts) == (n, 0)
+        assert ac.events == 0, f"{ac.events} captures after the restore"
     c.flush_replication()
     synchronize(c.device)
     launches = _merge_launches(counters)
@@ -814,13 +1040,21 @@ def check_crash_serving(torch, counters, width):
                    c.store_of("smoke_kg", "edge2"))
     assert all(torch.equal(x, y) for x, y in zip(edge, edge2)), \
         "the restored replica differs"
-    assert float(edge.values[0, 0]) == 1.0 + n, float(edge.values[0, 0])
-    lat = sorted((d - t0) * 1e3 for (t0, _), d in zip(futs, done))
+    writes = 1.0 + 2 * n + len(rfuts)
+    assert float(edge.values[0, 0]) == writes, (float(edge.values[0, 0]),
+                                                writes)
     return {"requests": n, "served": served, "lost": lost,
             "requests_per_s": n / wall, "wall_s": wall,
-            "p50_ms": statistics.median(lat),
-            "p99_ms": lat[min(n - 1, int(0.99 * n))],
+            **_p50_p99(_latencies(futs, done)),
             "kill_ms": kill_ms[0], "restore_ms": restore_ms[0],
+            "captures": cc.events,
+            "during_restore": {"requests": len(rfuts),
+                               "restore_captures": rc.events,
+                               "survivor_captures": 0,
+                               **_p50_p99(_latencies(rfuts, rdone))},
+            "after_restore": {"requests": n, "captures": ac.events,
+                              **_p50_p99(_latencies(afuts, adone))},
+            "dispatches": c.engine.stats.dispatches - e0,
             "crashes": m.stats.crashes, "caught_up": m.stats.caught_up,
             "merge_dispatches": merges, "kernel_launches": launches}
 
@@ -1242,9 +1476,12 @@ def profile_device(torch, fn):
     """One ``fn()`` under ``torch.profiler``: its wall ms, the device ms of
     its kernels by kind (the flash, SSD and mLSTM kernels, cuBLAS GEMMs,
     everything else) and of the costliest "other" kernels by name, the
-    device's idle share of the wall, its kernel launches, and the seconds
-    spent reading the trace.  The device fields are None when the trace
-    holds no kernel."""
+    device's idle share of the wall, the kernels the device ran
+    (``kernel_launches``, graph nodes included), what the host issued
+    apart (``host_kernel_launches``: kernels launched one by one;
+    ``graph_launches``: CUDA graph replays), and the seconds spent reading
+    the trace.  The device fields are None when the trace holds no
+    kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1256,10 +1493,14 @@ def profile_device(torch, fn):
         wall = (time.perf_counter() - t0) * 1e3
     ms = {"flash_attention": 0.0, "ssd_chunk": 0.0, "mlstm_chunk": 0.0,
           "gemm": 0.0, "other": 0.0}
-    launches, other = 0, []
+    launches, other, host = 0, [], {"graph": 0, "kernel": 0}
     t_read = time.perf_counter()
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
+            if e.key.startswith("cudaGraphLaunch"):
+                host["graph"] += e.count
+            elif e.key.startswith("cudaLaunchKernel"):
+                host["kernel"] += e.count
             continue
         name = e.key.lower()
         kind = ("flash_attention" if "flash_fwd" in name else "ssd_chunk"
@@ -1278,7 +1519,9 @@ def profile_device(torch, fn):
                           for t, n, k in sorted(other, reverse=True)[:8]],
             "device_busy_ms": busy if launches else None,
             "idle_share": 1.0 - busy / wall if launches else None,
-            "kernel_launches": launches or None}
+            "kernel_launches": launches or None,
+            "host_kernel_launches": host["kernel"],
+            "graph_launches": host["graph"]}
 
 
 def _rel_err(torch, a, b) -> float:
@@ -1291,6 +1534,34 @@ def _rel_err(torch, a, b) -> float:
     return num / (den + 1e-6)
 
 
+def check_slstm_scan(torch, xlstm, params, arch):
+    """The captured sLSTM scan against the eager loop over time, bit for
+    bit (hs and the carry), on the first sLSTM layer's weights and card
+    inputs at the prefill's shape (B=SESSIONS, S=the prompt) and at a
+    ragged S of 100 (a 36-step tail: blocks of 32 and 4); the loop's and
+    the scan's wall ms at the prefill's shape."""
+    cell = params["blocks"]["slstm"]["cell"]
+    r, b = cell["r"][0], cell["b"][0]
+    h = arch.xlstm.num_heads
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for S in (PROMPTS[arch.name], 100):
+        wx = torch.randn((SESSIONS, S, 4 * arch.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        init = xlstm.slstm_cache_init(arch, SESSIONS, torch.bfloat16,
+                                      device="cuda")
+        carry = (init["c"], init["n"], init["m"], init["h"])
+        (ghs, gc), scan_ms = _wall_ms(
+            torch, lambda: xlstm.slstm_scan(wx, r, b, carry, h))
+        (ehs, ec), loop_ms = _wall_ms(
+            torch, lambda: xlstm.slstm_loop(wx, r, b, carry, h))
+        assert torch.equal(ghs, ehs), f"sLSTM scan != loop at S={S}"
+        for x, y in zip(gc, ec):
+            assert torch.equal(x, y), f"sLSTM carry != loop at S={S}"
+        out[str(S)] = {"scan_ms": scan_ms, "loop_ms": loop_ms}
+    return {"block": xlstm.SLSTM_BLOCK, "bit_identical": True, **out}
+
+
 def run_sessions(torch, arch_id, counters, expect):
     """One model's sessions path: prefill, decode with replication,
     failover; every check raises.  ``counters`` maps each kernel's name to
@@ -1301,6 +1572,7 @@ def run_sessions(torch, arch_id, counters, expect):
     from repro_torch.core.tree import tree_map
     from repro_torch.launch import serve
     from repro_torch.models import model_zoo as zoo
+    from repro_torch.models import xlstm
     arch = get_arch(arch_id)
     enoki = EnokiConfig()
     R = enoki.replication_period
@@ -1328,17 +1600,18 @@ def run_sessions(torch, arch_id, counters, expect):
     replicate = serve.make_replicate_sessions_step(device="cuda")
     migrate = serve.make_migrate_sessions_step(device="cuda")
     prefill(params, {"tokens": prompts[0, :1, :256]})       # warm the path
+    slstm0 = (xlstm.SLSTM_STEPS.captures, xlstm.SLSTM_STEPS.capture_ms)
 
     # -- the counted run: counts zeroed just before the path is driven
     for fn in counters.values():
         fn.launches = 0
     live = tree_map(lambda v: torch.stack([v] * N_PODS), zoo.init_cache(
         arch, SESSIONS, cache_len, device="cuda"))
-    first, prefill_ms = [], 0.0
+    first, prefill_pod_ms = [], []
     for pod in range(N_PODS):
         (logits, cache), ms = _wall_ms(
             torch, lambda: prefill(params, {"tokens": prompts[pod]}))
-        prefill_ms += ms
+        prefill_pod_ms.append(ms)
         # into the decode cache's leading corner: internlm2's K/V fill the
         # first prompt of cache_len positions (as tests/test_arch_smoke.py
         # pads them); zamba2's ring of 4,096 slots takes its 4,096 positions;
@@ -1378,12 +1651,42 @@ def run_sessions(torch, arch_id, counters, expect):
     # -- end of the counted run
     assert launches == {name: expect.get(name, 0) for name in counters}, \
         (launches, expect)
+    prefill_ms = sum(prefill_pod_ms)
+    slstm_captures = xlstm.SLSTM_STEPS.captures - slstm0[0]
+    slstm_capture_ms = xlstm.SLSTM_STEPS.capture_ms - slstm0[1]
+    decode_graph = {"captures": step.steps.captures,
+                    "capture_ms": step.steps.capture_ms,
+                    "replays": step.steps.replays}
+    # the live cache's graph, then the migrated cache's
+    assert step.steps.captures == 2, decode_graph
     assert all(x.is_cuda for tree in (params, restored)
                for _, x in _leaves(tree)) and token.is_cuda
     assert int((token < 0).sum() + (token >= arch.vocab_size).sum()) == 0
     assert torch.equal(restored["length"], lost - torch.tensor(
         [staleness] + [0] * (N_PODS - 1), device="cuda",
         dtype=lost.dtype) + FAILOVER_STEPS)
+    # the graph against the eager pod-step: two copies of the session
+    # state, GRAPH_CHECK_STEPS steps each, tokens and every leaf equal
+    graph_twin = tree_map(torch.clone, restored)
+    eager_twin = tree_map(torch.clone, restored)
+    gtok, etok, graph_ms, eager_ms = token, token, [], []
+    for _ in range(GRAPH_CHECK_STEPS):
+        (gtok, graph_twin), ms = _wall_ms(
+            torch, lambda: step(params, graph_twin, gtok))
+        graph_ms.append(ms)
+        (etok, eager_twin), ms = _wall_ms(
+            torch, lambda: step.eager(params, eager_twin, etok))
+        eager_ms.append(ms)
+        assert torch.equal(gtok, etok), "decode graph != eager tokens"
+    for (path, x), (_, y) in zip(_leaves(graph_twin), _leaves(eager_twin)):
+        assert torch.equal(x, y), f"decode graph != eager at {path}"
+    decode_graph.update(check_steps=GRAPH_CHECK_STEPS,
+                        graph_ms_per_step=statistics.median(graph_ms[1:]),
+                        eager_ms_per_step=statistics.median(eager_ms),
+                        tokens_and_cache_equal=True)
+    graph_profile = profile_device(
+        torch, lambda: step(params, graph_twin, gtok))
+    del graph_twin, eager_twin
     # where the time goes: one pod's decode step and one pod's prefill,
     # profiled after the counted run
     pod_cache = tree_map(lambda v: v[1].clone(), restored)
@@ -1415,12 +1718,17 @@ def run_sessions(torch, arch_id, counters, expect):
     groups = zoo.transformer.plan(arch).get("groups", 1)
     applied = mflops + 2.0 * (groups - 1) * shared * tokens_in
     step_ms = statistics.median(decode_ms)
+    slstm_check = (check_slstm_scan(torch, xlstm, params, arch)
+                   if zoo.transformer.plan(arch)["kind"] == "xlstm" else None)
     return {"arch": arch_id, "params": arch.param_count(),
             "shared_block_params": shared, "shared_block_applications":
             groups if shared else 0, "pods": N_PODS,
             "sessions_per_pod": SESSIONS, "prompt": prompt,
             "cache_len": cache_len, "launches": launches,
-            "prefill_ms": prefill_ms,
+            "prefill_ms": prefill_ms, "prefill_pod_ms": prefill_pod_ms,
+            "slstm_captures": slstm_captures,
+            "slstm_capture_ms": slstm_capture_ms,
+            "decode_graph": decode_graph, "slstm_scan_check": slstm_check,
             "prefill_tokens_per_s": tokens_in / (prefill_ms * 1e-3),
             "prefill_model_flops_share": mflops / (prefill_ms * 1e-3)
             / BF16_FLOPS_PER_S,
@@ -1434,7 +1742,8 @@ def run_sessions(torch, arch_id, counters, expect):
             "replication_period": R, "flash_vs_reference_rel_err": rel,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
             "profile_prefill_one_pod": prefill_profile,
-            "profile_decode_one_pod": decode_profile}
+            "profile_decode_one_pod": decode_profile,
+            "profile_decode_graph_step": graph_profile}
 
 
 def main() -> int:
@@ -1505,6 +1814,10 @@ def main() -> int:
           "p50_ms": statistics.median(lat),
           "p99_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))],
           "buckets": st["buckets"], "prewarm_runs": st["prewarm_runs"],
+          "prewarm_ms": st["prewarm_ms"],
+          "prewarm_captures": st["prewarm_captures"],
+          "prewarm_capture_ms": st["prewarm_capture_ms"],
+          "serve_captures": st["serve_captures"],
           "merge_dispatches": st["merges"],
           "merge_snapshots": c.stats.merge_snapshots,
           "merge_aligned": c.stats.merge_aligned,
@@ -1517,11 +1830,17 @@ def main() -> int:
 
     del c, twin
 
+    # -- 3b. the warm paths: prewarm's captures, none in warm rounds
+    kernels = (kernel.enoki_merge_rows, fk.flash_attention_bhsd,
+               sk.ssd_chunk_bhcp, mk.mlstm_chunk_bhsd)
+    t_phase = time.perf_counter()
+    warm = check_warm(torch, kernels, ROW_100KB)
+    emit({"phase": "warm", **warm,
+          "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+
     # -- 4. crash, partition and checkpoint recovery (the runtime)
     t_phase = time.perf_counter()
     register_handlers(torch, enoki_function, ROW_1MB, prefix="ckpt")
-    kernels = (kernel.enoki_merge_rows, fk.flash_attention_bhsd,
-               sk.ssd_chunk_bhcp, mk.mlstm_chunk_bhsd)
     chaos = check_chaos(torch, kernels, ROW_100KB)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as ckpt_dir:
         ckpt = check_checkpoint(torch, kernels, ckpt_dir)
@@ -1594,6 +1913,7 @@ def main() -> int:
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
     t = timings[("100KB", 1)]
     merge_launches = {"serve": st["launches"],
+                      "warm": warm["kernel_launches"],
                       "runtime": sum(runtime_launches.values())}
     emit({"kernels": [{
         "name": "enoki_merge_rows", "route": "cuda", "source": MERGE_SOURCE,

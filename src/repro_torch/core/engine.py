@@ -9,8 +9,10 @@ sequential fold runs the requests in order against the arena (read-only
 handlers share the arena instead), so per-key last-writer-wins semantics,
 version stamping, and the final vector clock match N sequential ``invoke``
 calls exactly.  This module is the reference engine's host code, copied;
-its device touch points are the staging copy (``_stage_chunk``), the
-padding mask (``_valid_mask``), ``prewarm`` and the output transfer.
+its device touch points are the staging copy (``_stage_chunk``, copied by
+the batched handler into its graph's static buffers), the padding mask
+(``_valid_mask``), ``prewarm`` (which captures every fold graph before
+serving) and the output transfer.
 
 The emulated network stays PER-REQUEST: each request keeps its own
 ``t_send``/arrival/response timeline, the same client→node link charges, and
@@ -106,7 +108,8 @@ import math
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Set,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -133,11 +136,6 @@ def _host_leaf(x) -> np.ndarray:
     return to_numpy(x) if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def _to_device(buf: np.ndarray, device: torch.device) -> torch.Tensor:
-    # a COPY: the staging buffer is reused by this thread's next chunk, and
-    # torch.from_numpy alone would alias it (no non_blocking either — the
-    # buffer may change before an asynchronous copy ran)
-    return torch.from_numpy(buf).to(device, copy=True)
 MAX_CALL_DEPTH = 32     # downstream-chain guard (cycles in calls/async_calls)
 MIN_PARALLEL_REQUESTS = 64      # cycles smaller than this run inline even
                                 # with workers set: executor handoff adds
@@ -350,9 +348,9 @@ class BatchedInvocationEngine:
         # persistent host staging buffers for chunk stacking, keyed
         # (bucket, leaf index, leaf shape, dtype) and THREAD-LOCAL: the
         # parallel pump's lanes never share one, and a buffer is free for
-        # reuse the moment its chunk dispatched (_to_device copies host
-        # memory into a fresh device tensor).  Warm cycles therefore make
-        # zero fresh staging allocations
+        # reuse the moment its chunk dispatched (the batched handler copies
+        # host memory into its fold graph's static device buffers).  Warm
+        # cycles therefore make zero fresh staging allocations
         self._staging = threading.local()
         # cycles below this many requests run inline even with workers
         # set (handoff latency vs throughput trade); tests override it to
@@ -832,10 +830,11 @@ class BatchedInvocationEngine:
         staging buffers — the np.stack/np.concatenate of the old path
         allocated fresh host arrays on every chunk.  Buffers live in
         thread-local storage (the parallel pump's lanes never share one)
-        and are safe to reuse the moment the chunk dispatched: the
-        ``_to_device`` on the dispatch path copies host memory into a
-        fresh tensor before this thread stages again.  Padded slots repeat
-        the first row, exactly like the old path."""
+        and are safe to reuse the moment the chunk dispatched: the batched
+        handler copies them (synchronously) into its fold graph's static
+        device buffers, or into fresh tensors on the CPU, before this
+        thread stages again.  Padded slots repeat the first row, exactly
+        like the old path."""
         n = len(xs)
         leaves0, treedef = tree_flatten(xs[0])
         bufs = getattr(self._staging, "bufs", None)
@@ -859,49 +858,22 @@ class BatchedInvocationEngine:
 
     def prewarm(self, buckets: Optional[Sequence[int]] = None,
                 merge_ks: Sequence[int] = (1, 2, 4, 8)) -> int:
-        """Run every (bucket × keygroup-geometry) serving shape once
-        before serving, so the first requests do not pay the one-time
-        costs: on CUDA the context, the allocator's pools and the merge
-        kernel's build and load.
-
-        Each deployed batched handler EXECUTES once per bucket against a
-        throwaway zeroed arena of its store's geometry (handlers write
-        into the arena they are given, so never the live one), and the
-        fused delivery merge runs once per REPLICATED keygroup per K in
-        ``merge_ks`` into a zeroed accumulator.  Returns the number of
-        warm-up executions issued (the reference's count).  Call after
-        ``deploy`` and before serving; safe to call again after later
-        deploys."""
+        """Make every (bucket × keygroup-geometry) serving shape ready
+        before serving, as the reference's prewarm compiles every jit
+        entry: the fold graphs (``prepare_folds``), and the fused delivery
+        merge once per REPLICATED keygroup per K in ``merge_ks`` into a
+        zeroed accumulator: direct kernel launches, as at serve time (its
+        snapshots are fresh clones every cycle, so no graph could be
+        reused), which builds and loads the merge kernel.  Returns the
+        number of warm-up executions issued (the reference's count).  Call
+        after ``deploy`` and before serving; safe to call again after
+        later deploys (a shape already captured is not captured again)."""
         from repro_torch.configs.base import ReplicationPolicy
         from repro_torch.core.store import merge_snapshots_fused
 
         c = self.cluster
-        count = 0
         with self._cycle_lock:
-            for node, nd in c.nodes.items():
-                for fn, bh in nd.batched_handlers.items():
-                    example = getattr(bh, "example", None)
-                    if example is None:
-                        continue    # test double without deploy metadata
-                    spec = c.specs[fn]
-                    kg, store_node, _ = c._resolve_placement(spec, node)
-                    for b in (buckets or self.buckets):
-                        xs_dev = tree_map(
-                            lambda a: _to_device(a, c.device),
-                            self._stage_chunk([example] * b, b))
-                        valid = _valid_mask(b, b, c.device)
-                        if kg is not None:
-                            snd = c.nodes[store_node]
-                            with snd.lock:
-                                store, clock = snd.stores[kg], snd.clock
-                            scratch = tree_map(torch.zeros_like, store)
-                            bh(scratch, clock, xs_dev, valid,
-                               independent=False)
-                        else:
-                            bh(c.scratch_arena(spec), nd.clock, xs_dev,
-                               valid, independent=True)
-                        synchronize(c.device)
-                        count += 1
+            count = self.prepare_folds(buckets)
             for kg_name, kspec in c.policies.items():
                 if kspec.policy != ReplicationPolicy.REPLICATED:
                     continue
@@ -915,6 +887,46 @@ class BatchedInvocationEngine:
                 for k in merge_ks:
                     acc = tree_map(torch.zeros_like, proto)
                     merge_snapshots_fused(acc, (proto,) * k, aligned=aligned)
+                    synchronize(c.device)
+                    count += 1
+        return count
+
+    def prepare_folds(self, buckets: Optional[Sequence[int]] = None,
+                      stores_on: Optional[Set[str]] = None) -> int:
+        """Make every deployed batched handler's fold entry per bucket
+        against the arena it folds into now (with ``stores_on``, only the
+        handlers whose arena lives on one of those nodes): on CUDA a graph
+        capture (``bstep.prepare``; the capture's warm-up runs on a clone,
+        so the live arena is never written), on the CPU one run on a
+        clone.  A key already cached costs nothing, and the membership
+        calls this for the nodes a transition puts new arenas on (a
+        re-home, a top-up, a hand-off, a restore's catch-up), so the first
+        requests that follow replay instead of capturing.  Returns the
+        (handler × bucket) pairs visited."""
+        c = self.cluster
+        count = 0
+        for node, nd in list(c.nodes.items()):
+            with nd.lock:
+                handlers = list(nd.batched_handlers.items())
+            for fn, bh in handlers:
+                example = getattr(bh, "example", None)
+                if example is None:
+                    continue    # test double without deploy metadata
+                spec = c.specs[fn]
+                kg, store_node, _ = c._resolve_placement(spec, node)
+                if stores_on is not None and store_node not in stores_on:
+                    continue
+                for b in (buckets or self.buckets):
+                    xs = self._stage_chunk([example] * b, b)
+                    valid = _valid_mask(b, b, c.device)
+                    if kg is not None:
+                        snd = c.nodes[store_node]
+                        with snd.lock:
+                            bh.prepare(snd.stores[kg], snd.clock, xs,
+                                       valid, independent=False)
+                    else:
+                        bh.prepare(c.scratch_arena(spec), nd.clock, xs,
+                                   valid, independent=True)
                     synchronize(c.device)
                     count += 1
         return count
@@ -976,30 +988,32 @@ class BatchedInvocationEngine:
             snd = None
 
         # pad to the bucket and run the one batched call (host-side numpy
-        # staging, then ONE copy per leaf to the device).  Stacking is per pytree leaf so tuple/
+        # staging; the handler copies each leaf ONCE into its fold graph's
+        # static device buffers).  Stacking is per pytree leaf so tuple/
         # dict handler inputs keep their structure, exactly as with invoke;
         # the staging buffers and the padding mask are persistent (see
         # _stage_chunk/_valid_mask) so a warm chunk allocates nothing fresh
         # on the host
         bucket = self._bucket(n)
-        xs_dev = tree_map(lambda a: _to_device(a, c.device),
-                          self._stage_chunk(xs, bucket))
+        xs_host = self._stage_chunk(xs, bucket)
         valid = _valid_mask(bucket, n, c.device)
 
         if kg is not None:
             # hold the STORE node's lock across read-dispatch-write so the
             # fold is atomic against any other toucher of this store
             # (per-node pool workers already serialize engine work; the
-            # lock also covers a sequential ``invoke`` racing the pump)
+            # lock also covers a sequential ``invoke`` racing the pump).
+            # The handler's ys and clock are copies out of its graph, made
+            # before it returns, so no later replay can overwrite them
             with snd.lock:
                 store, clock = snd.stores[kg], snd.clock
                 new_store, new_clock, ys, ops = bhandler(
-                    store, clock, xs_dev, valid, independent=False)
+                    store, clock, xs_host, valid, independent=False)
                 snd.stores[kg] = new_store
                 snd.clock = new_clock
         else:
             new_store, new_clock, ys, ops = bhandler(
-                c.scratch_arena(spec), nd.clock, xs_dev, valid,
+                c.scratch_arena(spec), nd.clock, xs_host, valid,
                 independent=True)
 
         # per-request timeline: identical charges to Cluster.invoke

@@ -20,14 +20,23 @@ exactly like the paper's literal key names.
 
 Values are encoded by per-keygroup codecs (the arena stores fixed-width
 rows).  Writes go into the arena the handler is given (see core/store.py).
+
+The batched fold runs through a ``core.graphs.StepCache``: on CUDA one
+captured graph per (block of requests x arena geometry x arena
+addresses), replayed by every warm batch, the counterpart of the
+reference's ``jax.jit`` of its ``lax.scan``.  So the kv ops never synchronise with the host: key
+hashes go to the device once per key list (``_hash_tensor``), and a Python
+number written by ``set`` is filled on the device.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.graphs import StepCache
 from repro_torch.core.store import (Store, arena_clone, kv_delete, kv_get,
                                     kv_scan, kv_set, store_new)
 from repro_torch.core.tree import tree_map
@@ -46,8 +55,13 @@ class VectorCodec:
         self.width = width
 
     def encode(self, val, device) -> Tuple[torch.Tensor, int]:
-        arr = torch.atleast_1d(torch.as_tensor(val, dtype=torch.float32,
-                                               device=device))
+        if isinstance(val, (int, float)):
+            # filled on the device: no copy from the host, so a constant
+            # write can be captured in a graph
+            arr = torch.full((1,), val, dtype=torch.float32, device=device)
+        else:
+            arr = torch.atleast_1d(torch.as_tensor(val, dtype=torch.float32,
+                                                   device=device))
         n = arr.shape[0]
         if n > self.width:
             raise ValueError(f"value of length {n} exceeds arena width {self.width}")
@@ -81,6 +95,14 @@ class BytesCodec:
 # ---------------------------------------------------------------------------
 # The kv handle (Listing 1's `import kv`)
 # ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _hash_tensor(hashes: Tuple[int, ...], device: torch.device
+                 ) -> torch.Tensor:
+    """A scan's static key hashes on the device, made once per (key list,
+    device): a copy from the host cannot be captured.  Read-only."""
+    return torch.tensor(hashes, dtype=torch.int32, device=device)
+
 
 class KV:
     """KV handle over one arena and one lamport clock.
@@ -126,7 +148,8 @@ class KV:
 
     def scan(self, keys: Sequence[str]):
         hashes = [fnv1a(k) for k in keys]
-        vals, lengths, founds = kv_scan(self._store, hashes)
+        vals, lengths, founds = kv_scan(
+            self._store, _hash_tensor(tuple(hashes), self._store.keys.device))
         idx = torch.arange(vals.shape[1], device=vals.device)[None, :]
         vals = torch.where(idx < lengths[:, None], vals, 0.0)
         self.ops.append(("scan", vals.numel() * vals.element_size()))
@@ -246,9 +269,10 @@ def compile_batched_handler(spec: FunctionSpec, node_id: int,
     """Deploy the *batched* handler — the §4.2 hot path.
 
     Returns ``bstep(store, clock, xs, valid, independent=False)`` where
-    ``xs`` stacks B request inputs along axis 0 (tensors on the arena's
-    device) and ``valid`` (B,) bool masks bucket padding.  Produces
-    ``(store, clock', ys, op_log)`` with ``ys`` stacked per-request outputs.
+    ``xs`` stacks B request inputs along axis 0 (tensors, or host numpy
+    arrays such as the engine's staging buffers) and ``valid`` (B,) bool
+    masks bucket padding.  Produces ``(store, clock', ys, op_log)`` with
+    ``ys`` stacked per-request outputs.
 
     Execution strategy, chosen from the handler's static op trace:
 
@@ -262,33 +286,111 @@ def compile_batched_handler(spec: FunctionSpec, node_id: int,
     * ``independent=True`` (stateless functions, no keygroup) — every
       request sees the arena as given: a mutating stateless handler runs on
       a per-request clone, matching B fresh-arena invocations.
+
+    The fold runs through a ``StepCache`` (``bstep.steps``): on CUDA one
+    captured graph per (block of requests, input shapes, arena geometry
+    and addresses), replayed by every warm batch; ``ys`` and the clock
+    come back as fresh tensors, copied out before the call returns.  A
+    block is the whole bucket unless the handler is heavy: a captured
+    graph unrolls its requests, so a block holds at most
+    ``FOLD_GRAPH_OPS`` kv ops (``fold_block``) and a larger bucket replays
+    it in turn, the clock carried from one replay to the next.  The arena
+    is bound by address, except under ``independent=True``, where its
+    values are an input.  ``bstep.prepare(...)`` (same arguments) makes
+    the entries without running the fold (``engine.prewarm``), and
+    ``bstep.eager(...)`` runs the fold's body over the whole batch, with
+    no cache: the plain version the replays are held against.
     """
     dev = resolve_device(device)
     codec = VectorCodec(spec.codec_width)
     traced = _trace(spec, node_id, example_input, dev)
     op_log = list(traced.ops)
     read_only = handler_read_only(op_log)
+    block = fold_block(len(op_log))
 
     def run(store, clock, x, mask=None):
         kv = KV(store, clock, node_id, codec, mask)
         y = spec.handler(kv, x)
         return kv.state[1], y
 
-    def bstep(store, clock, xs, valid, independent: bool = False):
+    def fold(state, params, inputs, independent):
+        """The step's body over one block: ``(clock' or None, ys)``; None
+        where the caller's clock stands (read-only, independent)."""
+        if independent:
+            store, clock, xs, valid = inputs
+        else:
+            store, (clock, xs, valid) = state, inputs
         ys = []
         if independent or read_only:
             for i in range(valid.shape[0]):
                 s = store if read_only else arena_clone(store)
                 ys.append(run(s, clock, tree_map(lambda t: t[i], xs))[1])
-            return store, clock, _stack(ys), list(op_log)
+            return None, _stack(ys)
         for i in range(valid.shape[0]):
             clock, y = run(store, clock, tree_map(lambda t: t[i], xs),
                            mask=valid[i])
             ys.append(y)
-        return store, clock, _stack(ys), list(op_log)
+        return clock, _stack(ys)
+
+    steps = StepCache(f"fold:{spec.name}@{node_id}", fold)
+
+    def _args(store, clock, xs, valid, independent):
+        if independent:
+            return {"inputs": (store, clock, xs, valid), "static": (True,)}
+        return {"state": store, "inputs": (clock, xs, valid),
+                "static": (False,)}
+
+    def _blocks(n: int):
+        for lo in range(0, n, block):
+            yield lo, min(n, lo + block)
+
+    def bstep(store, clock, xs, valid, independent: bool = False):
+        carry, ys = clock, []
+        for lo, hi in _blocks(valid.shape[0]):
+            new_clock, y = steps(**_args(
+                store, carry, tree_map(lambda t: t[lo:hi], xs),
+                valid[lo:hi], independent))
+            carry = carry if new_clock is None else new_clock
+            ys.append(y)
+        ys = ys[0] if len(ys) == 1 else tree_map(
+            lambda *parts: torch.cat(parts), *ys)
+        return store, carry, ys, list(op_log)
+
+    def eager(store, clock, xs, valid, independent: bool = False):
+        new_clock, ys = steps.eager(**_args(store, clock, xs, valid,
+                                            independent))
+        return (store, clock if new_clock is None else new_clock, ys,
+                list(op_log))
+
+    def prepare(store, clock, xs, valid, independent: bool = False) -> bool:
+        fresh = False
+        for lo, hi in dict.fromkeys(
+                (0, hi - lo) for lo, hi in _blocks(valid.shape[0])):
+            fresh |= steps.prepare(**_args(
+                store, clock, tree_map(lambda t: t[lo:hi], xs),
+                valid[lo:hi], independent))
+        return fresh
 
     bstep.op_log = op_log
     bstep.key_hashes = tuple(dict.fromkeys(traced.key_hashes))
     bstep.read_only = read_only
     bstep.example = example_input
+    bstep.block = block
+    bstep.steps = steps
+    bstep.eager = eager
+    bstep.prepare = prepare
     return bstep
+
+
+#: the most kv ops one captured fold graph unrolls (each op is ~10-25
+#: small kernels, so ~25 k graph nodes): a light handler's whole bucket is
+#: one graph, a heavy one's bucket a few replays of a smaller block
+FOLD_GRAPH_OPS = 1024
+
+
+def fold_block(n_ops: int) -> int:
+    """Requests per captured fold block for a handler of ``n_ops`` kv ops
+    a request: the largest power of two whose ops fit ``FOLD_GRAPH_OPS``
+    (so it divides every power-of-two bucket up to it)."""
+    fit = max(1, FOLD_GRAPH_OPS // max(1, n_ops))
+    return 1 << (fit.bit_length() - 1)

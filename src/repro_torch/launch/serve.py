@@ -23,7 +23,11 @@ leading dimension of ``n_pods`` logical pods, as
 share ONE copy of the weights (the reference stacks identical copies only
 because each pod is another set of chips).  Decode loops over the pods,
 each with its own ``length``, and writes every pod's cache IN PLACE (the
-counterpart of the reference step's donated cache).
+counterpart of the reference step's donated cache).  The whole pod-step is
+one ``core.graphs.StepCache`` entry, the counterpart of the reference's
+``jax.jit(jax.vmap(step))``: on CUDA one captured graph per (weights,
+cache geometry and addresses, token shape), replayed by every step; a
+cache that ``migrate_sessions`` replaces is a new entry.
 
 Each factory takes ``device=None``, which means the CUDA card (it raises
 without one); a step refuses tensors that are not on that device.  The
@@ -38,6 +42,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig, AttnImpl, ShapeConfig
+from repro_torch.core.graphs import StepCache
 from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import model_zoo as zoo
@@ -102,15 +107,13 @@ def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
     The cache is pod-stacked (``init_cache``'s leaves stacked on a leading
     dim of ``n_pods``, ``length`` of shape (n_pods,)), ``token`` is
     (n_pods, B, 1), and the one ``params`` tree serves every pod.  The
-    cache is written in place and returned."""
+    cache is written in place and returned.  The pod-step runs through a
+    ``StepCache`` (``step.steps``): the token is copied into the graph's
+    static buffer and ``next_token`` out of it; ``step.eager`` runs the
+    same pod-step without the cache."""
     dev = resolve_device(device)
 
-    def step(params: dict, cache: Cache, token: torch.Tensor):
-        _on(dev, params, "params")
-        _on(dev, cache, "cache")
-        _on(dev, token, "token")
-        if cache["length"].shape != (n_pods,) or token.shape[0] != n_pods:
-            raise ValueError(f"pod-stacked state must lead with {n_pods} pods")
+    def pod_step(cache: Cache, params: dict, token: torch.Tensor):
         out = torch.empty(token.shape, dtype=torch.int32, device=dev)
         for pod in range(n_pods):
             pod_cache = tree_map(lambda v: v[pod], cache)
@@ -119,8 +122,26 @@ def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
                                                 compute_dtype=compute_dtype)
             out[pod] = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
             cache["length"][pod] = pod_cache["length"]
-        return out, cache
+        return out
 
+    steps = StepCache(f"decode:{arch.name}x{n_pods}", pod_step)
+
+    def _checked(params: dict, cache: Cache, token: torch.Tensor) -> dict:
+        _on(dev, params, "params")
+        _on(dev, cache, "cache")
+        _on(dev, token, "token")
+        if cache["length"].shape != (n_pods,) or token.shape[0] != n_pods:
+            raise ValueError(f"pod-stacked state must lead with {n_pods} pods")
+        return {"state": cache, "params": params, "inputs": token}
+
+    def step(params: dict, cache: Cache, token: torch.Tensor):
+        return steps(**_checked(params, cache, token)), cache
+
+    def eager(params: dict, cache: Cache, token: torch.Tensor):
+        return steps.eager(**_checked(params, cache, token)), cache
+
+    step.steps = steps
+    step.eager = eager
     return step
 
 

@@ -9,9 +9,14 @@ the reference's own algorithm; FLASH runs the mLSTM kernel
 Hopper kernel and returns the final carry itself, so a prefill never scans
 twice.  The reference runs its jnp cell alone.
 
-sLSTM (scalar memory, hidden-state-recurrent gates) is sequential by design:
-the reference's ``lax.scan`` over time is a Python loop here, about 25
-small launches a timestep.
+sLSTM (scalar memory, hidden-state-recurrent gates) is sequential by design.
+The reference's ``lax.scan`` over time is ``slstm_scan``: blocks of
+``SLSTM_BLOCK`` timesteps through a ``core.graphs.StepCache``, so on CUDA
+a sequence is S / SLSTM_BLOCK replays of one captured block (a ragged
+tail replays blocks of falling powers of two) instead of about 25 small
+launches a timestep from the host; the block's body is the plain loop
+over time, so a replay is bit for bit the eager loop.  The reference has
+no Pallas kernel for the recurrence, and the port adds none.
 
 Block structure (pre-LN residual):
   mLSTM block: x → up(2D)‖gate(2D) → conv4 → q,k,v → cell → groupnorm·silu(gate) → down
@@ -28,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, AttnImpl
+from repro_torch.core.graphs import StepCache
 from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
 from repro_torch.models.layers import _gelu, dense_init, groupnorm_heads
 from repro_torch.models.ssm import causal_conv, conv_step
@@ -299,16 +305,66 @@ def slstm_cache_init(arch: ArchConfig, batch: int, dtype=torch.float32,
     }
 
 
-def _slstm_cell(params, x, arch, carry):
-    """The reference's ``lax.scan`` over time, as a Python loop."""
-    h = arch.xlstm.num_heads
-    wx = x @ params["w_in"]                                     # (B,S,4D)
+#: timesteps of one captured sLSTM block: 64 steps are ~1,600 graph nodes
+#: (a small capture), and a 2,048-token prefill replays it 32 times a layer
+SLSTM_BLOCK = 64
+
+
+def slstm_blocks(S: int):
+    """(start, length) of the blocks ``slstm_scan`` cuts S timesteps into:
+    whole blocks of SLSTM_BLOCK, then the ragged tail as falling powers of
+    two (36 = 32 + 4), so a batch size meets at most 7 block lengths
+    whatever its prompt lengths."""
+    whole, tail = divmod(S, SLSTM_BLOCK)
+    lengths = [SLSTM_BLOCK] * whole + [
+        1 << i for i in reversed(range(tail.bit_length())) if tail >> i & 1]
+    starts = [sum(lengths[:j]) for j in range(len(lengths))]
+    return list(zip(starts, lengths))
+
+
+def slstm_loop(wx: torch.Tensor, r: torch.Tensor, b: torch.Tensor, carry,
+               h_heads: int):
+    """The recurrence over wx's (B, S, 4D) timesteps as a Python loop, the
+    reference's ``lax.scan``: (hs (B, S, H, dh), final carry)."""
     hs = []
-    for t in range(x.shape[1]):
-        carry, hid = slstm_cell_step(wx[:, t], params["r"], params["b"],
-                                     carry, h)
+    for t in range(wx.shape[1]):
+        carry, hid = slstm_cell_step(wx[:, t], r, b, carry, h_heads)
         hs.append(hid)
-    return torch.stack(hs, dim=1), carry                        # (B,S,H,dh)
+    return torch.stack(hs, dim=1), carry
+
+
+def _slstm_block(state, params, inputs, h_heads):
+    wx, r, b, carry = inputs
+    return slstm_loop(wx, r, b, carry, h_heads)
+
+
+#: the sLSTM block step, process-wide (as the reference's jit cache is):
+#: every input is copied into the graph's static buffers (wx's block, r, b
+#: and the carry), so one graph per (B, block length, dtypes) serves every
+#: layer and every sequence, and the cache's ``MAX_ENTRIES`` bounds it
+SLSTM_STEPS = StepCache("slstm_scan", _slstm_block)
+
+
+def slstm_scan(wx: torch.Tensor, r: torch.Tensor, b: torch.Tensor, carry,
+               h_heads: int):
+    """``slstm_loop`` in the blocks of ``slstm_blocks`` through
+    ``SLSTM_STEPS``: on CUDA one replay a block, the carry copied out of
+    one replay and into the next; on the CPU the loop itself, block by
+    block.  Bit for bit ``slstm_loop``."""
+    hs = []
+    for t0, length in slstm_blocks(wx.shape[1]):
+        hb, carry = SLSTM_STEPS(inputs=(wx[:, t0:t0 + length], r, b,
+                                        tuple(carry)),
+                                static=(h_heads,))
+        hs.append(hb)
+    return torch.cat(hs, dim=1), carry
+
+
+def _slstm_cell(params, x, arch, carry):
+    """The reference's ``lax.scan`` over time (``slstm_scan``)."""
+    wx = x @ params["w_in"]                                     # (B,S,4D)
+    return slstm_scan(wx, params["r"], params["b"], carry,
+                      arch.xlstm.num_heads)                     # (B,S,H,dh)
 
 
 def slstm_seq(params: dict, x: torch.Tensor, arch: ArchConfig,

@@ -188,12 +188,17 @@ class ElasticMembership:
             #    resurrecting pre-crash state past the rebalance
             self._hosted[node] = set(lost)
             rehomed: Dict[str, str] = {}
+            placed: Set[str] = set()
             for kg in sorted(lost):
                 c.bump_fence(kg)
                 c.naming.remove_replica(kg, node)
-                target = self._rebalance(node, kg)
+                target = self._rebalance(node, kg, placed)
                 if target is not None:
                     rehomed[kg] = target
+            # 4. a re-home or a top-up put new arenas in place: make their
+            #    fold graphs now, so the survivors' next requests replay
+            if placed:
+                c.engine.prepare_folds(stores_on=placed)
             return rehomed
 
     def _alive_targets(self, near: str) -> List[str]:
@@ -206,12 +211,14 @@ class ElasticMembership:
         return sorted(alive, key=lambda n: (c.net.rtt_ms(near, n),
                                             c.nodes[n].kind == "cloud", n))
 
-    def _rebalance(self, dead: str, kg: str) -> Optional[str]:
+    def _rebalance(self, dead: str, kg: str,
+                   placed: Set[str]) -> Optional[str]:
         """Re-home ``kg`` after ``dead`` lost its copy: pick a survivor,
         restore state (live replica > checkpoint > fresh arena), re-home
         the owner of owner-placed policies, and top the replica set back
-        up to ``min_replicas``.  Returns the new home when the dead node
-        held the last copy, else None."""
+        up to ``min_replicas``.  Adds every node given a new arena to
+        ``placed``.  Returns the new home when the dead node held the last
+        copy, else None."""
         c = self.cluster
         kspec = c.policies[kg]
         live = [r for r in c.naming.replicas_of(kg)
@@ -238,6 +245,7 @@ class ElasticMembership:
             tnd = c.nodes[new_home]
             with tnd.lock:
                 tnd.stores[kg] = store
+            placed.add(new_home)
             c.naming.add_replica(kg, new_home)
             live = [new_home]
             self.stats.inc("rebalanced")
@@ -265,6 +273,7 @@ class ElasticMembership:
                 cnd = c.nodes[cand]
                 with cnd.lock:
                     cnd.stores[kg] = snapshot
+                placed.add(cand)
                 c.naming.add_replica(kg, cand)
                 live.append(cand)
                 self.stats.inc("re_replicated")
@@ -313,6 +322,9 @@ class ElasticMembership:
                 c.naming.add_replica(kg, node)
                 caught.append(kg)
                 self.stats.inc("caught_up")
+            # the caught-up arenas are new: make their fold graphs before
+            # the node can be routed to, so its first requests replay
+            c.engine.prepare_folds(stores_on={node})
             # liveness LAST: the node is fully caught up before the
             # router's candidate filter can see it.  The health monitor
             # forgets the node's pre-crash silence — the resurrection
@@ -342,6 +354,7 @@ class ElasticMembership:
             c._deliver_until(node, t)       # fold what already arrived
             with nd.lock:
                 hosted = dict(nd.stores)
+            placed: Set[str] = set()
             for kg in sorted(hosted):
                 kspec = c.policies[kg]
                 others = [r for r in c.naming.replicas_of(kg)
@@ -358,12 +371,15 @@ class ElasticMembership:
                     snapshot = arena_clone(nd.stores[kg])
                 with tnd.lock:
                     tnd.stores[kg] = snapshot
+                placed.add(target)
                 c.naming.add_replica(kg, target)
                 if kspec.owner == node:
                     c.policies[kg] = dataclasses.replace(kspec, owner=target)
                     rec = c.naming.keygroup(kg)
                     if rec is not None:
                         rec.spec = c.policies[kg]
+            if placed:
+                c.engine.prepare_folds(stores_on=placed)
             self._down(node)
             self.state[node] = LEFT
             self.stats.inc("leaves")

@@ -4,7 +4,11 @@ call) and ``mlstm_chunk_bhsd`` against their plain versions on the same card
 inputs, at the main paths' full geometries too, the served merge path
 launching the merge once per fused merge, and a prefill launching the
 attention kernel once per attention layer, the SSD kernel once per Mamba-2
-layer and the mLSTM kernel once per mLSTM layer.
+layer and the mLSTM kernel once per mLSTM layer.  The warm paths run as
+captured CUDA graphs (``core/graphs.py``): the batched fold, the decode
+pod-step and the sLSTM scan are each held bit for bit against their eager
+bodies, warm serving captures nothing, and one batched dispatch keeps the
+reference's 2.5x floor over sequential invokes (``-k "graph or warm"``).
 
 Every test here is marked ``cuda`` and skips, with its reason, on a host
 without a card (a kernel has no CPU mode).  The file imports no jax, so
@@ -784,3 +788,301 @@ def test_card_arena_checkpoint_restores_on_the_card_and_the_cpu(
         for x, y in zip(got, saved):
             assert x.device.type == device and x.dtype == y.dtype
             assert torch.equal(x, y.to(device))
+
+
+# ---------------------------------------------------------------------------
+# the warm paths as captured CUDA graphs (core/graphs.py)
+# ---------------------------------------------------------------------------
+
+_GRAPH_WIDTH = 64
+
+
+@enoki_function(name="tcu_graph_acc", keygroups=["tcu_graph_kg"],
+                codec_width=_GRAPH_WIDTH)
+def tcu_graph_acc(kv, x):
+    cur, _ = kv.get("acc")
+    rows, _ = kv.scan(["h0", "h1"])
+    kv.set("acc", cur + x)
+    kv.set("h0", 2.0)           # a Python constant: filled on the device
+    return torch.stack([cur[0] + x[0], rows[:, 0].sum()])
+
+
+@enoki_function(name="tcu_graph_peek", keygroups=["tcu_graph_kg"],
+                codec_width=_GRAPH_WIDTH)
+def tcu_graph_peek(kv, x):
+    cur, _ = kv.get("acc")
+    return cur[:2] + x[:2]
+
+
+@enoki_function(name="tcu_graph_free", codec_width=_GRAPH_WIDTH)
+def tcu_graph_free(kv, x):
+    kv.set("tmp", x)            # stateless: a per-request clone of the arena
+    cur, _ = kv.get("tmp")
+    return cur[:2] * 2.0
+
+
+@enoki_function(name="tcu_graph_fill", keygroups=["tcu_graph_kg"],
+                codec_width=_GRAPH_WIDTH)
+def tcu_graph_fill(kv, x):
+    for i in range(40):         # heavy: a block of 16 requests a graph
+        kv.set(f"f{i}", x + float(i))
+    return x[:1]
+
+
+@enoki_function(name="tcu_perfthr_acc", keygroups=["tcu_perfthrkg"],
+                codec_width=8)
+def tcu_perfthr_acc(kv, x):
+    cur, _ = kv.get("acc")
+    kv.set("acc", cur + x)
+    return cur[:1] + x[:1]
+
+
+def _graph_cluster(device):
+    c = Cluster({"edge": "edge", "edge2": "edge", "cloud": "cloud"},
+                measure_compute=False, device=device)
+    example = np.zeros(_GRAPH_WIDTH, np.float32)
+    for fn, nodes in (("tcu_graph_acc", ["edge", "edge2", "cloud"]),
+                      ("tcu_graph_peek", ["edge2"]),
+                      ("tcu_graph_free", ["edge"]),
+                      ("tcu_graph_fill", ["edge"])):
+        c.deploy(get_function(fn), nodes, example_input=example)
+    return c
+
+
+def _same_arena(a, b, what):
+    for x, y in zip(a, b):
+        assert torch.equal(x, y), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn,node", [("tcu_graph_acc", "edge"),
+                                     ("tcu_graph_peek", "edge2"),
+                                     ("tcu_graph_free", "edge"),
+                                     ("tcu_graph_fill", "edge")])
+def test_fold_graph_matches_eager_for_every_bucket(card, fn, node):
+    """The batched fold's replays against its eager body over the whole
+    batch, bit for bit: stores, clock and ys, for every bucket (full and
+    padded), twice each (a capture's first replay, then a warm one), for a
+    mutating, a read-only, an independent and a heavy handler (40 kv ops:
+    blocks of 16 requests, the clock carried between replays); then again
+    after the arena is replaced, as a crash re-home replaces it (new
+    captures, except for the independent handler, whose arena is an
+    input)."""
+    from repro_torch.core.engine import DEFAULT_BUCKETS
+    c = _graph_cluster("cuda")
+    bh = c.nodes[node].batched_handlers[fn]
+    # 1024 kv ops a graph: 4, 1, 2 and 40 ops a request
+    assert bh.block == {"tcu_graph_acc": 256, "tcu_graph_peek": 1024,
+                        "tcu_graph_free": 512, "tcu_graph_fill": 16}[fn]
+    independent = fn == "tcu_graph_free"
+    rng = np.random.default_rng(7)
+    clock = c.nodes[node].clock
+    store = (c.scratch_arena(c.specs[fn]) if independent
+             else c.store_of("tcu_graph_kg", node))
+    replays = 0
+    for replaced in (False, True):
+        if replaced and not independent:
+            store = arena_clone(store)
+        sizes = set()
+        for b in DEFAULT_BUCKETS:
+            for n in (b, max(1, b - 3)):
+                xs = rng.integers(-4, 5, (b, _GRAPH_WIDTH)).astype(np.float32)
+                valid = torch.arange(b, device=card) < n
+                twin = arena_clone(store)
+                st, clk, ys, ops = bh(store, clock, xs, valid,
+                                      independent=independent)
+                est, eclk, eys, eops = bh.eager(twin, clock, xs, valid,
+                                                independent=independent)
+                torch.cuda.synchronize()
+                assert st is store and ops == eops
+                _same_arena(store, twin, f"{fn} bucket {b} n {n}")
+                assert torch.equal(clk, eclk) and torch.equal(ys, eys)
+                clock = clk
+                replays += -(-b // bh.block)
+            sizes.add(min(b, bh.block))
+        assert bh.steps.captures == len(sizes) * (
+            1 if independent else 1 + replaced)
+    assert bh.steps.replays == replays
+
+
+@pytest.mark.cuda
+def test_capture_survives_dropped_clusters(card):
+    """A dropped cluster holds its fold graphs in reference cycles, so only
+    the garbage collector tears them down; with a full collection due
+    every 700 allocations, a new cluster's restore after a crash (which
+    captures the restored node's fold graphs) still succeeds, and its
+    replays equal the eager body."""
+    import gc
+    from repro_torch.analysis.jitprof import CompileCounter
+    from repro_torch.runtime import ElasticMembership
+    x = np.ones(_GRAPH_WIDTH, np.float32)
+    threshold = gc.get_threshold()
+    for _ in range(3):
+        c = _graph_cluster("cuda")
+        c.engine.buckets = (1, 8)
+        c.engine.prewarm()
+        m = ElasticMembership(c)
+        m.crash("edge2")
+        gc.set_threshold(700, 1, 1)
+        try:
+            assert m.restore("edge2") == ["tcu_graph_kg"]
+        finally:
+            gc.set_threshold(*threshold)
+        bh = c.nodes["edge2"].batched_handlers["tcu_graph_acc"]
+        store = c.store_of("tcu_graph_kg", "edge2")
+        twin = arena_clone(store)
+        clock = c.nodes["edge2"].clock
+        xs = np.stack([x] * 8)
+        valid = torch.ones(8, dtype=torch.bool, device=card)
+        with CompileCounter() as cc:
+            _, clk, ys, _ = bh(store, clock, xs, valid)
+        _, eclk, eys, _ = bh.eager(twin, clock, xs, valid)
+        torch.cuda.synchronize()
+        assert cc.events == 0
+        _same_arena(store, twin, "after a restore")
+        assert torch.equal(clk, eclk) and torch.equal(ys, eys)
+        del c, m, bh
+
+
+def _rounds(c, x, rounds, buckets):
+    for _ in range(rounds):
+        for node in c.nodes:
+            for b in buckets:
+                c.invoke_batch("tcu_graph_acc", node, [x] * b)
+            if node == "edge2":
+                c.invoke_batch("tcu_graph_peek", node, [x] * 8)
+        c.flush_replication(1e12)
+
+
+@pytest.mark.cuda
+def test_warm_serving_makes_no_capture_on_the_card(card):
+    """``tests/test_perf_paths.py``'s guarantee on the card: after
+    ``prewarm`` and a settling round, three warm rounds over every bucket on
+    three nodes capture nothing, and the replicas equal a CPU twin's."""
+    from repro_torch.analysis.jitprof import CompileCounter
+    from repro_torch.core.engine import DEFAULT_BUCKETS
+    gpu, cpu = _graph_cluster("cuda"), _graph_cluster("cpu")
+    assert gpu.engine.prewarm() == cpu.engine.prewarm() > 0
+    x = np.arange(_GRAPH_WIDTH, dtype=np.float32) % 5
+    _rounds(gpu, x, 1, DEFAULT_BUCKETS)
+    with CompileCounter() as cc:
+        _rounds(gpu, x, 3, DEFAULT_BUCKETS)
+    assert cc.events == 0, f"{cc.events} captures in warm rounds"
+    _rounds(cpu, x, 4, DEFAULT_BUCKETS)
+    for node in ("edge", "edge2", "cloud"):
+        for a, b in zip(gpu.store_of("tcu_graph_kg", node),
+                        cpu.store_of("tcu_graph_kg", node)):
+            assert a.is_cuda and torch.equal(a.cpu(), b), node
+
+
+def _interleaved_median(variants, repeats=5, warmup=1):
+    """``benchmarks.common``'s method (which imports jax): ``warmup``
+    unrecorded rounds, then ``repeats`` rounds visiting every variant in
+    turn; the median ops/s of each."""
+    import statistics
+    import time
+    for _ in range(warmup):
+        for fn in variants.values():
+            fn()
+    samples = {k: [] for k in variants}
+    for _ in range(repeats):
+        for k, fn in variants.items():
+            t0 = time.perf_counter()
+            ops = fn()
+            samples[k].append(ops / (time.perf_counter() - t0))
+    return {k: statistics.median(v) for k, v in samples.items()}, samples
+
+
+@pytest.mark.cuda
+def test_batched_invoke_throughput_regression(card):
+    """``tests/test_perf_paths.py``'s §4.2 claim through the port on the
+    card, with its method and floor: one ``invoke_batch`` of 64 (one fold
+    graph replay) against 64 sequential ``invoke``s, interleaved repeats 5,
+    warmup 1, medians; batched/sequential >= 2.5."""
+    c = Cluster({"edge": "edge"}, measure_compute=False, device=card)
+    c.deploy(get_function("tcu_perfthr_acc"), ["edge"])
+    x = np.ones((8,), np.float32)
+    n = 64
+
+    def sequential() -> int:
+        for i in range(n):
+            c.invoke("tcu_perfthr_acc", "edge", x, t_send=float(i))
+        torch.cuda.synchronize()
+        return n
+
+    def batched() -> int:
+        c.invoke_batch("tcu_perfthr_acc", "edge", [x] * n)
+        torch.cuda.synchronize()
+        return n
+
+    med, samples = _interleaved_median({"sequential": sequential,
+                                        "batched": batched})
+    ratio = med["batched"] / med["sequential"]
+    assert ratio >= 2.5, (f"batched/sequential median ratio {ratio:.2f} "
+                          f"(samples {samples})")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "zamba2-7b",
+                                     "xlstm-350m"])
+def test_decode_graph_matches_eager(card, arch_id):
+    """Eight pod-steps (2 pods x 2 sessions, reduced depth, bf16) replayed
+    from one captured graph against the eager pod-step on a copy of the
+    cache: tokens equal every step and every cache leaf equal at the end;
+    zamba2's 64-slot ring wraps (positions 60..67); one capture."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.tree import tree_flatten, tree_map
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo as zoo
+    arch = reduced(get_arch(arch_id))
+    params = zoo.init_params(arch, seed=0, dtype=torch.bfloat16)
+    if arch.family == "ssm":
+        for cell in (params["blocks"]["mlstm"]["cell"],
+                     params["blocks"]["slstm"]["cell"]):
+            cell["norm"].fill_(1.0)
+    live = tree_map(lambda v: torch.stack([v] * 2),
+                    zoo.init_cache(arch, 2, 72, device=card))
+    live["length"].fill_(60)
+    twin = tree_map(torch.clone, live)
+    step = serve.make_decode_step(arch, n_pods=2)
+    tok = torch.randint(0, arch.vocab_size, (2, 2, 1), device=card,
+                        dtype=torch.int32)
+    etok = tok
+    for _ in range(8):
+        tok, live = step(params, live, tok)
+        etok, twin = step.eager(params, twin, etok)
+        torch.cuda.synchronize()
+        assert torch.equal(tok, etok)
+    for x, y in zip(tree_flatten(live)[0], tree_flatten(twin)[0]):
+        assert torch.equal(x, y)
+    assert step.steps.captures == 1 and step.steps.replays == 8
+    assert int(live["length"][0]) == 68
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [128, 100])
+def test_slstm_scan_graph_matches_loop(card, S):
+    """The captured sLSTM scan (blocks of 64 timesteps; S=100 replays 64,
+    then its 36-step tail as 32 and 4) against the eager loop over time on the same card
+    inputs, bf16 as the model serves: hs and the carry bit for bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import xlstm
+    arch = get_arch("xlstm-350m")
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    p = xlstm.slstm_init(torch.Generator().manual_seed(0), arch,
+                         dtype=torch.bfloat16)
+    r, b = p["r"].to(card), p["b"].to(card)
+    B, d = 4, arch.d_model
+    wx = torch.randn((B, S, 4 * d), generator=gen, device=card).to(
+        torch.bfloat16)
+    init = xlstm.slstm_cache_init(arch, B, torch.bfloat16, device=card)
+    carry = (init["c"], init["n"], init["m"], init["h"])
+    h = arch.xlstm.num_heads
+    r0 = xlstm.SLSTM_STEPS.replays
+    got_hs, got_c = xlstm.slstm_scan(wx, r, b, carry, h)
+    want_hs, want_c = xlstm.slstm_loop(wx, r, b, carry, h)
+    torch.cuda.synchronize()
+    assert xlstm.SLSTM_STEPS.replays - r0 == {128: 2, 100: 3}[S]
+    assert torch.equal(got_hs, want_hs)
+    for x, y in zip(got_c, want_c):
+        assert torch.equal(x, y)

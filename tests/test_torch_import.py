@@ -62,6 +62,24 @@ def test_port_imports_no_jax_and_no_reference():
     assert json.loads(proc.stdout.splitlines()[-1]) == []
 
 
+def test_warm_path_modules_import_alone():
+    """The step cache and the compile counter import in a fresh interpreter
+    without jax, the reference or a kernel library, and the counter
+    detaches from the step caches when its block ends."""
+    code = ("import json, sys\n"
+            "from repro_torch.analysis.jitprof import CompileCounter\n"
+            "from repro_torch.core import graphs\n"
+            "with CompileCounter() as cc:\n"
+            "    assert graphs._COUNTERS == [cc]\n"
+            "assert graphs._COUNTERS == []\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
+            "or m.startswith('repro.'))))\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.splitlines()[-1]) == []
+
+
 def test_no_kernel_library_loads_at_import():
     """Importing every module of the port builds and loads no kernel: a
     library is built and opened at a wrapper's first CUDA launch only."""
