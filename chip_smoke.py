@@ -9,8 +9,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    takes to build every kernel from ``src/repro_torch/kernels/*/csrc``
    (one ``nvcc`` per source, all started together); then the registers,
    static shared memory and spills that ``-Xptxas=-v`` reported for the
-   wgmma flash kernel, the three SSD kernels, the two mLSTM kernels and
-   the merge kernel;
+   wgmma flash kernel (every head dim), the mma.sync flash kernel (D=256),
+   the three SSD kernels, the two mLSTM kernels and the merge kernel;
 2. the merge kernel against its plain version on the card — ``enoki_merge_rows``
    (snapshot pointers by value, a row's chunk blocks one cluster) bit-exact
    over a sweep of shapes, payload dtypes (f32, bf16, int32, uint8) and
@@ -56,15 +56,17 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    edge within 30 s — then edge2 restored byte-identical to edge;
 5. ``flash_attention_bhsd`` against its plain version on the card: f32
    (2e-5) and bf16 (2e-2, the reference's own tolerances) over the
-   reference's sweep shapes, head dim 112, a ragged S=100, Sq=128 against
+   reference's sweep shapes, head dims 112, 96 and 256 (the mma.sync
+   kernel), a ragged S=100, Sq=100 against Skv=300, Sq=128 against
    Skv=256 and the internlm2 prefill geometry, causal, non-causal and
    window 64, directly and through the model-layout wrapper, and zamba2's
    shared-block geometry (B=4, S=4096, H=KV=32, D=112, bf16, causal, window
    4096); every bf16 case is also held, row by row at the output's own
    scale, to the error that the plain version's bf16 rounding makes against
-   the same function in f32; then timed at both prefill geometries beside
-   its tensor-core FLOP bound, its plain version and
-   ``scaled_dot_product_attention``;
+   the same function in f32; then timed at four prefill geometries
+   (internlm2's D=128, zamba2's D=112, phi-3-vision's D=96 with H=KV=32,
+   gemma-7b's D=256 with H=KV=16; B=4, S=4096) beside its tensor-core FLOP
+   bound, its plain version and ``scaled_dot_product_attention``;
 6. ``ssd_chunk_bhcp`` (three kernels a call) against its plain version
    on the card, y and the final state: f32 (1e-4) and bf16 (5e-2, the
    reference's tolerances) over the reference's sweep shapes, ragged S and
@@ -81,14 +83,21 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    64, f32), directly and through the model-layout wrapper; then timed there
    beside its bound (3xTF32 tensor cores or bytes), its f32 FMA bound, its
    plain version (no single PyTorch call computes the chunkwise mLSTM);
-8. the sessions path, served, for each of three models at full width and
-   depth with bf16 weights from a seed — internlm2-1.8b (dense), zamba2-7b
-   (hybrid: Mamba-2 states and a ring-cached shared attention block), then
-   xlstm-350m (recurrent: mLSTM matrix memories and sLSTM cells): 2 pods x 4
-   sessions prefill 4,096-token prompts (xlstm: 2,048) through the kernels
-   (internlm2: 2 x 24 attention launches; zamba2: 2 x 81 SSD and 2 x 13
-   attention launches; xlstm: 2 x 21 mLSTM launches), the FLASH prefill's
-   logits agree with the REFERENCE path's (rel < 5e-2), 60 greedy decode
+8. the sessions path, served, for each of six models at full width with
+   bf16 weights from a seed — internlm2-1.8b (dense), zamba2-7b (hybrid:
+   Mamba-2 states and a ring-cached shared attention block), xlstm-350m
+   (recurrent: mLSTM matrix memories and sLSTM cells), grok-1-314b (moe, 8
+   experts of 32,768, top-2; depth cut to 4 of its 64 layers, 42.6 GB of
+   weights), phi-3-vision-4.2b (vlm: 576 seeded patch embeddings in front
+   of the text, head dim 96) and whisper-tiny (audio: an encoder over 1,500
+   seeded frame embeddings, a decoder with cross-attention): 2 pods x 4
+   sessions prefill 4,096-token prompts (xlstm: 2,048; whisper: 384)
+   through the kernels (internlm2: 2 x 24 attention launches; zamba2: 2 x
+   81 SSD and 2 x 13 attention launches; xlstm: 2 x 21 mLSTM launches;
+   grok-1: 2 x 4; phi-3-vision: 2 x 32; whisper: 2 x (4 encoder + 4
+   decoder) attention launches), the FLASH prefill's logits agree with the
+   REFERENCE path's (rel < 5e-2; grok-1's on the tokens whose routes agree
+   on both paths, the differing routes counted), 60 greedy decode
    steps (zamba2's wrap its 4,096-slot ring) with ``replicate_sessions``
    every R=8 and every leaf of each backup equal to its peer's live state,
    pod 0 fails and ``migrate_sessions`` restores it with staleness 4 <= R, 4
@@ -100,14 +109,17 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    profiled (host graph launches against device kernels); xlstm's sLSTM
    scan replays 64-step graphs: prefill ms of the capturing pod and the
    warm one, and the scan against the eager loop, bit for bit, at the
-   prompt's length and at a ragged 100;
+   prompt's length and at a ragged 100; then gemma-7b (head dim 256) at
+   full width and depth, one pod's prefill only: 28 attention launches, the
+   FLASH logits against the REFERENCE path's (rel < 5e-2), profiled;
 9. the smoke's seconds, the ``{"kernels": [...]}`` line (the merge
-   kernel's launches by path: served and runtime), then the card's name and
-   power limit
+   kernel's launches by path: served and runtime; flash's by model, and its
+   times at the four geometries), then the card's name and power limit
    as ``nvidia-smi`` reports them, then ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import pathlib
@@ -153,6 +165,7 @@ SSD_PRODUCT_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 # the kernels whose registers, shared memory and spills the build reports:
 # (library, kernel)
 RESOURCE_KERNELS = (("flash_attention", "flash_fwd_bf16_wgmma"),
+                    ("flash_attention", "flash_fwd_bf16_mma"),
                     ("ssd_chunk", "ssd_chunk_state_kernel"),
                     ("ssd_chunk", "ssd_chunk_pass_kernel"),
                     ("ssd_chunk", "ssd_chunk_scan_kernel"),
@@ -160,11 +173,15 @@ RESOURCE_KERNELS = (("flash_attention", "flash_fwd_bf16_wgmma"),
                     ("mlstm_chunk", "mlstm_chunk_kernel"),
                     ("enoki_merge", "enoki_merge_rows_kernel"))
 # (B, Sq, Skv, H, KV, D): tests/test_kernels.py's sweep, head dim 112 (zamba2's
-# shared block), a ragged S, Sq != Skv, and internlm2's prefill geometry
+# shared block), a ragged S, Sq != Skv, head dims 96 (phi-3-vision) and 256
+# (gemma-7b: the mma.sync kernel) square, ragged and uneven, and internlm2's
+# prefill geometry (last)
 FLASH_CASES = [(1, 128, 128, 4, 4, 32), (2, 256, 256, 4, 2, 64),
                (1, 512, 512, 8, 2, 32), (2, 128, 128, 2, 1, 128),
                (1, 128, 128, 4, 4, 112), (1, 100, 100, 4, 2, 64),
-               (1, 128, 256, 4, 2, 64), (4, 4096, 4096, 16, 8, 128)]
+               (1, 128, 256, 4, 2, 64), (1, 128, 128, 4, 4, 96),
+               (2, 100, 100, 4, 2, 96), (1, 128, 128, 4, 4, 256),
+               (2, 100, 300, 4, 2, 256), (4, 4096, 4096, 16, 8, 128)]
 FLASH_MASKS = [(True, 0), (False, 0), (True, 64), (False, 64)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # bf16 outputs are held to at most this multiple of the plain version's own
@@ -176,6 +193,9 @@ BF16_ROUNDING_FACTOR = 2.0
 # and zamba2-7b's shared block (bf16, causal)
 MAIN_FLASH = (4, 4096, 16, 8, 128, 0)
 ZAMBA_FLASH = (4, 4096, 32, 32, 112, 4096)
+# phi-3-vision-4.2b's and gemma-7b's prefill layers (bf16, causal)
+PHI_FLASH = (4, 4096, 32, 32, 96, 0)
+GEMMA_FLASH = (4, 4096, 16, 16, 256, 0)
 # (B, H, S, P, N, chunk): tests/test_kernels.py's sweep, ragged S (a last
 # chunk of 72 and of 4 rows), in f32 and bf16; then the main path's geometry
 # (zamba2-7b's Mamba-2 prefill, f32 as the model feeds it)
@@ -195,9 +215,20 @@ MLSTM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 MAIN_MLSTM = (4, 4, 2048, 512, 64)
 # sessions path: 2 pods x 4 sessions for each model; 4,096-token prompts,
 # 2,048 for xlstm-350m (the xLSTM paper's training context, which also keeps
-# its sequential sLSTM loop inside the smoke's time)
-SESSION_ARCHS = ("internlm2-1.8b", "zamba2-7b", "xlstm-350m")
-PROMPTS = {"internlm2-1.8b": 4096, "zamba2-7b": 4096, "xlstm-350m": 2048}
+# its sequential sLSTM loop inside the smoke's time), 384 for whisper-tiny
+# (with 64 decode positions its cache is 448, whisper's decoder context);
+# phi-3-vision's prompt holds 576 patch positions and 3,520 text tokens
+SESSION_ARCHS = ("internlm2-1.8b", "zamba2-7b", "xlstm-350m", "grok-1-314b",
+                 "phi-3-vision-4.2b", "whisper-tiny")
+PROMPTS = {"internlm2-1.8b": 4096, "zamba2-7b": 4096, "xlstm-350m": 2048,
+           "grok-1-314b": 4096, "phi-3-vision-4.2b": 4096,
+           "whisper-tiny": 384, "gemma-7b": 4096}
+# depth cut to fit one card: grok-1's 64 layers hold 628 GB of bf16 weights;
+# 4 layers at full width hold 42.6 GB (21.3 B parameters)
+SESSION_LAYERS = {"grok-1-314b": 4}
+# one pod's prefill only, FLASH against REFERENCE: gemma-7b (head dim 256)
+PREFILL_ARCHS = ("gemma-7b",)
+WARM_PROMPT = 256               # the prefill that warms the path
 N_PODS, SESSIONS, CACHE_EXTRA = 2, 4, 64
 DECODE_STEPS, FAILOVER_STEPS = 60, 4
 GRAPH_CHECK_STEPS = 4           # decode graph against the eager pod-step
@@ -1562,18 +1593,93 @@ def check_slstm_scan(torch, xlstm, params, arch):
     return {"block": xlstm.SLSTM_BLOCK, "bit_identical": True, **out}
 
 
+def session_arch(arch_id):
+    """The registry's config, depth cut as SESSION_LAYERS says, and the
+    cut as ``{"num_layers": "64 -> 4"}`` (None when there is none)."""
+    from repro_torch.configs import get_arch
+    arch = get_arch(arch_id)
+    if arch_id not in SESSION_LAYERS:
+        return arch, None
+    cut = dataclasses.replace(arch, num_layers=SESSION_LAYERS[arch_id])
+    return cut, {"num_layers": f"{arch.num_layers} -> {cut.num_layers}"}
+
+
+def stub_inputs(torch, arch, batch, gen):
+    """The front-end stub's inputs for ``batch`` sequences on the card
+    (``example_batch``'s ``patch_embeds`` or ``frame_embeds``: (batch,
+    num_patches, d) f32), {} for a text-only model."""
+    from repro_torch.configs import ShapeConfig, StepKind
+    from repro_torch.models import model_zoo as zoo
+    out = zoo.example_batch(arch, ShapeConfig("stub", 1, batch,
+                                              StepKind.PREFILL), gen)
+    return {k: v for k, v in out.items() if k != "tokens"}
+
+
+def flash_vs_reference(torch, zoo, arch, params, batch):
+    """FLASH against the REFERENCE path (plain torch) on one pod's batch:
+    the relative max error of the logits.  For a moe model, the routes of
+    every (token, layer) are recorded on both paths (``dispatch_indices``'
+    experts and kept flags): a change in attention rounding can flip a
+    near-tied route, so the error is taken over the tokens whose routes
+    all agree, and the (token, layer) routes that differ are counted."""
+    from repro_torch.configs import AttnImpl
+    from repro_torch.models import moe
+    routes, logits = {}, {}
+    orig = moe.dispatch_indices
+
+    for impl in (AttnImpl.FLASH, AttnImpl.REFERENCE):
+        rec = routes[impl] = []
+
+        def spy(expert_idx, num_experts, cap):
+            slot, kept = orig(expert_idx, num_experts, cap)
+            rec.append((expert_idx.clone(), kept.reshape(expert_idx.shape)))
+            return slot, kept
+        moe.dispatch_indices = spy
+        try:
+            logits[impl], _, _ = zoo.forward_seq(arch, params,
+                                                 batch["tokens"],
+                                                 extra=batch, impl=impl)
+        finally:
+            moe.dispatch_indices = orig
+    flash, ref = logits[AttnImpl.FLASH], logits[AttnImpl.REFERENCE]
+    out = {"rel_err_all_tokens": _rel_err(torch, flash, ref)}
+    if not routes[AttnImpl.FLASH]:
+        out["rel_err"] = out["rel_err_all_tokens"]
+        return out
+    B, S = batch["tokens"].shape
+    agree = torch.ones(B * S, dtype=torch.bool, device=flash.device)
+    differ = 0
+    for (fi, fk), (ri, rk) in zip(routes[AttnImpl.FLASH],
+                                  routes[AttnImpl.REFERENCE]):
+        same = (fi == ri).all(-1) & (fk == rk).all(-1)
+        differ += int((~same).sum())
+        agree &= same
+    agree = agree.reshape(B, S)
+    num = den = 0.0
+    for i in range(B):
+        x, y = flash[i][agree[i]].float(), ref[i][agree[i]].float()
+        if x.numel():
+            num = max(num, float((x - y).abs().max()))
+        den = max(den, float(ref[i].float().abs().max()))
+    out.update(rel_err=num / (den + 1e-6), routes=len(routes[AttnImpl.FLASH])
+               * B * S, routes_differing=differ,
+               tokens_with_differing_routes=int((~agree).sum()),
+               tokens=B * S)
+    return out
+
+
 def run_sessions(torch, arch_id, counters, expect):
     """One model's sessions path: prefill, decode with replication,
     failover; every check raises.  ``counters`` maps each kernel's name to
     its wrapper; ``expect`` gives the launches of the counted run (the
     others must be 0)."""
     from repro_torch.configs import (AttnImpl, EnokiConfig, ShapeConfig,
-                                     StepKind, get_arch)
+                                     StepKind)
     from repro_torch.core.tree import tree_map
     from repro_torch.launch import serve
     from repro_torch.models import model_zoo as zoo
     from repro_torch.models import xlstm
-    arch = get_arch(arch_id)
+    arch, cut = session_arch(arch_id)
     enoki = EnokiConfig()
     R = enoki.replication_period
     prompt = PROMPTS[arch_id]
@@ -1594,12 +1700,22 @@ def run_sessions(torch, arch_id, counters, expect):
     gen = torch.Generator(device="cuda").manual_seed(3)
     prompts = torch.randint(0, arch.vocab_size, (N_PODS, SESSIONS, prompt),
                             generator=gen, device="cuda", dtype=torch.int32)
+    # each pod's batch: its prompts, and the vlm's patch embeddings or
+    # whisper's frame embeddings from the seed
+    batches = [{"tokens": prompts[pod], **stub_inputs(torch, arch, SESSIONS,
+                                                      gen)}
+               for pod in range(N_PODS)]
     prefill = serve.make_prefill_step(arch, pshape, impl=AttnImpl.FLASH,
                                       device="cuda")
     step = serve.make_decode_step(arch, n_pods=N_PODS, device="cuda")
     replicate = serve.make_replicate_sessions_step(device="cuda")
     migrate = serve.make_migrate_sessions_step(device="cuda")
-    prefill(params, {"tokens": prompts[0, :1, :256]})       # warm the path
+    # warm the path on one sequence; the vlm's prompt holds its patch
+    # positions and text beyond them
+    warm = WARM_PROMPT + (arch.num_patches
+                          if arch.frontend_stub == "clip_patches" else 0)
+    prefill(params, {k: v[:1, :warm] if k == "tokens" else v[:1]
+                     for k, v in batches[0].items()})
     slstm0 = (xlstm.SLSTM_STEPS.captures, xlstm.SLSTM_STEPS.capture_ms)
 
     # -- the counted run: counts zeroed just before the path is driven
@@ -1610,14 +1726,17 @@ def run_sessions(torch, arch_id, counters, expect):
     first, prefill_pod_ms = [], []
     for pod in range(N_PODS):
         (logits, cache), ms = _wall_ms(
-            torch, lambda: prefill(params, {"tokens": prompts[pod]}))
+            torch, lambda: prefill(params, batches[pod]))
         prefill_pod_ms.append(ms)
-        # into the decode cache's leading corner: internlm2's K/V fill the
-        # first prompt of cache_len positions (as tests/test_arch_smoke.py
-        # pads them); zamba2's ring of 4,096 slots takes its 4,096 positions;
-        # xlstm's recurrent states have no positions
+        # into the decode cache's leading corner: the K/V of internlm2,
+        # grok-1, phi-3-vision and whisper's decoder fill the first prompt
+        # of cache_len positions (as tests/test_arch_smoke.py pads them),
+        # whisper's cross K/V all 1,500 frames; zamba2's ring of 4,096
+        # slots takes its 4,096 positions; xlstm's recurrent states have
+        # no positions
         tree_map(lambda dst, src: dst[pod][tuple(
-            slice(0, n) for n in src.shape)].copy_(src), live, cache)
+            slice(0, n) for n in src.shape)].copy_(src),
+            {k: live[k] for k in cache}, cache)
         assert torch.isfinite(logits.float()).all(), "prefill logits"
         first.append(torch.argmax(logits[:, -1, :], dim=-1)[:, None])
         del cache
@@ -1697,17 +1816,15 @@ def run_sessions(torch, arch_id, counters, expect):
     del restored, pod_cache, out
     t_prof = time.perf_counter()
     prefill_profile = profile_device(
-        torch, lambda: prefill(params, {"tokens": prompts[0]}))
+        torch, lambda: prefill(params, batches[0]))
     prefill_profile["profile_s"] = time.perf_counter() - t_prof
 
-    # FLASH against the REFERENCE path (plain torch) on pod 0's prompts
-    flash_logits, _, _ = zoo.forward_seq(arch, params, prompts[0],
-                                         impl=AttnImpl.FLASH)
-    ref_logits, _, _ = zoo.forward_seq(arch, params, prompts[0],
-                                       impl=AttnImpl.REFERENCE)
-    rel = _rel_err(torch, flash_logits, ref_logits)
-    assert rel < PREFILL_REL_TOL, f"FLASH vs REFERENCE prefill: rel {rel}"
-    del flash_logits, ref_logits
+    # FLASH against the REFERENCE path (plain torch) on pod 0's batch (a
+    # moe model: on the tokens whose routes agree, with the count of the
+    # routes that do not)
+    versus = flash_vs_reference(torch, zoo, arch, params, batches[0])
+    rel = versus["rel_err"]
+    assert rel < PREFILL_REL_TOL, f"FLASH vs REFERENCE prefill: {versus}"
 
     tokens_in = N_PODS * SESSIONS * prompt
     mflops = zoo.model_flops(arch, ShapeConfig(
@@ -1720,7 +1837,7 @@ def run_sessions(torch, arch_id, counters, expect):
     step_ms = statistics.median(decode_ms)
     slstm_check = (check_slstm_scan(torch, xlstm, params, arch)
                    if zoo.transformer.plan(arch)["kind"] == "xlstm" else None)
-    return {"arch": arch_id, "params": arch.param_count(),
+    return {"arch": arch_id, "reduced": cut, "params": arch.param_count(),
             "shared_block_params": shared, "shared_block_applications":
             groups if shared else 0, "pods": N_PODS,
             "sessions_per_pod": SESSIONS, "prompt": prompt,
@@ -1740,10 +1857,81 @@ def run_sessions(torch, arch_id, counters, expect):
             "replicate_ms": statistics.median(replicate_ms),
             "migrate_ms": migrate_ms, "staleness_tokens": staleness,
             "replication_period": R, "flash_vs_reference_rel_err": rel,
+            "flash_vs_reference": versus,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
             "profile_prefill_one_pod": prefill_profile,
             "profile_decode_one_pod": decode_profile,
             "profile_decode_graph_step": graph_profile}
+
+
+def run_prefill_only(torch, arch_id, counters, expect):
+    """One pod's prefill (SESSIONS prompts) through the FLASH path, counted
+    (``expect``: its launches), profiled, and held against the REFERENCE
+    path (rel < PREFILL_REL_TOL)."""
+    from repro_torch.configs import ShapeConfig, StepKind, AttnImpl
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo as zoo
+    arch, cut = session_arch(arch_id)
+    prompt = PROMPTS[arch_id]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = zoo.init_params(arch, seed=0, dtype=serve.serve_param_dtype(arch),
+                             device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batch = {"tokens": torch.randint(0, arch.vocab_size, (SESSIONS, prompt),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32),
+             **stub_inputs(torch, arch, SESSIONS, gen)}
+    prefill = serve.make_prefill_step(
+        arch, ShapeConfig("prefill", prompt, SESSIONS, StepKind.PREFILL),
+        impl=AttnImpl.FLASH, device="cuda")
+    prefill(params, {k: v[:1, :WARM_PROMPT] if k == "tokens" else v[:1]
+                     for k, v in batch.items()})
+    # -- the counted run: counts zeroed just before the path is driven
+    for fn in counters.values():
+        fn.launches = 0
+    (logits, cache), prefill_ms = _wall_ms(torch,
+                                           lambda: prefill(params, batch))
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    # -- end of the counted run
+    assert launches == {name: expect.get(name, 0) for name in counters}, \
+        (launches, expect)
+    assert torch.isfinite(logits.float()).all(), "prefill logits"
+    assert int(cache["length"]) == prompt
+    del logits, cache
+    profile = profile_device(torch, lambda: prefill(params, batch))
+    versus = flash_vs_reference(torch, zoo, arch, params, batch)
+    assert versus["rel_err"] < PREFILL_REL_TOL, \
+        f"FLASH vs REFERENCE prefill: {versus}"
+    tokens_in = SESSIONS * prompt
+    mflops = zoo.model_flops(arch, ShapeConfig("p", prompt, SESSIONS,
+                                               StepKind.PREFILL))
+    return {"arch": arch_id, "reduced": cut, "params": arch.param_count(),
+            "sessions": SESSIONS, "prompt": prompt, "launches": launches,
+            "prefill_ms": prefill_ms,
+            "prefill_tokens_per_s": tokens_in / (prefill_ms * 1e-3),
+            "prefill_model_flops_share": mflops / (prefill_ms * 1e-3)
+            / BF16_FLOPS_PER_S,
+            "flash_vs_reference_rel_err": versus["rel_err"],
+            "flash_vs_reference": versus,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "profile_prefill": profile}
+
+
+def expected_launches(arch):
+    """The kernel launches of one pod's prefill: attention layers through
+    flash, Mamba-2 layers through SSD, mLSTM layers through mLSTM."""
+    from repro_torch.models.transformer import plan as layer_plan
+    p = layer_plan(arch)
+    if p["kind"] in ("dense", "moe"):
+        return {"flash_attention_bhsd": p["layers"]}
+    if p["kind"] == "whisper":
+        return {"flash_attention_bhsd": p["enc"] + p["dec"]}
+    if p["kind"] == "xlstm":
+        return {"mlstm_chunk_bhsd": p["groups"] * p["mlstm_per"]}
+    return {"flash_attention_bhsd": p["groups"],
+            "ssd_chunk_bhcp": arch.num_layers}
 
 
 def main() -> int:
@@ -1756,7 +1944,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     try:
-        from repro_torch.configs import get_arch
         from repro_torch.core import enoki_function
         from repro_torch.kernels import build
         from repro_torch.kernels.enoki_merge import kernel
@@ -1766,7 +1953,6 @@ def main() -> int:
         from repro_torch.kernels.mlstm_chunk import ops as mops
         from repro_torch.kernels.ssd_chunk import kernel as sk
         from repro_torch.kernels.ssd_chunk import ops as sops
-        from repro_torch.models.transformer import plan as layer_plan
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -1868,6 +2054,16 @@ def main() -> int:
     emit({"phase": "kernel_time", "kernel": "flash_attention_bhsd",
           "geometry": "zamba2-7b shared block, prefill", "nvidia_smi": smi,
           **fz})
+    fp = time_flash(torch, fk, flush, PHI_FLASH)
+    emit({"phase": "kernel_time", "kernel": "flash_attention_bhsd",
+          "geometry": "phi-3-vision-4.2b prefill layer (D=96)",
+          "nvidia_smi": smi, **fp})
+    fg = time_flash(torch, fk, flush, GEMMA_FLASH)
+    emit({"phase": "kernel_time", "kernel": "flash_attention_bhsd",
+          "geometry": "gemma-7b prefill layer (D=256, mma.sync)",
+          "nvidia_smi": smi, **fg})
+    flash_times = {"internlm2-1.8b D=128": ft, "zamba2-7b D=112": fz,
+                   "phi-3-vision-4.2b D=96": fp, "gemma-7b D=256": fg}
 
     # -- 6. the SSD chunk kernel against its plain version
     sworst, scases = check_ssd_sweep(torch, sk, sops)
@@ -1895,21 +2091,21 @@ def main() -> int:
                 "mlstm_chunk_bhsd": mk.mlstm_chunk_bhsd}
     sessions = {}
     for arch_id in SESSION_ARCHS:
-        arch = get_arch(arch_id)
-        p = layer_plan(arch)
-        expect = ({"flash_attention_bhsd": N_PODS * p["layers"]}
-                  if p["kind"] == "dense" else
-                  {"mlstm_chunk_bhsd": N_PODS * p["groups"] * p["mlstm_per"]}
-                  if p["kind"] == "xlstm" else
-                  {"flash_attention_bhsd": N_PODS * p["groups"],
-                   "ssd_chunk_bhcp": N_PODS * arch.num_layers})
+        expect = {k: N_PODS * n for k, n in
+                  expected_launches(session_arch(arch_id)[0]).items()}
         sessions[arch_id] = ss = run_sessions(torch, arch_id, counters,
                                               expect)
         emit({"phase": "sessions", "nvidia_smi": smi, **ss})
+    for arch_id in PREFILL_ARCHS:
+        sessions[arch_id] = ss = run_prefill_only(
+            torch, arch_id, counters,
+            expected_launches(session_arch(arch_id)[0]))
+        emit({"phase": "prefill_only", "nvidia_smi": smi, **ss})
 
     # -- 9. the kernels line, the card, the result
     flash_launches = {a: ss["launches"]["flash_attention_bhsd"]
-                      for a, ss in sessions.items()}
+                      for a, ss in sessions.items()
+                      if ss["launches"]["flash_attention_bhsd"]}
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
     t = timings[("100KB", 1)]
     merge_launches = {"serve": st["launches"],
@@ -1927,11 +2123,14 @@ def main() -> int:
         "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
         "launches": sum(flash_launches.values()),
         "launches_by_path": flash_launches,
-        "max_abs_err": max(max(fworst.values()), ft["max_abs_err"],
-                           fz["max_abs_err"]),
+        "max_abs_err": max([max(fworst.values())] + [
+            t["max_abs_err"] for t in flash_times.values()]),
         "ms": ft["ms"], "plain_ms": ft["plain_ms"],
         "bound_ms": ft["bound_ms"], "bound_by": ft["bound_by"],
-        "library_ms": ft["library_ms"]}, {
+        "library_ms": ft["library_ms"],
+        "by_geometry": {g: {k: t[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for g, t in flash_times.items()}}, {
         "name": "ssd_chunk_bhcp", "route": "cuda", "source": SSD_SOURCE,
         "replaces": SSD_REPLACES,
         "launches": sessions["zamba2-7b"]["launches"]["ssd_chunk_bhcp"],

@@ -77,35 +77,47 @@ def params_from_numpy(arch, tree: dict, device=None,
                       dtype: Optional[torch.dtype] = None) -> dict:
     """The port's parameter tree from the reference's (nested dicts of
     numpy arrays, e.g. ``jax.device_get(params)``), key for key and
-    shape for shape: dense ``blocks``, xlstm's ``blocks`` (``mlstm`` (G, 7,
-    ...) and ``slstm`` (G, ...)), or zamba2's ``blocks`` (G, per, ...),
-    ``tail`` and the one ``shared`` block.  ``dtype`` casts every floating
-    leaf (bfloat16 leaves arrive as bfloat16 unless it says otherwise)."""
+    shape for shape: dense and moe ``blocks`` (moe: ``blocks.moe.router``,
+    f32 in every reference tree, and the stacked experts), xlstm's
+    ``blocks`` (``mlstm`` (G, 7, ...) and ``slstm`` (G, ...)), zamba2's
+    ``blocks`` (G, per, ...), ``tail`` and the one ``shared`` block, or
+    whisper's ``enc_blocks``, ``dec_blocks``, ``enc_norm`` and
+    ``frame_proj``; the vlm's ``patch_proj`` beside its ``blocks``.  Each
+    leaf keeps the reference's dtype unless ``dtype`` is given, which casts
+    every floating leaf (bfloat16 leaves arrive as bfloat16)."""
     from repro_torch.models.transformer import plan
-    p = plan(arch)                      # only ported families carry over
-    need = {"embed", "final_norm", "blocks"}
+    p = plan(arch)
+    need = {"embed", "final_norm"}
     if not arch.tie_embeddings:
         need.add("lm_head")
+    if p["kind"] == "whisper":
+        need |= {"enc_blocks", "dec_blocks", "enc_norm", "frame_proj"}
+    else:
+        need.add("blocks")
     if p["kind"] == "zamba":
         need |= {"shared", "tail"} if p["tail"] else {"shared"}
+    if arch.frontend_stub == "clip_patches":
+        need.add("patch_proj")
     if need - set(tree):
         raise ValueError(f"not a {arch.name} parameter tree: keys "
                          f"{sorted(tree)}")
     return _tree_from_numpy(tree, resolve_device(device), dtype)
 
 
-#: decode-cache leaves that ``dtype`` casts (K/V, conv windows, the sLSTM
-#: hidden state ``h``); the SSM ``state``, the mLSTM ``C``/``n``/``m`` and the
-#: sLSTM ``c``/``n``/``m`` stay f32 and ``shared_pos``/``length`` int32, as
-#: the reference keeps them
-_CACHE_CAST = frozenset({"k", "v", "shared_k", "shared_v", "conv_x", "conv_B",
-                         "conv_C", "conv", "h"})
+#: decode-cache leaves that ``dtype`` casts (K/V, whisper's self and cross
+#: K/V, conv windows, the sLSTM hidden state ``h``); the SSM ``state``, the
+#: mLSTM ``C``/``n``/``m`` and the sLSTM ``c``/``n``/``m`` stay f32 and
+#: ``shared_pos``/``length`` int32, as the reference keeps them
+_CACHE_CAST = frozenset({"k", "v", "shared_k", "shared_v", "self_k", "self_v",
+                         "cross_k", "cross_v", "conv_x", "conv_B", "conv_C",
+                         "conv", "h"})
 
 
 def cache_from_numpy(tree: dict, device=None,
                      dtype: Optional[torch.dtype] = None) -> dict:
-    """A decode cache from (nested dicts of) numpy arrays: dense ``k``,
-    ``v``, ``length``, xlstm's ``mlstm``/``slstm`` states, or zamba2's
+    """A decode cache from (nested dicts of) numpy arrays: dense and moe
+    ``k``, ``v``, ``length``, whisper's ``self_k``/``self_v``/``cross_k``/
+    ``cross_v``, xlstm's ``mlstm``/``slstm`` states, or zamba2's
     ``mamba``/``tail`` states and the shared block's ring.  ``dtype`` casts
     the K/V, conv-window and sLSTM ``h`` leaves only; ``length`` is int32."""
     dev = resolve_device(device)

@@ -141,11 +141,11 @@ constexpr int THREADS_BF16 = 128 * (CONSUMERS + 1);  // + the producer
 // swizzled rows (SW / 2 columns each).
 template <int D>
 struct Geo {
-  // keys a K/V tile and the ring's depth: 96 x 3 at D=112 and 128, where
-  // the larger tile pays (D=128 spills a few bytes of P, and is still
+  // keys a K/V tile and the ring's depth: 96 x 3 at D=96, 112 and 128,
+  // where the larger tile pays (D=128 spills a few bytes of P, and is still
   // faster than with 64 keys), 64 x 4 below
-  static constexpr int TK = D >= 112 ? 96 : 64;
-  static constexpr int STAGES = D >= 112 ? 3 : 4;
+  static constexpr int TK = D >= 96 ? 96 : 64;
+  static constexpr int STAGES = D >= 96 ? 3 : 4;
   static constexpr int SW = D == 32 ? 64 : 128;
   static constexpr int SLAB = SW / 2;                    // columns a slab
   static constexpr int NSLAB = (D + SLAB - 1) / SLAB;
@@ -442,6 +442,36 @@ __device__ __forceinline__ void wgmma_rs_n112(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 96, f32) += A (64 x 16, bf16 in registers) * B (16 x 96, shared,
+// MN-major: transposed as it is read, which wgmma allows for 16-bit types)
+__device__ __forceinline__ void wgmma_rs_n96(float* d, const uint32_t* a,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64, shared,
 // MN-major: transposed as it is read, which wgmma allows for 16-bit types)
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
@@ -503,6 +533,7 @@ __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
                                          uint64_t db) {
   if constexpr (D == 128) wgmma_rs_n128(o, a, db);
   else if constexpr (D == 112) wgmma_rs_n112(o, a, db);
+  else if constexpr (D == 96) wgmma_rs_n96(o, a, db);
   else if constexpr (D == 64) wgmma_rs_n64(o, a, db);
   else wgmma_rs_n32(o, a, db);
 }
@@ -703,7 +734,7 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
       for (int sl = 0; sl < G::NSLAB; ++sl) {
 #pragma unroll
         for (int kk = 0; kk < G::SLAB / 16; ++kk) {
-          if (sl * G::SLAB + kk * 16 >= D) break;   // D=112's zero columns
+          if (sl * G::SLAB + kk * 16 >= D) break;   // D=96's, D=112's zeros
           const uint64_t da = q_desc + ((sl * TQ * G::SW + kk * 32) >> 4);
           const uint64_t db = k_desc + ((st * G::KV_BYTES + sl * TK * G::SW +
                                          kk * 32) >> 4);
@@ -792,6 +823,221 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
         *reinterpret_cast<uint32_t*>(og + qp1 * p.os_s + d) =
             pack_bf16(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at D=256: mma.sync, 4 warps of 16 query rows, not warp-specialised
+// ---------------------------------------------------------------------------
+//
+// The wgmma consumers above keep a 64-row warpgroup's f32 O in registers:
+// 128 a thread at D=256, past the 168 ptxas grants them beside S and P.
+// Here a block has no producer and no setmaxnreg, so a thread may hold up
+// to 255: each warp owns 16 query rows, its O (16 x 256 f32, 128 registers
+// a thread), S of a 64-key tile (32) and P's bf16 fragments, and runs
+// mma.sync m16n8k16 on fragments loaded from shared memory.  A block (64
+// query rows) loads its Q tile once and each K and V tile of 64 keys with
+// 16-byte loads, all threads together, between two __syncthreads (no
+// pipeline: two blocks an SM overlap one's loads with the other's
+// products).  Shared rows are padded by 16 bytes, so the fragment loads of
+// a quad's eight rows fall in distinct banks.  V is read transposed by
+// ldmatrix.trans.  The masks, the base-2 online softmax, p rounded to bf16
+// before PV, and the order of the sums over keys are those of the kernels
+// above.  Left for later: TMA and a pipeline, and wgmma with O split over
+// warpgroups.
+
+constexpr int BQ_MMA = 64;     // query rows a block: 4 warps x 16
+constexpr int THREADS_MMA = 128;
+
+template <int D>
+struct MmaGeo {
+  static constexpr int LD = D + 8;           // bf16 elements a shared row
+  static constexpr int TILE = BQ_MMA * LD;   // a Q, K or V tile (BK rows)
+  static constexpr int SMEM = 3 * TILE * 2;  // bytes
+};
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The B fragment (16 keys x 8 columns) of a row-major (keys, D) tile:
+// lanes 0-15 name the 16 key rows, and .trans hands each lane the pair of
+// keys (2t, 2t+1) of column g that mma's B operand wants
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
+                                                  const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1) : "r"(smem_u32(row)) : "memory");
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// rows [row0, row0 + BK) of a (rows, D) bf16 view with row stride `stride`
+// into a padded shared tile; rows at or past `nrows` are zeros
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          long long stride, int row0,
+                                          int nrows) {
+  constexpr int VEC = D / 8;                 // 16-byte pieces a row
+  for (int c = threadIdx.x; c < BK * VEC; c += THREADS_MMA) {
+    const int r = c / VEC, col = (c % VEC) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < nrows)
+      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + col);
+    *reinterpret_cast<uint4*>(dst + r * MmaGeo<D>::LD + col) = val;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS_MMA, 1)
+    flash_fwd_bf16_mma(const Params p) {
+  static_assert(BK == 64 && BQ_MMA == 64, "one 64 x 64 tile pair a step");
+  constexpr int LD = MmaGeo<D>::LD;
+  constexpr int NT = D / 8;                  // 8-column tiles of O
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);
+  __nv_bfloat16* Ks = Qs + MmaGeo<D>::TILE;
+  __nv_bfloat16* Vs = Ks + MmaGeo<D>::TILE;
+
+  const int n_qt = (p.Sq + BQ_MMA - 1) / BQ_MMA;   // grid.x: (tile, h, b)
+  const int q0 = (n_qt - 1 - (int)(blockIdx.x % n_qt)) * BQ_MMA;
+  const int h = (int)((blockIdx.x / n_qt) % p.H);
+  const int b = (int)(blockIdx.x / n_qt / p.H);
+  const int kvh = h / (p.H / p.KV);
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) +
+                            b * p.qs_b + h * p.qs_h;
+  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) +
+                            b * p.ks_b + kvh * p.ks_h;
+  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) +
+                            b * p.vs_b + kvh * p.vs_h;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16 + g;              // this thread's rows: r0, r0 + 8
+  const int qp0 = q0 + r0, qp1 = qp0 + 8;
+  const float sl2 = p.scale * kLog2e;
+
+  load_tile<D>(Qs, qg, p.qs_s, q0, p.Sq);
+
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  const int n_tiles = kv_tiles<BQ_MMA>(p, q0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * BK;
+    __syncthreads();              // the last tile's reads are done
+    load_tile<D>(Ks, kg, p.ks_s, k0, p.Skv);
+    load_tile<D>(Vs, vg, p.vs_s, k0, p.Skv);
+    __syncthreads();
+
+    // S = Q K^T: 16 rows x 64 keys a warp, 8 tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+      const __nv_bfloat16* qa = Qs + r0 * LD + kd * 16 + 2 * t;
+      const uint32_t a[4] = {lds32(qa), lds32(qa + 8 * LD), lds32(qa + 8),
+                             lds32(qa + 8 * LD + 8)};
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const __nv_bfloat16* kb = Ks + (n * 8 + g) * LD + kd * 16 + 2 * t;
+        mma_16816(s[n], a, lds32(kb), lds32(kb + 8));
+      }
+    }
+
+    // the online softmax of rows qp0 (s[n][0..1]) and qp1 (s[n][2..3]), in
+    // base 2 with the scale folded in; the quad holds a row between it
+    const bool need = tile_needs_mask<BQ_MMA>(p, q0, k0);
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sl2;
+        if (need)
+          x = mask_score(x, e < 2 ? qp0 : qp1, k0 + n * 8 + 2 * t + (e & 1),
+                         p.Skv, p.causal, p.window);
+        s[n][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x);
+        else mx1 = fmaxf(mx1, x);
+      }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = ex2(s[n][e] - (e < 2 ? mn0 : mn1));
+        s[n][e] = pe;
+        if (e < 2) sum0 += pe;
+        else sum1 += pe;
+      }
+    l0 = l0 * c0 + sum0;
+    l1 = l1 * c1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= c0;
+      o[n][1] *= c0;
+      o[n][2] *= c1;
+      o[n][3] *= c1;
+    }
+
+    // O += P V: P rounded to bf16 is the A fragment of keys 16kk..16kk+15
+    // as the two 8-key accumulator tiles hold it
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const __nv_bfloat16* vrow = Vs + (kk * 16 + (lane & 15)) * LD;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        uint32_t b0, b1;
+        ldmatrix_x2_trans(b0, b1, vrow + n * 8);
+        mma_16816(o[n], pa, b0, b1);
+      }
+    }
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.os_b +
+                      h * p.os_h;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int d = n * 8 + 2 * t;
+    if (qp0 < p.Sq)
+      *reinterpret_cast<uint32_t*>(og + qp0 * p.os_s + d) =
+          pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
+    if (qp1 < p.Sq)
+      *reinterpret_cast<uint32_t*>(og + qp1 * p.os_s + d) =
+          pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
   }
 }
 
@@ -1035,17 +1281,31 @@ int launch_bf16(const Params& p, const long long* geo, cudaStream_t stream) {
 }
 
 template <int D>
+int launch_bf16_mma(const Params& p, cudaStream_t stream) {
+  constexpr int smem = MmaGeo<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((unsigned)((p.Sq + BQ_MMA - 1) / BQ_MMA) * p.H * p.B);
+  flash_fwd_bf16_mma<D><<<grid, THREADS_MMA, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
 int launch(const Params& p, bool bf16, const long long* geo,
            cudaStream_t stream) {
-  return bf16 ? launch_bf16<D>(p, geo, stream)
-              : static_cast<int>(launch_f32<D>(p, stream));
+  if (!bf16) return static_cast<int>(launch_f32<D>(p, stream));
+  if constexpr (D == 256) return launch_bf16_mma<D>(p, stream);
+  else return launch_bf16<D>(p, geo, stream);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  strides: 12 element strides, (b, h, s) of
 // q, k, v and o in turn; the head dim is contiguous.  tma (bfloat16 only):
-// 3 x 15 values, the tensor-map geometry of q, k and v (see encode_map).
+// 3 x 15 values, the tensor-map geometry of q, k and v (see encode_map);
+// none at D=256, whose kernel reads through the element strides.
 // Returns 0 on success, else cudaGetLastError() after the launch, or a
 // code past 99,998 for a tensor map (see kMapError); the caller raises.
 extern "C" int flash_attention_bhsd_launch(
@@ -1075,12 +1335,14 @@ extern "C" int flash_attention_bhsd_launch(
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const bool bf16 = dtype == 1;
-  if (bf16 && tma == nullptr) return (int)cudaErrorInvalidValue;
+  if (bf16 && tma == nullptr && D != 256) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 32: return launch<32>(p, bf16, tma, s);
     case 64: return launch<64>(p, bf16, tma, s);
+    case 96: return launch<96>(p, bf16, tma, s);     // phi-3-vision
     case 112: return launch<112>(p, bf16, tma, s);   // zamba2's shared block
     case 128: return launch<128>(p, bf16, tma, s);
+    case 256: return launch<256>(p, bf16, tma, s);   // gemma-7b
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -2,8 +2,9 @@
 ``repro.launch.serve`` on one device.
 
 A decode session's state is a keygroup whose home is the pod serving it:
-a KV cache (dense), recurrent states (xlstm: per-layer mLSTM matrix memories
-and sLSTM cells) or both (zamba2).  The decode hot path touches only
+a KV cache (dense, vlm and moe), recurrent states (xlstm: per-layer mLSTM
+matrix memories and sLSTM cells), both (zamba2), or whisper's decoder cache
+beside the encoder output's K/V.  The decode hot path touches only
 pod-local state, the paper's core property.  Four steps, each made by a
 ``make_*`` factory:
 
@@ -47,7 +48,8 @@ from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.models import model_zoo as zoo
 
-#: a (nested) dict of tensors: dense ``k``/``v``, xlstm's ``mlstm`` and
+#: a (nested) dict of tensors: dense and moe ``k``/``v``, whisper's
+#: ``self_k``/``self_v``/``cross_k``/``cross_v``, xlstm's ``mlstm`` and
 #: ``slstm`` recurrent states, or zamba2's ``mamba``, ``tail`` and
 #: shared-block ring; ``length`` always
 Cache = dict
@@ -55,6 +57,13 @@ Cache = dict
 
 def serve_param_dtype(arch: ArchConfig):
     return torch.bfloat16      # serving always runs bf16 weights
+
+
+def params_shape_tree(arch: ArchConfig) -> dict:
+    """The serving parameter tree on the ``meta`` device: shapes and
+    dtypes, no storage (the reference's ``jax.eval_shape`` of its init)."""
+    return zoo.init_params(arch, seed=0, dtype=serve_param_dtype(arch),
+                           device="meta")
 
 
 def _on(device: torch.device, tree, what: str) -> None:
@@ -77,15 +86,18 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
                       compute_dtype=torch.bfloat16
                       ) -> Callable[[dict, dict], tuple]:
     """``prefill(params, batch) -> (logits (B, 1, V), cache)`` for one pod:
-    ``batch["tokens"]`` is (B, shape.seq_len); the cache is
-    ``forward_seq``'s, with ``length`` = ``shape.seq_len``."""
+    ``batch["tokens"]`` is (B, shape.seq_len), and the batch goes to
+    ``forward_seq`` as its ``extra`` (the vlm's ``patch_embeds``,
+    whisper's ``frame_embeds``: ``model_zoo.example_batch`` makes them);
+    the cache is ``forward_seq``'s, with ``length`` = ``shape.seq_len``."""
     dev = resolve_device(device)
 
     def prefill(params: dict, batch: dict):
         _on(dev, params, "params")
-        _on(dev, batch["tokens"], "tokens")
+        _on(dev, batch, "batch")
         logits, _, cache = zoo.forward_seq(arch, params, batch["tokens"],
-                                           impl=impl, return_cache=True,
+                                           extra=batch, impl=impl,
+                                           return_cache=True,
                                            compute_dtype=compute_dtype)
         cache["length"] = torch.tensor(shape.seq_len, dtype=torch.int32,
                                        device=dev)

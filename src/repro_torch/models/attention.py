@@ -19,8 +19,10 @@ Shapes (conventions used across the model zoo):
     k, v         (B, S, KV, Dh)
     cache k/v    (B, Smax, KV, Dh)  + 0-d ``length`` tensor (tokens filled)
 
-The whisper cross-attention and the mesh-sharded flash decode come with
-their slices.
+Whisper's cross-attention (decoder queries against the encoder output's
+K/V, projected once at prefill) is ``blockwise_attention``, plain torch, as
+in the reference.  The mesh-sharded flash decode comes with the training
+and mesh slice.
 """
 from __future__ import annotations
 
@@ -259,3 +261,36 @@ def decode_self_attention(params: dict, x1: torch.Tensor,
     out = _einsum_f32("bqkgs,bskd->bqkgd", p.to(cache_v.dtype), cache_v)
     out = out.reshape(B, 1, -1).to(x1.dtype) @ params["wo"]
     return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper)
+# ---------------------------------------------------------------------------
+
+def cross_attention(params: dict, x: torch.Tensor, kv_cache_k: torch.Tensor,
+                    kv_cache_v: torch.Tensor, arch: ArchConfig) -> torch.Tensor:
+    """Decoder->encoder cross-attention against precomputed K/V (whisper):
+    every query sees every encoder position."""
+    B, Sq = x.shape[:2]
+    dh = arch.resolved_head_dim
+    q = (x @ params["wq"]).reshape(B, Sq, arch.num_heads, dh)
+    if "bq" in params:
+        q = q + params["bq"].reshape(arch.num_heads, dh).to(q.dtype)
+    Skv = kv_cache_k.shape[1]
+    pos_q = torch.zeros((B, Sq), dtype=torch.int32, device=x.device)
+    pos_kv = torch.zeros((B, Skv), dtype=torch.int32, device=x.device)
+    out = blockwise_attention(q, kv_cache_k, kv_cache_v, pos_q, pos_kv,
+                              causal=False)
+    return out.reshape(B, Sq, -1) @ params["wo"]
+
+
+def project_cross_kv(params: dict, enc_out: torch.Tensor, arch: ArchConfig):
+    """K/V of the encoder output, computed once at prefill (whisper)."""
+    B, S = enc_out.shape[:2]
+    dh = arch.resolved_head_dim
+    k = (enc_out @ params["wk"]).reshape(B, S, arch.num_kv_heads, dh)
+    v = (enc_out @ params["wv"]).reshape(B, S, arch.num_kv_heads, dh)
+    if "bk" in params:
+        k = k + params["bk"].reshape(arch.num_kv_heads, dh).to(k.dtype)
+        v = v + params["bv"].reshape(arch.num_kv_heads, dh).to(v.dtype)
+    return k, v

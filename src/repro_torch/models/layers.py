@@ -3,8 +3,7 @@ counterpart of ``repro.models.layers``.
 
 The f32 upcasts sit where the reference has them: the norms and RoPE
 compute in float32 and cast back to the input's dtype.  The reference's
-``layernorm``, ``sinusoidal_positions`` and ``cross_entropy_loss`` come with
-the whisper and training slices.
+``cross_entropy_loss`` comes with the training slice.
 """
 from __future__ import annotations
 
@@ -27,6 +26,18 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.float())).to(dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim with the population variance
+    (``jnp.var``); no model of the zoo calls it, as in the reference."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(dtype)
 
 
 def groupnorm_heads(x: torch.Tensor, scale: torch.Tensor,
@@ -67,6 +78,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(max_len: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style absolute sinusoidal embeddings (max_len, dim), f32,
+    made on ``device`` (nothing is copied from the host, so a captured
+    decode step may make them)."""
+    pos = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    idx = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    log10k = torch.log(torch.full((), 10000.0, dtype=torch.float32,
+                                  device=device))
+    inv = torch.exp(-log10k * idx / max(dim // 2 - 1, 1))
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -121,11 +145,13 @@ def mlp_apply(params: dict, x: torch.Tensor, kind: Activation) -> torch.Tensor:
 def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
                dtype=torch.float32) -> torch.Tensor:
     """Normal(0, 1) * scale (default fan_in**-0.5), drawn in f32 from
-    ``gen`` on the generator's device."""
+    ``gen`` on the generator's device (on the meta device, which has no
+    generator, ``gen`` only names the device: shapes, no numbers)."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     s = scale if scale is not None else fan_in ** -0.5
-    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                    device=gen.device)
+    meta = gen.device.type == "meta"
+    w = torch.randn(tuple(shape), generator=None if meta else gen,
+                    dtype=torch.float32, device=gen.device)
     return (w * s).to(dtype)
 
 

@@ -1,10 +1,15 @@
-"""Model-zoo public API: params, caches, steps and analytic counts; the
-counterpart of ``repro.models.model_zoo``.
+"""Model-zoo public API: params, caches, steps, input specs and analytic
+counts; the counterpart of ``repro.models.model_zoo``.
 
-``input_specs``/``cache_specs`` (ShapeDtypeStruct stand-ins for dry runs)
-have no counterpart: the port allocates what it runs.
+The reference's ``ShapeDtypeStruct`` stand-ins are ``(shape, dtype)``
+pairs here (``input_specs``) and tensors on the ``meta`` device, which hold
+no storage (``cache_specs``).
 """
 from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig, StepKind
 from repro_torch.models import transformer
@@ -85,3 +90,59 @@ def model_flops(arch: ArchConfig, shape: ShapeConfig) -> float:
         return 2.0 * n_active * tokens
     # decode: one token per sequence in the batch
     return 2.0 * n_active * shape.global_batch
+
+
+# ---------------------------------------------------------------------------
+# Input specs and example batches
+# ---------------------------------------------------------------------------
+
+def input_specs(arch: ArchConfig, shape: ShapeConfig
+                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The batch a step takes, as ``name -> (shape, dtype)``: tokens (and
+    a train step's labels and loss mask), the vlm's ``patch_embeds`` and
+    whisper's ``frame_embeds`` (B, num_patches, d) f32; decode takes one
+    token a sequence."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.step is StepKind.DECODE:
+        return {"token": ((B, 1), torch.int32)}
+    specs = {"tokens": ((B, S), torch.int32)}
+    if shape.step is StepKind.TRAIN:
+        specs["labels"] = ((B, S), torch.int32)
+        specs["loss_mask"] = ((B, S), torch.float32)
+    stub = {"clip_patches": "patch_embeds", "audio_frames": "frame_embeds"}
+    if arch.frontend_stub in stub:
+        specs[stub[arch.frontend_stub]] = (
+            (B, arch.num_patches, arch.d_model), torch.float32)
+    return specs
+
+
+def cache_specs(arch: ArchConfig, shape: ShapeConfig,
+                dtype=torch.bfloat16) -> dict:
+    """``init_cache``'s tree on the ``meta`` device: shapes and dtypes,
+    no storage."""
+    return transformer.init_cache(arch, shape.global_batch, shape.seq_len,
+                                  dtype, device="meta")
+
+
+def example_batch(arch: ArchConfig, shape: ShapeConfig,
+                  gen: torch.Generator) -> dict:
+    """A materialised batch of ``input_specs`` on ``gen``'s device, drawn
+    from ``gen`` in the specs' order: integers uniform in [0, min(vocab,
+    1000)), floats normal x 0.02, a train step's loss mask ones (zeros on
+    the vlm's patch positions).  The numbers differ from the reference's
+    ``jax.random`` ones; use reduced configs on the CPU."""
+    out = {}
+    for name, (dims, dtype) in input_specs(arch, shape).items():
+        if dtype == torch.int32:
+            out[name] = torch.randint(0, min(arch.vocab_size, 1000), dims,
+                                      generator=gen, dtype=torch.int32,
+                                      device=gen.device)
+        else:
+            out[name] = torch.randn(dims, generator=gen, dtype=dtype,
+                                    device=gen.device) * 0.02
+    if "loss_mask" in out:
+        out["loss_mask"] = torch.ones_like(out["loss_mask"])
+        if arch.frontend_stub == "clip_patches":
+            # no next-token loss on patch positions
+            out["loss_mask"][:, :arch.num_patches] = 0
+    return out

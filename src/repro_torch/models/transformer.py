@@ -1,10 +1,12 @@
 """Layer-stack orchestrator: the counterpart of ``repro.models.transformer``
-for the dense, ssm (xlstm) and hybrid (zamba2) families.
+for every family of the registry.
 
 Segment plans (family -> structure):
-  dense              L x [attn + mlp]
+  dense / vlm        L x [attn + mlp]          (vlm: patch embeddings first)
+  moe                L x [attn + moe]
   ssm (xlstm)        G x [7 x mlstm; slstm]                       (G = L/8)
   hybrid (zamba2)    G x [6 x mamba2; SHARED attn+mlp] (+ tail of mamba2)
+  audio (whisper)    4 x [enc attn + mlp]; 4 x [self + cross + mlp]
 
 Parameters of a homogeneous run of layers are stacked on a leading axis
 (``blocks.attn.wq`` is ``(L, d, H*Dh)``; zamba2's ``blocks.mamba.w_x`` is
@@ -19,28 +21,27 @@ Both modes of a block:
   decode(params, x1, cache, length)   -> y, cache     (one token; the cache
                                                        is written in place)
 
-The moe, vlm and whisper plans raise ``NotImplementedError`` naming their
-ROADMAP item.
+The vlm and audio front ends are stubs, as in the reference: ``extra``
+carries ``patch_embeds`` (vlm: ``num_patches`` positions put in front of the
+text, the prompt's length kept) or ``frame_embeds`` (whisper: the
+encoder's input frames), and ``model_zoo.example_batch`` makes both.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from types import SimpleNamespace
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, AttnImpl
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (apply_rope, dense_init, mlp_apply,
-                                       mlp_init, rmsnorm)
-
-_NOT_PORTED = {
-    "moe": "the rest of the model zoo: moe (ROADMAP, open item 8)",
-    "vlm": "the rest of the model zoo: vlm (ROADMAP, open item 8)",
-    "audio": "the rest of the model zoo: whisper (ROADMAP, open item 8)",
-}
+                                       mlp_init, rmsnorm,
+                                       sinusoidal_positions)
 
 
 # ---------------------------------------------------------------------------
@@ -49,8 +50,10 @@ _NOT_PORTED = {
 
 def plan(arch: ArchConfig) -> Dict[str, Any]:
     """Static structure of the layer stack."""
-    if arch.family == "dense":
+    if arch.family in ("dense", "vlm"):
         return {"kind": "dense", "layers": arch.num_layers}
+    if arch.family == "moe":
+        return {"kind": "moe", "layers": arch.num_layers}
     if arch.family == "ssm":        # xlstm
         per = arch.xlstm.slstm_every
         groups = max(1, arch.num_layers // per)
@@ -61,10 +64,9 @@ def plan(arch: ArchConfig) -> Dict[str, Any]:
         tail = arch.num_layers - groups * per
         return {"kind": "zamba", "groups": groups, "mamba_per": per,
                 "tail": tail}
-    if arch.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"repro_torch: family {arch.family!r} ({arch.name}) is not ported "
-            f"yet; it comes with {_NOT_PORTED[arch.family]}")
+    if arch.family == "audio":
+        return {"kind": "whisper", "enc": arch.encoder_layers,
+                "dec": arch.num_layers}
     raise ValueError(arch.family)
 
 
@@ -90,6 +92,15 @@ def _map(fn: Callable[[torch.Tensor], torch.Tensor], tree):
     return fn(tree)
 
 
+def _put(dst, src, i: int) -> None:
+    """Layer ``i`` of the stacked tree ``dst`` := the tree ``src``."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _put(dst[k], src[k], i)
+    else:
+        dst[i].copy_(src)
+
+
 # ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
@@ -103,6 +114,32 @@ def _dense_layer_init(gen: torch.Generator, arch: ArchConfig, dtype) -> dict:
         "ln2": zeros(),
         "mlp": mlp_init(gen, arch.d_model, arch.d_ff, arch.activation,
                         dtype=dtype),
+    }
+
+
+def _moe_layer_init(gen: torch.Generator, arch: ArchConfig, dtype) -> dict:
+    zeros = lambda: torch.zeros((arch.d_model,), dtype=dtype,
+                                device=gen.device)
+    return {
+        "ln1": zeros(),
+        "attn": attn.attn_init(gen, arch, dtype=dtype),
+        "ln2": zeros(),
+        "moe": moe_mod.moe_init(gen, arch, dtype=dtype),
+    }
+
+
+def _whisper_dec_layer_init(gen: torch.Generator, arch: ArchConfig,
+                            dtype) -> dict:
+    zeros = lambda: torch.zeros((arch.d_model,), dtype=dtype,
+                                device=gen.device)
+    return {
+        "ln1": zeros(),
+        "self_attn": attn.attn_init(gen, arch, dtype=dtype),
+        "ln_x": zeros(),
+        "cross_attn": attn.attn_init(gen, arch, dtype=dtype),
+        "ln2": zeros(),
+        "mlp": mlp_init(gen, arch.d_model, arch.d_ff, arch.activation,
+                        dtype=dtype, bias=False),
     }
 
 
@@ -132,7 +169,17 @@ def _xlstm_group_init(gen: torch.Generator, arch: ArchConfig, dtype) -> dict:
 
 def _stack_init(layer_init, gen: torch.Generator, n: int, arch: ArchConfig,
                 dtype) -> dict:
-    return _stack([layer_init(gen, arch, dtype) for _ in range(n)])
+    """``n`` layers stacked on a leading axis, drawn one after the other
+    and copied into the stack as each is made: the stack and one layer are
+    live at once, never the ``n`` layers twice (grok-1's experts are 9.7 GB
+    a layer in bf16)."""
+    first = layer_init(gen, arch, dtype)
+    out = _map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
+    _put(out, first, 0)
+    del first
+    for i in range(1, n):
+        _put(out, layer_init(gen, arch, dtype), i)
+    return out
 
 
 def init_params(arch: ArchConfig, seed: int = 0, dtype=torch.float32,
@@ -141,9 +188,13 @@ def init_params(arch: ArchConfig, seed: int = 0, dtype=torch.float32,
     drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``
     (``None``: the CUDA card).  The numbers differ from the reference's
     ``jax.random`` ones; carry a reference tree across with
-    ``core.carry.params_from_numpy`` to compute on the same weights."""
+    ``core.carry.params_from_numpy`` to compute on the same weights.  On the
+    ``meta`` device the tree holds shapes and dtypes only."""
     p = plan(arch)
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    dev = resolve_device(device)
+    # the meta device has no generator: a stand-in that names the device
+    gen = SimpleNamespace(device=dev) if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
     params: dict = {
         "embed": dense_init(gen, (arch.vocab_size, arch.d_model), scale=1.0,
                             dtype=dtype),
@@ -156,17 +207,35 @@ def init_params(arch: ArchConfig, seed: int = 0, dtype=torch.float32,
     if p["kind"] == "dense":
         params["blocks"] = _stack_init(_dense_layer_init, gen, p["layers"],
                                        arch, dtype)
+    elif p["kind"] == "moe":       # the router f32 in every tree
+        params["blocks"] = _stack_init(_moe_layer_init, gen, p["layers"],
+                                       arch, dtype)
     elif p["kind"] == "xlstm":     # (G, 7, ...) mLSTM and (G, ...) sLSTM
         params["blocks"] = _stack_init(_xlstm_group_init, gen, p["groups"],
                                        arch, dtype)
-    else:   # zamba: (G, per, ...) mamba stacks, a tail, ONE shared block
-        params["blocks"] = _stack([
+    elif p["kind"] == "zamba":     # (G, per, ...) mamba stacks, a tail, ONE
+        params["blocks"] = _stack([  # shared block
             _stack_init(_mamba_layer_init, gen, p["mamba_per"], arch, dtype)
             for _ in range(p["groups"])])
         if p["tail"]:
             params["tail"] = _stack_init(_mamba_layer_init, gen, p["tail"],
                                          arch, dtype)
         params["shared"] = _dense_layer_init(gen, arch, dtype)
+    else:                          # whisper: encoder and decoder stacks
+        # an encoder layer is a dense one (the reference's
+        # _whisper_enc_layer_init: the same tree, an MLP with no bias)
+        params["enc_blocks"] = _stack_init(_dense_layer_init, gen, p["enc"],
+                                           arch, dtype)
+        params["dec_blocks"] = _stack_init(_whisper_dec_layer_init, gen,
+                                           p["dec"], arch, dtype)
+        params["enc_norm"] = torch.zeros((arch.d_model,), dtype=dtype,
+                                         device=gen.device)
+        # the front-end stub's adapter: frame embeddings -> d_model
+        params["frame_proj"] = dense_init(gen, (arch.d_model, arch.d_model),
+                                          dtype=dtype)
+    if arch.frontend_stub == "clip_patches":
+        params["patch_proj"] = dense_init(gen, (arch.d_model, arch.d_model),
+                                          dtype=dtype)
     return params
 
 
@@ -179,6 +248,13 @@ def _dense_block_seq(lp, x, positions, arch, impl, window=0, causal=True):
                                 arch, causal=causal, window=window, impl=impl)
     x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]), arch.activation)
     return x
+
+
+def _moe_block_seq(lp, x, positions, arch, impl):
+    x = x + attn.self_attention(lp["attn"], rmsnorm(x, lp["ln1"]), positions,
+                                arch, impl=impl)
+    y, aux = moe_mod.moe_apply(lp["moe"], rmsnorm(x, lp["ln2"]), arch)
+    return x + y, aux
 
 
 def _scan(body, carry, xs, n: int):
@@ -213,15 +289,23 @@ def _head(arch: ArchConfig, params: dict, x: torch.Tensor,
 
 
 def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
+                extra: Optional[dict] = None,
                 impl: AttnImpl = AttnImpl.REFERENCE,
                 return_cache: bool = False,
                 compute_dtype=torch.bfloat16):
-    """tokens (B, S) int -> (logits (B, S, V), aux 0.0, cache | None).
+    """tokens (B, S) int -> (logits (B, S, V), aux f32, cache | None).
     Positions are 0..S-1 in every row.  ``impl`` picks the attention path
     and, in the Mamba-2 and mLSTM layers, the scan (FLASH: the kernels).
+    ``extra`` holds the front-end stubs' inputs: ``patch_embeds`` (B,
+    num_patches, d) f32 for the vlm, which take the first ``num_patches``
+    positions in place of as many text tokens, or ``frame_embeds`` (B, F,
+    d) f32 for whisper's encoder.  ``aux`` is the moe layers' summed
+    load-balancing loss (0 elsewhere).
 
-    The dense cache holds the layer-stacked (L, B, S, KV, Dh) ``k`` and
-    ``v``.  The xlstm cache holds ``mlstm`` (G, 7, ...: the conv window and
+    The dense and moe caches hold the layer-stacked (L, B, S, KV, Dh)
+    ``k`` and ``v``; whisper's the decoder's ``self_k``/``self_v`` (L, B,
+    S, KV, Dh) and the encoder output's ``cross_k``/``cross_v`` (L, B, F,
+    KV, Dh).  The xlstm cache holds ``mlstm`` (G, 7, ...: the conv window and
     the f32 C, n, m) and ``slstm`` (G, ...: f32 c, n, m and h).  The zamba2
     cache holds ``mamba`` (G, per, ...) and ``tail`` (the conv windows and
     f32 states), and the shared block's
@@ -233,9 +317,17 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     x = _embed(arch, params, tokens, compute_dtype)
+    if arch.frontend_stub == "clip_patches":
+        patches = extra["patch_embeds"].to(compute_dtype) @ \
+            params["patch_proj"].to(compute_dtype)
+        x = torch.cat([patches, x[:, :S - arch.num_patches]], dim=1)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
 
-    if p["kind"] == "dense":
+    if p["kind"] == "whisper":
+        x, cache = _whisper_seq(arch, params, x, positions, extra, impl,
+                                return_cache, compute_dtype)
+    elif p["kind"] == "dense":
         def body(x, lp):
             lp = _cast(lp, compute_dtype)
             y = _dense_block_seq(lp, x, positions, arch, impl)
@@ -245,6 +337,18 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
         x, kv = _scan(body, x, params["blocks"], p["layers"])
         if return_cache:
             cache = {"k": kv[0], "v": kv[1]}
+    elif p["kind"] == "moe":
+        auxs, kvs = [], []
+        for i in range(p["layers"]):
+            lp = _cast(_layer(params["blocks"], i), compute_dtype)
+            if return_cache:
+                kvs.append(_layer_kv(lp, x, positions, arch))
+            x, aux = _moe_block_seq(lp, x, positions, arch, impl)
+            auxs.append(aux)
+        aux_total = aux_total + torch.stack(auxs).sum()
+        if return_cache:
+            k, v = _stack(kvs)
+            cache = {"k": k, "v": v}
     elif p["kind"] == "xlstm":
         def mbody(x, lp):
             y = xlstm_mod.mlstm_seq(lp["cell"], rmsnorm(x, lp["ln"]), arch,
@@ -306,7 +410,7 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
             if return_cache:
                 cache["tail"] = tcs
     logits = _head(arch, params, x, compute_dtype)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device), cache
+    return logits, aux_total, cache
 
 
 def _layer_kv(lp, x_in, positions, arch):
@@ -324,6 +428,58 @@ def _layer_kv(lp, x_in, positions, arch):
     return k, v
 
 
+def _whisper_seq(arch, params, x, positions, extra, impl, return_cache,
+                 compute_dtype):
+    """Encoder over the frame embeddings (non-causal), decoder over the
+    tokens (x: their embedding): self-attention, cross-attention against
+    the encoder output, MLP.  Returns (x, cache | None)."""
+    p = plan(arch)
+    dev = x.device
+    frames = extra["frame_embeds"].to(compute_dtype) @ \
+        params["frame_proj"].to(compute_dtype)
+    B, F = frames.shape[:2]
+    frames = frames + sinusoidal_positions(F, arch.d_model,
+                                           device=dev).to(compute_dtype)
+    enc_pos = torch.arange(F, dtype=torch.int32, device=dev).expand(B, F)
+    for i in range(p["enc"]):
+        lp = _cast(_layer(params["enc_blocks"], i), compute_dtype)
+        frames = _dense_block_seq(lp, frames, enc_pos, arch, impl,
+                                  causal=False)
+    enc = rmsnorm(frames, params["enc_norm"])
+
+    S = x.shape[1]
+    x = x + sinusoidal_positions(S, arch.d_model,
+                                 device=dev).to(compute_dtype)
+    self_kv, cross_kv = [], []
+    for i in range(p["dec"]):
+        lp = _cast(_layer(params["dec_blocks"], i), compute_dtype)
+        h_pre = x
+        x = x + attn.self_attention(lp["self_attn"], rmsnorm(x, lp["ln1"]),
+                                    positions, arch, causal=True, impl=impl)
+        ck, cv = attn.project_cross_kv(lp["cross_attn"], enc, arch)
+        x = x + attn.cross_attention(lp["cross_attn"], rmsnorm(x, lp["ln_x"]),
+                                     ck, cv, arch)
+        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]), arch.activation)
+        if return_cache:
+            self_kv.append(_layer_kv_whisper(lp, h_pre, arch))
+            cross_kv.append((ck, cv))
+    if not return_cache:
+        return x, None
+    (sk, sv), (ck, cv) = _stack(self_kv), _stack(cross_kv)
+    return x, {"self_k": sk, "self_v": sv, "cross_k": ck, "cross_v": cv}
+
+
+def _layer_kv_whisper(lp, x_in, arch):
+    """This decoder layer's self-attention K/V for the prefill cache (no
+    RoPE: whisper's positions are added to the embeddings)."""
+    xn = rmsnorm(x_in, lp["ln1"])
+    dh = arch.resolved_head_dim
+    B, S = xn.shape[:2]
+    k = (xn @ lp["self_attn"]["wk"]).reshape(B, S, arch.num_kv_heads, dh)
+    v = (xn @ lp["self_attn"]["wv"]).reshape(B, S, arch.num_kv_heads, dh)
+    return k, v
+
+
 # ---------------------------------------------------------------------------
 # Caches
 # ---------------------------------------------------------------------------
@@ -331,12 +487,14 @@ def _layer_kv(lp, x_in, positions, arch):
 def init_cache(arch: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """A zeroed decode cache with a 0-d int32 ``length``, on ``device``
-    (``None``: the CUDA card).  Dense: layer-stacked (L, B, max_len, KV,
-    Dh) ``k``/``v``.  xlstm: ``mlstm`` (G, 7, ...) conv windows in
-    ``dtype`` and f32 C, n, m, ``slstm`` (G, ...) f32 c, n, m and h in
-    ``dtype``; no leaf grows with ``max_len``.  zamba2: ``mamba`` (G, per,
-    ...) and ``tail`` states (conv windows in ``dtype``, SSM states f32),
-    and the shared block's
+    (``None``: the CUDA card).  Dense and moe: layer-stacked (L, B,
+    max_len, KV, Dh) ``k``/``v``.  whisper: the decoder's ``self_k``/
+    ``self_v`` (L, B, max_len, KV, Dh) and ``cross_k``/``cross_v`` (L, B,
+    num_patches, KV, Dh), the encoder output's K/V that prefill fills.
+    xlstm: ``mlstm`` (G, 7, ...) conv windows in ``dtype`` and f32 C, n,
+    m, ``slstm`` (G, ...) f32 c, n, m and h in ``dtype``; no leaf grows
+    with ``max_len``.  zamba2: ``mamba`` (G, per, ...) and ``tail`` states
+    (conv windows in ``dtype``, SSM states f32), and the shared block's
     ``shared_k``/``shared_v`` (G, B, W, KV, Dh) with ``shared_pos`` (G, B,
     W) = -1 (empty), W being a ring of ``sliding_window`` slots when that is
     shorter than ``max_len``, else ``max_len``."""
@@ -345,9 +503,16 @@ def init_cache(arch: ArchConfig, batch: int, max_len: int,
     kv = arch.num_kv_heads, arch.resolved_head_dim
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
     length = torch.zeros((), dtype=torch.int32, device=dev)
-    if p["kind"] == "dense":
+    if p["kind"] in ("dense", "moe"):
         return {"k": zeros(p["layers"], batch, max_len, *kv),
                 "v": zeros(p["layers"], batch, max_len, *kv),
+                "length": length}
+    if p["kind"] == "whisper":
+        n, frames = p["dec"], arch.num_patches
+        return {"self_k": zeros(n, batch, max_len, *kv),
+                "self_v": zeros(n, batch, max_len, *kv),
+                "cross_k": zeros(n, batch, frames, *kv),
+                "cross_v": zeros(n, batch, frames, *kv),
                 "length": length}
     if p["kind"] == "xlstm":
         g, m = p["groups"], p["mlstm_per"]
@@ -388,17 +553,43 @@ def decode_step(arch: ArchConfig, params: dict, cache: dict,
     conv windows and states and the shared block's ring (K/V and positions
     at slot ``length % W``); the returned dict shares those tensors and
     carries ``length + 1``.  Decode attention is the einsum path (the
-    reference's ``impl`` argument does not reach it either)."""
+    reference's ``impl`` argument does not reach it either); the moe layers
+    route the step's B tokens into buckets of ``cap_multiple=8``, and
+    whisper's decoder attends to its own cache and, across, to the
+    encoder's K/V (plain, as in the reference), its position embedding
+    gathered at ``length`` on the device (clamped to the cache, as the
+    reference's gather clamps)."""
     p = plan(arch)
     length = cache["length"]
     x = _embed(arch, params, token, compute_dtype)
-    if p["kind"] == "dense":
+    if p["kind"] in ("dense", "moe"):
         for i in range(p["layers"]):
             lp = _cast(_layer(params["blocks"], i), compute_dtype)
             xn = rmsnorm(x, lp["ln1"])
             y, _, _ = attn.decode_self_attention(
                 lp["attn"], xn, cache["k"][i], cache["v"][i], length, arch)
             x = x + y
+            xn = rmsnorm(x, lp["ln2"])
+            if p["kind"] == "moe":
+                y, _ = moe_mod.moe_apply(lp["moe"], xn, arch, cap_multiple=8)
+            else:
+                y = mlp_apply(lp["mlp"], xn, arch.activation)
+            x = x + y
+    elif p["kind"] == "whisper":
+        n = cache["self_k"].shape[2]
+        at = torch.clamp(length, max=n - 1).reshape(1).long()
+        x = x + sinusoidal_positions(n, arch.d_model, device=x.device).to(
+            compute_dtype).index_select(0, at)[None]
+        for i in range(p["dec"]):
+            lp = _cast(_layer(params["dec_blocks"], i), compute_dtype)
+            y, _, _ = attn.decode_self_attention(
+                lp["self_attn"], rmsnorm(x, lp["ln1"]), cache["self_k"][i],
+                cache["self_v"][i], length, arch)
+            x = x + y
+            x = x + attn.cross_attention(lp["cross_attn"],
+                                         rmsnorm(x, lp["ln_x"]),
+                                         cache["cross_k"][i],
+                                         cache["cross_v"][i], arch)
             x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]),
                               arch.activation)
     elif p["kind"] == "xlstm":

@@ -126,7 +126,8 @@ _FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
     (1, 128, 128, 4, 4, 32), (2, 256, 256, 4, 2, 64), (1, 512, 512, 8, 2, 32),
     (2, 128, 128, 2, 1, 128), (1, 100, 100, 4, 2, 64),
     (1, 128, 256, 4, 2, 64), (1, 128, 128, 4, 4, 112),
-    (2, 100, 100, 4, 2, 112)])
+    (2, 100, 100, 4, 2, 112), (1, 128, 128, 4, 4, 96), (2, 100, 100, 4, 2, 96),
+    (1, 128, 128, 4, 4, 256), (2, 100, 300, 4, 2, 256)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64)])
 def test_flash_kernel_matches_plain_on_cuda(card, B, Sq, Skv, H, KV, D,
                                             dtype, causal, window):
@@ -234,6 +235,66 @@ def test_prefill_launches_the_kernel_once_per_layer(card):
         out[impl] = logits.float()
     err = (out[AttnImpl.FLASH] - out[AttnImpl.REFERENCE]).abs().max()
     assert float(err / out[AttnImpl.REFERENCE].abs().max()) < 5e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,geometry", [(96, (4, 1024, 32, 32)),
+                                        (256, (2, 1024, 16, 16))])
+def test_flash_kernel_new_head_dims_at_width(card, D, geometry):
+    """phi-3-vision's (D=96, H=KV=32) and gemma-7b's (D=256, H=KV=16)
+    prefill layers at S=1024, bf16, causal and a window: within the
+    reference's bf16 tolerance of the plain version, one launch each."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    B, S, H, KV = geometry
+    g = torch.Generator(device=card).manual_seed(D)
+    q = torch.randn((B, H, S, D), generator=g, device=card).bfloat16()
+    k, v = (torch.randn((B, KV, S, D), generator=g, device=card)
+            .bfloat16() for _ in range(2))
+    for causal, window in ((True, 0), (True, 300)):
+        want = fk.flash_attention_bhsd_plain(q, k, v, causal=causal,
+                                             window=window)
+        n0 = fk.flash_attention_bhsd.launches
+        got = fk.flash_attention_bhsd(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert fk.flash_attention_bhsd.launches == n0 + 1
+        tol = _FLASH_TOL["bfloat16"]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id,cap_multiple", [
+    ("grok-1-314b", 128), ("grok-1-314b", 4), ("kimi-k2-1t-a32b", 8)])
+def test_moe_apply_on_the_card_equals_the_cpu(card, arch_id, cap_multiple):
+    """``moe_apply`` of reduced grok-1 and kimi-k2 in f32 on the card
+    against the CPU on the same numbers: the same routes, slots and kept
+    assignments (cap_multiple 4 drops some), outputs within 1e-5 of their
+    scale (f32 products in another order)."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import moe
+    arch = reduced(get_arch(arch_id))
+    gen = torch.Generator().manual_seed(0)
+    params = moe.moe_init(gen, arch)
+    params["router"][:, 0] += 1.0 if cap_multiple == 4 else 0.0
+    x = torch.randn((2, 32, arch.d_model), generator=gen)
+    on_card = {k: (v.to(card) if isinstance(v, torch.Tensor) else
+                   {kk: vv.to(card) for kk, vv in v.items()})
+               for k, v in params.items()}
+    routes = []
+    for p, xx in ((params, x), (on_card, x.to(card))):
+        idx, _, _ = moe.route(p["router"], xx.reshape(64, -1), arch.moe)
+        cap = moe.capacity(64, arch.moe, cap_multiple)
+        slot, kept = moe.dispatch_indices(idx, arch.moe.num_experts, cap)
+        routes.append((idx.cpu(), slot.cpu(), kept.cpu()))
+    for a, b in zip(*routes):
+        assert torch.equal(a, b)
+    want, waux = moe.moe_apply(params, x, arch, cap_multiple=cap_multiple)
+    got, gaux = moe.moe_apply(on_card, x.to(card), arch,
+                              cap_multiple=cap_multiple)
+    torch.cuda.synchronize()
+    err = (got.cpu() - want).abs().max() / want.abs().max()
+    assert float(err) < 1e-5
+    assert abs(float(gaux) - float(waux)) <= 1e-6 * abs(float(waux))
 
 
 # ---------------------------------------------------------------------------
@@ -1024,12 +1085,16 @@ def test_batched_invoke_throughput_regression(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "zamba2-7b",
-                                     "xlstm-350m"])
+                                     "xlstm-350m", "grok-1-314b",
+                                     "kimi-k2-1t-a32b", "whisper-tiny"])
 def test_decode_graph_matches_eager(card, arch_id):
     """Eight pod-steps (2 pods x 2 sessions, reduced depth, bf16) replayed
     from one captured graph against the eager pod-step on a copy of the
     cache: tokens equal every step and every cache leaf equal at the end;
-    zamba2's 64-slot ring wraps (positions 60..67); one capture."""
+    zamba2's 64-slot ring wraps (positions 60..67); the moe step routes,
+    dispatches and combines inside the graph (no host read, a fixed order
+    of sums); whisper's position embedding is gathered at the device-side
+    length and its cross K/V read; one capture."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.core.tree import tree_flatten, tree_map
     from repro_torch.launch import serve

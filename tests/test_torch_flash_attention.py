@@ -48,6 +48,7 @@ def _close(got, want, tol, what):
 @pytest.mark.parametrize("B,S,H,KV,D", [
     (1, 128, 4, 4, 32), (2, 256, 4, 2, 64), (1, 512, 8, 2, 32),
     (2, 128, 2, 1, 128), (1, 128, 4, 4, 112),     # 112: zamba2's shared block
+    (1, 128, 4, 4, 96), (1, 128, 2, 1, 256),      # phi-3-vision's, gemma-7b's
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
@@ -116,10 +117,11 @@ def test_plain_version_blocks_like_the_reference():
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     _, (q, k, v), _ = _inputs(5, 1, 64, 64, 4, 2, 32, "float32")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    with pytest.raises(ValueError, match="head dim"):
-        fk.flash_attention_bhsd(torch.zeros(1, 4, 64, 48),
-                                torch.zeros(1, 2, 64, 48),
-                                torch.zeros(1, 2, 64, 48))
+    for d in (48, 512):
+        with pytest.raises(ValueError, match="head dim"):
+            fk.flash_attention_bhsd(torch.zeros(1, 4, 64, d),
+                                    torch.zeros(1, 2, 64, d),
+                                    torch.zeros(1, 2, 64, d))
     with pytest.raises(ValueError, match="dtype"):
         fk.flash_attention_bhsd(qt, kt.half(), vt)
     with pytest.raises(ValueError, match="multiple"):
@@ -178,7 +180,7 @@ def test_every_device_takes_misaligned_rows_and_large_grids(case):
 # the bf16 kernel's tensor maps, as the host builds them
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("D", [32, 64, 112, 128])
+@pytest.mark.parametrize("D", [32, 64, 96, 112, 128])
 @pytest.mark.parametrize("layout", ["contiguous", "model"])
 def test_tma_geometry_of_the_kernel_and_model_layouts(D, layout):
     """The contiguous (B,H,S,D) layout and the transposed (B,S,H,D) model
@@ -193,7 +195,7 @@ def test_tma_geometry_of_the_kernel_and_model_layouts(D, layout):
         view = torch.zeros((B, S, H, D), dtype=torch.bfloat16).transpose(1, 2)
         want_sizes, roles = (H, S, B), "hsb"
     kv_rows = fk.kv_tile_rows(D)
-    assert kv_rows == (96 if D >= 112 else 64)
+    assert kv_rows == (96 if D >= 96 else 64)
     geo = fk._tma_geometry(view, kv_rows)
     swizzle = 64 if D == 32 else 128
     assert geo.swizzle == swizzle
@@ -223,3 +225,51 @@ def test_tma_geometry_refuses_what_tma_refuses():
     one = fk._tma_geometry(torch.zeros((1, 1, 5, 64), dtype=torch.bfloat16),
                            64)
     assert one.dims == (64, 5, 1, 1) and one.strides == (128, 640, 640)
+
+
+@pytest.mark.parametrize("D,causal,window", [(96, True, 0), (96, False, 0),
+                                             (256, True, 0), (256, False, 0),
+                                             (256, True, 40)])
+def test_new_head_dims_ragged_against_pallas(D, causal, window):
+    """D=96 and D=256 at a ragged S=100 (the reference shrinks its blocks
+    to S) and Sq != Skv, f32, against the Pallas kernel in interpret
+    mode."""
+    for Sq, Skv in ((100, 100), (64, 128)):
+        (jq, jk, jv), (q, k, v), tol = _inputs(12, 1, Sq, Skv, 4, 2, D,
+                                               "float32")
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        blk = 64 if Sq % 64 == 0 and Skv % 64 == 0 else Sq
+        ref = ref_flash(jq, jk, jv, causal=causal, window=window, bq=blk,
+                        bk=blk, interpret=True)
+        _close(out, ref, tol, f"D={D} Sq={Sq} Skv={Skv}")
+
+
+@pytest.mark.parametrize("impl", ["flash", "reference"])
+def test_dense_forward_at_head_dim_256(impl):
+    """The fault the port had: gemma-7b's head dim is 256, which the
+    reduced config (head dim 32) hid.  A dense forward of reduced gemma
+    with ``head_dim=256`` under FLASH (and REFERENCE) against the
+    reference's on the same weights, f32 (1e-4)."""
+    import dataclasses
+    from repro import configs as rc
+    from repro.models import model_zoo as ref_zoo
+    from repro_torch import configs as tc
+    from repro_torch.core.carry import params_from_numpy
+    from repro_torch.models import model_zoo as zoo
+    arch_r = dataclasses.replace(rc.reduced(rc.get_arch("gemma-7b")),
+                                 head_dim=256, num_layers=2)
+    arch_t = dataclasses.replace(tc.reduced(tc.get_arch("gemma-7b")),
+                                 head_dim=256, num_layers=2)
+    params_r = ref_zoo.init_params(arch_r, jax.random.PRNGKey(0))
+    params_t = params_from_numpy(arch_t, jax.device_get(params_r),
+                                 device="cpu")
+    tokens = np.random.default_rng(13).integers(
+        0, arch_r.vocab_size, (2, 64)).astype(np.int32)
+    want, _, _ = ref_zoo.forward_seq(arch_r, params_r, jnp.asarray(tokens),
+                                     impl=rc.AttnImpl(impl),
+                                     compute_dtype=jnp.float32)
+    got, _, _ = zoo.forward_seq(arch_t, params_t, torch.from_numpy(tokens),
+                                impl=tc.AttnImpl(impl),
+                                compute_dtype=torch.float32)
+    want, got = to_np(want), to_np(got)
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-4

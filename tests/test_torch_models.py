@@ -21,6 +21,7 @@ from repro.models import layers as ref_layers
 from repro.models import model_zoo as ref_zoo
 from repro_torch import configs as tc
 from repro_torch.core.carry import params_from_numpy
+from repro_torch.core.tree import tree_flatten
 from repro_torch.models import attention, layers, model_zoo, transformer
 from torch_parity import port_lockdep, to_np  # noqa: F401  (autouse fixture)
 
@@ -76,21 +77,14 @@ def test_analytic_counts_match(arch_id):
                 == ref_zoo.model_flops(arch_r, shape))
 
 
-@pytest.mark.parametrize("arch_id", [
-    a for a in rc.ARCH_IDS
-    if rc.get_arch(a).family not in ("dense", "hybrid", "ssm")])
-def test_unported_families_raise(arch_id):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.plan(tc.get_arch(arch_id))
-
-
-@pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "zamba2-7b",
-                                     "xlstm-350m"])
+@pytest.mark.parametrize("arch_id", rc.ARCH_IDS)
 @pytest.mark.parametrize("size", ["full", "reduced"])
 def test_plan_matches_reference(arch_id, size):
-    """The ported plans, full and reduced: zamba2-7b is 13 groups of 6
-    Mamba-2 layers and the shared block, then a tail of 3; xlstm-350m is 3
-    groups of 7 mLSTM layers and 1 sLSTM layer."""
+    """Every registry id's plan, full and reduced: zamba2-7b is 13 groups
+    of 6 Mamba-2 layers and the shared block, then a tail of 3; xlstm-350m
+    is 3 groups of 7 mLSTM layers and 1 sLSTM layer; phi-3-vision plans as
+    dense, grok-1 and kimi-k2 as moe, whisper-tiny as 4 encoder and 4
+    decoder layers."""
     from repro.models import transformer as ref_transformer
     arch_t, arch_r = tc.get_arch(arch_id), rc.get_arch(arch_id)
     if size == "reduced":
@@ -103,17 +97,24 @@ def test_plan_matches_reference(arch_id, size):
         assert transformer.plan(arch_t) == {
             "kind": "xlstm", "groups": 3 if size == "full" else 1,
             "mlstm_per": 7}
+    if size == "full":
+        want = {"phi-3-vision-4.2b": {"kind": "dense", "layers": 32},
+                "grok-1-314b": {"kind": "moe", "layers": 64},
+                "whisper-tiny": {"kind": "whisper", "enc": 4, "dec": 4}}
+        if arch_id in want:
+            assert transformer.plan(arch_t) == want[arch_id]
 
 
-@pytest.mark.parametrize("arch_id", ["internlm2-1.8b", "gemma-7b",
-                                     "qwen1.5-32b", "zamba2-7b",
-                                     "xlstm-350m"])
+@pytest.mark.parametrize("arch_id", rc.ARCH_IDS)
 def test_param_tree_matches_reference(arch_id):
     """Same keys, layer-stacked shapes and dtypes as the reference's tree
     (qkv biases for qwen, tied embeddings and GeGLU for gemma; zamba2's
     (G, per, ...) Mamba-2 stacks, tail and one shared block, with A_log, D
     and dt_bias f32 in a bf16 tree; xlstm's (G, 7, ...) mLSTM and (G, ...)
-    sLSTM stacks, with w_if, b_i, b_f and the sLSTM bias f32)."""
+    sLSTM stacks, with w_if, b_i, b_f and the sLSTM bias f32; the moe
+    router f32 in a bf16 tree and kimi-k2's shared expert; phi-3-vision's
+    ``patch_proj``; whisper's encoder and decoder stacks, ``enc_norm`` and
+    ``frame_proj``)."""
     arch_r, arch_t = rc.reduced(rc.get_arch(arch_id)), tc.reduced(
         tc.get_arch(arch_id))
     ref = jax.eval_shape(lambda: ref_zoo.init_params(
@@ -137,6 +138,35 @@ def test_param_tree_matches_reference(arch_id):
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
+
+def test_layernorm_matches():
+    rng = np.random.default_rng(8)
+    jx, tx = _both(rng.standard_normal((2, 8, 128)).astype(np.float32) * 3)
+    js, ts = _both(1.0 + rng.standard_normal(128).astype(np.float32) * 0.1)
+    jb, tb = _both(rng.standard_normal(128).astype(np.float32) * 0.1)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = layers.layernorm(tx.to(dtype), ts, tb)
+        assert got.dtype == dtype
+        want = ref_layers.layernorm(jx.astype(jnp.dtype(str(dtype)[6:])),
+                                    js, jb)
+        tol = 1e-6 if dtype == torch.float32 else 1e-2
+        np.testing.assert_allclose(to_np(got), to_np(want), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("max_len,dim", [(1500, 384), (448, 384), (8, 128),
+                                         (5, 2)])
+def test_sinusoidal_positions_match(max_len, dim):
+    """Whisper's position table (encoder frames, decoder context, reduced
+    width, and a width whose half is 1).  Each package's f32 ``exp`` of the
+    frequencies may differ by an ulp, which the angle pos x freq carries
+    times pos: the tolerance is a few ulp of the largest angle."""
+    got = layers.sinusoidal_positions(max_len, dim, device="cpu")
+    want = ref_layers.sinusoidal_positions(max_len, dim)
+    assert got.shape == (max_len, dim) and got.dtype == torch.float32
+    tol = max(1e-6, max_len * 2.0 ** -22)
+    np.testing.assert_allclose(to_np(got), to_np(want), rtol=0, atol=tol)
+
 
 def test_rmsnorm_matches():
     rng = np.random.default_rng(0)
@@ -256,3 +286,101 @@ def test_self_attention_impls_match_reference():
         got = attention.self_attention(tparams, tx, tp, arch_t, impl=impl)
         np.testing.assert_allclose(to_np(got), to_np(want), rtol=1e-5,
                                    atol=1e-5, err_msg=impl.value)
+
+
+@pytest.mark.parametrize("Sq,Skv", [(1, 8), (16, 8), (5, 100)])
+def test_cross_attention_and_project_cross_kv_match(Sq, Skv):
+    """Whisper's cross-attention against the encoder output's K/V (every
+    query sees every frame; 100 frames: the reference's kv blocks of 4)."""
+    arch_r = rc.reduced(rc.get_arch("whisper-tiny"))
+    arch_t = tc.reduced(tc.get_arch("whisper-tiny"))
+    params = jax.device_get(ref_attn.attn_init(jax.random.PRNGKey(9),
+                                               arch_r))
+    tparams = {k: torch.from_numpy(np.array(v)) for k, v in params.items()}
+    rng = np.random.default_rng(10)
+    jenc, tenc = _both(rng.standard_normal((2, Skv, arch_r.d_model))
+                       .astype(np.float32))
+    jx, tx = _both(rng.standard_normal((2, Sq, arch_r.d_model))
+                   .astype(np.float32))
+    wk, wv = ref_attn.project_cross_kv(params, jenc, arch_r)
+    gk, gv = attention.project_cross_kv(tparams, tenc, arch_t)
+    np.testing.assert_allclose(to_np(gk), to_np(wk), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(to_np(gv), to_np(wv), rtol=1e-6, atol=1e-6)
+    want = ref_attn.cross_attention(params, jx, wk, wv, arch_r)
+    got = attention.cross_attention(tparams, tx, gk, gv, arch_t)
+    np.testing.assert_allclose(to_np(got), to_np(want), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# caches, input specs and example batches
+# ---------------------------------------------------------------------------
+
+NEW_FAMILIES = ["grok-1-314b", "kimi-k2-1t-a32b", "phi-3-vision-4.2b",
+                "whisper-tiny"]
+
+
+@pytest.mark.parametrize("arch_id", NEW_FAMILIES)
+@pytest.mark.parametrize("size", ["full", "reduced"])
+def test_cache_specs_match_reference(arch_id, size):
+    """``init_cache``'s tree on the meta device (``cache_specs``) against
+    the reference's ``eval_shape``: the moe k/v, whisper's self K/V of the
+    decode context and cross K/V of the encoder's frames; no storage."""
+    arch_r, arch_t = rc.get_arch(arch_id), tc.get_arch(arch_id)
+    if size == "reduced":
+        arch_r, arch_t = rc.reduced(arch_r), tc.reduced(arch_t)
+    shape_r = rc.get_shape("decode_32k")
+    shape_t = tc.get_shape("decode_32k")
+    want = ref_zoo.cache_specs(arch_r, shape_r)
+    got = model_zoo.cache_specs(arch_t, shape_t)
+    assert all(t.is_meta for t in tree_flatten(got)[0])
+    assert transformer._map(lambda t: (tuple(t.shape), str(t.dtype)),
+                            got) == jax.tree.map(
+        lambda a: (tuple(a.shape), "torch." + a.dtype.name), want)
+
+
+@pytest.mark.parametrize("arch_id", NEW_FAMILIES + ["internlm2-1.8b"])
+@pytest.mark.parametrize("step", ["train", "prefill", "decode"])
+def test_input_specs_and_example_batch(arch_id, step):
+    """``input_specs`` as the reference's (names, shapes, dtypes), and
+    ``example_batch`` materialises them on the generator's device: tokens
+    in [0, min(vocab, 1000)), stubs of scale 0.02, the vlm's loss mask 0
+    on its patch positions."""
+    arch_r, arch_t = rc.reduced(rc.get_arch(arch_id)), tc.reduced(
+        tc.get_arch(arch_id))
+    shape_r = rc.reduced_shape(next(s for s in rc.SHAPES
+                                    if s.step.value == step))
+    shape_t = tc.reduced_shape(tc.get_shape(shape_r.name))
+    want = ref_zoo.input_specs(arch_r, shape_r)
+    specs = model_zoo.input_specs(arch_t, shape_t)
+    assert {k: (tuple(d), str(t)) for k, (d, t) in specs.items()} == {
+        k: (tuple(v.shape), "torch." + v.dtype.name) for k, v in want.items()}
+    batch = model_zoo.example_batch(arch_t, shape_t,
+                                    torch.Generator().manual_seed(0))
+    assert {k: (tuple(v.shape), v.dtype) for k, v in batch.items()} == {
+        k: (tuple(d), t) for k, (d, t) in specs.items()}
+    for name, x in batch.items():
+        if x.dtype == torch.int32:
+            assert int(x.min()) >= 0 and int(x.max()) < min(
+                arch_t.vocab_size, 1000)
+        elif name.endswith("_embeds"):
+            assert 0.01 < float(x.std()) < 0.04
+    if "loss_mask" in batch:
+        n = arch_t.num_patches if arch_t.frontend_stub == "clip_patches" \
+            else 0
+        assert float(batch["loss_mask"][:, :n].sum()) == 0.0
+        assert bool((batch["loss_mask"][:, n:] == 1).all())
+
+
+def test_params_shape_tree_is_meta():
+    """``serve.params_shape_tree``: the serving tree (bf16, the router
+    f32) on the meta device, shaped as the reference's."""
+    from repro.launch import serve as ref_serve
+    from repro_torch.launch import serve
+    for arch_id in ("grok-1-314b", "whisper-tiny"):
+        arch_r, arch_t = rc.get_arch(arch_id), tc.get_arch(arch_id)
+        want = ref_serve.params_shape_tree(arch_r)
+        got = serve.params_shape_tree(arch_t)
+        assert transformer._map(
+            lambda t: (tuple(t.shape), str(t.dtype), t.is_meta), got) == \
+            jax.tree.map(lambda a: (tuple(a.shape), "torch." + a.dtype.name,
+                                    True), want)

@@ -688,3 +688,314 @@ def test_xlstm_cache_carries_across(xlstm_model):
             assert cache["slstm"][key].dtype == torch.float32, key
         assert cache["length"].dtype == torch.int32
         _tree_rel(cache_to_numpy(cache), wcache, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# moe (grok-1, kimi-k2), vlm (phi-3-vision) and audio (whisper-tiny)
+# ---------------------------------------------------------------------------
+#
+# Reduced: grok-1 and kimi-k2 4 layers of attention (4 heads, kv 1 and 2)
+# and 8 experts of 128, top-2 (kimi-k2 with a shared expert); phi-3-vision 4
+# dense layers behind 8 patch positions; whisper-tiny 2 encoder layers over
+# 8 frames and 2 decoder layers.  The stubs' embeddings come from numpy.
+# Prompts of 32 tokens (phi-3-vision: 8 patches + 24 text tokens), 6 greedy
+# steps in a cache of 48 positions.  The moe families are compared in f32
+# only: in bf16 the two packages round the expert FFN at other points
+# (torch's silu rounds once), which flips near-tied routes.
+
+FAMILIES = ["grok-1-314b", "kimi-k2-1t-a32b", "phi-3-vision-4.2b",
+            "whisper-tiny"]
+F_B, F_S, F_STEPS, F_LEN = 2, 32, 6, 48
+_STUB = {"clip_patches": "patch_embeds", "audio_frames": "frame_embeds"}
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def family(request):
+    arch_r = rc.reduced(rc.get_arch(request.param))
+    arch_t = tc.reduced(tc.get_arch(request.param))
+    params_r = ref_zoo.init_params(arch_r, jax.random.PRNGKey(3))
+    params_t = params_from_numpy(arch_t, jax.device_get(params_r),
+                                 device="cpu")
+    return arch_r, arch_t, params_r, params_t
+
+
+def _family_batch(arch, seed, B=F_B, S=F_S):
+    """(numpy batch): tokens and the front-end stub's embeddings (scale
+    0.02, as ``example_batch`` draws them)."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": _prompt(seed, B, S, arch.vocab_size)}
+    if arch.frontend_stub in _STUB:
+        batch[_STUB[arch.frontend_stub]] = (0.02 * rng.standard_normal(
+            (B, arch.num_patches, arch.d_model))).astype(np.float32)
+    return batch
+
+
+def _ref_run(arch, params, batch, steps, cache_len):
+    """The reference's prefill (f32) and ``steps`` greedy decode steps (a
+    jitted step) in a cache of ``cache_len``: (tokens, final cache)."""
+    import functools
+    logits, _, cache = ref_zoo.forward_seq(
+        arch, params, jnp.asarray(batch["tokens"]),
+        extra={k: jnp.asarray(v) for k, v in batch.items()},
+        return_cache=True, compute_dtype=jnp.float32)
+    full = ref_zoo.init_cache(arch, batch["tokens"].shape[0], cache_len,
+                              dtype=jnp.float32)
+    cache = {k: jax.lax.dynamic_update_slice(full[k], v, (0,) * v.ndim)
+             for k, v in cache.items()}
+    cache["length"] = jnp.asarray(batch["tokens"].shape[1], jnp.int32)
+    step = jax.jit(functools.partial(ref_zoo.decode_step, arch,
+                                     compute_dtype=jnp.float32))
+    tok = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
+    got = [np.asarray(tok)]
+    for _ in range(steps):
+        logits, cache = step(params, cache, tok)
+        tok = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
+        got.append(np.asarray(tok))
+    return np.concatenate(got, axis=1), jax.device_get(cache)
+
+
+@pytest.fixture(scope="module")
+def family_reference_run(family):
+    """Two pods' prompts through the reference: per pod (tokens, cache)."""
+    arch_r, _, params_r, _ = family
+    return [_ref_run(arch_r, params_r, _family_batch(arch_r, 30 + pod),
+                     F_STEPS, F_LEN) for pod in range(2)]
+
+
+def _forward_matches(arch_r, arch_t, params_r, params_t, impl, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    batch = _family_batch(arch_r, 1)
+    want, waux, wcache = ref_zoo.forward_seq(
+        arch_r, params_r, jnp.asarray(batch["tokens"]),
+        extra={k: jnp.asarray(v) for k, v in batch.items()},
+        impl=rc.AttnImpl(impl), return_cache=True, compute_dtype=jdt)
+    got, gaux, gcache = zoo.forward_seq(
+        arch_t, params_t, torch.from_numpy(batch["tokens"]),
+        extra={k: torch.from_numpy(v) for k, v in batch.items()},
+        impl=tc.AttnImpl(impl), return_cache=True, compute_dtype=tdt)
+    assert got.dtype == tdt and gaux.dtype == torch.float32
+    assert _rel(got, want) < tol
+    np.testing.assert_allclose(float(gaux), float(waux), rtol=tol, atol=1e-7)
+    assert (float(gaux) > 0) == (arch_t.family == "moe")
+    _tree_rel(gcache, wcache, tol)
+
+
+@pytest.mark.parametrize("impl", ["flash", "reference"])
+def test_family_forward_seq_logits_aux_and_cache_match(family, impl):
+    """Logits, the moe aux loss and the whole prefill cache (moe k/v;
+    whisper's self and cross K/V) against the reference's in f32, FLASH
+    being the flash kernel's plain version here and the Pallas kernel in
+    interpret mode there."""
+    _forward_matches(*family, impl, "float32")
+
+
+@pytest.mark.parametrize("impl", ["flash", "reference"])
+@pytest.mark.parametrize("arch_id", ["phi-3-vision-4.2b", "whisper-tiny"])
+def test_stub_families_forward_seq_in_bf16(arch_id, impl):
+    """The same in bf16 (5e-2) for the vlm and whisper (the moe families
+    are held in f32 only: above)."""
+    arch_r = rc.reduced(rc.get_arch(arch_id))
+    arch_t = tc.reduced(tc.get_arch(arch_id))
+    params_r = ref_zoo.init_params(arch_r, jax.random.PRNGKey(3))
+    params_t = params_from_numpy(arch_t, jax.device_get(params_r),
+                                 device="cpu")
+    _forward_matches(arch_r, arch_t, params_r, params_t, impl, "bfloat16")
+
+
+@pytest.mark.parametrize("impl", ["flash", "reference"])
+def test_family_greedy_decode_matches(family, family_reference_run, impl):
+    """Two pods prefilled through the port's prefill step (the batch as
+    ``extra``), each cache put in the leading corner of a pod-stacked
+    decode cache of F_LEN positions, F_STEPS greedy steps of the pod-step:
+    the tokens equal the reference's in f32 and every cache leaf agrees
+    (1e-4); decode writes the tree it is handed."""
+    arch_r, arch_t, params_r, params_t = family
+    pshape = tc.ShapeConfig("p", F_S, F_B, tc.StepKind.PREFILL)
+    prefill = serve.make_prefill_step(arch_t, pshape, impl=tc.AttnImpl(impl),
+                                      device="cpu",
+                                      compute_dtype=torch.float32)
+    step = serve.make_decode_step(arch_t, n_pods=2, device="cpu",
+                                  compute_dtype=torch.float32)
+    live = tree_map(lambda v: torch.stack([v] * 2), zoo.init_cache(
+        arch_t, F_B, F_LEN, dtype=torch.float32, device="cpu"))
+    first = []
+    for pod in range(2):
+        batch = {k: torch.from_numpy(v) for k, v in
+                 _family_batch(arch_r, 30 + pod).items()}
+        logits, pc = prefill(params_t, batch)
+        assert int(pc["length"]) == F_S
+        tree_map(lambda dst, src: dst[pod][tuple(
+            slice(0, n) for n in src.shape)].copy_(src), live, pc)
+        first.append(torch.argmax(logits[:, -1, :], dim=-1)[:, None])
+    bufs = [x for _, x in sorted(_flat(live).items())]
+    tok = torch.stack(first).to(torch.int32)
+    got = [tok.numpy()]
+    for _ in range(F_STEPS):
+        tok, live = step(params_t, live, tok)
+        got.append(tok.numpy())
+    assert all(a is b for a, b in zip(
+        [x for _, x in sorted(_flat(live).items())], bufs))
+    got = np.concatenate(got, axis=2)
+    for pod, (want_tokens, want_cache) in enumerate(family_reference_run):
+        np.testing.assert_array_equal(got[pod], want_tokens)
+        _tree_rel(tree_map(lambda v: v[pod], live), want_cache, 1e-4)
+
+
+def test_family_prefill_then_decode_continuation(family):
+    """``tests/test_arch_smoke.py``'s check on the port: prefill S tokens,
+    decode the next one; the step's logits match one forward over S+1
+    tokens (f32), so the prefill cache is the decode state.  The vlm's
+    forward over S+1 keeps its patches in front, so its next text token is
+    the one at S - num_patches."""
+    arch_r, arch_t, _, params_t = family
+    batch = {k: torch.from_numpy(v) for k, v in
+             _family_batch(arch_r, 4, S=F_S + 1).items()}
+    tokens = batch["tokens"]
+    full, _, none = zoo.forward_seq(arch_t, params_t, tokens, extra=batch,
+                                    compute_dtype=torch.float32)
+    assert none is None            # no cache asked for (whisper included)
+    _, _, pc = zoo.forward_seq(arch_t, params_t, tokens[:, :F_S],
+                               extra=batch, impl=tc.AttnImpl.FLASH,
+                               return_cache=True, compute_dtype=torch.float32)
+    cache = zoo.init_cache(arch_t, F_B, F_S + 1, dtype=torch.float32,
+                           device="cpu")
+    tree_map(lambda dst, src: dst[tuple(
+        slice(0, n) for n in src.shape)].copy_(src),
+        {k: cache[k] for k in pc}, pc)
+    cache["length"].fill_(F_S)
+    nxt = F_S - (arch_t.num_patches if arch_t.frontend_stub ==
+                 "clip_patches" else 0)
+    step, _ = zoo.decode_step(arch_t, params_t, cache,
+                              tokens[:, nxt:nxt + 1],
+                              compute_dtype=torch.float32)
+    assert _rel(step[:, 0], full[:, -1]) < 1e-4
+
+
+def test_family_init_cache_matches_reference(family):
+    """The decode cache's tree, shapes and dtypes (moe k/v; whisper's
+    self K/V of max_len and cross K/V of the encoder's frames), all
+    zero."""
+    arch_r, arch_t, _, _ = family
+    for max_len in (200, 40):
+        want = jax.device_get(ref_zoo.init_cache(arch_r, 2, max_len))
+        got = zoo.init_cache(arch_t, 2, max_len, device="cpu")
+        assert tree_map(lambda t: (tuple(t.shape), str(t.dtype)),
+                        got) == jax.tree.map(
+            lambda a: (a.shape, "torch." + a.dtype.name), want)
+        _tree_rel(got, want, 0.0)
+
+
+def test_family_replicate_migrate_and_carry(family):
+    """``replicate``/``migrate`` over the family's pod-stacked tree, bit
+    for bit against ``jnp.roll``/``jnp.where`` on the reference's; and a
+    reference prefill cache through ``cache_from_numpy`` and back (``dtype``
+    casts the K/V leaves, ``length`` stays int32)."""
+    arch_r, arch_t, params_r, _ = family
+    rng = np.random.default_rng(11)
+    empty = zoo.init_cache(arch_t, 2, 40, device="cpu")
+    live_np = tree_map(lambda v: rng.standard_normal(
+        (3,) + tuple(v.shape)).astype(np.float32), empty)
+    live_np["length"] = np.array([7, 9, 11], np.int32)
+    live = cache_from_numpy(live_np, device="cpu")
+    backup = serve.make_replicate_sessions_step(device="cpu")(live)
+    ref_live = jax.tree.map(jnp.asarray, live_np)
+    _tree_rel(backup, jax.tree.map(lambda c: jnp.roll(c, 1, axis=0),
+                                   ref_live), 0.0)
+    dead = np.array([True, False, False])
+    restored = serve.make_migrate_sessions_step(device="cpu")(
+        live, backup, torch.from_numpy(dead))
+    key = "self_k" if arch_t.family == "audio" else "k"
+    np.testing.assert_array_equal(to_np(restored[key][0]),
+                                  live_np[key][2])
+    np.testing.assert_array_equal(to_np(restored["length"]), [11, 9, 11])
+
+    batch = _family_batch(arch_r, 5)
+    _, _, wcache = ref_zoo.forward_seq(
+        arch_r, params_r, jnp.asarray(batch["tokens"]),
+        extra={k: jnp.asarray(v) for k, v in batch.items()},
+        return_cache=True)
+    wcache = jax.device_get({**wcache, "length": jnp.asarray(F_S,
+                                                             jnp.int32)})
+    for dtype in (None, torch.float32):
+        cache = cache_from_numpy(wcache, device="cpu", dtype=dtype)
+        want = dtype or torch.bfloat16    # the reference's bf16 compute dtype
+        assert all(v.dtype == want for k, v in cache.items() if k != "length")
+        assert cache["length"].dtype == torch.int32
+        _tree_rel(cache_to_numpy(cache), wcache, 0.0)
+
+
+def test_family_params_carry_reference_dtypes(family):
+    """``params_from_numpy`` of the reference's bf16 serving tree keeps
+    each leaf's dtype: the moe router f32, every other weight bf16."""
+    arch_r, arch_t, _, _ = family
+    tree = jax.device_get(ref_zoo.init_params(arch_r, jax.random.PRNGKey(0),
+                                              dtype=jnp.bfloat16))
+    params = params_from_numpy(arch_t, tree, device="cpu")
+    got = {k: str(v.dtype).removeprefix("torch.")
+           for k, v in _flat(params).items()}
+    want = {k: v.dtype.name for k, v in _flat(tree).items()}
+    assert got == want
+    if arch_t.family == "moe":
+        assert got["/blocks/moe/router"] == "float32"
+    with pytest.raises(ValueError, match="parameter tree"):
+        params_from_numpy(arch_t, {"embed": tree["embed"]}, device="cpu")
+
+
+@pytest.mark.parametrize("arch_id", ["gemma-7b", "qwen1.5-32b",
+                                     "qwen1.5-110b"])
+def test_every_registry_config_prefill_and_decode_match(arch_id):
+    """The registry's dense configs that the tests above do not drive
+    (gemma-7b: GeGLU and tied embeddings; qwen1.5: qkv biases), reduced,
+    through both packages on the same weights, f32: ``forward_seq``'s
+    logits under REFERENCE and FLASH (1e-4), then the prefill cache put in
+    the corner of a decode cache and 3 greedy ``decode_step``s, tokens
+    equal and the last logits within 1e-4.  With the internlm2, zamba2,
+    xlstm and family tests above, every one of the 10 reduced configs is
+    held to the reference's prefill and decode."""
+    arch_r = rc.reduced(rc.get_arch(arch_id))
+    arch_t = tc.reduced(tc.get_arch(arch_id))
+    params_np = jax.device_get(ref_zoo.init_params(arch_r,
+                                                   jax.random.PRNGKey(4)))
+    if arch_r.family == "ssm":
+        params_np = _xlstm_norms(jax.tree.map(np.array, params_np), 6)
+    params_r = jax.tree.map(jnp.asarray, params_np)
+    params_t = params_from_numpy(arch_t, params_np, device="cpu")
+    B, S, steps = 1, 16, 3
+    batch = _family_batch(arch_r, 7, B=B, S=S)
+    jextra = {k: jnp.asarray(v) for k, v in batch.items()}
+    textra = {k: torch.from_numpy(v) for k, v in batch.items()}
+    logits = {}
+    for impl in ("reference", "flash"):
+        want, _, wcache = ref_zoo.forward_seq(
+            arch_r, params_r, jextra["tokens"], extra=jextra,
+            impl=rc.AttnImpl(impl), return_cache=True,
+            compute_dtype=jnp.float32)
+        got, _, gcache = zoo.forward_seq(
+            arch_t, params_t, textra["tokens"], extra=textra,
+            impl=tc.AttnImpl(impl), return_cache=True,
+            compute_dtype=torch.float32)
+        assert _rel(got, want) < 1e-4, impl
+        logits[impl] = (want, wcache, got, gcache)
+    want, wcache, got, gcache = logits["reference"]
+    wfull = ref_zoo.init_cache(arch_r, B, S + steps, dtype=jnp.float32)
+    wcache = jax.tree.map(lambda f, c: jax.lax.dynamic_update_slice(
+        f, c.astype(f.dtype), (0,) * c.ndim),
+        {k: wfull[k] for k in wcache}, wcache)
+    wcache["length"] = jnp.asarray(S, jnp.int32)
+    tcache = zoo.init_cache(arch_t, B, S + steps, dtype=torch.float32,
+                            device="cpu")
+    tree_map(lambda d, s: d[tuple(slice(0, n) for n in s.shape)].copy_(s),
+             {k: tcache[k] for k in gcache}, gcache)
+    tcache["length"].fill_(S)
+    wtok = jnp.argmax(want[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
+    ttok = torch.argmax(got[:, -1, :], dim=-1)[:, None].to(torch.int32)
+    for _ in range(steps):
+        np.testing.assert_array_equal(to_np(ttok), np.asarray(wtok))
+        wl, wcache = ref_zoo.decode_step(arch_r, params_r, wcache, wtok,
+                                         compute_dtype=jnp.float32)
+        tl, tcache = zoo.decode_step(arch_t, params_t, tcache, ttok,
+                                     compute_dtype=torch.float32)
+        wtok = jnp.argmax(wl[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
+        ttok = torch.argmax(tl[:, -1, :], dim=-1)[:, None].to(torch.int32)
+    np.testing.assert_array_equal(to_np(ttok), np.asarray(wtok))
+    assert _rel(tl, wl) < 1e-4
