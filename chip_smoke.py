@@ -9,8 +9,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    takes to build every kernel from ``src/repro_torch/kernels/*/csrc``
    (one ``nvcc`` per source, all started together); then the registers,
    static shared memory and spills that ``-Xptxas=-v`` reported for the
-   wgmma flash kernel (every head dim), the mma.sync flash kernel (D=256),
-   the three SSD kernels, the two mLSTM kernels and the merge kernel;
+   wgmma flash kernel (by head dim, D=256 included), the three SSD
+   kernels, the two mLSTM kernels and the merge kernel;
 2. the merge kernel against its plain version on the card — ``enoki_merge_rows``
    (snapshot pointers by value, a row's chunk blocks one cluster) bit-exact
    over a sweep of shapes, payload dtypes (f32, bf16, int32, uint8) and
@@ -56,14 +56,15 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    edge within 30 s — then edge2 restored byte-identical to edge;
 5. ``flash_attention_bhsd`` against its plain version on the card: f32
    (2e-5) and bf16 (2e-2, the reference's own tolerances) over the
-   reference's sweep shapes, head dims 112, 96 and 256 (the mma.sync
-   kernel), a ragged S=100, Sq=100 against Skv=300, Sq=128 against
-   Skv=256 and the internlm2 prefill geometry, causal, non-causal and
-   window 64, directly and through the model-layout wrapper, and zamba2's
-   shared-block geometry (B=4, S=4096, H=KV=32, D=112, bf16, causal, window
-   4096); every bf16 case is also held, row by row at the output's own
-   scale, to the error that the plain version's bf16 rounding makes against
-   the same function in f32; then timed at four prefill geometries
+   reference's sweep shapes, head dims 112, 96 and 256 (an odd number of
+   128-row query tiles too), a ragged S=100, Sq=100 against Skv=300,
+   Sq=128 against Skv=256 and the internlm2 prefill geometry, causal,
+   non-causal and window 64, directly and through the model-layout
+   wrapper, and zamba2's shared-block geometry (B=4, S=4096, H=KV=32,
+   D=112, bf16, causal, window 4096); every bf16 case is also held, row
+   by row at the output's own scale, to the error that the plain
+   version's bf16 rounding makes against the same function in f32; then
+   timed at four prefill geometries
    (internlm2's D=128, zamba2's D=112, phi-3-vision's D=96 with H=KV=32,
    gemma-7b's D=256 with H=KV=16; B=4, S=4096) beside its tensor-core FLOP
    bound, its plain version and ``scaled_dot_product_attention``;
@@ -165,7 +166,6 @@ SSD_PRODUCT_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 # the kernels whose registers, shared memory and spills the build reports:
 # (library, kernel)
 RESOURCE_KERNELS = (("flash_attention", "flash_fwd_bf16_wgmma"),
-                    ("flash_attention", "flash_fwd_bf16_mma"),
                     ("ssd_chunk", "ssd_chunk_state_kernel"),
                     ("ssd_chunk", "ssd_chunk_pass_kernel"),
                     ("ssd_chunk", "ssd_chunk_scan_kernel"),
@@ -174,14 +174,15 @@ RESOURCE_KERNELS = (("flash_attention", "flash_fwd_bf16_wgmma"),
                     ("enoki_merge", "enoki_merge_rows_kernel"))
 # (B, Sq, Skv, H, KV, D): tests/test_kernels.py's sweep, head dim 112 (zamba2's
 # shared block), a ragged S, Sq != Skv, head dims 96 (phi-3-vision) and 256
-# (gemma-7b: the mma.sync kernel) square, ragged and uneven, and internlm2's
-# prefill geometry (last)
+# (gemma-7b) square, ragged and uneven, D=256 over five 128-row query tiles
+# (an odd number; GQA), and internlm2's prefill geometry (last)
 FLASH_CASES = [(1, 128, 128, 4, 4, 32), (2, 256, 256, 4, 2, 64),
                (1, 512, 512, 8, 2, 32), (2, 128, 128, 2, 1, 128),
                (1, 128, 128, 4, 4, 112), (1, 100, 100, 4, 2, 64),
                (1, 128, 256, 4, 2, 64), (1, 128, 128, 4, 4, 96),
                (2, 100, 100, 4, 2, 96), (1, 128, 128, 4, 4, 256),
-               (2, 100, 300, 4, 2, 256), (4, 4096, 4096, 16, 8, 128)]
+               (2, 100, 300, 4, 2, 256), (1, 640, 640, 4, 2, 256),
+               (4, 4096, 4096, 16, 8, 128)]
 FLASH_MASKS = [(True, 0), (False, 0), (True, 64), (False, 64)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # bf16 outputs are held to at most this multiple of the plain version's own
@@ -2060,7 +2061,7 @@ def main() -> int:
           "nvidia_smi": smi, **fp})
     fg = time_flash(torch, fk, flush, GEMMA_FLASH)
     emit({"phase": "kernel_time", "kernel": "flash_attention_bhsd",
-          "geometry": "gemma-7b prefill layer (D=256, mma.sync)",
+          "geometry": "gemma-7b prefill layer (D=256, wgmma fed by TMA)",
           "nvidia_smi": smi, **fg})
     flash_times = {"internlm2-1.8b D=128": ft, "zamba2-7b D=112": fz,
                    "phi-3-vision-4.2b D=96": fp, "gemma-7b D=256": fg}

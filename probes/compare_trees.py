@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the merge and mLSTM kernels of two checkouts on one CUDA card, in turn.
+"""Time the merge, mLSTM and flash kernels of two checkouts on one CUDA card,
+in turn.
 
     python3 probes/compare_trees.py OTHER_TREE      # from the repository root
 
@@ -9,9 +10,11 @@ one child process per tree, in the order other, this, this, other, so that
 neither side always runs first.  Each child builds its own tree's kernels
 and times them with that tree's ``chip_smoke.py`` (CUDA events, L2 flushed,
 medians; the host's enqueue cost apart): ``enoki_merge_rows`` on 64 slots of
-100 KB (K=1 and K=8) and of 1 MB (K=1), and ``mlstm_chunk_bhsd`` at one
-xlstm-350m mLSTM prefill layer.  Prints one JSON line per child, then the
-card's name and power limit.
+100 KB (K=1 and K=8) and of 1 MB (K=1), ``mlstm_chunk_bhsd`` at one
+xlstm-350m mLSTM prefill layer, and ``flash_attention_bhsd`` at one
+gemma-7b prefill layer (D=256; ``GEMMA_FLASH``) beside SDPA on the same
+inputs.  Prints one JSON line per child, then the card's name and power
+limit.
 """
 import pathlib
 import subprocess
@@ -26,9 +29,10 @@ import torch
 import chip_smoke as cs
 from repro_torch.kernels import build
 from repro_torch.kernels.enoki_merge import kernel as ek
+from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.mlstm_chunk import kernel as mk
 torch.backends.cuda.matmul.allow_tf32 = False
-build.build_all(["enoki_merge", "mlstm_chunk"])
+build.build_all(["enoki_merge", "mlstm_chunk", "flash_attention"])
 flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device="cuda")
 out = {"tree": sys.argv[2]}
 for width, k in ((cs.ROW_100KB, 1), (cs.ROW_100KB, 8), (cs.ROW_1MB, 1)):
@@ -37,6 +41,9 @@ for width, k in ((cs.ROW_100KB, 1), (cs.ROW_100KB, 8), (cs.ROW_1MB, 1)):
                                        "host_us": t["host_ms"] * 1e3}
 t = cs.time_mlstm(torch, mk, flush)
 out["mlstm"] = {"ms": t["ms"], "host_ms": t["host_ms"]}
+t = cs.time_flash(torch, fk, flush, cs.GEMMA_FLASH)
+out["flash_gemma_d256"] = {k: t[k] for k in ("ms", "library_ms", "bound_ms",
+                                             "max_abs_err")}
 print(json.dumps(out), flush=True)
 '''
 

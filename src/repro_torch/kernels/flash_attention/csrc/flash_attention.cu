@@ -20,14 +20,20 @@
 //     first; three warpgroups: two consumers of 64 query rows each, and a
 //     producer warpgroup one thread of which issues every copy.
 //     setmaxnreg moves registers from the producer (40 a thread) to the
-//     consumers (232); the role is taken from a shuffle, so the compiler
-//     sees it is warp-uniform;
+//     consumers (232); at D=256 from 24 to 240, where a consumer holds its
+//     64 x 256 f32 O (128 registers) beside S and P.  The role is taken
+//     from a shuffle, so the compiler sees it is warp-uniform;
 //   * the producer loads the Q tile once, then streams K and V tiles of 96
-//     keys (64 at D <= 64) with TMA (cp.async.bulk.tensor) into a ring of
-//     three stages (four), each stage with full and empty mbarriers for K
-//     and for V; no consumer thread computes an address or issues a copy,
-//     and only the mbarriers order the warpgroups;
-//   * S = Q K^T is wgmma m64n96k16 with Q and K read from shared memory
+//     keys (64 at D <= 64 and at D=256) with TMA (cp.async.bulk.tensor)
+//     into a ring of three stages (four at D <= 64; two at D=256, whose 64
+//     KB Q tile and 2 x 64 KB of K and V fill shared memory), each stage
+//     with full and empty mbarriers for K and for V; no consumer thread
+//     computes an address or issues a copy, and only the mbarriers order
+//     the warpgroups.  A K/V tile serves 128 query rows: at gemma-7b's
+//     prefill (D=256) the blocks read ~4.2 GB of K and V from L2, half of
+//     what 64-row blocks would;
+//   * S = Q K^T is wgmma m64n96k16 (m64n64k16 for 64-key tiles: 16 steps
+//     at D=256) with Q and K read from shared memory
 //     (K-major); the online softmax runs on S in registers, in base 2 with
 //     the scale folded in (one FMA and one ex2 a score on unmasked tiles);
 //     P is rounded to bf16 in registers and is the A operand of O += P V
@@ -40,9 +46,17 @@
 //     writes their registers while they run: a write there makes ptxas
 //     serialise every wgmma (warning C7515).  A row whose max did not move
 //     keeps o as it is, and a warp skips the rescale when none of its rows
-//     moved.  ptxas allocates the consumers 168 registers, whatever
-//     setmaxnreg grants: 128-key tiles spilled S and P and serialised the
-//     products, 96-key tiles fit at D=112 and spill a few bytes at D=128;
+//     moved.  P stays in f32 until PV_{j-1} is done and is packed to bf16
+//     only then: packed as the softmax formed it, it landed in the
+//     registers the running product reads, and ptxas serialised every
+//     wgmma (C7513);
+//   * ptxas holds code from which a trap is reachable to the launch's 168
+//     registers a thread, setmaxnreg or not (probes/setmaxnreg.py,
+//     probes/flash_variants.py): with the waits' hang trap the D=256
+//     consumers spilled ~600 bytes and ran 2.5x slower.  At D=256 the waits
+//     give up without a trap and the consumers use the 240 registers they
+//     are granted, without spills; the waits at D <= 128 still trap, and
+//     there 96-key tiles fit at D=112 and spill a few bytes at D=128;
 //   * the tensor maps are built on the host over the strided (B,H,S,D)
 //     views the wrapper is handed (the model's (B,S,H,D) buffers, no
 //     copy), four dimensions with the views' own byte strides, and passed
@@ -51,7 +65,8 @@
 //   * tiles land 128-byte swizzled (64-byte at D=32, whose rows are 64
 //     bytes), which wgmma's descriptors read without bank conflicts.  A
 //     swizzled row spans 64 bf16 columns, so D=128 loads as two 64-column
-//     slabs.  D=112 loads as two slabs too: columns 112-127 of the second
+//     slabs and D=256 as four (PV is m64n256k16, the four slabs of V LBO
+//     apart).  D=112 loads as two slabs too: columns 112-127 of the second
 //     lie outside the tensor map and TMA fills them with zeros.  The
 //     products skip them: QK^T takes 7 steps of 16 columns, not 8, and PV
 //     is m64n112k16, so D=112 does the products it needs and no more;
@@ -63,11 +78,12 @@
 //     skips the block's last tile, which its rows never see;
 //   * the reduction order depends on the tile positions only, never on the
 //     strides, so every layout of the same numbers gives the same output.
-// Left for later: a persistent grid of one block an SM (one tile's
-// epilogue over the next one's loads), 128-key tiles (which need the
-// consumers' registers past 168), the output stored through shared memory
-// with TMA, and FP8.  Ping-pong scheduling of the two consumers (named
-// barriers) was tried and moved nothing measurable.
+// Left for later: trap-free waits at D <= 128 (the consumers then take
+// the registers setmaxnreg grants) and 128-key tiles there, a persistent
+// grid of one block an SM (one tile's epilogue over the next one's loads),
+// the output stored through shared memory with TMA, and FP8.  Ping-pong
+// scheduling of the two consumers (named barriers) was tried and moved
+// nothing measurable.
 //
 // f32 runs on plain FMAs in 64-row tiles (`flash_fwd_f32`; the sweep's
 // dtype, not the main path's), reading its operands through element
@@ -143,9 +159,21 @@ template <int D>
 struct Geo {
   // keys a K/V tile and the ring's depth: 96 x 3 at D=96, 112 and 128,
   // where the larger tile pays (D=128 spills a few bytes of P, and is still
-  // faster than with 64 keys), 64 x 4 below
-  static constexpr int TK = D >= 96 ? 96 : 64;
-  static constexpr int STAGES = D >= 96 ? 3 : 4;
+  // faster than with 64 keys), 64 x 4 below; 64 x 2 at D=256, whose Q tile
+  // (64 KB) and two stages of K and V (128 KB) fill shared memory
+  static constexpr int TK = D == 256 ? 64 : D >= 96 ? 96 : 64;
+  static constexpr int STAGES = D == 256 ? 2 : D >= 96 ? 3 : 4;
+  // setmaxnreg's registers a thread: a consumer at D=256 holds its 64 x 256
+  // f32 O (128 registers) beside S and P.  The producer gives up what the
+  // consumers take: 128 x (168 - R_P) = 256 x (R_C - 168) of the 168 a
+  // thread the launch grants (65,536 / 384, rounded down to 8)
+  static constexpr int CONSUMER_REGS = D == 256 ? 240 : 232;
+  static constexpr int PRODUCER_REGS = D == 256 ? 24 : 40;
+  static_assert(128 * (168 - PRODUCER_REGS) ==
+                CONSUMERS * 128 * (CONSUMER_REGS - 168),
+                "the producer frees exactly what the consumers take");
+  // whether a wait that never ends traps (see mbar_wait)
+  static constexpr bool TRAP = D != 256;
   static constexpr int SW = D == 32 ? 64 : 128;
   static constexpr int SLAB = SW / 2;                    // columns a slab
   static constexpr int NSLAB = (D + SLAB - 1) / SLAB;
@@ -193,9 +221,14 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 }
 
 // Wait until the phase of parity `parity` has completed.  A phase that
-// never completes (a lost arrival or copy) traps after 2^26 polls, each a
-// suspended try_wait (seconds; a block's waits are on its own copies and
-// warps, microseconds), instead of holding the card.
+// never completes (a lost arrival or copy) gives up after 2^26 polls, each
+// a suspended try_wait (seconds; a block's waits are on its own copies and
+// warps, microseconds), instead of holding the card: with TRAP the kernel
+// traps, else the wait returns and the block runs on to a wrong output.
+// A trap reachable after setmaxnreg.inc holds ptxas to the launch's 168
+// registers a thread there (probes/flash_variants.py), so the D=256
+// kernel, whose consumers need 240, waits without one.
+template <bool TRAP>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   const uint32_t addr = smem_u32(bar);
   uint32_t done = 0;
@@ -205,7 +238,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (polls == (1u << 26)) __trap();
+    if (polls == (1u << 26)) {
+      if constexpr (TRAP) __trap();
+      else return;
+    }
   }
 }
 
@@ -373,6 +409,66 @@ __device__ __forceinline__ void wgmma_ss_n64_zero(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(0));
 }
 
+// d (64 x 256, f32) += A (64 x 16, bf16 in registers) * B (16 x 256, shared,
+// MN-major: transposed as it is read, which wgmma allows for 16-bit types)
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128, shared,
 // MN-major: transposed as it is read, which wgmma allows for 16-bit types)
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
@@ -531,7 +627,8 @@ __device__ __forceinline__ void wgmma_qk(float* s, uint64_t da, uint64_t db) {
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
                                          uint64_t db) {
-  if constexpr (D == 128) wgmma_rs_n128(o, a, db);
+  if constexpr (D == 256) wgmma_rs_n256(o, a, db);
+  else if constexpr (D == 128) wgmma_rs_n128(o, a, db);
   else if constexpr (D == 112) wgmma_rs_n112(o, a, db);
   else if constexpr (D == 96) wgmma_rs_n96(o, a, db);
   else if constexpr (D == 64) wgmma_rs_n64(o, a, db);
@@ -668,7 +765,8 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
     // ---- producer warpgroup: one thread issues every copy.  A K
     // stage is refilled once both consumers' QK^T have read it, a V stage
     // once their PV has ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(G::PRODUCER_REGS) : "memory");
     if (threadIdx.x == 128 * CONSUMERS) {
       mbar_expect_tx(q_full, G::Q_BYTES);
 #pragma unroll
@@ -679,13 +777,13 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
         const int st = j % STAGES, use = j / STAGES;
         unsigned char* kd = Ks + st * G::KV_BYTES;
         unsigned char* vd = Vs + st * G::KV_BYTES;
-        if (use > 0) mbar_wait(k_empty + st, (use - 1) & 1);
+        if (use > 0) mbar_wait<G::TRAP>(k_empty + st, (use - 1) & 1);
         mbar_expect_tx(k_full + st, G::KV_BYTES);
 #pragma unroll
         for (int s = 0; s < G::NSLAB; ++s)
           tma_load(kd + s * TK * G::SW, &kmap, p.ko, s * G::SLAB, j * TK,
                    kvh, b, k_full + st);
-        if (use > 0) mbar_wait(v_empty + st, (use - 1) & 1);
+        if (use > 0) mbar_wait<G::TRAP>(v_empty + st, (use - 1) & 1);
         mbar_expect_tx(v_full + st, G::KV_BYTES);
 #pragma unroll
         for (int s = 0; s < G::NSLAB; ++s)
@@ -697,7 +795,8 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
     // ---- consumers: 64 query rows each.  Iteration j issues QK_j^T, then
     // P_{j-1} V_{j-1}, and runs tile j's softmax while the PV product is in
     // flight; the first tile is peeled, so every wait is unconditional ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(G::CONSUMER_REGS) : "memory");
     const int wg = role;
     const int tid = threadIdx.x % 128;
     const int warp = tid >> 5, lane = tid & 31;
@@ -726,7 +825,7 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
     // register of a product while one runs
     auto issue_qk = [&](int j) {
       const int st = j % STAGES;
-      mbar_wait(k_full + st, (j / STAGES) & 1);
+      mbar_wait<G::TRAP>(k_full + st, (j / STAGES) & 1);
       fence_regs<D / 2>(o);         // settled while no product is in flight
       fence_words<TK / 4>(&pa[0][0]);
       wgmma_fence();
@@ -746,7 +845,7 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
     };
     auto issue_pv = [&](int j) {
       const int st = j % STAGES;
-      mbar_wait(v_full + st, (j / STAGES) & 1);
+      mbar_wait<G::TRAP>(v_full + st, (j / STAGES) & 1);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < TK / 16; ++kk)
@@ -770,7 +869,7 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
       }
     };
 
-    mbar_wait(q_full, 0);
+    mbar_wait<G::TRAP>(q_full, 0);
     // under `causal` the first warpgroup's rows end a tile before the
     // block's: it skips that last, fully masked tile (no later tile
     // refills its stage, so nothing waits for its release)
@@ -823,221 +922,6 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
         *reinterpret_cast<uint32_t*>(og + qp1 * p.os_s + d) =
             pack_bf16(o[4 * n + 2] * inv1, o[4 * n + 3] * inv1);
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 at D=256: mma.sync, 4 warps of 16 query rows, not warp-specialised
-// ---------------------------------------------------------------------------
-//
-// The wgmma consumers above keep a 64-row warpgroup's f32 O in registers:
-// 128 a thread at D=256, past the 168 ptxas grants them beside S and P.
-// Here a block has no producer and no setmaxnreg, so a thread may hold up
-// to 255: each warp owns 16 query rows, its O (16 x 256 f32, 128 registers
-// a thread), S of a 64-key tile (32) and P's bf16 fragments, and runs
-// mma.sync m16n8k16 on fragments loaded from shared memory.  A block (64
-// query rows) loads its Q tile once and each K and V tile of 64 keys with
-// 16-byte loads, all threads together, between two __syncthreads (no
-// pipeline: two blocks an SM overlap one's loads with the other's
-// products).  Shared rows are padded by 16 bytes, so the fragment loads of
-// a quad's eight rows fall in distinct banks.  V is read transposed by
-// ldmatrix.trans.  The masks, the base-2 online softmax, p rounded to bf16
-// before PV, and the order of the sums over keys are those of the kernels
-// above.  Left for later: TMA and a pipeline, and wgmma with O split over
-// warpgroups.
-
-constexpr int BQ_MMA = 64;     // query rows a block: 4 warps x 16
-constexpr int THREADS_MMA = 128;
-
-template <int D>
-struct MmaGeo {
-  static constexpr int LD = D + 8;           // bf16 elements a shared row
-  static constexpr int TILE = BQ_MMA * LD;   // a Q, K or V tile (BK rows)
-  static constexpr int SMEM = 3 * TILE * 2;  // bytes
-};
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The B fragment (16 keys x 8 columns) of a row-major (keys, D) tile:
-// lanes 0-15 name the 16 key rows, and .trans hands each lane the pair of
-// keys (2t, 2t+1) of column g that mma's B operand wants
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const void* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1) : "r"(smem_u32(row)) : "memory");
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [row0, row0 + BK) of a (rows, D) bf16 view with row stride `stride`
-// into a padded shared tile; rows at or past `nrows` are zeros
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long stride, int row0,
-                                          int nrows) {
-  constexpr int VEC = D / 8;                 // 16-byte pieces a row
-  for (int c = threadIdx.x; c < BK * VEC; c += THREADS_MMA) {
-    const int r = c / VEC, col = (c % VEC) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < nrows)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + col);
-    *reinterpret_cast<uint4*>(dst + r * MmaGeo<D>::LD + col) = val;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS_MMA, 1)
-    flash_fwd_bf16_mma(const Params p) {
-  static_assert(BK == 64 && BQ_MMA == 64, "one 64 x 64 tile pair a step");
-  constexpr int LD = MmaGeo<D>::LD;
-  constexpr int NT = D / 8;                  // 8-column tiles of O
-  extern __shared__ __align__(16) unsigned char smem_mma[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);
-  __nv_bfloat16* Ks = Qs + MmaGeo<D>::TILE;
-  __nv_bfloat16* Vs = Ks + MmaGeo<D>::TILE;
-
-  const int n_qt = (p.Sq + BQ_MMA - 1) / BQ_MMA;   // grid.x: (tile, h, b)
-  const int q0 = (n_qt - 1 - (int)(blockIdx.x % n_qt)) * BQ_MMA;
-  const int h = (int)((blockIdx.x / n_qt) % p.H);
-  const int b = (int)(blockIdx.x / n_qt / p.H);
-  const int kvh = h / (p.H / p.KV);
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) +
-                            b * p.qs_b + h * p.qs_h;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) +
-                            b * p.ks_b + kvh * p.ks_h;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) +
-                            b * p.vs_b + kvh * p.vs_h;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g;              // this thread's rows: r0, r0 + 8
-  const int qp0 = q0 + r0, qp1 = qp0 + 8;
-  const float sl2 = p.scale * kLog2e;
-
-  load_tile<D>(Qs, qg, p.qs_s, q0, p.Sq);
-
-  float o[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  const int n_tiles = kv_tiles<BQ_MMA>(p, q0);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();              // the last tile's reads are done
-    load_tile<D>(Ks, kg, p.ks_s, k0, p.Skv);
-    load_tile<D>(Vs, vg, p.vs_s, k0, p.Skv);
-    __syncthreads();
-
-    // S = Q K^T: 16 rows x 64 keys a warp, 8 tiles of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      const __nv_bfloat16* qa = Qs + r0 * LD + kd * 16 + 2 * t;
-      const uint32_t a[4] = {lds32(qa), lds32(qa + 8 * LD), lds32(qa + 8),
-                             lds32(qa + 8 * LD + 8)};
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* kb = Ks + (n * 8 + g) * LD + kd * 16 + 2 * t;
-        mma_16816(s[n], a, lds32(kb), lds32(kb + 8));
-      }
-    }
-
-    // the online softmax of rows qp0 (s[n][0..1]) and qp1 (s[n][2..3]), in
-    // base 2 with the scale folded in; the quad holds a row between it
-    const bool need = tile_needs_mask<BQ_MMA>(p, q0, k0);
-    float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * sl2;
-        if (need)
-          x = mask_score(x, e < 2 ? qp0 : qp1, k0 + n * 8 + 2 * t + (e & 1),
-                         p.Skv, p.causal, p.window);
-        s[n][e] = x;
-        if (e < 2) mx0 = fmaxf(mx0, x);
-        else mx1 = fmaxf(mx1, x);
-      }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = ex2(s[n][e] - (e < 2 ? mn0 : mn1));
-        s[n][e] = pe;
-        if (e < 2) sum0 += pe;
-        else sum1 += pe;
-      }
-    l0 = l0 * c0 + sum0;
-    l1 = l1 * c1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= c0;
-      o[n][1] *= c0;
-      o[n][2] *= c1;
-      o[n][3] *= c1;
-    }
-
-    // O += P V: P rounded to bf16 is the A fragment of keys 16kk..16kk+15
-    // as the two 8-key accumulator tiles hold it
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* vrow = Vs + (kk * 16 + (lane & 15)) * LD;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, vrow + n * 8);
-        mma_16816(o[n], pa, b0, b1);
-      }
-    }
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
-  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.os_b +
-                      h * p.os_h;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int d = n * 8 + 2 * t;
-    if (qp0 < p.Sq)
-      *reinterpret_cast<uint32_t*>(og + qp0 * p.os_s + d) =
-          pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
-    if (qp1 < p.Sq)
-      *reinterpret_cast<uint32_t*>(og + qp1 * p.os_s + d) =
-          pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
   }
 }
 
@@ -1281,31 +1165,17 @@ int launch_bf16(const Params& p, const long long* geo, cudaStream_t stream) {
 }
 
 template <int D>
-int launch_bf16_mma(const Params& p, cudaStream_t stream) {
-  constexpr int smem = MmaGeo<D>::SMEM;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((unsigned)((p.Sq + BQ_MMA - 1) / BQ_MMA) * p.H * p.B);
-  flash_fwd_bf16_mma<D><<<grid, THREADS_MMA, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
 int launch(const Params& p, bool bf16, const long long* geo,
            cudaStream_t stream) {
   if (!bf16) return static_cast<int>(launch_f32<D>(p, stream));
-  if constexpr (D == 256) return launch_bf16_mma<D>(p, stream);
-  else return launch_bf16<D>(p, geo, stream);
+  return launch_bf16<D>(p, geo, stream);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  strides: 12 element strides, (b, h, s) of
 // q, k, v and o in turn; the head dim is contiguous.  tma (bfloat16 only):
-// 3 x 15 values, the tensor-map geometry of q, k and v (see encode_map);
-// none at D=256, whose kernel reads through the element strides.
+// 3 x 15 values, the tensor-map geometry of q, k and v (see encode_map).
 // Returns 0 on success, else cudaGetLastError() after the launch, or a
 // code past 99,998 for a tensor map (see kMapError); the caller raises.
 extern "C" int flash_attention_bhsd_launch(
@@ -1335,7 +1205,7 @@ extern "C" int flash_attention_bhsd_launch(
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const bool bf16 = dtype == 1;
-  if (bf16 && tma == nullptr && D != 256) return (int)cudaErrorInvalidValue;
+  if (bf16 && tma == nullptr) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 32: return launch<32>(p, bf16, tma, s);
     case 64: return launch<64>(p, bf16, tma, s);

@@ -9,12 +9,13 @@ to v's dtype before the PV product, and l clamped at 1e-30.
 
 ``flash_attention_bhsd`` takes the plain version for CPU tensors only; for
 CUDA tensors it launches ``csrc/flash_attention.cu`` once (or raises):
-bfloat16 runs the wgmma kernel fed by TMA (the mma.sync kernel at D=256,
-whose f32 O does not fit the wgmma consumers' registers), float32 the FMA
-kernel; the dtype and head dim alone decide.  All read their operands
-through strides, so any view whose head dim is contiguous and whose rows
-start on 16 bytes is taken as it is: the wgmma kernel's tensor maps are
-built over the view's own byte strides (``_tma_geometry``).
+bfloat16 runs the wgmma kernel fed by TMA at every head dim (at D=256 its
+consumers hold their 64 x 256 f32 O in 240 registers a thread, and K/V
+tiles are 64 keys in a ring of two), float32 the FMA kernel; the dtype
+alone decides.  Both read their operands through strides, so any view
+whose head dim is contiguous and whose rows start on 16 bytes is taken as
+it is: the wgmma kernel's tensor maps are built over the view's own byte
+strides (``_tma_geometry``).
 ``flash_attention_bhsd.launches`` counts kernel launches (the chip smoke
 reads it to show that prefill went through the kernel).
 
@@ -39,8 +40,6 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 112, 128, 256)
-#: head dims of the mma.sync kernel (no tensor maps): the rest run wgmma
-MMA_HEAD_DIMS = (256,)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: rows of a TMA box: the bf16 kernel's query tile
 Q_TILE_ROWS = 128
@@ -168,18 +167,19 @@ class TmaGeometry(NamedTuple):
 
 def kv_tile_rows(d: int) -> int:
     """Keys of the wgmma kernel's K/V tile at head dim ``d`` (``Geo::TK`` in
-    the CUDA source): 96 at D=96, 112 and 128, 64 below."""
-    return 96 if d >= 96 else 64
+    the CUDA source): 96 at D=96, 112 and 128; 64 below, and at D=256,
+    whose Q tile and two K/V stages fill shared memory."""
+    return 96 if 96 <= d <= 128 else 64
 
 
 def _tma_geometry(view: torch.Tensor, rows: int) -> TmaGeometry:
     """The tensor map of a (B,H,S,D) bf16 view read in tiles of ``rows``
     sequence positions, or ``ValueError`` for what
     TMA refuses.  A row of the head dim lands 128-byte swizzled, a slab of
-    64 bf16 columns (D=96, 112 and 128 load as two slabs; TMA fills the
-    columns past D with zeros); D=32's 64-byte rows take the 64-byte
-    swizzle.  Dims of size 1 take a harmless stride (the view's extent), as
-    torch may give them any."""
+    64 bf16 columns (D=96, 112 and 128 load as two slabs, TMA filling the
+    columns past D with zeros; D=256 as four); D=32's 64-byte rows take the
+    64-byte swizzle.  Dims of size 1 take a harmless stride (the view's
+    extent), as torch may give them any."""
     if view.ndim != 4:
         raise ValueError("a tensor map is built over a (B, H, S, D) view")
     es = view.element_size()
@@ -230,7 +230,7 @@ def _launch(q, k, v, out, causal: bool, window: int) -> None:
     strides = np.array([s for t in (q, k, v, out) for s in t.stride()[:3]],
                        np.int64)
     tma = None
-    if q.dtype == torch.bfloat16 and d not in MMA_HEAD_DIMS:
+    if q.dtype == torch.bfloat16:
         kv_rows = kv_tile_rows(d)
         tma = np.array([x for t, rows in ((q, Q_TILE_ROWS), (k, kv_rows),
                                           (v, kv_rows))

@@ -127,7 +127,8 @@ _FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py
     (2, 128, 128, 2, 1, 128), (1, 100, 100, 4, 2, 64),
     (1, 128, 256, 4, 2, 64), (1, 128, 128, 4, 4, 112),
     (2, 100, 100, 4, 2, 112), (1, 128, 128, 4, 4, 96), (2, 100, 100, 4, 2, 96),
-    (1, 128, 128, 4, 4, 256), (2, 100, 300, 4, 2, 256)])
+    (1, 128, 128, 4, 4, 256), (2, 100, 300, 4, 2, 256),
+    (1, 384, 384, 4, 2, 256)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64)])
 def test_flash_kernel_matches_plain_on_cuda(card, B, Sq, Skv, H, KV, D,
                                             dtype, causal, window):
@@ -190,15 +191,16 @@ def test_flash_kernel_head_dim_112_with_ragged_sq_and_skv(card, causal,
 
 
 @pytest.mark.cuda
-def test_flash_kernel_reads_the_model_layout(card):
+@pytest.mark.parametrize("D", [128, 256])
+def test_flash_kernel_reads_the_model_layout(card, D):
     """``ops.flash_attention`` hands the kernel strided views of (B,S,H,D)
     tensors and an output view: the same numbers as the contiguous call."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ops import flash_attention
     g = torch.Generator(device=card).manual_seed(0)
-    q = torch.randn((2, 192, 8, 128), generator=g, device=card).bfloat16()
-    k = torch.randn((2, 192, 4, 128), generator=g, device=card).bfloat16()
-    v = torch.randn((2, 192, 4, 128), generator=g, device=card).bfloat16()
+    q = torch.randn((2, 192, 8, D), generator=g, device=card).bfloat16()
+    k = torch.randn((2, 192, 4, D), generator=g, device=card).bfloat16()
+    v = torch.randn((2, 192, 4, D), generator=g, device=card).bfloat16()
     got = flash_attention(q, k, v, causal=True)
     want = fk.flash_attention_bhsd(*(t.transpose(1, 2).contiguous()
                                      for t in (q, k, v)), causal=True)
@@ -703,17 +705,19 @@ def test_mlstm_column_tiles_match_plain_in_the_model_layout(card, d, S, chunk,
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 256])
 @pytest.mark.parametrize("case", ["misaligned_base", "odd_stride",
                                   "H_65536", "B_65536"])
-def test_flash_takes_what_the_cpu_takes(card, case):
+def test_flash_takes_what_the_cpu_takes(card, case, D):
     """The cases of test_torch_flash_attention.py's
-    test_every_device_takes_misaligned_rows_and_large_grids on the card:
-    equal to the aligned call, and within tolerance of the plain version."""
+    test_every_device_takes_misaligned_rows_and_large_grids on the card, at
+    D=32 and at D=256: equal to the aligned call, and within tolerance of
+    the plain version."""
     from repro_torch.kernels.flash_attention import kernel as fk
-    B, S, H, KV, D = {"misaligned_base": (2, 64, 4, 2, 32),
-                      "odd_stride": (1, 64, 4, 2, 32),
-                      "H_65536": (1, 2, 65536, 1, 32),
-                      "B_65536": (65536, 2, 1, 1, 32)}[case]
+    B, S, H, KV = {"misaligned_base": (2, 64, 4, 2),
+                   "odd_stride": (1, 64, 4, 2),
+                   "H_65536": (1, 2, 65536, 1),
+                   "B_65536": (65536, 2, 1, 1)}[case]
     gen = torch.Generator(device=card).manual_seed(11)
     q, k, v = (torch.randn((B, h, S, D), generator=gen, device=card)
                .to(torch.bfloat16) for h in (H, KV, KV))

@@ -180,13 +180,14 @@ def test_every_device_takes_misaligned_rows_and_large_grids(case):
 # the bf16 kernel's tensor maps, as the host builds them
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("D", [32, 64, 96, 112, 128])
+@pytest.mark.parametrize("D", [32, 64, 96, 112, 128, 256])
 @pytest.mark.parametrize("layout", ["contiguous", "model"])
 def test_tma_geometry_of_the_kernel_and_model_layouts(D, layout):
     """The contiguous (B,H,S,D) layout and the transposed (B,S,H,D) model
     layout: the head dim innermost, the rest ordered by stride, byte
     strides of the view's own, a box of one swizzled slab by the tile's
-    rows, and the order the kernel reads the s, h and b coordinates by."""
+    rows (D=96 to 128 load as two slabs, D=256 as four, with 64-key K/V
+    tiles), and the order the kernel reads the s, h and b coordinates by."""
     B, H, S = 2, 3, 100
     if layout == "contiguous":
         view = torch.zeros((B, H, S, D), dtype=torch.bfloat16)
@@ -195,10 +196,12 @@ def test_tma_geometry_of_the_kernel_and_model_layouts(D, layout):
         view = torch.zeros((B, S, H, D), dtype=torch.bfloat16).transpose(1, 2)
         want_sizes, roles = (H, S, B), "hsb"
     kv_rows = fk.kv_tile_rows(D)
-    assert kv_rows == (96 if D >= 96 else 64)
+    assert kv_rows == {32: 64, 64: 64, 96: 96, 112: 96, 128: 96, 256: 64}[D]
     geo = fk._tma_geometry(view, kv_rows)
     swizzle = 64 if D == 32 else 128
     assert geo.swizzle == swizzle
+    slabs = -(-D // geo.box[0])
+    assert slabs == {32: 1, 64: 1, 96: 2, 112: 2, 128: 2, 256: 4}[D]
     assert geo.dims == (D, *want_sizes)
     strides = {"s": view.stride(2) * 2, "h": view.stride(1) * 2,
                "b": view.stride(0) * 2}
