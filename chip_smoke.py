@@ -54,6 +54,18 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    leaf; (c) 256 requests through ``FaasServer`` with the membership
    attached, edge2 killed while they are in flight — every one served by
    edge within 30 s — then edge2 restored byte-identical to edge;
+   then pod-axis replication (``core/replication.py``): P = 2 and 4 pods
+   of one slot-aligned arena of 64 x 1 MB (64 MB a pod) stacked on the
+   card, keys from one ``store_assign_slots`` layout, versions in 1..1000
+   and payloads seeded, every 4th slot one write replicated to every pod;
+   one ``make_pod_replicate_step`` round with ``merge_arena_aligned`` over
+   "full" and P - 1 rounds over "ring": every pod byte-identical, full and
+   ring alike, full equal to ``converge`` over the pods as a logical list,
+   each equal to its CPU twin (the same seed through the plain version),
+   one ring round's pod i equal to merge(pod i, pod i + 1), the kernel
+   launched once per merge; ``merge_arena`` (plain PyTorch) gives the same
+   bytes with no launch; ms a round for both topologies beside the byte
+   bound (every arena of the stack read once and written once);
 5. ``flash_attention_bhsd`` against its plain version on the card: f32
    (2e-5) and bf16 (2e-2, the reference's own tolerances) over the
    reference's sweep shapes, head dims 112, 96 and 256 (an odd number of
@@ -67,7 +79,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    timed at four prefill geometries
    (internlm2's D=128, zamba2's D=112, phi-3-vision's D=96 with H=KV=32,
    gemma-7b's D=256 with H=KV=16; B=4, S=4096) beside its tensor-core FLOP
-   bound, its plain version and ``scaled_dot_product_attention``;
+   bound, its plain version and ``scaled_dot_product_attention``; after
+   each of these and after every prefill of phase 8 the kernel's give-up
+   word is read (``check_give_ups``: a D=256 wait that gave up raises);
 6. ``ssd_chunk_bhcp`` (three kernels a call) against its plain version
    on the card, y and the final state: f32 (1e-4) and bf16 (5e-2, the
    reference's tolerances) over the reference's sweep shapes, ragged S and
@@ -114,8 +128,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    full width and depth, one pod's prefill only: 28 attention launches, the
    FLASH logits against the REFERENCE path's (rel < 5e-2), profiled;
 9. the smoke's seconds, the ``{"kernels": [...]}`` line (the merge
-   kernel's launches by path: served and runtime; flash's by model, and its
-   times at the four geometries), then the card's name and power limit
+   kernel's launches by path: served, warm, runtime and replication;
+   flash's by model, its give-ups (0) and its times at the four
+   geometries), then the card's name and power limit
    as ``nvidia-smi`` reports them, then ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -149,6 +164,11 @@ WINDOW_MS = 20.0
 CHAOS_SEED, CHAOS_ROUNDS = 7, 12
 RT_NODES = ("edge", "edge2", "cloud")
 N_CRASH_REQUESTS = 256
+# the replication phase: P pods of one slot-aligned 64 x 1 MB arena stacked
+# on the card (the checkpoint phase's width), one slot in TIE_EVERY holding
+# the same write on every pod (its version, payload and length)
+REPL_PODS = (2, 4)
+REPL_SEED, TIE_EVERY = 11, 4
 MERGE_SOURCE = "src/repro_torch/kernels/enoki_merge/csrc/enoki_merge.cu"
 MERGE_REPLACES = "src/repro/kernels/enoki_merge/kernel.py:37"
 FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
@@ -302,17 +322,18 @@ def check_sweep(torch, kernel):
     return worst, cases
 
 
-def _median_ms(torch, fn, reset, flush, reps):
+def _median_ms(torch, fn, reset, flush, reps, spin=SPIN_CYCLES):
     """(device ms, host enqueue ms) of one ``fn()``, medians over ``reps``.
 
-    The card spins before each timed call, so the host has enqueued the
-    whole call before the start event runs: the events then time device
-    work only, and the host's own cost of the call is reported apart."""
+    The card spins (``spin`` cycles) before each timed call, so the host
+    has enqueued the whole call before the start event runs: the events
+    then time device work only, and the host's own cost of the call is
+    reported apart."""
     pairs, host = [], []
     for _ in range(reps + 3):
         reset()
         flush.zero_()               # evict the 50 MB L2: snapshots arrive cold
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1092,6 +1113,143 @@ def check_crash_serving(torch, counters, width):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: pod-axis replication (core/replication.py)
+# ---------------------------------------------------------------------------
+
+def replication_state(torch, pods, width):
+    """``pods`` slot-aligned arenas of SLOTS x ``width`` f32 stacked on a
+    leading pod dim, on the CPU, from REPL_SEED: keys from one
+    ``store_assign_slots`` layout, versions in 1..1000, payloads, lengths
+    and vv seeded; one slot in TIE_EVERY holds pod 0's write on every pod
+    (one write already replicated: equal versions, equal rows)."""
+    from repro_torch.core.store import Store, store_assign_slots, store_new
+    from repro_torch.core.versioning import MAX_NODES, fnv1a
+    gen = torch.Generator().manual_seed(REPL_SEED + pods)
+    layout, ok = store_assign_slots(
+        store_new(SLOTS, 1, MAX_NODES, device="cpu"),
+        {fnv1a(f"replica/{i}"): i for i in range(SLOTS)})
+    assert ok and bool((layout.keys != 0).all())
+    versions = torch.randint(1, 1001, (pods, SLOTS), generator=gen,
+                             dtype=torch.int32)
+    values = torch.randn((pods, SLOTS, width), generator=gen)
+    lengths = torch.randint(0, width + 1, (pods, SLOTS), generator=gen,
+                            dtype=torch.int32)
+    tied = torch.arange(0, SLOTS, TIE_EVERY)
+    for t in (versions, values, lengths):
+        t[:, tied] = t[0, tied]
+    return Store(keys=layout.keys.expand(pods, SLOTS).contiguous(),
+                 values=values, lengths=lengths, versions=versions,
+                 vv=torch.randint(0, 1000, (pods, MAX_NODES), generator=gen,
+                                  dtype=torch.int32))
+
+
+def _pod(state, i):
+    return type(state)(*(x[i] for x in state))
+
+
+def _same_stores(torch, a, b, what):
+    for f, x, y in zip(a._fields, a, b):
+        assert torch.equal(x.cpu(), y.cpu()), f"{what}: {f} differs"
+
+
+def check_replication(torch, counters, flush, width=ROW_1MB):
+    """``make_pod_replicate_step`` over REPL_PODS pods on the card, with
+    ``merge_arena_aligned`` (the merge kernel) and ``merge_arena`` (plain
+    PyTorch): every check raises.  Returns the phase's record."""
+    from repro_torch.core import replication as rep
+    kernel = next(k for k in counters if k.__name__ == "enoki_merge_rows")
+    out, launches = {}, 0
+    for pods in REPL_PODS:
+        cpu = replication_state(torch, pods, width)
+        state = type(cpu)(*(x.to("cuda") for x in cpu))
+        torch.cuda.synchronize()
+        arena_bytes = sum(x[0].numel() * x.element_size() for x in state)
+        rec = {"pods": pods, "arena_bytes": arena_bytes,
+               "tied_slots": len(range(0, SLOTS, TIE_EVERY))}
+        steps = {topo: rep.make_pod_replicate_step(
+            rep.merge_arena_aligned, pods, topo, device="cuda")
+            for topo in rep.TOPOLOGIES}
+        twins = {topo: rep.make_pod_replicate_step(
+            rep.merge_arena_aligned, pods, topo, device="cpu")
+            for topo in rep.TOPOLOGIES}
+        results = {}
+        for topo, step in steps.items():
+            rounds = 1 if topo == "full" else pods - 1
+            # -- the counted run: counts zeroed just before the path
+            _zero(counters)
+            got = state
+            for r in range(rounds):
+                got = step(got)
+                if r == 0:
+                    first = got
+            torch.cuda.synchronize()
+            n = _merge_launches(counters)
+            # -- end of the counted run
+            merges = (pods - 1) if topo == "full" else rounds * pods
+            assert n == merges, \
+                f"{topo} P={pods}: {n} launches, {merges} merges"
+            launches += n
+            for i in range(1, pods):
+                _same_stores(torch, _pod(got, 0), _pod(got, i),
+                             f"{topo} P={pods}: pod {i} against pod 0")
+            twin = cpu
+            for _ in range(rounds):
+                twin = twins[topo](twin)
+            _same_stores(torch, got, twin, f"{topo} P={pods}: CPU twin")
+            results[topo] = (got, first)
+            rec[topo] = {"rounds": rounds, "merges": merges,
+                         "kernel_launches": n, "pods_identical": True,
+                         "cpu_twin_identical": True}
+        # full and ring end in the same bytes, and the logical converge
+        # (replica 0: the fold from pod 0, as the pods' all_gather folds)
+        full, first = results["full"][0], results["ring"][1]
+        _same_stores(torch, full, results["ring"][0],
+                     f"P={pods}: ring against full")
+        logical = rep.converge([_pod(state, i) for i in range(pods)],
+                               rep.merge_arena_aligned, "full")
+        _same_stores(torch, _pod(full, 0), logical[0],
+                     f"P={pods}: full against converge")
+        rec["full"]["equals_converge"] = True
+        # one ring round: pod i = merge(pod i, pod i + 1), on the CPU twin
+        for i in range(pods):
+            want = rep.merge_arena_aligned(rep.replica_clone(_pod(cpu, i)),
+                                           _pod(cpu, (i + 1) % pods))
+            _same_stores(torch, _pod(first, i), want,
+                         f"ring P={pods}: pod {i} after one round")
+        rec["ring"]["first_round_is_merge_with_next_pod"] = True
+        # the unaligned merge (plain PyTorch): the same bytes, no launch
+        _zero(counters)
+        plain = rep.make_pod_replicate_step(rep.merge_arena, pods, "full",
+                                            device="cuda")(state)
+        torch.cuda.synchronize()
+        assert _merge_launches(counters) == 0
+        _same_stores(torch, plain, full,
+                     f"P={pods}: merge_arena against merge_arena_aligned")
+        rec["merge_arena"] = {"kernel_launches": 0,
+                              "equals_aligned": True}
+        # ms a round: every arena of the stack read once and written once.
+        # A round's host enqueue reaches ~1.2 ms at P=4 (a clone, the
+        # merges and a stack of five leaves a pod), past one SPIN_CYCLES
+        nbytes = 2 * pods * arena_bytes
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        none = lambda: None
+        for topo, step in steps.items():
+            ms, host_ms = _median_ms(torch, lambda: step(state), none, flush,
+                                     20, spin=4 * SPIN_CYCLES)
+            rec[topo].update(ms=ms, host_ms=host_ms, bytes=nbytes,
+                             bound_ms=bound_ms, bound_by="bytes",
+                             share_of_bound=bound_ms / ms)
+        plain_ms, _ = _median_ms(
+            torch, lambda: rep.replicate_pod_axis(
+                state, rep.merge_arena, pods, "full"), none, flush, 5)
+        rec["merge_arena"]["full_ms"] = plain_ms
+        out[f"P={pods}"] = rec
+        del state, cpu, results, full, first, plain, logical, twin, got
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the flash-attention kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -1241,7 +1399,8 @@ def time_flash(torch, fk, flush, geometry, reps=20):
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
             "tflops_per_s": flops / (ms * 1e-3) / 1e12,
             "share_of_bound": max(flop_ms, byte_ms) / ms,
-            "max_abs_err": err, "bf16_ratio_to_rounding": ratio}
+            "max_abs_err": err, "bf16_ratio_to_rounding": ratio,
+            "give_ups": fk.check_give_ups()}
 
 
 # ---------------------------------------------------------------------------
@@ -1677,6 +1836,7 @@ def run_sessions(torch, arch_id, counters, expect):
     from repro_torch.configs import (AttnImpl, EnokiConfig, ShapeConfig,
                                      StepKind)
     from repro_torch.core.tree import tree_map
+    from repro_torch.kernels.flash_attention.kernel import check_give_ups
     from repro_torch.launch import serve
     from repro_torch.models import model_zoo as zoo
     from repro_torch.models import xlstm
@@ -1739,6 +1899,7 @@ def run_sessions(torch, arch_id, counters, expect):
             slice(0, n) for n in src.shape)].copy_(src),
             {k: live[k] for k in cache}, cache)
         assert torch.isfinite(logits.float()).all(), "prefill logits"
+        check_give_ups()
         first.append(torch.argmax(logits[:, -1, :], dim=-1)[:, None])
         del cache
     token = torch.stack(first).to(torch.int32)
@@ -1862,7 +2023,8 @@ def run_sessions(torch, arch_id, counters, expect):
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
             "profile_prefill_one_pod": prefill_profile,
             "profile_decode_one_pod": decode_profile,
-            "profile_decode_graph_step": graph_profile}
+            "profile_decode_graph_step": graph_profile,
+            "give_ups": check_give_ups()}
 
 
 def run_prefill_only(torch, arch_id, counters, expect):
@@ -1870,6 +2032,7 @@ def run_prefill_only(torch, arch_id, counters, expect):
     (``expect``: its launches), profiled, and held against the REFERENCE
     path (rel < PREFILL_REL_TOL)."""
     from repro_torch.configs import ShapeConfig, StepKind, AttnImpl
+    from repro_torch.kernels.flash_attention.kernel import check_give_ups
     from repro_torch.launch import serve
     from repro_torch.models import model_zoo as zoo
     arch, cut = session_arch(arch_id)
@@ -1899,6 +2062,7 @@ def run_prefill_only(torch, arch_id, counters, expect):
     assert launches == {name: expect.get(name, 0) for name in counters}, \
         (launches, expect)
     assert torch.isfinite(logits.float()).all(), "prefill logits"
+    check_give_ups()
     assert int(cache["length"]) == prompt
     del logits, cache
     profile = profile_device(torch, lambda: prefill(params, batch))
@@ -1917,7 +2081,7 @@ def run_prefill_only(torch, arch_id, counters, expect):
             "flash_vs_reference_rel_err": versus["rel_err"],
             "flash_vs_reference": versus,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-            "profile_prefill": profile}
+            "profile_prefill": profile, "give_ups": check_give_ups()}
 
 
 def expected_launches(arch):
@@ -2040,12 +2204,21 @@ def main() -> int:
           "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
     torch.cuda.empty_cache()
 
+    # -- 4b. pod-axis replication: P pods stacked on the card
+    t_phase = time.perf_counter()
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device="cuda")
+    repl, repl_launches = check_replication(torch, kernels, flush)
+    del flush
+    emit({"phase": "replication", **repl, "kernel_launches": repl_launches,
+          "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+
     # -- 5. the flash-attention kernel against its plain version
     fworst, fratio, fcases = check_flash_sweep(torch, fk, fops)
     emit({"phase": "kernel_sweep", "kernel": "flash_attention_bhsd",
           "cases": fcases, "max_abs_err": fworst, "tolerance": FLASH_TOL,
           "bf16_ratio_to_rounding": fratio,
-          "bf16_ratio_limit": BF16_ROUNDING_FACTOR})
+          "bf16_ratio_limit": BF16_ROUNDING_FACTOR,
+          "give_ups": fk.check_give_ups()})
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device="cuda")
     ft = time_flash(torch, fk, flush, MAIN_FLASH)
     emit({"phase": "kernel_time", "kernel": "flash_attention_bhsd",
@@ -2111,7 +2284,8 @@ def main() -> int:
     t = timings[("100KB", 1)]
     merge_launches = {"serve": st["launches"],
                       "warm": warm["kernel_launches"],
-                      "runtime": sum(runtime_launches.values())}
+                      "runtime": sum(runtime_launches.values()),
+                      "replication": repl_launches}
     emit({"kernels": [{
         "name": "enoki_merge_rows", "route": "cuda", "source": MERGE_SOURCE,
         "replaces": MERGE_REPLACES,
@@ -2124,6 +2298,7 @@ def main() -> int:
         "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
         "launches": sum(flash_launches.values()),
         "launches_by_path": flash_launches,
+        "give_ups": fk.check_give_ups(),
         "max_abs_err": max([max(fworst.values())] + [
             t["max_abs_err"] for t in flash_times.values()]),
         "ms": ft["ms"], "plain_ms": ft["plain_ms"],

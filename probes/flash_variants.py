@@ -51,6 +51,9 @@ VARIANTS = {
     "trap": ([("TRAP = D != 256;", "TRAP = true;")], True),
     # no wait traps, at every head dim
     "trap_free": ([("TRAP = D != 256;", "TRAP = false;")], True),
+    # a wait that gives up returns without counting it in the give-up word
+    # (the waits before the word existed: what the base's atomicAdd costs)
+    "silent_give_up": ([("        atomicAdd(give_ups, 1);\n", "")], True),
     # no output stored (a condition that never holds keeps the work live)
     "no_store": ([("if (qp0 < p.Sq)\n", "if (qp0 < p.Sq - (1 << 30))\n"),
                   ("if (qp1 < p.Sq)\n", "if (qp1 < p.Sq - (1 << 30))\n")],
@@ -104,12 +107,7 @@ def build_all(srcs: dict) -> dict:
 
 
 def bind(lib: pathlib.Path):
-    fn = ctypes.CDLL(str(lib)).flash_attention_bhsd_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i, i, p, p, i, i,
-                   ctypes.c_float, p]
-    fn.restype = ctypes.c_int
-    return fn
+    return fk.bind_launch(ctypes.CDLL(str(lib)))
 
 
 def check(d: int) -> float:
@@ -177,6 +175,7 @@ def main() -> int:
                 if VARIANTS[name][1]:
                     rec["max_abs_err"] = check(d)
                 rec["ms"] = time_kernel(GEOMETRY[d], flush)
+                rec["give_ups"] = fk.check_give_ups()
             except (AssertionError, RuntimeError) as e:
                 rec["error"] = str(e)[:400]
             print(json.dumps(rec), flush=True)

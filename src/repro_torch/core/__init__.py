@@ -3,6 +3,7 @@
 Layers:
   versioning/crdt/store   — versioned KV arena + convergent merges
   keygroup/naming         — replication units + control plane
+  replication             — anti-entropy (logical nodes & stacked pods)
   consistency             — client-centric session guarantees
   faas/engine/cluster/router — the FaaS programming model + testbed + routing
   network/staleness       — the paper's network emulation + metrics
@@ -20,6 +21,9 @@ from repro_torch.core.faas import (KV, FunctionSpec, VectorCodec,
 from repro_torch.core.keygroup import KeygroupSpec, TensorKeygroup
 from repro_torch.core.naming import NamingService
 from repro_torch.core.network import NetworkModel, paper_topology
+from repro_torch.core.replication import (anti_entropy_round, converge,
+                                          make_pod_replicate_step,
+                                          replicate_pod_axis)
 from repro_torch.core.router import Router
 from repro_torch.core.staleness import WriteLog, percentiles
 from repro_torch.core.store import (Store, kv_delete, kv_get, kv_scan, kv_set,
@@ -34,7 +38,8 @@ __all__ = [
     "VectorCodec", "compile_batched_handler", "enoki_function",
     "get_function", "handler_read_only", "registry", "KeygroupSpec",
     "TensorKeygroup", "NamingService", "NetworkModel", "paper_topology",
-    "Router", "WriteLog", "percentiles", "Store", "kv_delete", "kv_get",
+    "anti_entropy_round", "converge", "make_pod_replicate_step",
+    "replicate_pod_axis", "Router", "WriteLog", "percentiles", "Store", "kv_delete", "kv_get",
     "kv_scan", "kv_set", "kv_set_fold", "merge_stores", "store_new",
     "store_select", "stores_equal", "fnv1a",
 ]

@@ -11,7 +11,7 @@ Merge rules for tensor keygroups:
   lww     — replica with the higher version wins wholesale (sessions/cursors)
   mean    — elementwise average (parameter averaging / local SGD)
   max     — elementwise max (CRDT counters, metrics high-water marks)
-  diloco  — needs the replication engine (a later slice)
+  diloco  — stateful (an outer optimiser); not ported yet, so it raises
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.configs.base import ReplicationPolicy
 from repro_torch.core import crdt
-from repro_torch.core.store import Store, store_new
+from repro_torch.core.store import Store, merge_stores, store_new
 from repro_torch.device import resolve_device
 
 
@@ -91,3 +91,9 @@ def merge_tensor_keygroups(a: TensorKeygroup, b: TensorKeygroup
             f"merge rule {a.merge!r} needs the replication engine "
             "(diloco merges are stateful)")
     return TensorKeygroup(tree, torch.maximum(a.version, b.version), a.merge)
+
+
+def merge_arena_keygroups(a: Store, b: Store) -> Store:
+    """LWW merge of arena keygroup ``b`` into ``a``, into fresh tensors
+    (``store.merge_stores``)."""
+    return merge_stores(a, b)

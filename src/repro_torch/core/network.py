@@ -243,3 +243,14 @@ def paper_topology() -> NetworkModel:
         ("edge", "edge2"): e_e,
         ("edge1", "edge2"): e_e,
     })
+
+
+def tpu_pod_topology(num_pods: int = 2,
+                     dcn_gbps: float = 25.0) -> NetworkModel:
+    """Inter-pod links as a network model (for the serving router's cost
+    model): ~25 GB/s a pod pair and ~1 ms RTT, the reference's numbers for
+    its pods, kept as they are so both packages route alike."""
+    link = Link(rtt_ms=1.0, bandwidth_mbps=dcn_gbps * 8e3)
+    links = {(f"pod{i}", f"pod{j}"): link
+             for i in range(num_pods) for j in range(i + 1, num_pods)}
+    return NetworkModel(links=links, default=link)

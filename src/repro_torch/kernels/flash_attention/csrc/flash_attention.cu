@@ -55,8 +55,12 @@
 //     probes/flash_variants.py): with the waits' hang trap the D=256
 //     consumers spilled ~600 bytes and ran 2.5x slower.  At D=256 the waits
 //     give up without a trap and the consumers use the 240 registers they
-//     are granted, without spills; the waits at D <= 128 still trap, and
-//     there 96-key tiles fit at D=112 and spill a few bytes at D=128;
+//     are granted, without spills; a wait that gives up adds one to a
+//     device word the wrapper owns (`give_ups`), which the wrapper's
+//     check_give_ups() reads where its caller already synchronises and
+//     raises on, so a give-up never passes silently.  The waits at
+//     D <= 128 still trap, and there 96-key tiles fit at D=112 and spill
+//     a few bytes at D=128;
 //   * the tensor maps are built on the host over the strided (B,H,S,D)
 //     views the wrapper is handed (the model's (B,S,H,D) buffers, no
 //     copy), four dimensions with the views' own byte strides, and passed
@@ -199,6 +203,7 @@ struct TmaParams {
   int causal, window;
   float sl2;                    // scale * log2(e)
   MapOrder qo, ko, vo;
+  int* give_ups;                // waits that gave up (see mbar_wait)
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -224,12 +229,14 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 // never completes (a lost arrival or copy) gives up after 2^26 polls, each
 // a suspended try_wait (seconds; a block's waits are on its own copies and
 // warps, microseconds), instead of holding the card: with TRAP the kernel
-// traps, else the wait returns and the block runs on to a wrong output.
+// traps, else the wait adds one to `*give_ups` and returns, and the block
+// runs on to a wrong output that the wrapper refuses (check_give_ups).
 // A trap reachable after setmaxnreg.inc holds ptxas to the launch's 168
 // registers a thread there (probes/flash_variants.py), so the D=256
-// kernel, whose consumers need 240, waits without one.
+// kernel, whose consumers need 240, counts its give-ups instead.
 template <bool TRAP>
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity,
+                                          int* give_ups) {
   const uint32_t addr = smem_u32(bar);
   uint32_t done = 0;
   for (uint32_t polls = 0; !done; ++polls) {
@@ -239,8 +246,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(addr), "r"(parity) : "memory");
     if (polls == (1u << 26)) {
-      if constexpr (TRAP) __trap();
-      else return;
+      if constexpr (TRAP) {
+        __trap();
+      } else {
+        atomicAdd(give_ups, 1);
+        return;
+      }
     }
   }
 }
@@ -777,13 +788,15 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
         const int st = j % STAGES, use = j / STAGES;
         unsigned char* kd = Ks + st * G::KV_BYTES;
         unsigned char* vd = Vs + st * G::KV_BYTES;
-        if (use > 0) mbar_wait<G::TRAP>(k_empty + st, (use - 1) & 1);
+        if (use > 0)
+          mbar_wait<G::TRAP>(k_empty + st, (use - 1) & 1, p.give_ups);
         mbar_expect_tx(k_full + st, G::KV_BYTES);
 #pragma unroll
         for (int s = 0; s < G::NSLAB; ++s)
           tma_load(kd + s * TK * G::SW, &kmap, p.ko, s * G::SLAB, j * TK,
                    kvh, b, k_full + st);
-        if (use > 0) mbar_wait<G::TRAP>(v_empty + st, (use - 1) & 1);
+        if (use > 0)
+          mbar_wait<G::TRAP>(v_empty + st, (use - 1) & 1, p.give_ups);
         mbar_expect_tx(v_full + st, G::KV_BYTES);
 #pragma unroll
         for (int s = 0; s < G::NSLAB; ++s)
@@ -825,7 +838,7 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
     // register of a product while one runs
     auto issue_qk = [&](int j) {
       const int st = j % STAGES;
-      mbar_wait<G::TRAP>(k_full + st, (j / STAGES) & 1);
+      mbar_wait<G::TRAP>(k_full + st, (j / STAGES) & 1, p.give_ups);
       fence_regs<D / 2>(o);         // settled while no product is in flight
       fence_words<TK / 4>(&pa[0][0]);
       wgmma_fence();
@@ -845,7 +858,7 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
     };
     auto issue_pv = [&](int j) {
       const int st = j % STAGES;
-      mbar_wait<G::TRAP>(v_full + st, (j / STAGES) & 1);
+      mbar_wait<G::TRAP>(v_full + st, (j / STAGES) & 1, p.give_ups);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < TK / 16; ++kk)
@@ -869,7 +882,7 @@ __global__ void __launch_bounds__(THREADS_BF16, 1)
       }
     };
 
-    mbar_wait<G::TRAP>(q_full, 0);
+    mbar_wait<G::TRAP>(q_full, 0, p.give_ups);
     // under `causal` the first warpgroup's rows end a tile before the
     // block's: it skips that last, fully masked tile (no later tile
     // refills its stage, so nothing waits for its release)
@@ -1135,7 +1148,8 @@ int encode_map(CUtensorMap* map, const void* ptr, const long long* geo,
 }
 
 template <int D>
-int launch_bf16(const Params& p, const long long* geo, cudaStream_t stream) {
+int launch_bf16(const Params& p, const long long* geo, int* give_ups,
+                cudaStream_t stream) {
   using G = Geo<D>;
   CUtensorMap qmap, kmap, vmap;
   TmaParams tp;
@@ -1154,6 +1168,7 @@ int launch_bf16(const Params& p, const long long* geo, cudaStream_t stream) {
   tp.causal = p.causal;
   tp.window = p.window;
   tp.sl2 = p.scale * kLog2e;
+  tp.give_ups = give_ups;
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_bf16_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       G::SMEM);
@@ -1165,10 +1180,10 @@ int launch_bf16(const Params& p, const long long* geo, cudaStream_t stream) {
 }
 
 template <int D>
-int launch(const Params& p, bool bf16, const long long* geo,
+int launch(const Params& p, bool bf16, const long long* geo, int* give_ups,
            cudaStream_t stream) {
   if (!bf16) return static_cast<int>(launch_f32<D>(p, stream));
-  return launch_bf16<D>(p, geo, stream);
+  return launch_bf16<D>(p, geo, give_ups, stream);
 }
 
 }  // namespace
@@ -1176,13 +1191,15 @@ int launch(const Params& p, bool bf16, const long long* geo,
 // dtype: 0 float32, 1 bfloat16.  strides: 12 element strides, (b, h, s) of
 // q, k, v and o in turn; the head dim is contiguous.  tma (bfloat16 only):
 // 3 x 15 values, the tensor-map geometry of q, k and v (see encode_map).
-// Returns 0 on success, else cudaGetLastError() after the launch, or a
-// code past 99,998 for a tensor map (see kMapError); the caller raises.
+// give_ups (bfloat16 only): one int32 on the device, which a wait that
+// gives up adds one to (see mbar_wait).  Returns 0 on success, else
+// cudaGetLastError() after the launch, or a code past 99,998 for a tensor
+// map (see kMapError); the caller raises.
 extern "C" int flash_attention_bhsd_launch(
     int device, int dtype, const void* q, const void* k, const void* v,
     void* o, int B, int H, int KV, int Sq, int Skv, int D,
     const long long* strides, const long long* tma, int causal, int window,
-    float scale, void* stream) {
+    float scale, int* give_ups, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Params p;
@@ -1205,14 +1222,16 @@ extern "C" int flash_attention_bhsd_launch(
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const bool bf16 = dtype == 1;
-  if (bf16 && tma == nullptr) return (int)cudaErrorInvalidValue;
+  if (bf16 && (tma == nullptr || give_ups == nullptr))
+    return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 32: return launch<32>(p, bf16, tma, s);
-    case 64: return launch<64>(p, bf16, tma, s);
-    case 96: return launch<96>(p, bf16, tma, s);     // phi-3-vision
-    case 112: return launch<112>(p, bf16, tma, s);   // zamba2's shared block
-    case 128: return launch<128>(p, bf16, tma, s);
-    case 256: return launch<256>(p, bf16, tma, s);   // gemma-7b
+    case 32: return launch<32>(p, bf16, tma, give_ups, s);
+    case 64: return launch<64>(p, bf16, tma, give_ups, s);
+    case 96: return launch<96>(p, bf16, tma, give_ups, s);  // phi-3-vision
+    // zamba2's shared block
+    case 112: return launch<112>(p, bf16, tma, give_ups, s);
+    case 128: return launch<128>(p, bf16, tma, give_ups, s);
+    case 256: return launch<256>(p, bf16, tma, give_ups, s);  // gemma-7b
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -19,6 +19,15 @@ strides (``_tma_geometry``).
 ``flash_attention_bhsd.launches`` counts kernel launches (the chip smoke
 reads it to show that prefill went through the kernel).
 
+The bf16 kernel's mbarrier waits give up after 2^26 polls rather than
+hold the card.  At D <= 128 a give-up traps; at D=256, where a reachable
+trap would cost the consumers their 240 registers, it adds one to a device
+word the wrapper owns (one int32 a device, ``give_up_word``), and the
+block runs on to a wrong output.  A launch never reads that word back (a
+prefill step does not synchronise, and must not start to): the caller
+calls ``check_give_ups()`` where it synchronises already, and it raises
+``RuntimeError`` for any give-up since the last check.
+
 Head dims 32, 64, 96 (phi-3-vision), 112 (zamba2's shared block), 128 and
 256 (gemma-7b), float32 and bfloat16; anything else raises
 ``ValueError`` on every device, so the CPU refuses what the card would.
@@ -31,7 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +59,8 @@ _MAP_ERROR = 100_000           # the C side's code for a refused tensor map
 _count_lock = threading.Lock()
 _bind_lock = threading.Lock()
 _fn = None
+#: device index -> the (1,) int32 word its launches' waits count give-ups in
+_give_up_words: Dict[int, torch.Tensor] = {}
 
 
 def flash_attention_bhsd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -210,17 +221,57 @@ def _tma_geometry(view: torch.Tensor, rows: int) -> TmaGeometry:
         order=tuple(1 + roles.index(r) for r in "shb"))
 
 
+def bind_launch(lib: ctypes.CDLL):
+    """``flash_attention_bhsd_launch`` of a built library, typed."""
+    fn = lib.flash_attention_bhsd_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i, i, p, p, i, i,
+                   ctypes.c_float, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _bind():
     global _fn
     with _bind_lock:
         if _fn is None:
-            fn = build.load("flash_attention").flash_attention_bhsd_launch
-            p, i = ctypes.c_void_p, ctypes.c_int
-            fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i, i, p, p, i, i,
-                           ctypes.c_float, p]
-            fn.restype = ctypes.c_int
-            _fn = fn
+            _fn = bind_launch(build.load("flash_attention"))
         return _fn
+
+
+def give_up_word(device) -> torch.Tensor:
+    """The (1,) int32 word on CUDA ``device`` that the kernel's waits count
+    their give-ups in, made (zeroed) at the device's first launch."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    with _bind_lock:
+        word = _give_up_words.get(index)
+        if word is None:
+            word = torch.zeros((1,), dtype=torch.int32,
+                               device=torch.device("cuda", index))
+            _give_up_words[index] = word
+        return word
+
+
+def check_give_ups() -> int:
+    """Read the give-up word of every device launched on, synchronising
+    with it; raise ``RuntimeError`` if a wait gave up since the last
+    check, zeroing the word first.  Returns 0."""
+    with _bind_lock:
+        words = dict(_give_up_words)
+    failed = {}
+    for index, word in sorted(words.items()):
+        n = int(word.item())
+        if n:
+            word.zero_()
+            failed[index] = n
+    if failed:
+        raise RuntimeError(
+            "flash_attention_bhsd: mbarrier waits gave up (a lost arrival or "
+            "copy) and their blocks' outputs are wrong: " + ", ".join(
+                f"{n} on cuda:{i}" for i, n in failed.items()))
+    return 0
 
 
 def _launch(q, k, v, out, causal: bool, window: int) -> None:
@@ -241,7 +292,8 @@ def _launch(q, k, v, out, causal: bool, window: int) -> None:
              _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
              out.data_ptr(), B, H, KV, Sq, Skv, d, strides.ctypes.data,
              None if tma is None else tma.ctypes.data, int(causal),
-             int(window), float(d ** -0.5), stream)
+             int(window), float(d ** -0.5), give_up_word(dev).data_ptr(),
+             stream)
     if err >= _MAP_ERROR:
         raise RuntimeError(f"flash_attention_bhsd: the driver refused a "
                            f"tensor map (CUresult {err - _MAP_ERROR})")

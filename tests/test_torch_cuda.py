@@ -47,7 +47,11 @@ def port_lockdep():
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    return torch.device("cuda")
+    yield torch.device("cuda")
+    # no flash wait of the test gave up (the D=256 kernel counts a give-up
+    # in a device word instead of trapping; this raises if it is set)
+    from repro_torch.kernels.flash_attention import kernel as fk
+    fk.check_give_ups()
 
 
 def _arena(rng, R, V, dtype, device):
@@ -209,6 +213,62 @@ def test_flash_kernel_reads_the_model_layout(card, D):
     with pytest.raises(ValueError, match="head dim"):
         fk.flash_attention_bhsd(*(torch.zeros((1, 2, 64, 48), device=card)
                                   for _ in range(3)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pods", [2, 3, 4])
+@pytest.mark.parametrize("topology", ["full", "ring"])
+def test_pod_replicate_step_on_the_card_equals_the_cpu(card, topology, pods):
+    """``make_pod_replicate_step`` with ``merge_arena_aligned`` over pods
+    stacked on the card: the same bytes as the same step on the CPU (the
+    plain version), one kernel launch per merge (full: pods - 1, ring:
+    pods), and the stacked input untouched."""
+    from repro_torch.core import replication as rep
+    rng = np.random.default_rng(40 + pods)
+    R, V = 64, 3000
+    keys = np.broadcast_to(np.arange(1, R + 1, dtype=np.int32), (pods, R))
+    host = Store(torch.from_numpy(keys.copy()),
+                 torch.from_numpy(rng.normal(size=(pods, R, V))
+                                  .astype(np.float32)),
+                 torch.from_numpy(rng.integers(-1, V, (pods, R))
+                                  .astype(np.int32)),
+                 torch.from_numpy(rng.integers(0, 4, (pods, R))
+                                  .astype(np.int32)),
+                 torch.from_numpy(rng.integers(0, 50, (pods, 64))
+                                  .astype(np.int32)))
+    state = Store(*(t.to(card) for t in host))
+    want = rep.make_pod_replicate_step(rep.merge_arena_aligned, pods,
+                                       topology, device="cpu")(host)
+    step = rep.make_pod_replicate_step(rep.merge_arena_aligned, pods,
+                                       topology, device=card)
+    n0 = enoki_merge_rows.launches
+    got = step(state)
+    torch.cuda.synchronize()
+    assert enoki_merge_rows.launches - n0 == (pods - 1 if topology == "full"
+                                              else pods)
+    for g, w, s0, h in zip(got, want, state, host):
+        assert torch.equal(g.cpu(), w)
+        assert torch.equal(s0.cpu(), h)
+
+
+@pytest.mark.cuda
+def test_flash_give_up_word_raises_then_clears(card):
+    """A give-up counted in the device word (set here by hand) makes
+    ``check_give_ups`` raise once, and the word is clear after it; a
+    D=256 launch that completes leaves it at 0."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    g = torch.Generator(device=card).manual_seed(4)
+    q, k, v = (torch.randn((1, 2, 128, 256), generator=g, device=card)
+               .bfloat16() for _ in range(3))
+    fk.flash_attention_bhsd(q, k, v)
+    assert fk.check_give_ups() == 0
+    word = fk.give_up_word(card)
+    assert word.dtype == torch.int32 and word.shape == (1,)
+    word.fill_(3)
+    with pytest.raises(RuntimeError, match="3 on cuda:0"):
+        fk.check_give_ups()
+    assert int(word.item()) == 0
+    assert fk.check_give_ups() == 0
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ from repro.kernels.enoki_merge.kernel import enoki_merge_rows as ref_rows
 from repro.kernels.enoki_merge.ref import enoki_merge_ref
 from repro_torch.kernels.enoki_merge import kernel, ops
 from repro_torch.kernels.enoki_merge.kernel import enoki_merge_rows
+from repro_torch.kernels.enoki_merge.ref import enoki_merge_ref as port_ref
 from torch_parity import port_lockdep, to_np  # noqa: F401  (autouse fixture)
 
 jax.config.update("jax_platform_name", "cpu")
@@ -54,6 +55,28 @@ def test_plain_matches_pallas_interpret(R, V, tile, dtype):
                                torch.from_numpy(bver))
     np.testing.assert_array_equal(to_np(pv), to_np(rv))
     np.testing.assert_array_equal(to_np(pver), to_np(rver))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32", "uint8"])
+def test_port_oracle_matches_reference_oracle(dtype):
+    """``kernels/enoki_merge/ref.py`` against the reference's oracle, ties
+    included (versions 0..3), and it writes nothing; the plain version
+    the wrapper runs on the CPU equals it."""
+    R, V = 64, 24
+    rng = np.random.default_rng(12)
+    a, b = _payload(rng, (R, V), dtype), _payload(rng, (R, V), dtype)
+    aver = rng.integers(0, 4, R).astype(np.int32)
+    bver = rng.integers(0, 4, R).astype(np.int32)
+    (ja, ta), (jb, tb) = _both(a, dtype), _both(b, dtype)
+    rv, rver = enoki_merge_ref(ja, jnp.asarray(aver), jb, jnp.asarray(bver))
+    ta0 = ta.clone()
+    pv, pver = port_ref(ta, torch.from_numpy(aver), tb, torch.from_numpy(bver))
+    np.testing.assert_array_equal(to_np(pv), to_np(rv))
+    np.testing.assert_array_equal(to_np(pver), to_np(rver))
+    assert torch.equal(ta, ta0) and pv.data_ptr() != ta.data_ptr()
+    kv, kver = ops.enoki_merge(ta.clone(), torch.from_numpy(aver.copy()), tb,
+                               torch.from_numpy(bver))
+    assert torch.equal(kv, pv) and torch.equal(kver, pver)
 
 
 def _snapshot(rng, R, V, N, keys):

@@ -276,3 +276,15 @@ def test_dense_forward_at_head_dim_256(impl):
                                 compute_dtype=torch.float32)
     want, got = to_np(want), to_np(got)
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-4
+
+
+def test_cpu_calls_make_no_give_up_word():
+    """The give-up word belongs to CUDA launches: a CPU call (the plain
+    version) makes none, and ``check_give_ups`` then reads nothing and
+    returns 0 without touching a card."""
+    rng = np.random.default_rng(21)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 64, 256))
+                                .astype(np.float32)) for _ in range(3))
+    fk.flash_attention_bhsd(q, k, v)
+    assert fk._give_up_words == {}
+    assert fk.check_give_ups() == 0

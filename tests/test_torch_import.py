@@ -50,7 +50,8 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.checkpoint.manager", "repro_torch.runtime",
             "repro_torch.runtime.health", "repro_torch.runtime.straggler",
             "repro_torch.runtime.elastic",
-            "repro_torch.runtime.failure"} <= set(mods)
+            "repro_torch.runtime.failure", "repro_torch.core.replication",
+            "repro_torch.kernels.enoki_merge.ref"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
