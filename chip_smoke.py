@@ -127,7 +127,29 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    prompt's length and at a ragged 100; then gemma-7b (head dim 256) at
    full width and depth, one pod's prefill only: 28 attention launches, the
    FLASH logits against the REFERENCE path's (rel < 5e-2), profiled;
-9. the smoke's seconds, the ``{"kernels": [...]}`` line (the merge
+9. the training stack (``launch/train.py``, ``optim``, ``data``,
+   ``lm_loss`` under remat), phase ``train``; no kernel is on its path
+   (training runs ``AttnImpl.REFERENCE``, as the reference does), so every
+   kernel's count, zeroed before each part, must read 0 after it:
+   ``full``: internlm2-1.8b at full width and depth (f32 params, bf16
+   compute, AdamW, remat "block", seq 4,096, batch 1 of 256) for 4 steps
+   on one repeated ``DataPipeline`` batch: losses and grad norms finite,
+   the loss at step 4 below step 1, every state leaf finite; ms a step
+   (median of steps 2-4), tokens/s, model-FLOPs share at 989 TFLOP/s,
+   peak memory, and one more step profiled (idle share);
+   ``cpu_twin``: depth 24 -> 2, seq 128, f32 compute, one AdamW step on
+   the card and on the CPU from the same state and batch: loss, grad norm
+   and every gradient leaf within 1e-4, params within 2 x lr (elements
+   beyond 1e-6 counted); ``replicated``: REPLICATED, 2 pods stacked,
+   depth 24 -> 4, seq 4,096, batch 1 a pod, an anti-entropy round every 2
+   of 4 steps, int8 compression off and on: pods differ before each round
+   and are bit-identical after it, the outer round 2, ms a step and a
+   round (CUDA events), payload bytes a round; ``xlstm_grads``: xlstm-350m
+   at full width and depth, seq 2,048, one loss and backward: every
+   gradient finite, the sLSTM weights' non-zero, ``SLSTM_STEPS`` neither
+   capturing nor replaying; ``flash_refuses``: the three model kernels and
+   ``lm_loss(impl=FLASH)`` raise under autograd;
+10. the smoke's seconds, the ``{"kernels": [...]}`` line (the merge
    kernel's launches by path: served, warm, runtime and replication;
    flash's by model, its give-ups (0) and its times at the four
    geometries), then the card's name and power limit
@@ -2084,6 +2106,337 @@ def run_prefill_only(torch, arch_id, counters, expect):
             "profile_prefill": profile, "give_ups": check_give_ups()}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the training stack
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_SEQ = 4096                # train_4k's sequence
+TRAIN_STEPS = 4
+TRAIN_CFG = dict(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+TWIN_LAYERS, TWIN_SEQ = 2, 128  # train.cpu_twin: depth 24 -> 2
+TWIN_TOL = 1e-4                 # loss, grad_norm and gradients, card vs CPU
+PODS_LAYERS, PODS = 4, 2        # train.replicated: depth 24 -> 4, 2 pods
+PODS_PERIOD = 2
+XLSTM_TRAIN_SEQ = 2048
+
+
+def _finite_tree(torch, tree, what):
+    for path, x in _leaves(tree):
+        if x.is_floating_point():
+            assert torch.isfinite(x).all(), f"{what}/{path} not finite"
+
+
+def _no_launch(counters, what):
+    """The training path runs AttnImpl.REFERENCE: no kernel launched."""
+    got = {name: fn.launches for name, fn in counters.items()}
+    assert not any(got.values()), f"{what} launched kernels: {got}"
+    return got
+
+
+def _event_ms(torch, fn):
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def train_full(torch, counters):
+    """internlm2-1.8b at full width and depth: f32 params, bf16 compute,
+    AdamW, remat "block" (``default_parallel``), REFERENCE attention, seq
+    4,096, batch 1, 4 steps on one repeated batch of the port's
+    ``DataPipeline``; then one more step under the profiler."""
+    from repro_torch.configs import (EnokiConfig, ShapeConfig, StepKind,
+                                     TrainConfig, get_arch)
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import model_zoo as zoo
+    arch = get_arch(TRAIN_ARCH)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, 1, StepKind.TRAIN)
+    par = train.default_parallel(arch, shape)
+    assert (par.remat, par.optimizer) == ("block", "adamw"), par
+    assert train.param_dtype_for(arch) == torch.float32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, _ = train.make_train_step(arch, shape, 1, par, EnokiConfig(),
+                                    TrainConfig(**TRAIN_CFG), device="cuda")
+    state = train.init_state(arch, 0, par, device="cuda")
+    state_bytes = sum(x.numel() * x.element_size()
+                      for _, x in _leaves(state))
+    batch = DataPipeline(arch, shape, seed=0, device="cuda").next()
+    _zero(counters.values())
+    losses, norms, ms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        (_, m), t = _wall_ms(torch, lambda: step(state, batch))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append(t)
+    launches = _no_launch(counters, "train.full")
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(x) for x in losses + norms), (losses, norms)
+    assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+    _finite_tree(torch, state, "train.full state")
+    assert int(state["step"]) == TRAIN_STEPS
+    step_ms = statistics.median(ms[1:])
+    mflops = zoo.model_flops(arch, shape)
+    profile = profile_device(torch, lambda: step(state, batch))
+    del state, batch
+    torch.cuda.empty_cache()
+    return {"arch": TRAIN_ARCH, "params": arch.param_count(),
+            "reduced": {"global_batch": "256 -> 1"}, "seq": TRAIN_SEQ,
+            "param_dtype": "float32", "compute_dtype": "bfloat16",
+            "optimizer": par.optimizer, "remat": par.remat,
+            "attention": "reference", "steps": TRAIN_STEPS,
+            "losses": losses, "grad_norms": norms, "step_ms_all": ms,
+            "step_ms": step_ms,
+            "tokens_per_s": TRAIN_SEQ / (step_ms * 1e-3),
+            "model_flops": mflops,
+            "model_flops_share": mflops / (step_ms * 1e-3) / BF16_FLOPS_PER_S,
+            "state_bytes": state_bytes, "peak_memory_bytes": peak,
+            "kernel_launches": launches, "profile_step": profile}
+
+
+def train_cpu_twin(torch, counters):
+    """internlm2-1.8b at full width, depth 24 -> 2, seq 128, batch 1, f32
+    compute: one AdamW step on the card and one on the CPU from the same
+    ``init_state(seed=0)`` (made on the CPU, copied to the card) and
+    batch; loss, grad_norm and every gradient leaf held to TWIN_TOL, the
+    params after the step to 2 x lr (Adam's first step is ~lr x sign(g),
+    so a gradient element near 0 may flip; the count of params that differ
+    by more than 1e-6 is reported)."""
+    from repro_torch.configs import (ShapeConfig, StepKind, TrainConfig,
+                                     get_arch)
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch import train
+    arch = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=TWIN_LAYERS)
+    shape = ShapeConfig("twin", TWIN_SEQ, 1, StepKind.TRAIN)
+    par = train.default_parallel(arch, shape)
+    cfg = TrainConfig(**TRAIN_CFG)
+    cpu = train.init_state(arch, 0, par, device="cpu")
+    card = tree_map(lambda t: t.to("cuda", copy=True), cpu)
+    bcpu = synthetic_batch(arch, shape, 0, 0, device="cpu")
+    bcard = {k: v.to("cuda") for k, v in bcpu.items()}
+    loss_fn = train.make_loss_fn(arch, par, compute_dtype=torch.float32)
+    _zero(counters.values())
+    (lc, _, gc), (lg, _, gg) = (
+        train.value_and_grad(loss_fn, st["params"], b)
+        for st, b in ((cpu, bcpu), (card, bcard)))
+    grad_err = 0.0
+    want = dict(_leaves(gc))
+    for path, x in _leaves(gg):
+        y = want[path]
+        e = float((x.cpu() - y).abs().max()) / (float(y.abs().max()) + 1e-30)
+        assert e <= TWIN_TOL, f"gradient {path}: {e}"
+        grad_err = max(grad_err, e)
+    del gc, gg
+    step = train.make_step_fn(arch, par, cfg, compute_dtype=torch.float32)
+    _, mc = step(cpu, bcpu)
+    _, mg = step(card, bcard)
+    torch.cuda.synchronize()
+    launches = _no_launch(counters, "train.cpu_twin")
+    rel = {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+           for k in ("loss", "grad_norm")}
+    assert all(v <= TWIN_TOL for v in rel.values()), rel
+    assert abs(float(lg) - float(lc)) <= TWIN_TOL * abs(float(lc))
+    worst, over, total = 0.0, 0, 0
+    want = dict(_leaves(cpu["params"]))
+    for path, x in _leaves(card["params"]):
+        d = (x.cpu() - want[path]).abs()
+        worst = max(worst, float(d.max()))
+        over += int((d > 1e-6).sum())
+        total += d.numel()
+    assert worst <= 2 * cfg.lr, f"params after the step: {worst}"
+    del cpu, card
+    torch.cuda.empty_cache()
+    return {"arch": TRAIN_ARCH,
+            "reduced": {"num_layers": f"24 -> {TWIN_LAYERS}",
+                        "seq_len": f"4096 -> {TWIN_SEQ}"},
+            "compute_dtype": "float32", "loss_rel_err": rel["loss"],
+            "grad_norm_rel_err": rel["grad_norm"],
+            "grad_max_err_of_leaf_max": grad_err,
+            "params_max_abs_diff": worst, "params_over_1e-6": over,
+            "params_total": total, "tolerance": TWIN_TOL,
+            "params_bound": 2 * cfg.lr, "kernel_launches": launches}
+
+
+def _pods_differ(torch, params) -> float:
+    return max(float((x[0].float() - x[1].float()).abs().max())
+               for _, x in _leaves(params))
+
+
+def train_replicated(torch, counters, compress):
+    """REPLICATED, 2 pods stacked on the card: internlm2-1.8b at full width,
+    depth 24 -> 4, seq 4,096, batch 1 a pod, pod-sharded data, an
+    anti-entropy round every 2 of 4 steps; the pods differ before each
+    round and are bit-identical after it."""
+    from repro_torch.configs import (EnokiConfig, ReplicationPolicy,
+                                     ShapeConfig, StepKind, TrainConfig,
+                                     get_arch)
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch import train
+    from repro_torch.optim import diloco_init, diloco_local_delta
+    from repro_torch.optim.compression import (compressed_bytes,
+                                               tree_int8_compress)
+    arch = dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=PODS_LAYERS)
+    shape = ShapeConfig("pods", TRAIN_SEQ, PODS, StepKind.TRAIN)
+    par = train.default_parallel(arch, shape)
+    enoki = EnokiConfig(policy=ReplicationPolicy.REPLICATED,
+                        replication_period=PODS_PERIOD,
+                        compress_deltas=compress)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, _ = train.make_train_step(arch, shape, PODS, par, enoki,
+                                    TrainConfig(**TRAIN_CFG), device="cuda")
+    replicate, _ = train.make_replicate_step(arch, PODS, par, enoki,
+                                             device="cuda")
+    single = train.init_state(arch, 0, par, device="cuda")
+    state = tree_map(lambda l: torch.stack([l] * PODS), single)
+    outer = diloco_init(single["params"])
+    del single
+    pipes = [DataPipeline(arch, shape, seed=0, shard=p, num_shards=PODS,
+                          device="cuda") for p in range(PODS)]
+    _zero(counters.values())
+    step_ms, round_ms, before, losses, payload = [], [], [], [], None
+    for i in range(TRAIN_STEPS):
+        shards = [p.next() for p in pipes]
+        batch = tree_map(lambda *xs: torch.stack(xs), *shards)
+        (_, m), t = _event_ms(torch, lambda: step(state, batch))
+        step_ms.append(t)
+        losses.append([float(x) for x in m["loss"]])
+        if (i + 1) % PODS_PERIOD:
+            continue
+        before.append(_pods_differ(torch, state["params"]))
+        assert before[-1] > 0, "pods must differ before anti-entropy"
+        if payload is None:     # what one pod puts on the wire a round
+            delta = diloco_local_delta(outer["outer_params"], tree_map(
+                lambda x: x[0], state["params"]))
+            payload = PODS * compressed_bytes(
+                tree_int8_compress(delta) if compress else delta)
+            del delta
+        (_, outer), t = _event_ms(torch, lambda: replicate(state, outer))
+        round_ms.append(t)
+        for path, x in _leaves(state["params"]):
+            assert torch.equal(x[0], x[1]), f"pods differ after: {path}"
+    launches = _no_launch(counters, "train.replicated")
+    assert int(outer["round"]) == TRAIN_STEPS // PODS_PERIOD
+    assert all(math.isfinite(x) for l in losses for x in l), losses
+    _finite_tree(torch, state, "train.replicated state")
+    peak = torch.cuda.max_memory_allocated()
+    del state, outer, pipes
+    torch.cuda.empty_cache()
+    return {"compress_deltas": compress, "pods": PODS,
+            "reduced": {"num_layers": f"24 -> {PODS_LAYERS}",
+                        "global_batch": f"256 -> {PODS}"},
+            "params_a_pod": arch.param_count(), "seq": TRAIN_SEQ,
+            "period": PODS_PERIOD, "steps": TRAIN_STEPS, "losses": losses,
+            "step_ms": step_ms, "round_ms": round_ms,
+            "pods_max_diff_before": before, "pods_identical_after": True,
+            "outer_round": TRAIN_STEPS // PODS_PERIOD,
+            "payload_bytes_a_round": payload, "peak_memory_bytes": peak,
+            "kernel_launches": launches}
+
+
+def train_xlstm_grads(torch, counters):
+    """xlstm-350m at full width and depth, seq 2,048, batch 1, the
+    groupnorm scales set to 1: one loss and backward (f32 params, bf16
+    compute, remat "block"); every parameter leaf gets a finite gradient,
+    the sLSTM leaves a non-zero one, and ``SLSTM_STEPS`` captures and
+    replays nothing across the step (under autograd the scan runs the
+    eager loop)."""
+    from repro_torch.configs import ShapeConfig, StepKind, get_arch
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch import train
+    from repro_torch.models import xlstm
+    arch = get_arch("xlstm-350m")
+    shape = ShapeConfig("train", XLSTM_TRAIN_SEQ, 1, StepKind.TRAIN)
+    par = train.default_parallel(arch, shape)
+    state = train.init_state(arch, 0, par, device="cuda")
+    params = state["params"]
+    for group in ("mlstm", "slstm"):
+        params["blocks"][group]["cell"]["norm"].fill_(1.0)
+    batch = synthetic_batch(arch, shape, 0, 0, device="cuda")
+    cache = xlstm.SLSTM_STEPS
+    before = (cache.captures, cache.replays)
+    _zero(counters.values())
+    (loss, _, grads), ms = _wall_ms(torch, lambda: train.value_and_grad(
+        train.make_loss_fn(arch, par), params, batch))
+    launches = _no_launch(counters, "train.xlstm_grads")
+    assert (cache.captures, cache.replays) == before, "SLSTM_STEPS moved"
+    assert math.isfinite(float(loss))
+    _finite_tree(torch, grads, "xlstm grads")
+    slstm = {k: float(grads["blocks"]["slstm"]["cell"][k].abs().max())
+             for k in ("w_in", "r", "b")}
+    assert all(v > 0 for v in slstm.values()), slstm
+    del state, params, grads
+    torch.cuda.empty_cache()
+    return {"arch": "xlstm-350m", "seq": XLSTM_TRAIN_SEQ, "loss": float(loss),
+            "loss_and_backward_ms": ms, "slstm_grad_max_abs": slstm,
+            "slstm_steps_captures_replays": list(before),
+            "kernel_launches": launches}
+
+
+def train_flash_refuses(torch, counters):
+    """Under autograd on the card each of the three model kernels raises,
+    and so does ``lm_loss(impl=FLASH)`` with its backward; nothing is
+    launched."""
+    from repro_torch.configs import AttnImpl, get_arch, reduced
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    from repro_torch.models import model_zoo as zoo
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    q, k, v = r(1, 2, 128, 64), r(1, 2, 128, 64), r(1, 2, 128, 64)
+    calls = {
+        "flash_attention_bhsd": lambda t: fk.flash_attention_bhsd(t, k, v),
+        "ssd_chunk_bhcp": lambda t: sk.ssd_chunk_bhcp(
+            t, r(1, 2, 128), r(1, 1, 128, 64), r(1, 1, 128, 64)),
+        "mlstm_chunk_bhsd": lambda t: mk.mlstm_chunk_bhsd(
+            t, k, v, r(1, 2, 128), r(1, 2, 128)),
+    }
+    arch = reduced(get_arch(TRAIN_ARCH))
+    params = zoo.init_params(arch, seed=0, device="cuda")
+    for p in (x for _, x in _leaves(params)):
+        p.requires_grad_()
+    batch = {"tokens": torch.zeros((1, 64), dtype=torch.int32,
+                                   device="cuda")}
+    batch["labels"] = batch["tokens"]
+
+    def flash_loss(_):
+        zoo.lm_loss(arch, params, batch, impl=AttnImpl.FLASH)[0].backward()
+    calls["lm_loss(impl=FLASH)"] = flash_loss
+    _zero(counters.values())
+    refused = {}
+    for name, call in calls.items():
+        try:
+            call(q.clone().requires_grad_())
+        except RuntimeError as e:
+            assert "no backward" in str(e), e
+            refused[name] = str(e).split(":")[0]
+        else:
+            raise AssertionError(f"{name} ran under autograd")
+    torch.cuda.synchronize()
+    return {"refused": refused,
+            "kernel_launches": _no_launch(counters, "train.flash_refuses")}
+
+
+def run_train(torch, counters):
+    """The ``train`` phase: its five parts, in turn."""
+    t0 = time.perf_counter()
+    out = {"full": train_full(torch, counters),
+           "cpu_twin": train_cpu_twin(torch, counters),
+           "replicated": [train_replicated(torch, counters, c)
+                          for c in (False, True)],
+           "xlstm_grads": train_xlstm_grads(torch, counters),
+           "flash_refuses": train_flash_refuses(torch, counters)}
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def expected_launches(arch):
     """The kernel launches of one pod's prefill: attention layers through
     flash, Mamba-2 layers through SSD, mLSTM layers through mLSTM."""
@@ -2276,7 +2629,11 @@ def main() -> int:
             expected_launches(session_arch(arch_id)[0]))
         emit({"phase": "prefill_only", "nvidia_smi": smi, **ss})
 
-    # -- 9. the kernels line, the card, the result
+    # -- 9. the training stack (no kernel on its path: REFERENCE)
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "nvidia_smi": smi, **run_train(torch, counters)})
+
+    # -- 10. the kernels line, the card, the result
     flash_launches = {a: ss["launches"]["flash_attention_bhsd"]
                       for a, ss in sessions.items()
                       if ss["launches"]["flash_attention_bhsd"]}

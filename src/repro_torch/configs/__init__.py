@@ -1,15 +1,21 @@
 from repro_torch.configs.base import (
+    MULTI_POD_MESH,
+    SHAPES,
+    SHAPES_BY_NAME,
+    SINGLE_POD_MESH,
     Activation,
     ArchConfig,
     AttnImpl,
+    BlockKind,
     EnokiConfig,
+    MeshConfig,
     MoEConfig,
+    ParallelConfig,
     ReplicationPolicy,
-    SHAPES,
-    SHAPES_BY_NAME,
     SSMConfig,
     ShapeConfig,
     StepKind,
+    TrainConfig,
     XLSTMConfig,
 )
 from repro_torch.configs.registry import (
@@ -23,9 +29,10 @@ from repro_torch.configs.registry import (
 )
 
 __all__ = [
-    "Activation", "ArchConfig", "AttnImpl", "EnokiConfig", "MoEConfig",
-    "ReplicationPolicy", "SHAPES", "SHAPES_BY_NAME", "SSMConfig",
-    "ShapeConfig", "StepKind", "XLSTMConfig",
+    "Activation", "ArchConfig", "AttnImpl", "BlockKind", "EnokiConfig",
+    "MeshConfig", "MoEConfig", "MULTI_POD_MESH", "ParallelConfig",
+    "ReplicationPolicy", "SHAPES", "SHAPES_BY_NAME", "SINGLE_POD_MESH",
+    "SSMConfig", "ShapeConfig", "StepKind", "TrainConfig", "XLSTMConfig",
     "ARCH_IDS", "cells", "get_arch", "get_shape", "reduced", "reduced_shape",
     "shape_applicable",
 ]

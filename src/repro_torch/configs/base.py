@@ -3,16 +3,28 @@
 
 Every architecture is an ``ArchConfig``, every input-shape cell a
 ``ShapeConfig``, and the paper's technique (Enoki state management) an
-``EnokiConfig``.  The values of every enum equal the reference's, which is
-how tests map one onto the other.  The mesh, parallelism and training
-configs (``MeshConfig``, ``ParallelConfig``, ``TrainConfig``) come with the
-mesh and training slices.
+``EnokiConfig``, and the distribution and training setup ``MeshConfig``,
+``ParallelConfig`` and ``TrainConfig``, field for field as in the
+reference.  The values of every enum equal the reference's, which is how
+tests map one onto the other.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 from typing import Optional, Tuple
+
+
+class BlockKind(str, enum.Enum):
+    """Kinds of residual blocks a layer stack can be built from."""
+
+    ATTN = "attn"              # full (GQA/MQA/MHA) attention
+    MOE = "moe"                # mixture-of-experts MLP
+    MLP = "mlp"                # dense MLP (SwiGLU/GeGLU/GELU)
+    MAMBA2 = "mamba2"          # SSD state-space block
+    MLSTM = "mlstm"            # xLSTM matrix-memory block
+    SLSTM = "slstm"            # xLSTM scalar-memory block (sequential)
+    SHARED_ATTN = "shared_attn"  # zamba2-style weight-shared attention
 
 
 class Activation(str, enum.Enum):
@@ -162,3 +174,53 @@ class EnokiConfig:
     outer_momentum: float = 0.9
     store_slots: int = 64            # KV arena capacity (keys per keygroup)
     value_bytes: int = 1024          # max value payload per slot (microbench arena)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def is_multi_pod(self) -> bool:
+        return "pod" in self.axes
+
+
+SINGLE_POD_MESH = MeshConfig(shape=(16, 16), axes=("data", "model"))
+MULTI_POD_MESH = MeshConfig(shape=(2, 16, 16), axes=("pod", "data", "model"))
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """How a given (arch, shape, mesh) cell is sharded.  On one card only
+    ``remat`` and ``optimizer`` change what a train step does; the sharding
+    fields are kept for the mesh slice."""
+
+    fsdp: bool = False           # shard params over "data" (ZeRO-3 style)
+    zero1: bool = True           # shard optimizer state over "data"
+    seq_shard: bool = False      # shard sequence dim over "data" (prefill SP)
+    remat: str = "none"          # none | block | full — activation checkpointing
+    use_scan: bool = True        # scan over layers (keeps HLO small)
+    optimizer: str = "adamw"     # adamw | adafactor
+    moe_impl: str = "auto"       # auto (XLA propagation) | ep (shard_map)
+    flash_decode: bool = False   # shard_map partial-softmax decode attention
+    attn_impl: str = "reference"  # reference | qscan | flash
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    seed: int = 0
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"

@@ -1,5 +1,5 @@
-"""State carried across from numpy: arenas, model parameters and decode
-caches.
+"""State carried across from numpy: arenas, model parameters, decode
+caches and train states.
 
 An arena pulled to the host from either package (``jax.device_get`` on a
 reference ``Store``, or ``store_to_numpy`` here) seeds port replicas, and a
@@ -136,3 +136,31 @@ def cache_to_numpy(cache: dict) -> dict:
     """A decode cache as (nested dicts of) host arrays (bfloat16 widens to
     float32)."""
     return tree_map(to_numpy, cache)
+
+
+def train_state_from_numpy(arch, tree: dict, device=None,
+                           param_dtype: Optional[torch.dtype] = None) -> dict:
+    """A train state, or a DiLoCo outer state, from (nested dicts of) numpy
+    arrays, e.g. ``jax.device_get`` of the reference's, leaf for leaf and
+    dtype for dtype (bfloat16 leaves arrive as bfloat16, counters as
+    int32).  A train state is ``{"params", "opt", "step"}``: the params as
+    ``params_from_numpy`` takes them, ``opt`` AdamW's ``m``, ``v``,
+    ``count`` and, for bf16 params, ``master``, or Adafactor's ``v`` (a
+    leaf's ``row``/``col``, or ``full`` for 1-D leaves) and ``count``.  An
+    outer state is ``{"outer_params", "momentum", "round"}``.  Pod-stacked
+    trees (a leading pod dim on every leaf) come across as they are.
+    ``param_dtype`` casts a train state's params (numpy has no bfloat16:
+    ``train_state_to_numpy`` widens bf16 params to float32)."""
+    dev = resolve_device(device)
+    if "outer_params" in tree:
+        return _tree_from_numpy(tree, dev, None)
+    return {"params": params_from_numpy(arch, tree["params"], device=dev,
+                                        dtype=param_dtype),
+            "opt": _tree_from_numpy(tree["opt"], dev, None),
+            "step": _tensor(tree["step"], dev, None)}
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """A train state or an outer state as (nested dicts of) host arrays
+    (bfloat16 widens to float32)."""
+    return tree_map(to_numpy, state)

@@ -22,3 +22,17 @@ def synchronize(device: torch.device) -> None:
     eagerly)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def check_on(device: torch.device, tree, what: str) -> None:
+    """Raise ``ValueError`` unless every tensor of ``tree`` (a tensor or
+    nested dicts of them) is on ``device`` (its type, and its index when
+    ``device`` names one): a step refuses what it was not made for."""
+    leaves = tree.values() if isinstance(tree, dict) else [tree]
+    for leaf in leaves:
+        if isinstance(leaf, dict):
+            check_on(device, leaf, what)
+        elif leaf.device.type != device.type or (
+                device.index is not None and leaf.device != device):
+            raise ValueError(f"{what} is on {leaf.device}; this step runs on "
+                             f"{device}")

@@ -45,7 +45,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 112, 128, 256)
@@ -312,7 +312,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,H,Sq,D); k,v (B,KV,Skv,D) -> (B,H,Sq,D), written into ``out``
     when given (any view of the right shape, e.g. a transposed model-layout
     buffer).  CPU tensors take ``flash_attention_bhsd_plain``; CUDA tensors
-    launch the kernel once (or raise)."""
+    launch the kernel once (or raise).
+    Under autograd it raises on every device (``kernels.refuse_grad``)."""
+    refuse_grad("flash_attention_bhsd", q, k, v)
     _check(q, k, v, out)
     if q.device.type == "cpu":
         res = flash_attention_bhsd_plain(q, k, v, causal=causal,

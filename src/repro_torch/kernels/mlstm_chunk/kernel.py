@@ -45,7 +45,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 
 MAX_CHUNK, MAX_D = 64, 512
 #: columns of C a CTA of the chunk kernel keeps
@@ -200,7 +200,9 @@ def mlstm_chunk_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     a transposed model-layout buffer), (C (B,H,d,d), n (B,H,d), m (B,H))
     f32, the carry after the last chunk).  CPU tensors take
     ``mlstm_chunk_bhsd_plain``; CUDA tensors run the two kernels once (or
-    raise)."""
+    raise).
+    Under autograd it raises on every device (``kernels.refuse_grad``)."""
+    refuse_grad("mlstm_chunk_bhsd", q, k, v, log_i, log_f)
     chunk = _check(q, k, v, log_i, log_f, chunk, h)
     if q.device.type == "cpu":
         res, carry = mlstm_chunk_bhsd_plain(q, k, v, log_i, log_f,

@@ -42,7 +42,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 
 MAX_CHUNK, MAX_P, MAX_N = 128, 64, 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -220,7 +220,9 @@ def ssd_chunk_bhcp(x: torch.Tensor, a_dt: torch.Tensor, b: torch.Tensor,
     (B,H,S,P) in x's dtype, written into ``y`` when given (any view of the
     right shape, e.g. a transposed model-layout buffer), final state
     (B,H,P,N) f32).  CPU tensors take ``ssd_chunk_bhcp_plain``; CUDA
-    tensors run the three kernels once (or raise)."""
+    tensors run the three kernels once (or raise).
+    Under autograd it raises on every device (``kernels.refuse_grad``)."""
+    refuse_grad("ssd_chunk_bhcp", x, a_dt, b, c)
     chunk = _check(x, a_dt, b, c, chunk, y)
     if x.device.type == "cpu":
         res, state = ssd_chunk_bhcp_plain(x, a_dt, b, c, chunk=chunk)

@@ -45,7 +45,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, AttnImpl, ShapeConfig
 from repro_torch.core.graphs import StepCache
 from repro_torch.core.tree import tree_map
-from repro_torch.device import resolve_device
+from repro_torch.device import check_on, resolve_device
 from repro_torch.models import model_zoo as zoo
 
 #: a (nested) dict of tensors: dense and moe ``k``/``v``, whisper's
@@ -66,17 +66,6 @@ def params_shape_tree(arch: ArchConfig) -> dict:
                            device="meta")
 
 
-def _on(device: torch.device, tree, what: str) -> None:
-    leaves = tree.values() if isinstance(tree, dict) else [tree]
-    for leaf in leaves:
-        if isinstance(leaf, dict):
-            _on(device, leaf, what)
-        elif leaf.device.type != device.type or (
-                device.index is not None and leaf.device != device):
-            raise ValueError(f"{what} is on {leaf.device}; this step runs on "
-                             f"{device}")
-
-
 # ---------------------------------------------------------------------------
 # Prefill
 # ---------------------------------------------------------------------------
@@ -93,8 +82,8 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
     dev = resolve_device(device)
 
     def prefill(params: dict, batch: dict):
-        _on(dev, params, "params")
-        _on(dev, batch, "batch")
+        check_on(dev, params, "params")
+        check_on(dev, batch, "batch")
         logits, _, cache = zoo.forward_seq(arch, params, batch["tokens"],
                                            extra=batch, impl=impl,
                                            return_cache=True,
@@ -139,9 +128,9 @@ def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
     steps = StepCache(f"decode:{arch.name}x{n_pods}", pod_step)
 
     def _checked(params: dict, cache: Cache, token: torch.Tensor) -> dict:
-        _on(dev, params, "params")
-        _on(dev, cache, "cache")
-        _on(dev, token, "token")
+        check_on(dev, params, "params")
+        check_on(dev, cache, "cache")
+        check_on(dev, token, "token")
         if cache["length"].shape != (n_pods,) or token.shape[0] != n_pods:
             raise ValueError(f"pod-stacked state must lead with {n_pods} pods")
         return {"state": cache, "params": params, "inputs": token}
@@ -168,7 +157,7 @@ def make_replicate_sessions_step(device=None) -> Callable[[Cache], Cache]:
     dev = resolve_device(device)
 
     def replicate(live: Cache) -> Cache:
-        _on(dev, live, "live sessions")
+        check_on(dev, live, "live sessions")
         return tree_map(lambda v: torch.roll(v, 1, 0), live)
 
     return replicate
@@ -183,9 +172,9 @@ def make_migrate_sessions_step(device=None
     dev = resolve_device(device)
 
     def migrate(live: Cache, backup: Cache, dead: torch.Tensor) -> Cache:
-        _on(dev, live, "live sessions")
-        _on(dev, backup, "backup sessions")
-        _on(dev, dead, "dead mask")
+        check_on(dev, live, "live sessions")
+        check_on(dev, backup, "backup sessions")
+        check_on(dev, dead, "dead mask")
         n_pods = dead.shape[0]
 
         def sel(l, b):

@@ -2,8 +2,8 @@
 counterpart of ``repro.models.layers``.
 
 The f32 upcasts sit where the reference has them: the norms and RoPE
-compute in float32 and cast back to the input's dtype.  The reference's
-``cross_entropy_loss`` comes with the training slice.
+compute in float32 and cast back to the input's dtype, and the loss is
+float32 throughout.
 """
 from __future__ import annotations
 
@@ -172,3 +172,22 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, kind: Activation,
         p["b_down"] = torch.zeros((d_model,), dtype=dtype, device=gen.device)
     return p
 
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in f32: logsumexp minus the gold logit.
+    logits (B, S, V) f32/bf16; labels (B, S) int; with ``mask`` (B, S) the
+    masked mean, its denominator clamped at 1."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

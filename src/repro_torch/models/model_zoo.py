@@ -20,6 +20,7 @@ init_params = transformer.init_params
 forward_seq = transformer.forward_seq
 decode_step = transformer.decode_step
 init_cache = transformer.init_cache
+lm_loss = transformer.lm_loss
 
 
 # ---------------------------------------------------------------------------

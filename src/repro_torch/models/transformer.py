@@ -28,10 +28,13 @@ encoder's input frames), and ``model_zoo.example_batch`` makes both.
 """
 from __future__ import annotations
 
+import functools
 from types import SimpleNamespace
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig, AttnImpl
 from repro_torch.device import resolve_device
@@ -39,9 +42,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import (apply_rope, dense_init, mlp_apply,
-                                       mlp_init, rmsnorm,
-                                       sinusoidal_positions)
+from repro_torch.models.layers import (apply_rope, cross_entropy_loss,
+                                       dense_init, mlp_apply, mlp_init,
+                                       rmsnorm, sinusoidal_positions)
 
 
 # ---------------------------------------------------------------------------
@@ -257,22 +260,62 @@ def _moe_block_seq(lp, x, positions, arch, impl):
     return x + y, aux
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a layer-stacked tree, one ``unbind`` a leaf
+    (views): under autograd a stacked leaf's gradient is then one stack of
+    its layers' gradients, not a zero-filled full-size tensor a layer."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    assert tree.shape[0] == n, (tuple(tree.shape), n)
+    return tree.unbind(0)
+
+
 def _scan(body, carry, xs, n: int):
     """The reference's ``lax.scan`` over the layer stack ``xs``, as a Python
     loop; the per-layer outputs are stacked (None when the body emits
     None)."""
     ys = []
-    for i in range(n):
-        carry, y = body(carry, _layer(xs, i))
+    for lp in _unstack(xs, n):
+        carry, y = body(carry, lp)
         ys.append(y)
     return carry, (_stack(ys) if ys and ys[0] is not None else None)
 
 
+def _save_mm(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, mode: str):
+    """A layer body under activation checkpointing (the reference's
+    ``jax.checkpoint``): "none" runs ``fn`` as it is; "full" keeps only the
+    body's inputs and recomputes the rest in the backward pass (the
+    reference's ``nothing_saveable``); "block" keeps the outputs of
+    ``aten.mm`` as well, the products with no batch dims (the projections
+    and the MLP), and recomputes the rest, the attention's and the
+    experts' batched einsums included (the reference's
+    ``dots_with_no_batch_dims_saveable``).  A mode changes memory, not
+    results."""
+    if mode == "none":
+        return fn
+    if mode == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if mode == "block":
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_mm))
+    raise ValueError(f"remat mode {mode!r}: none | block | full")
+
+
 def _cast(tree, compute_dtype):
-    """f32 leaves with ndim > 1 in the compute dtype; norm scales left as
-    they are (the reference's ``cast``)."""
+    """Floating leaves with ndim > 1 in the compute dtype; norm scales left
+    as they are.  The reference's ``cast`` narrows f32 leaves only and
+    lets jnp promote a bf16 weight against f32 activations; widening such a
+    weight here computes the same."""
     return _map(lambda a: a.to(compute_dtype)
-                if a.dtype == torch.float32 and a.ndim > 1 else a, tree)
+                if a.is_floating_point() and a.ndim > 1 else a, tree)
 
 
 def _embed(arch: ArchConfig, params: dict, tokens: torch.Tensor,
@@ -291,6 +334,7 @@ def _head(arch: ArchConfig, params: dict, x: torch.Tensor,
 def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
                 extra: Optional[dict] = None,
                 impl: AttnImpl = AttnImpl.REFERENCE,
+                remat: str = "none",
                 return_cache: bool = False,
                 compute_dtype=torch.bfloat16):
     """tokens (B, S) int -> (logits (B, S, V), aux f32, cache | None).
@@ -300,7 +344,10 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
     num_patches, d) f32 for the vlm, which take the first ``num_patches``
     positions in place of as many text tokens, or ``frame_embeds`` (B, F,
     d) f32 for whisper's encoder.  ``aux`` is the moe layers' summed
-    load-balancing loss (0 elsewhere).
+    load-balancing loss (0 elsewhere).  ``remat`` ("none", "block",
+    "full"; ``_remat``) wraps each layer body the reference wraps: the dense
+    and moe layers, xlstm's mLSTM layers, zamba2's Mamba-2 layers and tail,
+    and whisper's encoder and decoder layers.
 
     The dense and moe caches hold the layer-stacked (L, B, S, KV, Dh)
     ``k`` and ``v``; whisper's the decoder's ``self_k``/``self_v`` (L, B,
@@ -326,7 +373,7 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
 
     if p["kind"] == "whisper":
         x, cache = _whisper_seq(arch, params, x, positions, extra, impl,
-                                return_cache, compute_dtype)
+                                remat, return_cache, compute_dtype)
     elif p["kind"] == "dense":
         def body(x, lp):
             lp = _cast(lp, compute_dtype)
@@ -334,21 +381,21 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
             return y, (_layer_kv(lp, x, positions, arch) if return_cache
                        else None)
 
-        x, kv = _scan(body, x, params["blocks"], p["layers"])
+        x, kv = _scan(_remat(body, remat), x, params["blocks"], p["layers"])
         if return_cache:
             cache = {"k": kv[0], "v": kv[1]}
     elif p["kind"] == "moe":
-        auxs, kvs = [], []
-        for i in range(p["layers"]):
-            lp = _cast(_layer(params["blocks"], i), compute_dtype)
-            if return_cache:
-                kvs.append(_layer_kv(lp, x, positions, arch))
-            x, aux = _moe_block_seq(lp, x, positions, arch, impl)
-            auxs.append(aux)
-        aux_total = aux_total + torch.stack(auxs).sum()
+        def body(x, lp):
+            lp = _cast(lp, compute_dtype)
+            y, aux = _moe_block_seq(lp, x, positions, arch, impl)
+            return y, ((aux, _layer_kv(lp, x, positions, arch))
+                       if return_cache else aux)
+
+        x, out = _scan(_remat(body, remat), x, params["blocks"], p["layers"])
+        auxs = out[0] if return_cache else out
+        aux_total = aux_total + auxs.sum()
         if return_cache:
-            k, v = _stack(kvs)
-            cache = {"k": k, "v": v}
+            cache = {"k": out[1][0], "v": out[1][1]}
     elif p["kind"] == "xlstm":
         def mbody(x, lp):
             y = xlstm_mod.mlstm_seq(lp["cell"], rmsnorm(x, lp["ln"]), arch,
@@ -360,7 +407,8 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
 
         def group(x, gp):
             gp = _cast(gp, compute_dtype)
-            x, mcs = _scan(mbody, x, gp["mlstm"], p["mlstm_per"])
+            x, mcs = _scan(_remat(mbody, remat), x, gp["mlstm"],
+                           p["mlstm_per"])
             sp = gp["slstm"]
             y = xlstm_mod.slstm_seq(sp["cell"], rmsnorm(x, sp["ln"]), arch,
                                     return_state=return_cache)
@@ -386,7 +434,7 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
 
         def group(x, gp):
             gp = _cast(gp, compute_dtype)
-            x, mcs = _scan(mamba_body, x, gp, p["mamba_per"])
+            x, mcs = _scan(_remat(mamba_body, remat), x, gp, p["mamba_per"])
             x_pre = x
             x = _dense_block_seq(shared, x, positions, arch, impl,
                                  window=arch.sliding_window)
@@ -405,8 +453,9 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
             cache = {"mamba": mcs, "shared_k": k, "shared_v": v,
                      "shared_pos": pos.expand(p["groups"], B, win).clone()}
         if p["tail"]:
-            x, tcs = _scan(lambda x, lp: mamba_body(
-                x, _cast(lp, compute_dtype)), x, params["tail"], p["tail"])
+            x, tcs = _scan(_remat(lambda x, lp: mamba_body(
+                x, _cast(lp, compute_dtype)), remat), x, params["tail"],
+                p["tail"])
             if return_cache:
                 cache["tail"] = tcs
     logits = _head(arch, params, x, compute_dtype)
@@ -428,8 +477,8 @@ def _layer_kv(lp, x_in, positions, arch):
     return k, v
 
 
-def _whisper_seq(arch, params, x, positions, extra, impl, return_cache,
-                 compute_dtype):
+def _whisper_seq(arch, params, x, positions, extra, impl, remat,
+                 return_cache, compute_dtype):
     """Encoder over the frame embeddings (non-causal), decoder over the
     tokens (x: their embedding): self-attention, cross-attention against
     the encoder output, MLP.  Returns (x, cache | None)."""
@@ -441,31 +490,36 @@ def _whisper_seq(arch, params, x, positions, extra, impl, return_cache,
     frames = frames + sinusoidal_positions(F, arch.d_model,
                                            device=dev).to(compute_dtype)
     enc_pos = torch.arange(F, dtype=torch.int32, device=dev).expand(B, F)
-    for i in range(p["enc"]):
-        lp = _cast(_layer(params["enc_blocks"], i), compute_dtype)
-        frames = _dense_block_seq(lp, frames, enc_pos, arch, impl,
-                                  causal=False)
+
+    def enc_body(h, lp):
+        lp = _cast(lp, compute_dtype)
+        return _dense_block_seq(lp, h, enc_pos, arch, impl,
+                                causal=False), None
+
+    frames, _ = _scan(_remat(enc_body, remat), frames, params["enc_blocks"],
+                      p["enc"])
     enc = rmsnorm(frames, params["enc_norm"])
 
     S = x.shape[1]
     x = x + sinusoidal_positions(S, arch.d_model,
                                  device=dev).to(compute_dtype)
-    self_kv, cross_kv = [], []
-    for i in range(p["dec"]):
-        lp = _cast(_layer(params["dec_blocks"], i), compute_dtype)
-        h_pre = x
-        x = x + attn.self_attention(lp["self_attn"], rmsnorm(x, lp["ln1"]),
+
+    def dec_body(h, lp):
+        lp = _cast(lp, compute_dtype)
+        h_pre = h
+        h = h + attn.self_attention(lp["self_attn"], rmsnorm(h, lp["ln1"]),
                                     positions, arch, causal=True, impl=impl)
         ck, cv = attn.project_cross_kv(lp["cross_attn"], enc, arch)
-        x = x + attn.cross_attention(lp["cross_attn"], rmsnorm(x, lp["ln_x"]),
+        h = h + attn.cross_attention(lp["cross_attn"], rmsnorm(h, lp["ln_x"]),
                                      ck, cv, arch)
-        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]), arch.activation)
-        if return_cache:
-            self_kv.append(_layer_kv_whisper(lp, h_pre, arch))
-            cross_kv.append((ck, cv))
+        h = h + mlp_apply(lp["mlp"], rmsnorm(h, lp["ln2"]), arch.activation)
+        return h, ((_layer_kv_whisper(lp, h_pre, arch), (ck, cv))
+                   if return_cache else None)
+
+    x, kv = _scan(_remat(dec_body, remat), x, params["dec_blocks"], p["dec"])
     if not return_cache:
         return x, None
-    (sk, sv), (ck, cv) = _stack(self_kv), _stack(cross_kv)
+    (sk, sv), (ck, cv) = kv
     return x, {"self_k": sk, "self_v": sv, "cross_k": ck, "cross_v": cv}
 
 
@@ -659,3 +713,22 @@ def _ring_decode_attn(ap, x1, ck, cv, cpos, length, arch):
     p = torch.softmax(s, dim=-1)
     out = attn._einsum_f32("bqkgs,bskd->bqkgd", p.to(cv.dtype), cv)
     return out.reshape(B, 1, -1).to(x1.dtype) @ ap["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(arch: ArchConfig, params: dict, batch: dict,
+            impl: AttnImpl = AttnImpl.REFERENCE, remat: str = "none",
+            compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy plus the moe layers' aux loss: ``(loss,
+    {"ce", "aux"})``.  ``batch``: ``tokens``, ``labels``, an optional
+    ``loss_mask`` and the front ends' ``patch_embeds``/``frame_embeds``.
+    Training differentiates it under ``AttnImpl.REFERENCE``: the kernels
+    have no backward and refuse to run under autograd (FLASH raises)."""
+    logits, aux, _ = forward_seq(arch, params, batch["tokens"], extra=batch,
+                                 impl=impl, remat=remat,
+                                 compute_dtype=compute_dtype)
+    loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
+    return loss + aux, {"ce": loss, "aux": aux}

@@ -350,12 +350,23 @@ def slstm_scan(wx: torch.Tensor, r: torch.Tensor, b: torch.Tensor, carry,
     """``slstm_loop`` in the blocks of ``slstm_blocks`` through
     ``SLSTM_STEPS``: on CUDA one replay a block, the carry copied out of
     one replay and into the next; on the CPU the loop itself, block by
-    block.  Bit for bit ``slstm_loop``."""
+    block.  Bit for bit ``slstm_loop``.
+
+    Under autograd (grad mode on and ``wx``, ``r``, ``b`` or the carry
+    requiring grad) the blocks run ``slstm_loop`` eagerly and never touch
+    ``SLSTM_STEPS``: a replay's outputs are clones of a graph's static
+    buffers, with no autograd history, so the cell's weights would get no
+    gradient on the card."""
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (wx, r, b, *carry))
     hs = []
     for t0, length in slstm_blocks(wx.shape[1]):
-        hb, carry = SLSTM_STEPS(inputs=(wx[:, t0:t0 + length], r, b,
-                                        tuple(carry)),
-                                static=(h_heads,))
+        block = wx[:, t0:t0 + length]
+        if grad:
+            hb, carry = slstm_loop(block, r, b, tuple(carry), h_heads)
+        else:
+            hb, carry = SLSTM_STEPS(inputs=(block, r, b, tuple(carry)),
+                                    static=(h_heads,))
         hs.append(hb)
     return torch.cat(hs, dim=1), carry
 

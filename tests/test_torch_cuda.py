@@ -1215,3 +1215,157 @@ def test_slstm_scan_graph_matches_loop(card, S):
     assert torch.equal(got_hs, want_hs)
     for x, y in zip(got_c, want_c):
         assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the training stack on the card (no kernel on its path: REFERENCE)
+# ---------------------------------------------------------------------------
+
+def _train_setup(arch_id, card):
+    from repro_torch.configs import (SHAPES_BY_NAME, ParallelConfig,
+                                     get_arch, reduced, reduced_shape)
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch import train
+    arch = reduced(get_arch(arch_id))
+    shape = reduced_shape(SHAPES_BY_NAME["train_4k"])
+    par = ParallelConfig(remat="block")
+    cpu = train.init_state(arch, 0, par, device="cpu")
+    if arch.family == "ssm":        # the cells reach the loss
+        for group in ("mlstm", "slstm"):
+            cpu["params"]["blocks"][group]["cell"]["norm"].fill_(1.0)
+    from repro_torch.core.tree import tree_map
+    gpu = tree_map(lambda t: t.to(card, copy=True), cpu)
+    batch = synthetic_batch(arch, shape, 0, 0, device="cpu")
+    return arch, par, cpu, gpu, batch, {k: v.to(card)
+                                        for k, v in batch.items()}
+
+
+def _leaf_err(got, want) -> float:
+    got, want = got.detach().cpu().float(), want.detach().cpu().float()
+    return float((got - want).abs().max() / (want.abs().max() + 1e-30))
+
+
+def _tree_leaves(tree, pre=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k],
+                                                              f"{pre}/{k}")]
+    return [(pre, tree)]
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_equals_the_cpu(card):
+    """One AdamW step of reduced internlm2 (f32 compute) on the card and on
+    the CPU from the same state and batch: loss and grad_norm within 1e-4
+    relative, every gradient leaf within 1e-4 of its max-abs, the params
+    within 2 x lr (Adam's first step is ~lr x sign(g))."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch import train
+    arch, par, cpu, gpu, bc, bg = _train_setup("internlm2-1.8b", card)
+    loss_fn = train.make_loss_fn(arch, par, compute_dtype=torch.float32)
+    lc, _, gc = train.value_and_grad(loss_fn, cpu["params"], bc)
+    lg, _, gg = train.value_and_grad(loss_fn, gpu["params"], bg)
+    assert _leaf_err(lg, lc) <= 1e-4
+    for (path, g), (_, w) in zip(_tree_leaves(gg), _tree_leaves(gc)):
+        assert _leaf_err(g, w) <= 1e-4, path
+    cfg = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    step = train.make_step_fn(arch, par, cfg, compute_dtype=torch.float32)
+    _, mc = step(cpu, bc)
+    _, mg = step(gpu, bg)
+    for k in ("loss", "grad_norm"):
+        assert _leaf_err(mg[k], mc[k]) <= 1e-4, k
+    for (path, g), (_, w) in zip(_tree_leaves(gpu["params"]),
+                                 _tree_leaves(cpu["params"])):
+        assert float((g.cpu() - w).abs().max()) <= 2 * cfg.lr, path
+
+
+@pytest.mark.cuda
+def test_xlstm_training_skips_the_slstm_graphs(card):
+    """Under autograd the sLSTM scan runs the eager loop on the card: the
+    gradients equal the CPU's (1e-4 of each leaf's max-abs), the sLSTM
+    weights get a non-zero gradient, and ``SLSTM_STEPS`` neither captures
+    nor replays."""
+    from repro_torch.launch import train
+    from repro_torch.models import xlstm
+    arch, par, cpu, gpu, bc, bg = _train_setup("xlstm-350m", card)
+    loss_fn = train.make_loss_fn(arch, par, compute_dtype=torch.float32)
+    before = (xlstm.SLSTM_STEPS.captures, xlstm.SLSTM_STEPS.replays)
+    _, _, gg = train.value_and_grad(loss_fn, gpu["params"], bg)
+    torch.cuda.synchronize()
+    assert (xlstm.SLSTM_STEPS.captures, xlstm.SLSTM_STEPS.replays) == before
+    _, _, gc = train.value_and_grad(loss_fn, cpu["params"], bc)
+    for (path, g), (_, w) in zip(_tree_leaves(gg), _tree_leaves(gc)):
+        assert torch.isfinite(g).all() and _leaf_err(g, w) <= 1e-4, path
+    for k in ("w_in", "r", "b"):
+        assert gg["blocks"]["slstm"]["cell"][k].abs().max() > 0, k
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_autograd_on_the_card(card):
+    """Each model kernel's wrapper raises under autograd on the card, as on
+    the CPU, and launches nothing; under ``no_grad`` it launches."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    gen = torch.Generator(device=card).manual_seed(0)
+    r = lambda *s: torch.randn(s, generator=gen, device=card)
+    q, k, v = r(1, 2, 128, 64), r(1, 2, 128, 64), r(1, 2, 128, 64)
+    calls = {
+        fk.flash_attention_bhsd: lambda t: fk.flash_attention_bhsd(t, k, v),
+        sk.ssd_chunk_bhcp: lambda t: sk.ssd_chunk_bhcp(
+            t, r(1, 2, 128), r(1, 1, 128, 64), r(1, 1, 128, 64)),
+        mk.mlstm_chunk_bhsd: lambda t: mk.mlstm_chunk_bhsd(
+            t, k, v, r(1, 2, 128), r(1, 2, 128)),
+    }
+    for fn, call in calls.items():
+        n = fn.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(q.clone().requires_grad_())
+        assert fn.launches == n
+        with torch.no_grad():
+            call(q.clone().requires_grad_())
+        torch.cuda.synchronize()
+        assert fn.launches == n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compress", [False, True])
+def test_pod_train_and_replicate_steps_on_the_card_equal_the_cpu(card,
+                                                                 compress):
+    """REPLICATED with 2 pods stacked: two steps then one anti-entropy round
+    on the card and on the CPU (f32 compute): the metrics within 1e-4, the
+    pods bit-identical after the round on both, and the card's params
+    within 2 x lr x 2 of the CPU's."""
+    from repro_torch.configs import (EnokiConfig, ReplicationPolicy,
+                                     TrainConfig)
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch import train
+    from repro_torch.optim import diloco_init
+    arch, par, cpu, gpu, bc, bg = _train_setup("internlm2-1.8b", card)
+    from repro_torch.configs import SHAPES_BY_NAME, reduced_shape
+    shape = reduced_shape(SHAPES_BY_NAME["train_4k"])
+    enoki = EnokiConfig(policy=ReplicationPolicy.REPLICATED,
+                        compress_deltas=compress)
+    cfg = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    out = []
+    for dev, single, b in (("cpu", cpu, bc), (card, gpu, bg)):
+        step, _ = train.make_train_step(arch, shape, 2, par, enoki, cfg,
+                                        device=dev,
+                                        compute_dtype=torch.float32)
+        replicate, _ = train.make_replicate_step(arch, 2, par, enoki,
+                                                 device=dev)
+        state = tree_map(lambda l: torch.stack([l, l]), single)
+        outer = diloco_init(single["params"])
+        # pod 1 sees every sequence reversed, so the pods diverge
+        batch = {k: torch.stack([v, v.flip(1)]) for k, v in b.items()}
+        metrics = [step(state, batch)[1] for _ in range(2)]
+        state, outer = replicate(state, outer)
+        for _, leaf in _tree_leaves(state["params"]):
+            assert torch.equal(leaf[0], leaf[1])
+        out.append((state, metrics))
+    (sc, mc), (sg, mg) = out
+    for a, b in zip(mg, mc):
+        for k in ("loss", "grad_norm"):
+            assert _leaf_err(a[k], b[k]) <= 1e-4, k
+    for (path, g), (_, w) in zip(_tree_leaves(sg["params"]),
+                                 _tree_leaves(sc["params"])):
+        assert float((g.cpu() - w).abs().max()) <= 4 * cfg.lr, path

@@ -51,7 +51,12 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.runtime.health", "repro_torch.runtime.straggler",
             "repro_torch.runtime.elastic",
             "repro_torch.runtime.failure", "repro_torch.core.replication",
-            "repro_torch.kernels.enoki_merge.ref"} <= set(mods)
+            "repro_torch.kernels.enoki_merge.ref", "repro_torch.optim",
+            "repro_torch.optim.adamw", "repro_torch.optim.adafactor",
+            "repro_torch.optim.compression", "repro_torch.optim.diloco",
+            "repro_torch.optim.schedule", "repro_torch.data",
+            "repro_torch.data.pipeline",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
@@ -82,10 +87,15 @@ def test_warm_path_modules_import_alone():
 
 
 def test_no_kernel_library_loads_at_import():
-    """Importing every module of the port builds and loads no kernel: a
-    library is built and opened at a wrapper's first CUDA launch only."""
+    """Importing every module of the port (the training stack's
+    ``optim``, ``data`` and ``launch.train`` among them) builds and loads
+    no kernel: a library is built and opened at a wrapper's first CUDA
+    launch only."""
+    mods = _modules()
+    assert {"repro_torch.optim", "repro_torch.data",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import importlib, sys\n"
-            f"for m in {_modules()!r}: importlib.import_module(m)\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
             "from repro_torch.kernels import build\n"
             "assert not build._loaded and not build.BUILD_SECONDS\n"
             "maps = open('/proc/self/maps').read()\n"
