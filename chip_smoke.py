@@ -149,8 +149,33 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    gradient finite, the sLSTM weights' non-zero, ``SLSTM_STEPS`` neither
    capturing nor replaying; ``flash_refuses``: the three model kernels and
    ``lm_loss(impl=FLASH)`` raise under autograd;
-10. the smoke's seconds, the ``{"kernels": [...]}`` line (the merge
-   kernel's launches by path: served, warm, runtime and replication;
+10. the mesh (``torch.distributed``), phase ``mesh``: one world of 4
+   ranks spawned on the card (gloo over a ``file://`` store in ``build/``:
+   NCCL takes no two ranks on one device, so every CUDA tensor a
+   collective moves is staged through host memory, and these times
+   measure that transport, never NCCL), every wait under a time limit,
+   one JSON line a part: ``flash_decode`` (qwen1.5-110b's attention layer
+   at full width, batch 128 -> 32, S = 32,768 sharded on the sequence over
+   model = 4, ``length`` 20,000 so one rank's shard is part-masked and one
+   wholly: the output within 5e-2 of the unsharded step on the same card,
+   the caches equal bit for bit), ``moe_ep`` (kimi-k2's MoE layer at full
+   width, 384 experts of 7,168 x 2,048, top-8, 96 experts and 8.5 GB a
+   rank, each drawn from its own seed, 4,096 tokens, against
+   ``moe_apply`` over all 384 run when the ranks' experts are freed:
+   routes equal, aux within 1e-6, output within 5e-2, the same
+   assignments dropped), ``pod_replicate`` (P = 2 and 4, one 64 x 1 MB
+   arena a rank, "full" and "ring": every rank byte-identical to its pod
+   of the stacked step on the card, P - 1 and 1 merge launches a rank,
+   ms a round and its transport), ``remesh`` (internlm2-1.8b's bf16
+   params placed by ``param_partition_specs`` on (pod 2, model 2), a pod
+   lost, every leaf re-meshed onto the survivors bit-identical),
+   ``train_pods`` (REPLICATED, one pod a rank on 2 ranks, ``train.
+   replicated``'s settings, int8 off: pods differ before each round,
+   bit-identical after it, and equal to the stacked run's bit for bit)
+   and ``sessions_pods`` (internlm2-1.8b, 2 ranks x 4 sessions, 8 decode
+   steps, replicate, pod 0 dead, migrate: equal to the stacked run);
+11. the smoke's seconds, the ``{"kernels": [...]}`` line (the merge
+   kernel's launches by path: served, warm, runtime, replication and mesh;
    flash's by model, its give-ups (0) and its times at the four
    geometries), then the card's name and power limit
    as ``nvidia-smi`` reports them, then ``{"ok": true, "device": ...}``.
@@ -2452,6 +2477,617 @@ def expected_launches(arch):
             "ssd_chunk_bhcp": arch.num_layers}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the mesh (torch.distributed), four ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_TIMEOUT_S = 600.0          # the whole world, spawn to last answer
+MESH_REPS = 10                  # timed repeats (CUDA events, medians)
+FD_ARCH = "qwen1.5-110b"        # flash_decode: one attention layer
+FD_BATCH = 32                   # decode_32k's 128 sessions cut to 32
+FD_SEQ = 32768                  # decode_32k's sequence
+FD_LENGTH = 20000               # model shard 2 part-masked, shard 3 wholly
+EP_ARCH = "kimi-k2-1t-a32b"     # moe_ep: one MoE layer, 384 experts
+EP_TOKENS = 4096
+SESS_ARCH = TRAIN_ARCH          # sessions_pods, remesh: internlm2-1.8b
+SESS_SESSIONS = 4
+SESS_CACHE = 4096
+SESS_LENGTH = 4000
+SESS_STEPS = 8
+MESH_PARTS = ("flash_decode", "moe_ep", "pod_replicate", "remesh",
+              "train_pods", "sessions_pods")
+
+
+def mesh_config(device="cuda", reduce=None):
+    """What the ``mesh`` phase runs, at full width on the card; ``reduce``
+    (a function of an arch) and smaller sizes rehearse it on the CPU."""
+    return {"device": device, "reduce": reduce, "fd_batch": FD_BATCH,
+            "fd_seq": FD_SEQ, "fd_length": FD_LENGTH,
+            "ep_tokens": EP_TOKENS, "repl_width": ROW_1MB,
+            "train_layers": PODS_LAYERS, "train_seq": TRAIN_SEQ,
+            "sess_cache": SESS_CACHE, "sess_length": SESS_LENGTH,
+            "reps": MESH_REPS}
+
+
+def _arch(cfg, arch_id, **changes):
+    from repro_torch.configs import get_arch
+    arch = get_arch(arch_id)
+    if cfg["reduce"] is not None:
+        arch = cfg["reduce"](arch)
+    return dataclasses.replace(arch, **changes) if changes else arch
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _free(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+
+
+def _rank_ms(torch, dev, fn):
+    """``fn()`` and its ms: CUDA events on the card, the host clock on the
+    CPU (a rehearsal)."""
+    if dev.type == "cuda":
+        return _event_ms(torch, fn)
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _median_rank_ms(torch, dev, fn, reps):
+    return statistics.median(_rank_ms(torch, dev, fn)[1]
+                             for _ in range(reps))
+
+
+def _digest(torch, tree) -> str:
+    """sha256 of every leaf's bytes in path order (bit-for-bit checks
+    across processes without moving the tensors)."""
+    import hashlib
+    h = hashlib.sha256()
+    for path, x in sorted(_leaves(tree), key=lambda px: px[0]):
+        h.update(path.encode())
+        h.update(x.detach().contiguous().reshape(-1).view(torch.uint8)
+                 .cpu().numpy())
+    return h.hexdigest()
+
+
+def _rel(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max() /
+                 want.float().abs().max())
+
+
+def _gather_obj(obj, group=None) -> list:
+    import torch.distributed as dist
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+def _normal_(torch, t, seed, scale):
+    gen = torch.Generator(device=t.device).manual_seed(seed)
+    return t.normal_(generator=gen).mul_(scale)
+
+
+def mesh_flash_decode(torch, rank, cfg, dev, mesh):
+    """qwen1.5-110b's attention layer, the cache sharded on the sequence
+    over model = 4; rank 0 then runs the unsharded step on the same
+    numbers."""
+    from repro_torch.models import attention as attn
+    arch = _arch(cfg, FD_ARCH)
+    B, S, n = cfg["fd_batch"], cfg["fd_seq"], MESH_RANKS
+    KV, D = arch.num_kv_heads, arch.resolved_head_dim
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ap = attn.attn_init(gen, arch, dtype=bf16)
+    for j, k in enumerate(("bq", "bk", "bv")):
+        _normal_(torch, ap[k], 12 + j, 0.02)
+    x1 = torch.randn((B, 1, arch.d_model), generator=gen, device=dev,
+                     dtype=bf16)
+    length = torch.tensor(cfg["fd_length"], dtype=torch.int32, device=dev)
+
+    def chunk(c, which):
+        t = torch.empty((B, S // n, KV, D), dtype=bf16, device=dev)
+        return _normal_(torch, t, 100 + 2 * c + which, 1.0)
+
+    ck, cv = chunk(rank, 0), chunk(rank, 1)
+    step = lambda: attn.decode_self_attention_sharded(
+        ap, x1, ck, cv, length, arch, mesh)
+    y, _, _ = step()
+    _sync(torch, dev)
+    ms = [_rank_ms(torch, dev, step)[1] for _ in range(cfg["reps"])]
+    mine = {"ms": statistics.median(ms), "y": _digest(torch, y),
+            "cache": _digest(torch, {"k": ck, "v": cv})}
+    ranks = _gather_obj(mine)
+    del ck, cv
+    _free(torch, dev)
+    if rank != 0:
+        return {}
+    ckf = torch.cat([chunk(c, 0) for c in range(n)], 1)
+    cvf = torch.cat([chunk(c, 1) for c in range(n)], 1)
+    plain = lambda: attn.decode_self_attention(ap, x1, ckf, cvf, length,
+                                               arch)
+    y0, _, _ = plain()
+    plain_ms = _median_rank_ms(torch, dev, plain, cfg["reps"])
+    s = S // n
+    caches = [_digest(torch, {"k": ckf[:, c * s:(c + 1) * s],
+                              "v": cvf[:, c * s:(c + 1) * s]})
+              for c in range(n)]
+    rel = _rel(torch, y, y0)
+    rec = {"geometry": {"arch": FD_ARCH, "d_model": arch.d_model,
+                        "heads": arch.num_heads, "kv_heads": KV,
+                        "head_dim": D, "batch": B, "seq": S,
+                        "length": cfg["fd_length"], "model": n,
+                        "positions_a_rank": s},
+           "reduced": {"global_batch": f"128 -> {B}"},
+           "valid_positions_by_rank": [max(0, min(s, cfg["fd_length"] + 1
+                                                  - c * s))
+                                       for c in range(n)],
+           "rel_err": rel, "tolerance": PREFILL_REL_TOL,
+           "outputs_equal_across_ranks": len({r["y"] for r in ranks}) == 1,
+           "caches_equal": [r["cache"] for r in ranks] == caches,
+           "rank_ms": [r["ms"] for r in ranks], "unsharded_ms": plain_ms}
+    assert rel < PREFILL_REL_TOL, rec
+    assert rec["caches_equal"] and rec["outputs_equal_across_ranks"], rec
+    del ckf, cvf
+    return rec
+
+
+def _expert_weights(torch, arch, lo, n, dev):
+    """Experts lo..lo+n-1 of the MoE layer, each drawn from its own seed
+    (so a rank draws only its own, and the unsharded layer the same
+    numbers)."""
+    cfg = arch.moe
+    d, f, bf16 = arch.d_model, cfg.d_expert, torch.bfloat16
+    w = {"w_gate": torch.empty((n, d, f), dtype=bf16, device=dev),
+         "w_up": torch.empty((n, d, f), dtype=bf16, device=dev),
+         "w_down": torch.empty((n, f, d), dtype=bf16, device=dev)}
+    for i in range(n):
+        for j, (name, t) in enumerate(w.items()):
+            _normal_(torch, t[i], 10_000 + 3 * (lo + i) + j,
+                     t.shape[1] ** -0.5)
+    return w
+
+
+def mesh_moe_ep(torch, rank, cfg, dev, mesh):
+    """kimi-k2's MoE layer expert-parallel over model = 4 (96 experts a
+    rank); rank 0 then runs ``moe_apply`` over all 384 when the ranks'
+    experts are freed."""
+    from repro_torch.configs import Activation
+    from repro_torch.models import moe
+    from repro_torch.models.layers import mlp_init
+    arch = _arch(cfg, EP_ARCH)
+    E, n = arch.moe.num_experts, MESH_RANKS
+    e_local = E // n
+    gen = torch.Generator(device=dev).manual_seed(21)
+    shared = {"router": torch.randn((arch.d_model, E), generator=gen,
+                                    device=dev) * arch.d_model ** -0.5,
+              "shared": mlp_init(gen, arch.d_model, arch.moe.d_expert,
+                                 Activation.SWIGLU, dtype=torch.bfloat16)}
+    x = torch.randn((1, cfg["ep_tokens"], arch.d_model), generator=gen,
+                    device=dev, dtype=torch.bfloat16)
+    params = {**shared, **_expert_weights(torch, arch, rank * e_local,
+                                          e_local, dev)}
+    layer = lambda: moe.moe_apply_ep(params, x, arch, mesh)
+    (y, aux) = layer()
+    _sync(torch, dev)
+    ms = _median_rank_ms(torch, dev, layer, max(3, cfg["reps"] // 2))
+    xt = x.reshape(-1, arch.d_model)
+    idx, _, _ = moe.route(shared["router"], xt, arch.moe)
+    cap = moe.capacity(xt.shape[0], arch.moe)
+    _, kept = moe.ep_dispatch(idx, rank * e_local, e_local, cap)
+    mine = {"ms": ms, "y": _digest(torch, y), "routes": _digest(torch, idx),
+            "kept": kept.cpu().numpy(),
+            "weight_bytes": sum(t.numel() * t.element_size()
+                                for k, t in params.items()
+                                if k.startswith("w_"))}
+    ranks = _gather_obj(mine)
+    del params
+    _free(torch, dev)
+    _gather_obj(None)             # every rank's experts freed
+    if rank != 0:
+        return {}
+    full = {**shared, **_expert_weights(torch, arch, 0, E, dev)}
+    unsharded = lambda: moe.moe_apply(full, x, arch)
+    y0, aux0 = unsharded()
+    plain_ms = _median_rank_ms(torch, dev, unsharded,
+                               max(3, cfg["reps"] // 2))
+    slot0, kept0 = moe.dispatch_indices(idx, E, cap)
+    kept_ep = ranks[0]["kept"].copy()
+    for r in ranks[1:]:
+        kept_ep |= r["kept"]
+    rel = _rel(torch, y, y0)
+    rec = {"geometry": {"arch": EP_ARCH, "experts": E, "top_k":
+                        arch.moe.top_k, "d_model": arch.d_model,
+                        "d_expert": arch.moe.d_expert, "tokens":
+                        xt.shape[0], "mesh": {"data": 1, "model": n},
+                        "experts_a_rank": e_local, "capacity": cap},
+           "expert_weight_bytes": sum(r["weight_bytes"] for r in ranks),
+           "weight_bytes_a_rank": ranks[0]["weight_bytes"],
+           "routes_equal": len({r["routes"] for r in ranks}) == 1 and
+           ranks[0]["routes"] == _digest(torch, idx),
+           "aux_diff": abs(float(aux) - float(aux0)),
+           "rel_err": rel, "tolerance": PREFILL_REL_TOL,
+           "dropped": int((~kept0).sum()),
+           "dropped_equal": bool((kept_ep == kept0.cpu().numpy()).all()),
+           "outputs_equal_across_ranks": len({r["y"] for r in ranks}) == 1,
+           "rank_ms": [r["ms"] for r in ranks], "unsharded_ms": plain_ms}
+    assert rec["routes_equal"] and rec["dropped_equal"], rec
+    assert rec["aux_diff"] < 1e-6 and rel < PREFILL_REL_TOL, rec
+    assert rec["outputs_equal_across_ranks"], rec
+    del full
+    return rec
+
+
+def mesh_pod_replicate(torch, rank, cfg, dev, meshes, counters):
+    """P = 2 (ranks 0, 1) and 4 pods, one 64 x 1 MB slot-aligned arena a
+    rank (the ``replication`` phase's state): one round of each topology,
+    every rank's replica byte-identical to its pod of the stacked form on
+    the same card; launches counted on every rank."""
+    from repro_torch.core import replication as rep
+    from repro_torch.parallel.collectives import all_gather, ppermute
+    out, launches = {}, 0
+    for pods in REPL_PODS:
+        mesh = meshes[pods]
+        if mesh.get_coordinate() is None:
+            continue
+        group = mesh.get_group("pod")
+        cpu = replication_state(torch, pods, cfg["repl_width"])
+        mine = type(cpu)(*(x[rank].to(dev) for x in cpu))
+        rec = {"pods": pods, "arena_bytes": sum(x.numel() * x.element_size()
+                                                 for x in mine)}
+        for topo in rep.TOPOLOGIES:
+            step = rep.make_pod_replicate_step(rep.merge_arena_aligned, pods,
+                                               topo, device=dev, mesh=mesh)
+            _sync(torch, dev)
+            # -- the counted run: counts zeroed just before the path
+            _zero(counters)
+            got = step(mine)
+            _sync(torch, dev)
+            n = _merge_launches(counters)
+            # -- end of the counted run
+            want_n = pods - 1 if topo == "full" else 1
+            assert n == want_n, f"{topo} P={pods}: {n} launches"
+            launches += n
+            perm = [((i + 1) % pods, i) for i in range(pods)]
+            move = (lambda: [all_gather(x, mesh, "pod") for x in mine]) \
+                if topo == "full" else \
+                (lambda: [ppermute(x, mesh, "pod", perm) for x in mine])
+            mine_rec = {"digest": _digest(torch, got._asdict()),
+                        "launches": n,
+                        "ms": _median_rank_ms(torch, dev,
+                                              lambda: step(mine),
+                                              max(3, cfg["reps"] // 2)),
+                        "transport_ms": _median_rank_ms(
+                            torch, dev, move, max(3, cfg["reps"] // 2))}
+            ranks = _gather_obj(mine_rec, group)
+            if rank == 0:
+                stacked = rep.replicate_pod_axis(
+                    type(cpu)(*(x.to(dev) for x in cpu)),
+                    rep.merge_arena_aligned, pods, topo)
+                want = [_digest(torch, _pod(stacked, i)._asdict())
+                        for i in range(pods)]
+                same = [r["digest"] for r in ranks] == want
+                assert same, f"{topo} P={pods}: ranks against stacked"
+                identical = len(set(want)) == 1
+                assert identical or topo == "ring"
+                rec[topo] = {"merges_a_rank": want_n,
+                             "kernel_launches": [r["launches"]
+                                                 for r in ranks],
+                             "equals_stacked": same,
+                             "pods_identical": identical,
+                             "rank_ms": [r["ms"] for r in ranks],
+                             "transport_ms": [r["transport_ms"]
+                                              for r in ranks]}
+                del stacked
+        out[f"P={pods}"] = rec
+        del mine, cpu
+        _free(torch, dev)
+    return out, launches
+
+
+def mesh_remesh(torch, rank, cfg, dev):
+    """internlm2-1.8b's bf16 parameters at full width placed by
+    ``param_partition_specs`` on (pod 2, model 2); pod 1 lost: the pod axis
+    collapses and ``remesh`` moves every leaf onto pod 0's two ranks."""
+    from repro_torch.configs import MeshConfig, ParallelConfig
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.runtime.elastic import (degraded_mesh_config, make_mesh,
+                                             remesh)
+    arch = _arch(cfg, SESS_ARCH)
+    params = zoo.init_params(arch, seed=0, dtype=torch.bfloat16, device=dev)
+    mcfg = MeshConfig(shape=(2, 2), axes=("pod", "model"))
+    mesh = make_mesh(mcfg)
+    specs = sh.param_partition_specs(params, arch, mesh, ParallelConfig())
+    placed = sh.place(params, mesh, specs)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    degraded = degraded_mesh_config(mcfg, alive_pods=1)
+    new_mesh = make_mesh(degraded, parent=mesh)
+    moved = remesh(placed, specs, new_mesh)
+    _sync(torch, dev)
+    remesh_s = time.perf_counter() - t0
+    inside = new_mesh.get_coordinate() is not None
+    equal = None
+    if inside:
+        equal = all(torch.equal(sh.gather(m), p) for (_, m), (_, p) in
+                    zip(_leaves(moved), _leaves(params)))
+    ranks = _gather_obj({"inside": inside, "equal": equal, "s": remesh_s})
+    del params, placed, moved
+    _free(torch, dev)
+    if rank != 0:
+        return {}
+    rec = {"arch": SESS_ARCH, "params": arch.param_count(),
+           "param_bytes": 2 * arch.param_count(),
+           "mesh": {"pod": 2, "model": 2},
+           "degraded": {"shape": list(degraded.shape),
+                        "axes": list(degraded.axes)},
+           "survivors": [r for r, x in enumerate(ranks) if x["inside"]],
+           "leaves_equal": all(x["equal"] for x in ranks if x["inside"]),
+           "remesh_s": [x["s"] for x in ranks]}
+    assert rec["survivors"] == [0, 1] and rec["leaves_equal"], rec
+    return rec
+
+
+def _pods_setup(cfg):
+    from repro_torch.configs import (EnokiConfig, ReplicationPolicy,
+                                     ShapeConfig, StepKind)
+    from repro_torch.launch import train
+    arch = _arch(cfg, TRAIN_ARCH, num_layers=cfg["train_layers"])
+    shape = ShapeConfig("pods", cfg["train_seq"], PODS, StepKind.TRAIN)
+    par = train.default_parallel(arch, shape)
+    enoki = EnokiConfig(policy=ReplicationPolicy.REPLICATED,
+                        replication_period=PODS_PERIOD)
+    return arch, shape, par, enoki
+
+
+def _stacked_pods_twin(torch, cfg, dev):
+    """The stacked REPLICATED run of ``train_replicated`` (int8 off): each
+    pod's params' digest after every round."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch import train
+    from repro_torch.optim import diloco_init
+    arch, shape, par, enoki = _pods_setup(cfg)
+    step, _ = train.make_train_step(arch, shape, PODS, par, enoki,
+                                    TrainConfig(**TRAIN_CFG), device=dev)
+    replicate, _ = train.make_replicate_step(arch, PODS, par, enoki,
+                                             device=dev)
+    single = train.init_state(arch, 0, par, device=dev)
+    state = tree_map(lambda l: torch.stack([l] * PODS), single)
+    outer = diloco_init(single["params"])
+    del single
+    pipes = [DataPipeline(arch, shape, seed=0, shard=p, num_shards=PODS,
+                          device=dev) for p in range(PODS)]
+    digests = []
+    for i in range(TRAIN_STEPS):
+        batch = tree_map(lambda *xs: torch.stack(xs), *[p.next()
+                                                        for p in pipes])
+        step(state, batch)
+        if (i + 1) % PODS_PERIOD == 0:
+            replicate(state, outer)
+            digests.append([_digest(torch, tree_map(lambda x: x[p],
+                                                    state["params"]))
+                            for p in range(PODS)])
+    del state, outer
+    return digests
+
+
+def mesh_train_pods(torch, rank, cfg, dev, mesh):
+    """REPLICATED internlm2-1.8b (depth 24 -> 4, seq 4,096, batch 1 a pod)
+    with one pod a rank on ranks 0 and 1: the pods differ before each
+    round and are bit-identical after it, and equal to the stacked run's
+    pods bit for bit."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch import train
+    from repro_torch.optim import diloco_init
+    from repro_torch.parallel.collectives import all_gather
+    arch, shape, par, enoki = _pods_setup(cfg)
+    group = mesh.get_group("pod")
+    step, _ = train.make_train_step(arch, shape, parallel=par, enoki=enoki,
+                                    cfg=TrainConfig(**TRAIN_CFG), device=dev,
+                                    mesh=mesh)
+    replicate, _ = train.make_replicate_step(arch, PODS, par, enoki,
+                                             device=dev, mesh=mesh)
+    state = train.init_state(arch, 0, par, device=dev)
+    outer = diloco_init(state["params"])
+    pipe = DataPipeline(arch, shape, seed=0, shard=rank, num_shards=PODS,
+                        device=dev)
+    step_ms, round_ms, before, digests, losses = [], [], [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = pipe.next()
+        (_, m), t = _rank_ms(torch, dev, lambda: step(state, batch))
+        step_ms.append(t)
+        losses.append(float(m["loss"]))
+        if (i + 1) % PODS_PERIOD:
+            continue
+        wq = all_gather(state["params"]["blocks"]["attn"]["wq"], mesh, "pod")
+        before.append(float((wq[0] - wq[1]).abs().max()))
+        assert before[-1] > 0, "pods must differ before anti-entropy"
+        del wq
+        (_, outer), t = _rank_ms(torch, dev,
+                                 lambda: replicate(state, outer))
+        round_ms.append(t)
+        digests.append(_digest(torch, state["params"]))
+    ranks = _gather_obj({"digests": digests, "step_ms": step_ms,
+                         "round_ms": round_ms, "losses": losses}, group)
+    del state, outer, pipe
+    _free(torch, dev)
+    for r in range(len(digests)):
+        assert ranks[0]["digests"][r] == ranks[1]["digests"][r], \
+            f"pods differ after round {r + 1}"
+    if rank != 0:
+        return {}
+    stacked = _stacked_pods_twin(torch, cfg, dev)
+    same = [[x["digests"][r] for x in ranks] for r in range(len(digests))] \
+        == stacked
+    assert same, "rank pods against the stacked pods"
+    return {"arch": TRAIN_ARCH, "pods": PODS,
+            "reduced": {"num_layers": f"24 -> {cfg['train_layers']}",
+                        "global_batch": f"256 -> {PODS}"},
+            "seq": cfg["train_seq"], "period": PODS_PERIOD,
+            "steps": TRAIN_STEPS, "compress_deltas": False,
+            "pods_max_diff_before": before,
+            "pods_identical_after": True, "equals_stacked": same,
+            "losses": [x["losses"] for x in ranks],
+            "step_ms": [x["step_ms"] for x in ranks],
+            "round_ms": [x["round_ms"] for x in ranks]}
+
+
+def _session_state(torch, arch, cfg, dev, pods):
+    """Pod p's (or, with ``pods`` a tuple, the stacked) seeded session
+    cache at ``sess_length`` and its tokens."""
+    from repro_torch.models import model_zoo as zoo
+    cache = zoo.init_cache(arch, SESS_SESSIONS, cfg["sess_cache"],
+                           device=dev)
+    if isinstance(pods, int):
+        for j, name in enumerate(("k", "v")):
+            _normal_(torch, cache[name], 300 + 2 * pods + j, 1.0)
+        cache["length"].fill_(cfg["sess_length"])
+        gen = torch.Generator(device=dev).manual_seed(400 + pods)
+        token = torch.randint(0, arch.vocab_size, (SESS_SESSIONS, 1),
+                              generator=gen, device=dev, dtype=torch.int32)
+        return cache, token
+    parts = [_session_state(torch, arch, cfg, dev, p) for p in pods]
+    stacked = {k: torch.stack([c[k] for c, _ in parts]) for k in parts[0][0]}
+    return stacked, torch.stack([t for _, t in parts])
+
+
+def mesh_sessions_pods(torch, rank, cfg, dev, mesh):
+    """internlm2-1.8b at full width, 2 ranks, 4 sessions a pod: 8 decode
+    steps (a captured graph a step), replicate (a ``ppermute`` ring),
+    pod 0 dead, migrate; caches and tokens equal to the stacked
+    ``make_decode_step(n_pods=2)`` run."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo as zoo
+    arch = _arch(cfg, SESS_ARCH)
+    group = mesh.get_group("pod")
+    params = zoo.init_params(arch, seed=0, dtype=torch.bfloat16, device=dev)
+    cache, token = _session_state(torch, arch, cfg, dev, rank)
+    step = serve.make_decode_step(arch, device=dev, mesh=mesh)
+    toks, ms = [], []
+    for _ in range(SESS_STEPS):
+        (token, cache), t = _rank_ms(torch, dev,
+                                     lambda: step(params, cache, token))
+        toks.append(token.clone())
+        ms.append(t)
+    replicate = serve.make_replicate_sessions_step(device=dev, mesh=mesh)
+    migrate = serve.make_migrate_sessions_step(device=dev, mesh=mesh)
+    backup, rep_ms = _rank_ms(torch, dev, lambda: replicate(cache))
+    dead = torch.tensor([True, False], device=dev)
+    restored, mig_ms = _rank_ms(torch, dev,
+                                lambda: migrate(cache, backup, dead))
+    mine = {"tokens": _digest(torch, torch.stack(toks)),
+            "cache": _digest(torch, cache), "backup": _digest(torch, backup),
+            "restored": _digest(torch, restored),
+            "decode_ms": ms, "replicate_ms": rep_ms, "migrate_ms": mig_ms,
+            "captures": step.steps.captures}
+    ranks = _gather_obj(mine, group)
+    del params, cache, backup, restored
+    _free(torch, dev)
+    if rank != 0:
+        return {}
+    params = zoo.init_params(arch, seed=0, dtype=torch.bfloat16, device=dev)
+    cache, token = _session_state(torch, arch, cfg, dev, tuple(range(PODS)))
+    stacked = serve.make_decode_step(arch, n_pods=PODS, device=dev)
+    toks = []
+    for _ in range(SESS_STEPS):
+        token, cache = stacked(params, cache, token)
+        toks.append(token.clone())
+    toks = torch.stack(toks)
+    backup = serve.make_replicate_sessions_step(device=dev)(cache)
+    restored = serve.make_migrate_sessions_step(device=dev)(
+        cache, backup, torch.tensor([True, False], device=dev))
+    from repro_torch.core.tree import tree_map
+    checks = {}
+    for part, tree in (("cache", cache), ("backup", backup),
+                       ("restored", restored)):
+        checks[part] = [r[part] for r in ranks] == [
+            _digest(torch, tree_map(lambda x: x[p], tree))
+            for p in range(PODS)]
+    checks["tokens"] = [r["tokens"] for r in ranks] == [
+        _digest(torch, toks[:, p]) for p in range(PODS)]
+    assert all(checks.values()), checks
+    return {"arch": SESS_ARCH, "pods": PODS, "sessions_a_pod": SESS_SESSIONS,
+            "cache_len": cfg["sess_cache"], "length": cfg["sess_length"],
+            "decode_steps": SESS_STEPS, "equal_to_stacked": checks,
+            "decode_ms": [r["decode_ms"] for r in ranks],
+            "replicate_ms": [r["replicate_ms"] for r in ranks],
+            "migrate_ms": [r["migrate_ms"] for r in ranks]}
+
+
+def mesh_rank(rank, cfg):
+    """Everything one rank of the ``mesh`` world runs, part by part, with a
+    barrier between parts; rank 0 returns the records, every rank its
+    merge launches and seconds a part."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.kernels.enoki_merge import kernel
+    from repro_torch.launch.mesh import make_mesh_compat, world_device
+    dev = world_device()
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    counters = [kernel.enoki_merge_rows]
+    dm = make_mesh_compat((1, MESH_RANKS), ("data", "model"))
+    pods = {4: make_mesh_compat((MESH_RANKS,), ("pod",)),
+            2: DeviceMesh(dev.type, torch.arange(2), mesh_dim_names=("pod",))}
+    out, seconds, launches = {}, {}, 0
+    for part in MESH_PARTS:
+        t0 = time.perf_counter()
+        if part == "flash_decode":
+            out[part] = mesh_flash_decode(torch, rank, cfg, dev, dm)
+        elif part == "moe_ep":
+            out[part] = mesh_moe_ep(torch, rank, cfg, dev, dm)
+        elif part == "pod_replicate":
+            out[part], launches = mesh_pod_replicate(torch, rank, cfg, dev,
+                                                     pods, counters)
+        elif part == "remesh":
+            out[part] = mesh_remesh(torch, rank, cfg, dev)
+        elif rank < PODS and part == "train_pods":
+            out[part] = mesh_train_pods(torch, rank, cfg, dev, pods[2])
+        elif rank < PODS:
+            out[part] = mesh_sessions_pods(torch, rank, cfg, dev, pods[2])
+        _free(torch, dev)
+        _gather_obj(None)         # a barrier on the host
+        seconds[part] = time.perf_counter() - t0
+    return {"records": out if rank == 0 else None, "seconds": seconds,
+            "merge_launches": launches}
+
+
+def run_mesh(torch, cfg=None):
+    """Phase ``mesh``: one world of MESH_RANKS ranks on the card (gloo
+    over a ``file://`` store in ``build/``), every part checked; returns
+    (the parts' records, the merge kernel's launches on every rank)."""
+    import shutil
+    from repro_torch.launch.mesh import spawn_world
+    cfg = cfg or mesh_config()
+    store_dir = ROOT / "build" / "mesh_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = spawn_world(mesh_rank, MESH_RANKS,
+                          f"file://{store_dir / 'store'}", args=(cfg,),
+                          device=cfg["device"], timeout_s=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    records = results[0]["records"]
+    for part in MESH_PARTS:
+        records[part]["seconds"] = max(r["seconds"][part] for r in results)
+    launches = [r["merge_launches"] for r in results]
+    assert all(n > 0 for n in launches), launches
+    return records, launches, wall
+
+
 def main() -> int:
     try:
         import torch
@@ -2633,16 +3269,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"phase": "train", "nvidia_smi": smi, **run_train(torch, counters)})
 
-    # -- 10. the kernels line, the card, the result
+    # -- 10. the mesh: four ranks sharing the card over gloo
+    torch.cuda.empty_cache()
+    mesh, mesh_launches, mesh_wall = run_mesh(torch)
+    for part in MESH_PARTS:
+        emit({"phase": "mesh", "part": part, "ranks": MESH_RANKS,
+              "transport": "gloo, staged through host memory",
+              "nvidia_smi": smi, **mesh[part]})
+
+    # -- 11. the kernels line, the card, the result
     flash_launches = {a: ss["launches"]["flash_attention_bhsd"]
                       for a, ss in sessions.items()
                       if ss["launches"]["flash_attention_bhsd"]}
-    emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
+    emit({"phase": "done", "smoke_s": time.perf_counter() - t_start,
+          "mesh_s": mesh_wall})
     t = timings[("100KB", 1)]
     merge_launches = {"serve": st["launches"],
                       "warm": warm["kernel_launches"],
                       "runtime": sum(runtime_launches.values()),
-                      "replication": repl_launches}
+                      "replication": repl_launches,
+                      "mesh": sum(mesh_launches)}
     emit({"kernels": [{
         "name": "enoki_merge_rows", "route": "cuda", "source": MERGE_SOURCE,
         "replaces": MERGE_REPLACES,

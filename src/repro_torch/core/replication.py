@@ -15,9 +15,14 @@ converge through a merge (LWW/CRDT).  Two contexts share the same merges:
   stack: ``"full"`` folds the replicas in pod order (its ``all_gather``),
   ``"ring"`` merges each pod with pod ``i + 1`` (its ``ppermute`` pairs
   ``(i + 1, i)``).  ``make_pod_replicate_step`` builds that step for a
-  device; it stays a separate step from serving, off the hot path.  One
-  card holds every pod, so there is no process group: several cards wait
-  for ``torch.distributed``.
+  device; it stays a separate step from serving, off the hot path.
+* **Pods one a rank** (``mesh=``, a ``torch.distributed`` mesh with a
+  ``pod`` axis): each rank holds its own pod's replica, with no pod dim,
+  and the replicas cross between ranks through the reference's collectives
+  (``parallel.collectives``): ``"full"`` all-gathers over ``pod`` and every
+  rank folds the P replicas in pod order (P - 1 merges a rank), ``"ring"``
+  ppermutes with pairs ``(i + 1, i)`` and merges once.  Every leaf moves
+  in its own dtype: keys and versions cross bit for bit.
 
 Merges may write into their first argument (``merge_arena_aligned`` runs
 ``enoki_merge_rows`` into it, the port's counterpart of donation), so
@@ -120,10 +125,30 @@ def _merge_gathered(gathered: Any, merge: Callable[[Any, Any], Any],
     return acc
 
 
+def _replicate_ranks(state: Any, merge: Callable[[Any, Any], Any],
+                     mesh, num_pods: int, topology: str) -> Any:
+    """One round with this rank's replica ``state`` over the mesh's pods."""
+    from repro_torch.parallel.collectives import all_gather, axis_size, \
+        ppermute
+    if axis_size(mesh, "pod") != num_pods:
+        raise ValueError(f"{num_pods} pods on a mesh of "
+                         f"{axis_size(mesh, 'pod')}")
+    if topology == "full":
+        gathered = _map(lambda x: all_gather(x, mesh, "pod"), state)
+        return _merge_gathered(gathered, merge, num_pods)
+    perm = [((i + 1) % num_pods, i) for i in range(num_pods)]
+    neighbour = _map(lambda x: ppermute(x, mesh, "pod", perm), state)
+    return merge(replica_clone(state), neighbour)
+
+
 def replicate_pod_axis(state: Any, merge: Callable[[Any, Any], Any],
-                       num_pods: int = 2, topology: str = "full") -> Any:
+                       num_pods: int = 2, topology: str = "full",
+                       mesh=None) -> Any:
     """One anti-entropy round over ``num_pods`` replicas stacked on the
     leading dim of every leaf of ``state``; returns a new stacked state.
+    With ``mesh``, ``state`` is this rank's pod's replica (no pod dim) and
+    the round runs over the mesh's ``pod`` axis, every rank ending with
+    what the stacked form gives its pod.
 
     full: every pod ends with the fold of all replicas in pod order 0..n-1
           (the reference's all_gather + fold, which every pod computes
@@ -133,6 +158,8 @@ def replicate_pod_axis(state: Any, merge: Callable[[Any, Any], Any],
           clone of pod i's replica and reading the stack as handed in."""
     if topology not in TOPOLOGIES:
         raise ValueError(f"unknown topology {topology!r}")
+    if mesh is not None:
+        return _replicate_ranks(state, merge, mesh, num_pods, topology)
     for leaf in _leaves(state):
         if leaf.ndim < 1 or leaf.shape[0] != num_pods:
             raise ValueError(f"every leaf needs the pod dim first: a leaf "
@@ -147,11 +174,12 @@ def replicate_pod_axis(state: Any, merge: Callable[[Any, Any], Any],
 
 
 def make_pod_replicate_step(merge: Callable[[Any, Any], Any], num_pods: int,
-                            topology: str = "full", device=None):
+                            topology: str = "full", device=None, mesh=None):
     """The off-hot-path replication step over pods stacked on ``device``
-    (None: the CUDA card): ``step(state) -> state'``, one
-    ``replicate_pod_axis`` round.  The reference's ``mesh`` and
-    ``state_specs`` have no counterpart on one card."""
+    (None: the CUDA card), or, with ``mesh``, over the mesh's pods one a
+    rank: ``step(state) -> state'``, one ``replicate_pod_axis`` round.  The
+    reference's ``state_specs`` (a replica's sharding inside its pod) have
+    no counterpart: a rank holds its pod's whole replica."""
     dev = resolve_device(device)
     if topology not in TOPOLOGIES:
         raise ValueError(f"unknown topology {topology!r}")
@@ -163,7 +191,7 @@ def make_pod_replicate_step(merge: Callable[[Any, Any], Any], num_pods: int,
                 raise ValueError(f"pod replicas on {leaf.device}, the step "
                                  f"on {dev}")
         return replicate_pod_axis(state, merge, num_pods=num_pods,
-                                  topology=topology)
+                                  topology=topology, mesh=mesh)
 
     return step
 

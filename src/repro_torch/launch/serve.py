@@ -32,9 +32,20 @@ cache that ``migrate_sessions`` replaces is a new entry.
 
 Each factory takes ``device=None``, which means the CUDA card (it raises
 without one); a step refuses tensors that are not on that device.  The
-reference's mesh, sharding, parallelism, donation and ``EnokiConfig``
-arguments have no counterpart here: the replication period is the caller's
-loop (every R decode steps).
+reference's sharding, parallelism, donation and ``EnokiConfig`` arguments
+have no counterpart here: the replication period is the caller's loop
+(every R decode steps).
+
+With ``mesh=`` (a ``torch.distributed`` mesh), a ``pod`` axis puts one pod
+on each rank: the rank's cache and tokens are its pod's, with no pod dim;
+decode touches only them, ``replicate_sessions`` is a ``ppermute`` ring
+over ``pod`` (pod i's backup holds pod i - 1's sessions, the reference's
+``roll``) and ``migrate_sessions`` a local ``where`` on each rank.
+``flash_decode=True`` on a mesh with no ``pod`` axis reads a cache sharded
+on the sequence over ``model`` (``attention.decode_self_attention_sharded``);
+its collectives cannot be captured, so that step runs eagerly.  Tensor
+parallelism of the weights over ``data``/``model`` raises
+``NotImplementedError``: it comes with the slice after the pod axis.
 """
 from __future__ import annotations
 
@@ -100,8 +111,35 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
 # Decode
 # ---------------------------------------------------------------------------
 
+def _mesh_pods(mesh, flash_decode: bool, what: str) -> int:
+    """The mesh's pod count; inner axes of size > 1 only for a flash-decode
+    step on a mesh with no ``pod`` axis (sequence shards over ``model``)."""
+    from repro_torch.launch.mesh import axis_sizes
+    sizes = axis_sizes(mesh)
+    if flash_decode and "pod" not in sizes:
+        return 1
+    inner = {a: n for a, n in sizes.items() if a != "pod" and n > 1}
+    if inner:
+        raise NotImplementedError(
+            f"{what} over {inner}: tensor parallelism of the weights over "
+            "'data' and 'model' comes with the slice after the pod axis")
+    return sizes.get("pod", 1)
+
+
+def _unpod(step: Callable) -> Callable:
+    """A one-pod stacked step on a rank's unstacked state: every leaf, the
+    token and ``length`` viewed with a leading pod dim of 1 (views: the
+    step's in-place writes land in the rank's tensors)."""
+    def rank_step(params: dict, cache: Cache, token: torch.Tensor):
+        nxt, _ = step(params, tree_map(lambda v: v.unsqueeze(0), cache),
+                      token.unsqueeze(0))
+        return nxt[0], cache
+    return rank_step
+
+
 def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
-                     compute_dtype=torch.bfloat16
+                     compute_dtype=torch.bfloat16, mesh=None,
+                     flash_decode: bool = False
                      ) -> Callable[[dict, Cache, torch.Tensor], tuple]:
     """``step(params, cache, token) -> (next_token, cache)``, greedy.
 
@@ -111,8 +149,31 @@ def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
     cache is written in place and returned.  The pod-step runs through a
     ``StepCache`` (``step.steps``): the token is copied into the graph's
     static buffer and ``next_token`` out of it; ``step.eager`` runs the
-    same pod-step without the cache."""
+    same pod-step without the cache.
+
+    With ``mesh``: this rank's pod's cache (``init_cache``'s leaves,
+    ``length`` 0-d) and token (B, 1); the step returns (B, 1).  With
+    ``flash_decode`` too (no ``pod`` axis): the dense and moe caches are
+    the rank's sequence shards, and the step runs eagerly."""
     dev = resolve_device(device)
+    if mesh is not None:
+        _mesh_pods(mesh, flash_decode, "make_decode_step")
+        if flash_decode and "pod" not in mesh.mesh_dim_names:
+            def sharded(params: dict, cache: Cache, token: torch.Tensor):
+                check_on(dev, params, "params")
+                check_on(dev, cache, "cache")
+                check_on(dev, token, "token")
+                logits, new = zoo.decode_step(arch, params, cache, token,
+                                              mesh=mesh, flash_decode=True,
+                                              compute_dtype=compute_dtype)
+                cache["length"].copy_(new["length"])
+                nxt = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+                return nxt.to(torch.int32), cache
+            return sharded
+        one = make_decode_step(arch, 1, device, compute_dtype)
+        step = _unpod(one)
+        step.steps = one.steps
+        return step
 
     def pod_step(cache: Cache, params: dict, token: torch.Tensor):
         out = torch.empty(token.shape, dtype=torch.int32, device=dev)
@@ -150,11 +211,23 @@ def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
 # Session anti-entropy / migration (multi-pod)
 # ---------------------------------------------------------------------------
 
-def make_replicate_sessions_step(device=None) -> Callable[[Cache], Cache]:
+def make_replicate_sessions_step(device=None, mesh=None
+                                 ) -> Callable[[Cache], Cache]:
     """``replicate(live) -> backup``: every leaf of the (nested) tree
     ``torch.roll(·, 1, 0)`` over the pod dim (pod i's backup slot holds pod
-    i-1's sessions); the backup is a fresh copy, off the decode path."""
+    i-1's sessions); the backup is a fresh copy, off the decode path.  With
+    ``mesh``: this rank's pod's sessions, sent to pod i + 1 (``ppermute``
+    pairs (i, i + 1)) as the backup comes from pod i - 1."""
     dev = resolve_device(device)
+    if mesh is not None:
+        from repro_torch.parallel.collectives import ppermute
+        pods = _mesh_pods(mesh, False, "make_replicate_sessions_step")
+        perm = [(i, (i + 1) % pods) for i in range(pods)]
+
+        def replicate_ranks(live: Cache) -> Cache:
+            check_on(dev, live, "live sessions")
+            return tree_map(lambda v: ppermute(v, mesh, "pod", perm), live)
+        return replicate_ranks
 
     def replicate(live: Cache) -> Cache:
         check_on(dev, live, "live sessions")
@@ -163,13 +236,30 @@ def make_replicate_sessions_step(device=None) -> Callable[[Cache], Cache]:
     return replicate
 
 
-def make_migrate_sessions_step(device=None
+def make_migrate_sessions_step(device=None, mesh=None
                                ) -> Callable[[Cache, Cache, torch.Tensor],
                                              Cache]:
     """``migrate(live, backup, dead) -> live'``: every leaf of the (nested)
     tree ``torch.where(dead[pod], backup, live)``, keygroup restore from the
-    surviving replica (paper §2)."""
+    surviving replica (paper §2).  With ``mesh``: this rank's pod's live
+    and backup sessions, and the whole (P,) dead mask, of which the rank
+    reads its pod's flag; no exchange."""
     dev = resolve_device(device)
+    if mesh is not None:
+        from repro_torch.parallel.collectives import axis_index
+        pods = _mesh_pods(mesh, False, "make_migrate_sessions_step")
+
+        def migrate_rank(live: Cache, backup: Cache,
+                         dead: torch.Tensor) -> Cache:
+            check_on(dev, live, "live sessions")
+            check_on(dev, backup, "backup sessions")
+            check_on(dev, dead, "dead mask")
+            if dead.shape != (pods,):
+                raise ValueError(f"the dead mask must be ({pods},)")
+            flag = dead[axis_index(mesh, "pod")]
+            return tree_map(lambda l, b: torch.where(flag, b, l), live,
+                            backup)
+        return migrate_rank
 
     def migrate(live: Cache, backup: Cache, dead: torch.Tensor) -> Cache:
         check_on(dev, live, "live sessions")

@@ -21,8 +21,13 @@ Shapes (conventions used across the model zoo):
 
 Whisper's cross-attention (decoder queries against the encoder output's
 K/V, projected once at prefill) is ``blockwise_attention``, plain torch, as
-in the reference.  The mesh-sharded flash decode comes with the training
-and mesh slice.
+in the reference.
+
+Flash decode (``flash_decode_attention``, ``decode_self_attention_sharded``)
+runs on every rank of a mesh whose ``model`` axis shards the cache on the
+SEQUENCE: each rank holds S/n positions, computes a partial softmax over
+them, and the ranks combine with ``pmax`` of the max and ``psum`` of the
+normaliser and of the weighted values (``parallel.collectives``).
 """
 from __future__ import annotations
 
@@ -259,6 +264,74 @@ def decode_self_attention(params: dict, x1: torch.Tensor,
     s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = _einsum_f32("bqkgs,bskd->bqkgd", p.to(cache_v.dtype), cache_v)
+    out = out.reshape(B, 1, -1).to(x1.dtype) @ params["wo"]
+    return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# Flash decode: partial softmax over the sequence-sharded cache
+# ---------------------------------------------------------------------------
+
+def flash_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                           cache_v: torch.Tensor, length: torch.Tensor, mesh,
+                           axis: str = "model") -> torch.Tensor:
+    """Decode attention with the cache sharded on the SEQUENCE dim over
+    ``axis``: this rank's ``cache_k``/``cache_v`` (B, S/n, KV, Dh) hold
+    positions ``base .. base + S/n - 1``, ``base`` = the rank's index on
+    ``axis`` x S/n.  q (B, 1, KV, G, Dh), scaled, the same on every rank.
+    Returns (B, 1, KV, G, Dh) f32, the same on every rank of ``axis``.
+
+    A rank whose positions all lie past ``length`` has every score at
+    NEG_INF: its partial normaliser and values are those of a uniform
+    softmax, and they vanish in the combine through exp(m - m_g) = 0."""
+    from repro_torch.parallel.collectives import axis_index, pmax, psum
+    s_local = cache_k.shape[1]
+    base = axis_index(mesh, axis) * s_local
+    s = _einsum_f32("bqkgd,bskd->bqkgs", q, cache_k)
+    idx = base + torch.arange(s_local, device=cache_k.device)
+    s = torch.where((idx <= length)[None, None, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)                                       # (B,1,KV,G)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = _einsum_f32("bqkgs,bskd->bqkgd", p.to(cache_v.dtype), cache_v)
+    m_g = pmax(m, mesh, axis)
+    corr = torch.exp(m - m_g)
+    l_g = psum(l * corr, mesh, axis)
+    o_g = psum(o * corr[..., None], mesh, axis)
+    return o_g / torch.clamp(l_g, min=1e-30)[..., None]
+
+
+def decode_self_attention_sharded(params: dict, x1: torch.Tensor,
+                                  cache_k: torch.Tensor,
+                                  cache_v: torch.Tensor, length: torch.Tensor,
+                                  arch: ArchConfig, mesh, axis: str = "model"
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """``decode_self_attention`` with the flash-decode read path, on this
+    rank's sequence shard of the cache.  The new K/V row goes IN PLACE to
+    global position ``length`` (clamped to the last, as the unsharded step
+    clamps it) on the one rank whose shard holds it; the others rewrite a
+    row with itself.  Returns (attn_out (B,1,D), cache_k, cache_v)."""
+    from repro_torch.parallel.collectives import axis_index, axis_size
+    B = x1.shape[0]
+    dh = arch.resolved_head_dim
+    pos = length.reshape(1, 1).expand(B, 1).to(torch.int32)
+    q, k, v = _project_qkv(params, x1, x1, arch)
+    if arch.rope_theta > 0:
+        q = apply_rope(q, pos, arch.rope_theta)
+        k = apply_rope(k, pos, arch.rope_theta)
+    s_local, KV = cache_k.shape[1], cache_k.shape[2]
+    base = axis_index(mesh, axis) * s_local
+    at = torch.clamp(length, max=s_local * axis_size(mesh, axis) - 1) - base
+    owner = (at >= 0) & (at < s_local)
+    slot = torch.clamp(at, 0, s_local - 1).reshape(1).long()
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        row = torch.where(owner, new.to(cache.dtype),
+                          cache.index_select(1, slot))
+        cache.index_copy_(1, slot, row)
+    G = arch.num_heads // KV
+    qg = _scaled(q, dh ** -0.5).reshape(B, 1, KV, G, dh)
+    out = flash_decode_attention(qg, cache_k, cache_v, length, mesh, axis)
     out = out.reshape(B, 1, -1).to(x1.dtype) @ params["wo"]
     return out, cache_k, cache_v
 

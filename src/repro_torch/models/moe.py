@@ -29,8 +29,9 @@ Nothing here reads a tensor's value on the host (no ``bincount``,
 are a fixed-size ``scatter_add_``, and ``capacity`` is a Python int from
 static shapes, so a decode step can be captured.
 
-``moe_apply_ep`` (expert-parallel dispatch over a mesh) has no counterpart
-yet: it comes with the training stack (ROADMAP queue 1 item 10d).
+``moe_apply_ep`` is the expert-parallel dispatch over a (``data``,
+``model``) mesh, one rank a (data shard, expert column); its combine runs in
+the same fixed index order, then one ``psum`` over ``model``.
 """
 from __future__ import annotations
 
@@ -167,3 +168,99 @@ def expert_sharding_strategy(cfg: MoEConfig, model_shards: int) -> str:
     if cfg.num_experts % model_shards == 0:
         return "ep"
     return "tp"
+
+
+# ---------------------------------------------------------------------------
+# Explicit expert-parallel dispatch over a mesh
+# ---------------------------------------------------------------------------
+#
+# Routing is computed globally (every rank alike), then each rank, at
+# (data d, model c), takes its data shard's tokens and keeps ONLY the
+# assignments that hit its model column's experts; the columns combine with
+# one psum over ``model`` and the data shards with one all_gather over
+# ``data`` (the reference's out_spec P("data", None) assembles the same
+# array), so every rank ends with the whole output.
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard, or the tensor as it is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def ep_dispatch(expert_idx_l: torch.Tensor, lo: int, e_local: int, cap: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(slot, kept) of one rank's assignments (T_l, k) for its experts
+    ``lo .. lo + e_local - 1``: a foreign expert's assignment goes to a
+    trash bucket ``e_local`` (ranked there, never kept), and every
+    assignment not kept to the trash row ``e_local * cap``."""
+    rel = expert_idx_l.long() - lo
+    valid = (rel >= 0) & (rel < e_local)
+    eff = torch.where(valid, rel, torch.full_like(rel, e_local))
+    slot, kept = dispatch_indices(eff, e_local + 1, cap)
+    kept = kept & valid.reshape(-1)
+    slot = torch.where(kept, slot, torch.full_like(slot, e_local * cap))
+    return slot, kept
+
+
+def moe_apply_ep(params: dict, x: torch.Tensor, arch: ArchConfig, mesh,
+                 cap_multiple: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE on every rank of a (``data``, ``model``) mesh.
+    ``x`` (B, S, D) and the router and shared expert are the same on every
+    rank; ``w_gate``/``w_up``/``w_down`` are this rank's ``E / model``
+    experts (its ``model`` column's, as ``param_partition_specs`` shards
+    them), plain tensors or DTensors.  Needs E % model == 0 and (B*S) %
+    data == 0 (``ValueError`` otherwise; ``transformer._moe_block_seq``
+    falls back to ``moe_apply``).  Capacity is per data shard, as in the
+    reference.  Returns (y (B, S, D), aux * aux_loss_weight), the same on
+    every rank; gradients as ``parallel.collectives`` states them."""
+    from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.parallel.collectives import (all_gather, axis_index,
+                                                  psum, shard, vary)
+    cfg = arch.moe
+    B, S, D = x.shape
+    sizes = axis_sizes(mesh)
+    n_model, n_data = sizes.get("model", 1), sizes.get("data", 1)
+    t, k = B * S, cfg.top_k
+    if cfg.num_experts % n_model or t % n_data:
+        raise ValueError(f"expert parallelism needs E % model == 0 and "
+                         f"tokens % data == 0: E={cfg.num_experts}, "
+                         f"model={n_model}, tokens={t}, data={n_data}")
+    e_local = cfg.num_experts // n_model
+    t_local = t // n_data
+    cap = capacity(t_local, cfg, cap_multiple)
+
+    xt = x.reshape(t, D)
+    expert_idx, weight, aux = route(params["router"], xt, cfg)
+    wg, wu, wd = (vary(_local(params[n]), mesh, "data")
+                  for n in ("w_gate", "w_up", "w_down"))
+    if wg.shape[0] != e_local:
+        raise ValueError(f"{tuple(wg.shape)[0]} experts on a rank; "
+                         f"E / model is {e_local}")
+    xt_l = vary(shard(xt, mesh, "data"), mesh, "model")
+    w_l = vary(shard(weight, mesh, "data"), mesh, "model")
+    eidx_l = expert_idx.chunk(n_data)[axis_index(mesh, "data")]
+
+    slot, kept = ep_dispatch(eidx_l, axis_index(mesh, "model") * e_local,
+                             e_local, cap)
+    buckets = torch.zeros((e_local * cap + 1, D), dtype=x.dtype,
+                          device=x.device)
+    buckets = buckets.index_copy(0, slot, xt_l.repeat_interleave(k, dim=0))
+    buckets = buckets[:e_local * cap].reshape(e_local, cap, D)
+    h = F.silu(torch.bmm(buckets, wg)) * torch.bmm(buckets, wu)
+    y_buckets = torch.bmm(h, wd)
+    y_flat = torch.cat([y_buckets.reshape(e_local * cap, D),
+                        torch.zeros((1, D), dtype=y_buckets.dtype,
+                                    device=x.device)])
+    gathered = torch.where(kept[:, None], y_flat[slot],
+                           torch.zeros((), dtype=y_flat.dtype,
+                                       device=x.device))
+    contrib = (gathered * w_l.reshape(t_local * k, 1).to(gathered.dtype)
+               ).to(x.dtype).reshape(t_local, k, D)
+    y = contrib[:, 0]
+    for j in range(1, k):
+        y = y + contrib[:, j]
+    y = psum(y, mesh, "model")
+    y = all_gather(y, mesh, "data").reshape(t, D)
+
+    if cfg.shared_expert:
+        y = y + gated_mlp(params["shared"], xt, Activation.SWIGLU)
+    return y.reshape(B, S, D), aux * cfg.aux_loss_weight

@@ -253,10 +253,25 @@ def _dense_block_seq(lp, x, positions, arch, impl, window=0, causal=True):
     return x
 
 
-def _moe_block_seq(lp, x, positions, arch, impl):
+def _moe_block_seq(lp, x, positions, arch, impl, mesh=None,
+                   moe_impl="auto"):
+    """Expert-parallel (``moe_apply_ep``) when ``moe_impl`` is "ep" and the
+    mesh takes it (E % model == 0 and B*S % data == 0), else
+    ``moe_apply``, as the reference falls back."""
     x = x + attn.self_attention(lp["attn"], rmsnorm(x, lp["ln1"]), positions,
                                 arch, impl=impl)
-    y, aux = moe_mod.moe_apply(lp["moe"], rmsnorm(x, lp["ln2"]), arch)
+    xn = rmsnorm(x, lp["ln2"])
+    B, S, _ = xn.shape
+    ep_ok = False
+    if mesh is not None:
+        from repro_torch.launch.mesh import axis_sizes
+        sizes = axis_sizes(mesh)
+        ep_ok = (arch.moe.num_experts % sizes.get("model", 1) == 0
+                 and (B * S) % sizes.get("data", 1) == 0)
+    if moe_impl == "ep" and ep_ok:
+        y, aux = moe_mod.moe_apply_ep(lp["moe"], xn, arch, mesh)
+    else:
+        y, aux = moe_mod.moe_apply(lp["moe"], xn, arch)
     return x + y, aux
 
 
@@ -336,6 +351,7 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
                 impl: AttnImpl = AttnImpl.REFERENCE,
                 remat: str = "none",
                 return_cache: bool = False,
+                mesh=None, moe_impl: str = "auto",
                 compute_dtype=torch.bfloat16):
     """tokens (B, S) int -> (logits (B, S, V), aux f32, cache | None).
     Positions are 0..S-1 in every row.  ``impl`` picks the attention path
@@ -347,7 +363,10 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
     load-balancing loss (0 elsewhere).  ``remat`` ("none", "block",
     "full"; ``_remat``) wraps each layer body the reference wraps: the dense
     and moe layers, xlstm's mLSTM layers, zamba2's Mamba-2 layers and tail,
-    and whisper's encoder and decoder layers.
+    and whisper's encoder and decoder layers.  ``mesh`` and ``moe_impl="ep"``
+    run the moe layers expert-parallel on every rank of the mesh
+    (``_moe_block_seq``); the rest of the model is the same on every
+    rank.
 
     The dense and moe caches hold the layer-stacked (L, B, S, KV, Dh)
     ``k`` and ``v``; whisper's the decoder's ``self_k``/``self_v`` (L, B,
@@ -387,7 +406,8 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
     elif p["kind"] == "moe":
         def body(x, lp):
             lp = _cast(lp, compute_dtype)
-            y, aux = _moe_block_seq(lp, x, positions, arch, impl)
+            y, aux = _moe_block_seq(lp, x, positions, arch, impl, mesh,
+                                    moe_impl)
             return y, ((aux, _layer_kv(lp, x, positions, arch))
                        if return_cache else aux)
 
@@ -598,7 +618,8 @@ def init_cache(arch: ArchConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def decode_step(arch: ArchConfig, params: dict, cache: dict,
-                token: torch.Tensor, compute_dtype=torch.bfloat16):
+                token: torch.Tensor, mesh=None, flash_decode: bool = False,
+                compute_dtype=torch.bfloat16):
     """token (B, 1) int -> (logits (B, 1, V), cache').
 
     Every cache leaf is written IN PLACE (the counterpart of the reference
@@ -612,7 +633,9 @@ def decode_step(arch: ArchConfig, params: dict, cache: dict,
     whisper's decoder attends to its own cache and, across, to the
     encoder's K/V (plain, as in the reference), its position embedding
     gathered at ``length`` on the device (clamped to the cache, as the
-    reference's gather clamps)."""
+    reference's gather clamps).  With ``flash_decode`` and a ``mesh``, the
+    dense and moe caches are this rank's SEQUENCE shards over ``model``
+    and their attention is ``decode_self_attention_sharded``."""
     p = plan(arch)
     length = cache["length"]
     x = _embed(arch, params, token, compute_dtype)
@@ -620,8 +643,14 @@ def decode_step(arch: ArchConfig, params: dict, cache: dict,
         for i in range(p["layers"]):
             lp = _cast(_layer(params["blocks"], i), compute_dtype)
             xn = rmsnorm(x, lp["ln1"])
-            y, _, _ = attn.decode_self_attention(
-                lp["attn"], xn, cache["k"][i], cache["v"][i], length, arch)
+            if flash_decode and mesh is not None:
+                y, _, _ = attn.decode_self_attention_sharded(
+                    lp["attn"], xn, cache["k"][i], cache["v"][i], length,
+                    arch, mesh)
+            else:
+                y, _, _ = attn.decode_self_attention(
+                    lp["attn"], xn, cache["k"][i], cache["v"][i], length,
+                    arch)
             x = x + y
             xn = rmsnorm(x, lp["ln2"])
             if p["kind"] == "moe":
@@ -721,6 +750,7 @@ def _ring_decode_attn(ap, x1, ck, cv, cpos, length, arch):
 
 def lm_loss(arch: ArchConfig, params: dict, batch: dict,
             impl: AttnImpl = AttnImpl.REFERENCE, remat: str = "none",
+            mesh=None, moe_impl: str = "auto",
             compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, dict]:
     """Next-token cross-entropy plus the moe layers' aux loss: ``(loss,
     {"ce", "aux"})``.  ``batch``: ``tokens``, ``labels``, an optional
@@ -728,7 +758,8 @@ def lm_loss(arch: ArchConfig, params: dict, batch: dict,
     Training differentiates it under ``AttnImpl.REFERENCE``: the kernels
     have no backward and refuse to run under autograd (FLASH raises)."""
     logits, aux, _ = forward_seq(arch, params, batch["tokens"], extra=batch,
-                                 impl=impl, remat=remat,
+                                 impl=impl, remat=remat, mesh=mesh,
+                                 moe_impl=moe_impl,
                                  compute_dtype=compute_dtype)
     loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
     return loss + aux, {"ce": loss, "aux": aux}

@@ -1,0 +1,185 @@
+"""Collectives over one axis of a mesh: the port's counterpart of the
+reference's ``shard_map`` bodies (``repro.parallel.sharding.
+shard_map_compat`` has no transform to port).
+
+A body runs on every rank with its own shards; where the reference's body
+calls ``jax.lax.axis_index``, ``psum``, ``pmax``, ``all_gather`` or
+``ppermute`` over a named axis, the port calls the function of the same
+name here with the mesh and the axis.  Each returns a new tensor (nothing
+is reduced in place) and leaves dtypes as they are, so an int key or
+version crosses bit for bit.
+
+**Transport.**  It is picked from the group's backend and the tensor's
+device, never by catching an error: NCCL takes CUDA tensors and gloo host
+tensors; a CUDA tensor on a gloo group (the ranks that share one card) is
+copied to a host buffer, the collective runs there, and the result is
+copied back.  gloo's own CUDA paths cover some collectives and dtypes and
+not others (none for send and receive), and they too go through host
+memory, so the port stages every CUDA tensor itself.
+
+**Gradients** are JAX's for a body whose loss every rank computes alike:
+``psum`` returns a value that is the same on every rank of the axis, so
+its cotangent is that too and passes through unchanged (the transpose of
+``psum`` over an invariant cotangent).  A value that is the same on every
+rank of an axis but feeds a per-rank computation goes through ``vary``
+(identity forward; its cotangents summed over the axis, the transpose of
+JAX's ``pvary``).  ``all_gather``'s cotangent, the same on every rank, is
+sliced to the rank's own part, and ``shard``'s (a rank's slice of a value
+the same on every rank) gathered back.  ``torch.distributed.nn``'s
+``all_reduce`` sums cotangents instead, which would multiply an
+expert-parallel layer's gradients by the axis size.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+
+def axis_index(mesh, axis: str) -> int:
+    """This rank's coordinate on ``axis``."""
+    return mesh.get_local_rank(axis)
+
+
+def axis_size(mesh, axis: str) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def _backend(group, device_type: str) -> str:
+    """The backend a group runs ``device_type`` tensors on: ``gloo`` or
+    ``nccl`` (``get_backend_config`` reads "cpu:gloo,cuda:gloo" or one
+    name for every device)."""
+    cfg = dist.get_backend_config(group)
+    if ":" not in cfg:
+        return cfg
+    table = dict(part.split(":") for part in cfg.split(","))
+    return table[device_type]
+
+
+def staged(group, tensor: torch.Tensor) -> bool:
+    """True when ``tensor`` crosses ``group`` through a host buffer."""
+    return tensor.is_cuda and _backend(group, "cuda") == "gloo"
+
+
+def _host(group, tensor: torch.Tensor) -> torch.Tensor:
+    x = tensor.detach()
+    return x.cpu() if staged(group, x) else x.contiguous()
+
+
+def _all_reduce(x: torch.Tensor, mesh, axis: str, op) -> torch.Tensor:
+    if axis_size(mesh, axis) == 1:           # nothing crosses
+        return x.detach().clone()
+    group = mesh.get_group(axis)
+    buf = _host(group, x).clone()
+    dist.all_reduce(buf, op=op, group=group)
+    return buf.to(x.device)
+
+
+def _all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    if axis_size(mesh, axis) == 1:
+        return x.detach()[None].clone()
+    group = mesh.get_group(axis)
+    src = _host(group, x)
+    bufs = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(bufs, src, group=group)
+    return torch.stack(bufs).to(x.device)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _all_reduce(x, mesh, axis, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Vary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.axis, dist.ReduceOp.SUM), None, \
+            None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.index = axis_index(mesh, axis)
+        return _all_gather(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.index], None, None
+
+
+class _Shard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        n, i = axis_size(mesh, axis), axis_index(mesh, axis)
+        return x.chunk(n, dim)[i].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = _all_gather(g.contiguous(), ctx.mesh, ctx.axis).unbind(0)
+        return torch.cat(parts, ctx.dim), None, None, None
+
+
+def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Sum over the ranks of ``axis`` (``jax.lax.psum``)."""
+    return _PSum.apply(x, mesh, axis)
+
+
+def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Elementwise max over the ranks of ``axis`` (``jax.lax.pmax``); no
+    gradient."""
+    return _all_reduce(x, mesh, axis, dist.ReduceOp.MAX)
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Every rank's ``x`` stacked on a new leading dim in axis order
+    (``jax.lax.all_gather(x, axis, axis=0)``)."""
+    return _Gather.apply(x, mesh, axis)
+
+
+def vary(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x`` as it is; under autograd its cotangents summed over ``axis``."""
+    return _Vary.apply(x, mesh, axis)
+
+
+def shard(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """This rank's part of ``x`` (the same on every rank of ``axis``), cut
+    evenly along ``dim`` in axis order: a body's in_spec."""
+    return _Shard.apply(x, mesh, axis, dim)
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str,
+             perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """``jax.lax.ppermute``: for each ``(src, dst)`` pair of axis indices
+    the ``src`` rank's ``x`` lands on ``dst``; a rank that no pair names as
+    ``dst`` gets zeros.  No gradient."""
+    group = mesh.get_group(axis)
+    me = axis_index(mesh, axis)
+    src = _host(group, x)
+    out = torch.zeros_like(src)
+    ops = []
+    for s, d in perm:
+        if s == me and d == me:
+            out.copy_(src)
+        elif s == me:
+            ops.append(dist.P2POp(dist.isend, src,
+                                  dist.get_global_rank(group, d), group))
+        elif d == me:
+            ops.append(dist.P2POp(dist.irecv, out,
+                                  dist.get_global_rank(group, s), group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return out.to(x.device)

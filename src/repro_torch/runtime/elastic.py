@@ -17,6 +17,11 @@ arena lands where the keygroup's ``KeygroupSpec`` places it (the
 cluster's device).  Every catch-up fold runs through
 ``Cluster._deliver_until`` (one fused ``enoki_merge_rows`` launch per
 keygroup on an aligned arena).
+
+``degraded_mesh_config``, ``make_mesh`` and ``remesh`` re-mesh a
+``torch.distributed`` world after a pod is lost: the survivors' ranks form
+the new mesh, and a tree of DTensors is gathered on the old mesh and placed
+on the new one.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from typing import Dict, List, Optional, Set, Tuple
 
 from repro_torch.analysis import lockdep
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.configs.base import ReplicationPolicy
+from repro_torch.configs.base import MeshConfig, ReplicationPolicy
 from repro_torch.core.engine import AtomicStats
 from repro_torch.core.keygroup import arena_new
 from repro_torch.core.store import arena_clone
@@ -452,3 +457,69 @@ class ElasticMembership:
     def alive(self) -> List[str]:
         return [n for n, s in self.state.items() if s == ALIVE]
 
+
+
+# ---------------------------------------------------------------------------
+# Elastic meshes: a pod lost, the survivors re-meshed
+# ---------------------------------------------------------------------------
+
+def degraded_mesh_config(cfg: MeshConfig, alive_pods: int) -> MeshConfig:
+    """New mesh config after pod failures.  Single-pod meshes degrade by
+    shrinking ``data`` (we keep ``model`` intact: TP groups are tightly
+    coupled; losing part of one means losing the pod)."""
+    if "pod" in cfg.axes:
+        i = cfg.axes.index("pod")
+        shape = list(cfg.shape)
+        if alive_pods < 1:
+            raise ValueError("no pods left")
+        shape[i] = alive_pods
+        if alive_pods == 1:
+            # collapse the pod axis entirely
+            shape = [s for j, s in enumerate(shape) if j != i]
+            axes = tuple(a for a in cfg.axes if a != "pod")
+            return MeshConfig(shape=tuple(shape), axes=axes)
+        return MeshConfig(shape=tuple(shape), axes=cfg.axes)
+    return cfg
+
+
+def make_mesh(cfg: MeshConfig, parent=None):
+    """The mesh of ``cfg``: over the whole world, or, given the ``parent``
+    mesh pods were lost from, over the ranks of its first ``cfg`` pods (the
+    reference's ``make_mesh`` takes the first devices), the pod axis
+    collapsed when one pod is left.  Every rank of the world calls it; a
+    rank of a lost pod gets a mesh it is not in (``get_coordinate()`` is
+    None)."""
+    from repro_torch.launch.mesh import make_mesh_compat
+    if parent is None:
+        return make_mesh_compat(cfg.shape, cfg.axes)
+    from torch.distributed.device_mesh import DeviceMesh
+    names = parent.mesh_dim_names
+    i = names.index("pod")
+    n = cfg.shape[cfg.axes.index("pod")] if "pod" in cfg.axes else 1
+    ranks = parent.mesh.narrow(i, 0, n)
+    if "pod" not in cfg.axes:
+        ranks = ranks.squeeze(i)
+    if tuple(ranks.shape) != tuple(cfg.shape) or \
+            set(cfg.axes) - set(names):
+        raise ValueError(f"{cfg} is not the first {n} pods of a "
+                         f"{tuple(parent.shape)} {names} mesh")
+    return DeviceMesh(parent.device_type, ranks, mesh_dim_names=cfg.axes)
+
+
+def remesh(state, old_specs, new_mesh):
+    """Re-place a tree of DTensors onto a new mesh.  A DTensor cannot move
+    between meshes: each leaf is gathered on its old mesh (every rank of
+    it takes part) and placed on the new one from that full copy; specs
+    naming axes the new mesh lacks (e.g. 'pod' after collapse) are
+    stripped.  A rank outside the new mesh gets None leaves."""
+    from repro_torch.parallel import sharding as sh
+    inside = new_mesh.get_coordinate() is not None
+    names = set(new_mesh.mesh_dim_names)
+
+    def move(x, spec):
+        full = sh.gather(x) if hasattr(x, "device_mesh") else x
+        if not inside:
+            return None
+        return sh.place(full, new_mesh, sh.strip_axes(spec, names))
+
+    return sh._zip_specs(move, state, old_specs)

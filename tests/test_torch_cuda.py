@@ -1369,3 +1369,49 @@ def test_pod_train_and_replicate_steps_on_the_card_equal_the_cpu(card,
     for (path, g), (_, w) in zip(_tree_leaves(sg["params"]),
                                  _tree_leaves(sc["params"])):
         assert float((g.cpu() - w).abs().max()) <= 4 * cfg.lr, path
+
+
+# ---------------------------------------------------------------------------
+# the mesh path's rank forms: a world of two ranks sharing the card (gloo)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def card_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the ranks share it")
+    import torch_mesh_ranks as ranks
+    from repro_torch.launch.mesh import spawn_world
+    store = tmp_path_factory.mktemp("card_world") / "store"
+    return spawn_world(ranks.card_rank_forms, 2, f"file://{store}",
+                       device="cuda", timeout_s=600)
+
+
+@pytest.mark.cuda
+def test_pod_replicate_ranks_on_the_card(card, card_world):
+    """Pods one a rank on the card: every rank's arena equals its pod of
+    the plain stacked form on the CPU, one merge launch a rank a round."""
+    for out in card_world:
+        for topo in ("full", "ring"):
+            assert out[f"pod/{topo}/equal"], topo
+            assert out[f"pod/{topo}/launches"] == 1, topo
+
+
+@pytest.mark.cuda
+def test_flash_decode_ranks_on_the_card(card, card_world):
+    for out in card_world:
+        for n in (20, 40):
+            assert out[f"fd/{n}/err"] < 1e-4, n
+            assert out[f"fd/{n}/caches_equal"], n
+
+
+@pytest.mark.cuda
+def test_ep_moe_ranks_on_the_card(card, card_world):
+    for out in card_world:
+        assert out["ep/err"] < 1e-4 and out["ep/aux_diff"] < 1e-6
+
+
+@pytest.mark.cuda
+def test_decode_sessions_ranks_on_the_card(card, card_world):
+    """The pod-mesh decode (a captured graph a step), replicate and cache
+    equal the stacked step's pods on the card bit for bit."""
+    assert all(out["sess/equal"] for out in card_world)

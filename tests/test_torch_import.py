@@ -56,7 +56,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.optim.compression", "repro_torch.optim.diloco",
             "repro_torch.optim.schedule", "repro_torch.data",
             "repro_torch.data.pipeline",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.launch.mesh",
+            "repro_torch.parallel", "repro_torch.parallel.sharding",
+            "repro_torch.parallel.collectives"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
@@ -78,6 +80,22 @@ def test_warm_path_modules_import_alone():
             "with CompileCounter() as cc:\n"
             "    assert graphs._COUNTERS == [cc]\n"
             "assert graphs._COUNTERS == []\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
+            "or m.startswith('repro.'))))\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.splitlines()[-1]) == []
+
+
+def test_mesh_modules_import_alone_without_jax_or_a_world():
+    """The mesh path's modules (``parallel``, ``launch.mesh``) import in a
+    fresh interpreter without jax or the reference, and importing them
+    starts no process group."""
+    code = ("import json, sys\n"
+            "import repro_torch.parallel, repro_torch.launch.mesh\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.'))))\n")
