@@ -174,10 +174,30 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    bit-identical after it, and equal to the stacked run's bit for bit)
    and ``sessions_pods`` (internlm2-1.8b, 2 ranks x 4 sessions, 8 decode
    steps, replicate, pod 0 dead, migrate: equal to the stacked run);
-11. the smoke's seconds, the ``{"kernels": [...]}`` line (the merge
+11. tensor parallelism of the dense family, phase ``tensor_parallel``:
+   another world of 4 ranks on the card (gloo, staged through host
+   memory, as in phase 10), one JSON line a part, each rank's ms beside
+   its transport's and the unsharded twin's on the same card: ``prefill``
+   (internlm2-1.8b at full width and depth, bf16, FLASH, (data 2, model
+   2), 4 prompts of 4,096 tokens, 2 a data rank: each rank runs the flash
+   kernel on its 8 query and 4 KV heads, 24 launches a rank, give-ups 0;
+   the gathered last logits and caches within 5e-2 of rank 0's unsharded
+   FLASH prefill), ``decode`` (8 greedy steps from that cache: each
+   step's logits within 5e-2 of the unsharded step fed the same tokens,
+   the greedy tokens that differ counted), ``train_zero1`` and
+   ``train_fsdp`` (internlm2-1.8b at full width, depth 24 -> 4, seq
+   4,096, a batch of 2, AdamW, remat "block", 3 steps with ZeRO-1, then
+   with FSDP: loss and grad norm within 1e-3 of the unsharded step's,
+   params within 2 x lr x steps) and ``pods`` ((pod 2, model 2):
+   REPLICATED steps and a round with int8 off and on, pods unequal before
+   and bit-identical after; tensor-parallel session caches decoded,
+   replicated round the pod ring and migrated; one PEER_FETCH step within
+   f32 rounding of one CLOUD_CENTRAL step);
+12. the smoke's seconds, the ``{"kernels": [...]}`` line (the merge
    kernel's launches by path: served, warm, runtime, replication and mesh;
-   flash's by model, its give-ups (0) and its times at the four
-   geometries), then the card's name and power limit
+   flash's by model and the tensor-parallel prefill's, its give-ups (0)
+   and its times at the four geometries), then the card's name and power
+   limit
    as ``nvidia-smi`` reports them, then ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
@@ -3088,6 +3108,535 @@ def run_mesh(torch, cfg=None):
     return records, launches, wall
 
 
+# ---------------------------------------------------------------------------
+# Phase tensor_parallel: the dense family's steps over data and model
+# ---------------------------------------------------------------------------
+
+TP_ARCH = TRAIN_ARCH            # internlm2-1.8b
+TP_BATCH, TP_SEQ = 4, 4096      # prefill: 2 sessions a data rank
+TP_DECODE_STEPS = 8
+TP_TRAIN_LAYERS = 4             # depth 24 -> 4
+TP_TRAIN_BATCH = 2              # 1 a data rank
+TP_TRAIN_STEPS = 3
+TP_TRAIN_CFG = dict(lr=3e-4, warmup_steps=1, total_steps=10)
+TP_LOSS_TOL = 1e-3              # loss and grad_norm, TP against unsharded
+TP_POD_STEPS = 2
+TP_SESS_STEPS = 2
+TP_PARTS = ("prefill", "decode", "train_zero1", "train_fsdp", "pods")
+
+#: host ms and bytes inside the port's collectives on this rank
+_TRANSPORT = {"ms": 0.0, "bytes": 0}
+
+
+def tp_config(device="cuda", reduce=None):
+    """What the ``tensor_parallel`` phase runs, at full width on the card;
+    ``reduce`` (a function of an arch) and smaller sizes rehearse it on
+    the CPU."""
+    return {"device": device, "reduce": reduce, "batch": TP_BATCH,
+            "seq": TP_SEQ, "decode_steps": TP_DECODE_STEPS,
+            "train_layers": TP_TRAIN_LAYERS, "train_seq": TRAIN_SEQ,
+            "train_batch": TP_TRAIN_BATCH, "train_steps": TP_TRAIN_STEPS,
+            "sess_cache": SESS_CACHE, "sess_length": SESS_LENGTH}
+
+
+def _time_transport(torch):
+    """Time every collective of ``parallel.collectives`` on this rank: the
+    card synchronised first (outside the timer), so the host ms are the
+    transport's and the wait for the other ranks'."""
+    from repro_torch.parallel import collectives as col
+    if getattr(col, "_smoke_timed", False):
+        return
+    for name in ("_all_reduce", "_all_gather", "ppermute"):
+        inner = getattr(col, name)
+
+        def timed(x, *args, _inner=inner, **kwargs):
+            if x.is_cuda:
+                torch.cuda.synchronize(x.device)
+            t0 = time.perf_counter()
+            out = _inner(x, *args, **kwargs)
+            _TRANSPORT["ms"] += (time.perf_counter() - t0) * 1e3
+            _TRANSPORT["bytes"] += x.numel() * x.element_size()
+            return out
+        setattr(col, name, timed)
+    col._smoke_timed = True
+
+
+def _transport_ms(torch, dev, fn):
+    """``fn()``, its ms on this rank (CUDA events on the card) and the
+    transport's ms and bytes inside it."""
+    _TRANSPORT["ms"], _TRANSPORT["bytes"] = 0.0, 0
+    out, ms = _rank_ms(torch, dev, fn)
+    return out, ms, _TRANSPORT["ms"], _TRANSPORT["bytes"]
+
+
+def _whole(tree, mesh, specs):
+    from repro_torch.parallel import sharding as sh
+    return sh._zip_specs(lambda x, s: sh.unlocal(x, mesh, s), tree, specs)
+
+
+def _tp_prefill_shape(cfg, seq):
+    from repro_torch.configs import ShapeConfig, StepKind
+    return ShapeConfig("tp_prefill", seq, cfg["batch"], StepKind.PREFILL)
+
+
+def _tp_params(torch, arch, mesh, dev):
+    """internlm2-1.8b's bf16 weights from seed 0, this rank's shards."""
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as sh
+    full = zoo.init_params(arch, seed=0, dtype=torch.bfloat16, device=dev)
+    specs = sh.param_partition_specs(full, arch, mesh,
+                                     ParallelConfig(fsdp=False))
+    mine = sh.local(full, mesh, specs)[0]
+    del full
+    _free(torch, dev)
+    return mine
+
+
+def _tp_tokens(torch, arch, cfg, dev):
+    gen = torch.Generator(device=dev).manual_seed(500)
+    return torch.randint(0, arch.vocab_size, (cfg["batch"], cfg["seq"]),
+                         generator=gen, device=dev, dtype=torch.int32)
+
+
+def tp_serve(torch, rank, cfg, dev, mesh, fk):
+    """Parts ``prefill`` and ``decode``: internlm2-1.8b at full width and
+    depth on (data 2, model 2), FLASH, 4 prompts of ``seq`` tokens (2 a
+    data rank), then ``decode_steps`` greedy steps from that cache; rank 0
+    then runs the unsharded prefill and the unsharded decode step (fed
+    the ranks' tokens) on the same card.  Returns (prefill, decode)
+    records on rank 0."""
+    import repro_torch.launch.serve as serve
+    from repro_torch.configs import AttnImpl
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as sh
+    arch = _arch(cfg, TP_ARCH)
+    S = cfg["seq"]
+    params = _tp_params(torch, arch, mesh, dev)
+    tokens = _tp_tokens(torch, arch, cfg, dev)
+    batch = sh.local({"tokens": tokens}, mesh,
+                     {"tokens": sh.P("data", None)})[0]
+    warm = serve.make_prefill_step(arch, _tp_prefill_shape(cfg, 256),
+                                   impl=AttnImpl.FLASH, device=dev, mesh=mesh)
+    warm(params, {"tokens": batch["tokens"][:, :256].contiguous()})
+    step = serve.make_prefill_step(arch, _tp_prefill_shape(cfg, S),
+                                   impl=AttnImpl.FLASH, device=dev, mesh=mesh)
+    _sync(torch, dev)
+    n0 = fk.flash_attention_bhsd.launches
+    (logits, cache), ms, tms, tbytes = _transport_ms(
+        torch, dev, lambda: step(params, batch))
+    launches = fk.flash_attention_bhsd.launches - n0
+    give_ups = fk.check_give_ups() if dev.type == "cuda" else 0
+    cspecs = serve.session_cache_specs(arch, mesh, cfg["batch"])
+    whole = _whole({"k": cache["k"], "v": cache["v"]}, mesh,
+                   {"k": cspecs["k"], "v": cspecs["v"]})
+    if rank != 0:
+        del whole
+    prefill_rank = {"ms": ms, "transport_ms": tms, "transport_bytes": tbytes,
+                    "flash_launches": launches, "give_ups": give_ups}
+
+    # decode: the prefill cache in a rank's cache with room for the steps
+    room = S + cfg["decode_steps"] + 8
+    dcache = zoo.init_cache(arch, cfg["batch"], room, device=dev, mesh=mesh)
+    for k in ("k", "v"):
+        dcache[k][:, :, :S].copy_(cache[k])
+    dcache["length"].copy_(cache["length"])
+    del cache
+    seen = []
+    greedy = serve.greedy_sharded
+
+    def capture(lg, m):        # the logits each step takes its token from
+        seen.append(lg)
+        return greedy(lg, m)
+    serve.greedy_sharded = capture
+    dstep = serve.make_decode_step(arch, device=dev, mesh=mesh)
+    first = torch.argmax(logits[:, -1, :], -1)[:, None].to(torch.int32)
+    token = sh.local({"t": first}, mesh, {"t": sh.P("data", None)})[0]["t"]
+    dms, dtms, toks, step_logits = [], [], [], []
+    try:
+        for _ in range(cfg["decode_steps"]):
+            (token, dcache), t, tt, _ = _transport_ms(
+                torch, dev, lambda: dstep(params, dcache, token))
+            dms.append(t)
+            dtms.append(tt)
+            toks.append(sh.unlocal(token, mesh, sh.P("data", None)))
+            step_logits.append(sh.unlocal(seen.pop().float(), mesh,
+                                          sh.P("data", "model")))
+    finally:
+        serve.greedy_sharded = greedy
+    decode_rank = {"ms": dms, "transport_ms": dtms}
+    ranks = _gather_obj({"prefill": prefill_rank, "decode": decode_rank})
+    del params, dcache
+    _free(torch, dev)
+    _gather_obj(None)
+    if rank != 0:
+        return None, None
+
+    full = zoo.init_params(arch, seed=0, dtype=torch.bfloat16, device=dev)
+    plain = serve.make_prefill_step(arch, _tp_prefill_shape(cfg, S),
+                                    impl=AttnImpl.FLASH, device=dev)
+    plain(full, {"tokens": tokens[:, :256].contiguous()})
+    (logits0, cache0), ms0 = _rank_ms(torch, dev,
+                                      lambda: plain(full, {"tokens": tokens}))
+    if dev.type == "cuda":
+        fk.check_give_ups()
+    rel_logits = _rel(torch, logits, logits0)
+    rel_cache = max(_rel(torch, whole[k], cache0[k]) for k in ("k", "v"))
+    del whole
+    assert rel_logits < PREFILL_REL_TOL, rel_logits
+    assert rel_cache < PREFILL_REL_TOL, rel_cache
+    if dev.type == "cuda":
+        assert all(r["prefill"]["flash_launches"] == arch.num_layers
+                   for r in ranks), [r["prefill"] for r in ranks]
+    prefill = {"arch": TP_ARCH, "mesh": {"data": 2, "model": 2},
+               "batch": cfg["batch"], "seq": S, "layers": arch.num_layers,
+               "impl": "flash", "rel_err_logits": rel_logits,
+               "rel_err_cache": rel_cache, "tolerance": PREFILL_REL_TOL,
+               "flash_launches": [r["prefill"]["flash_launches"]
+                                  for r in ranks],
+               "give_ups": [r["prefill"]["give_ups"] for r in ranks],
+               "ms": [r["prefill"]["ms"] for r in ranks],
+               "transport_ms": [r["prefill"]["transport_ms"] for r in ranks],
+               "transport_bytes": [r["prefill"]["transport_bytes"]
+                                   for r in ranks],
+               "unsharded_ms": ms0}
+
+    # the unsharded decode step, fed the ranks' tokens
+    dc0 = zoo.init_cache(arch, cfg["batch"], room, device=dev)
+    for k in ("k", "v"):
+        dc0[k][:, :, :S].copy_(cache0[k])
+    dc0["length"].copy_(cache0["length"])
+    del cache0
+    _free(torch, dev)
+    token0 = first
+    rels, differ, ms0s = [], 0, []
+    for i in range(cfg["decode_steps"]):
+        (lg0, dc0), t = _rank_ms(torch, dev, lambda: zoo.decode_step(
+            arch, full, dc0, token0))
+        ms0s.append(t)
+        lg0 = lg0[:, -1, :].float()
+        rels.append(_rel(torch, step_logits[i], lg0))
+        differ += int((torch.argmax(lg0, -1)[:, None].to(torch.int32)
+                       != toks[i]).sum())
+        token0 = toks[i]
+    del full, dc0
+    _free(torch, dev)
+    assert max(rels) < PREFILL_REL_TOL, rels
+    decode = {"arch": TP_ARCH, "mesh": {"data": 2, "model": 2},
+              "sessions": cfg["batch"], "steps": cfg["decode_steps"],
+              "from_length": S, "rel_err_logits": rels,
+              "tolerance": PREFILL_REL_TOL,
+              "greedy_tokens_differing": differ,
+              "greedy_tokens": cfg["batch"] * cfg["decode_steps"],
+              "ms": [r["decode"]["ms"] for r in ranks],
+              "transport_ms": [r["decode"]["transport_ms"] for r in ranks],
+              "unsharded_ms": ms0s}
+    return prefill, decode
+
+
+def _tp_train_parts(torch, cfg, fsdp):
+    from repro_torch.configs import ShapeConfig, StepKind, TrainConfig
+    from repro_torch.launch import train
+    arch = _arch(cfg, TRAIN_ARCH, num_layers=cfg["train_layers"])
+    shape = ShapeConfig("tp_train", cfg["train_seq"], cfg["train_batch"],
+                        StepKind.TRAIN)
+    par = dataclasses.replace(train.default_parallel(arch, shape), fsdp=fsdp)
+    return arch, shape, par, TrainConfig(**TP_TRAIN_CFG)
+
+
+def _rank_state(torch, arch, par, mesh, specs, dev, seed=0):
+    """This rank's shards of ``init_state(seed)``: the params made whole
+    and cut, the AdamW moments and step made at the shard's shapes (zeros,
+    as ``init_state`` makes them; f32 params keep no master)."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch import train
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as sh
+    shapes = sh.local(train.state_shapes(arch, par), mesh, specs)[0]
+    assert "master" not in shapes["opt"], "bf16 params keep a master"
+    full = zoo.init_params(arch, seed=seed,
+                           dtype=train.param_dtype_for(arch), device=dev)
+    params = sh.local(full, mesh, specs["params"])[0]
+    del full
+    _free(torch, dev)
+    zeros = lambda t: tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype,
+                                                     device=dev), t)
+    return {"params": params, "opt": zeros(shapes["opt"]),
+            "step": zeros(shapes["step"])}
+
+
+def tp_train(torch, rank, cfg, dev, mesh, fsdp):
+    """Parts ``train_zero1`` and ``train_fsdp``: internlm2-1.8b at full
+    width, depth 24 -> ``train_layers``, seq ``train_seq``, a global batch
+    of 2 (1 a data rank), AdamW, remat "block", ``default_parallel`` (ZeRO-1)
+    or with ``fsdp``, ``train_steps`` steps on (data 2, model 2); rank 0
+    then runs the unsharded step on the concatenated batches."""
+    from repro_torch.data import rank_batch, synthetic_batch
+    from repro_torch.launch import train
+    arch, shape, par, tcfg = _tp_train_parts(torch, cfg, fsdp)
+    step, _ = train.make_train_step(arch, shape, parallel=par, cfg=tcfg,
+                                    device=dev, mesh=mesh)
+    state = _rank_state(torch, arch, par, mesh, step.specs, dev)
+    rows = []
+    for i in range(cfg["train_steps"]):
+        batch = rank_batch(arch, shape, 0, i, mesh, step.batch_axes,
+                           device=dev)
+        (state, m), t, tt, tb = _transport_ms(torch, dev,
+                                              lambda: step(state, batch))
+        rows.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]), "ms": t,
+                     "transport_ms": tt, "transport_bytes": tb})
+    whole = _whole(state["params"], mesh, step.specs["params"])
+    ranks = _gather_obj(rows)
+    if rank != 0:
+        del whole
+    del state
+    _free(torch, dev)
+    _gather_obj(None)
+    if rank != 0:
+        return None
+    plain, _ = train.make_train_step(arch, shape, parallel=par, cfg=tcfg,
+                                     device=dev)
+    state0 = train.init_state(arch, 0, par, device=dev)
+    want, ms0 = [], []
+    for i in range(cfg["train_steps"]):
+        parts = [synthetic_batch(arch, shape, 0, i, shard=s, num_shards=2,
+                                 device=dev) for s in range(2)]
+        batch0 = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+        (state0, m), t = _rank_ms(torch, dev, lambda: plain(state0, batch0))
+        want.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"])})
+        ms0.append(t)
+    from repro_torch.core.tree import tree_flatten
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        tree_flatten(whole)[0], tree_flatten(state0["params"])[0]))
+    del whole, state0
+    _free(torch, dev)
+    rel = {k: max(abs(r[k] - w[k]) / abs(w[k])
+                  for r, w in zip(ranks[0], want))
+           for k in ("loss", "grad_norm")}
+    bound = 2 * tcfg.lr * cfg["train_steps"]
+    assert all(v < TP_LOSS_TOL for v in rel.values()), (rel, ranks[0], want)
+    assert diff <= bound, (diff, bound)
+    return {"arch": TRAIN_ARCH, "mesh": {"data": 2, "model": 2},
+            "reduced": {"num_layers": f"24 -> {cfg['train_layers']}",
+                        "global_batch": f"256 -> {cfg['train_batch']}"},
+            "seq": cfg["train_seq"], "steps": cfg["train_steps"],
+            "zero1": par.zero1, "fsdp": par.fsdp, "remat": par.remat,
+            "losses": [r["loss"] for r in ranks[0]],
+            "unsharded_losses": [w["loss"] for w in want],
+            "rel_err": rel, "tolerance": TP_LOSS_TOL,
+            "params_max_abs_diff": diff, "params_bound": bound,
+            "ms": [[r["ms"] for r in rk] for rk in ranks],
+            "transport_ms": [[r["transport_ms"] for r in rk]
+                             for rk in ranks],
+            "transport_bytes": [rk[0]["transport_bytes"] for rk in ranks],
+            "unsharded_ms": ms0}
+
+
+def tp_pods(torch, rank, cfg, dev, mesh):
+    """Part ``pods`` on (pod 2, model 2): REPLICATED steps then a round
+    with int8 off and on (pods unequal before it, bit-identical after);
+    TP session caches decoded, replicated round the pod ring (each backup
+    the neighbour's live cache) and migrated; one PEER_FETCH step against
+    one CLOUD_CENTRAL step."""
+    from repro_torch.configs import EnokiConfig, ReplicationPolicy
+    from repro_torch.core.tree import tree_flatten, tree_map
+    from repro_torch.data import rank_batch
+    from repro_torch.launch import serve, train
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.optim import diloco_init
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel import sharding as sh
+    R = ReplicationPolicy
+    arch, shape, par, tcfg = _tp_train_parts(torch, cfg, False)
+    shape = dataclasses.replace(shape, global_batch=PODS)
+    pod = col.axis_index(mesh, "pod")
+    group = mesh.get_group("pod")
+    out = {}
+
+    def pods_differ(params) -> float:
+        leaf = params["blocks"]["attn"]["wq"]
+        both = col.all_gather(leaf, mesh, "pod")
+        return float((both[0] - both[1]).abs().max())
+
+    enoki = EnokiConfig(policy=R.REPLICATED, replication_period=PODS_PERIOD)
+    step, _ = train.make_train_step(arch, shape, parallel=par, enoki=enoki,
+                                    cfg=tcfg, device=dev, mesh=mesh)
+    state = _rank_state(torch, arch, par, mesh, step.specs, dev)
+    ms = []
+    for i in range(TP_POD_STEPS):
+        batch = rank_batch(arch, shape, 0, i, mesh, ("pod",), device=dev)
+        (state, _), t, _, _ = _transport_ms(torch, dev,
+                                            lambda: step(state, batch))
+        ms.append(t)
+    pspecs = step.specs["params"]
+    ospecs = {"outer_params": pspecs, "momentum": pspecs, "round": sh.P()}
+    kept = tree_map(torch.clone, state["params"])
+    rounds = {}
+    for c in (0, 1):
+        state["params"] = tree_map(torch.clone, kept)
+        before = pods_differ(state["params"])
+        full = zoo.init_params(arch, seed=0,
+                               dtype=train.param_dtype_for(arch), device=dev)
+        outer = sh.local(diloco_init(full), mesh, ospecs)[0]
+        del full
+        _free(torch, dev)
+        rstep, _ = train.make_replicate_step(
+            arch, PODS, par, dataclasses.replace(enoki,
+                                                 compress_deltas=bool(c)),
+            device=dev, mesh=mesh)
+        (_, outer), t, tt, tb = _transport_ms(
+            torch, dev, lambda: rstep(state, outer))
+        digests = _gather_obj(_digest(torch, state["params"]), group)
+        rounds["int8" if c else "f32"] = {
+            "pods_max_diff_before": before,
+            "pods_identical_after": digests[0] == digests[1],
+            "round_ms": t, "transport_ms": tt, "transport_bytes": tb}
+        assert before > 0 and digests[0] == digests[1], rounds
+        del outer
+    del state, kept
+    _free(torch, dev)
+    out["replicated"] = {"steps": TP_POD_STEPS, "step_ms": ms, **rounds}
+
+    # sessions: TP caches, one pod's 4 sessions on its 2 ranks
+    sarch = _arch(cfg, SESS_ARCH)
+    params = _tp_params(torch, sarch, mesh, dev)
+    full, token = _session_state(torch, sarch, cfg, dev, pod)
+    cspecs = serve.session_cache_specs(sarch, mesh, SESS_SESSIONS)
+    cache = sh.local(full, mesh, cspecs)[0]
+    del full
+    dstep = serve.make_decode_step(sarch, device=dev, mesh=mesh)
+    dms = []
+    for _ in range(TP_SESS_STEPS):
+        (token, cache), t, _, _ = _transport_ms(
+            torch, dev, lambda: dstep(params, cache, token))
+        dms.append(t)
+    backup, rms, rtms, rtb = _transport_ms(
+        torch, dev, lambda: serve.make_replicate_sessions_step(
+            device=dev, mesh=mesh)(cache))
+    dead = torch.tensor([True, False], device=dev)
+    restored = serve.make_migrate_sessions_step(device=dev, mesh=mesh)(
+        cache, backup, dead)
+    mine = {"cache": _digest(torch, cache), "backup": _digest(torch, backup),
+            "restored": _digest(torch, restored)}
+    got = _gather_obj(mine, group)          # pod order
+    ring = all(got[p]["backup"] == got[(p - 1) % PODS]["cache"]
+               for p in range(PODS))
+    failover = got[0]["restored"] == got[0]["backup"] and \
+        got[1]["restored"] == got[1]["cache"]
+    assert ring and failover, got
+    out["sessions"] = {"sessions_a_pod": SESS_SESSIONS,
+                       "cache_len": cfg["sess_cache"],
+                       "decode_steps": TP_SESS_STEPS, "decode_ms": dms,
+                       "backup_is_ring_neighbour": ring,
+                       "failover": failover, "replicate_ms": rms,
+                       "replicate_transport_ms": rtms,
+                       "replicate_transport_bytes": rtb}
+    del params, cache, backup, restored
+    _free(torch, dev)
+
+    # PEER_FETCH against CLOUD_CENTRAL, one step from the same state
+    res = {}
+    for name, policy in (("central", R.CLOUD_CENTRAL),
+                         ("peer", R.PEER_FETCH)):
+        step, _ = train.make_train_step(arch, shape, parallel=par,
+                                        enoki=EnokiConfig(policy=policy),
+                                        cfg=tcfg, device=dev, mesh=mesh)
+        state = _rank_state(torch, arch, par, mesh, step.specs, dev)
+        batch = rank_batch(arch, shape, 0, 0, mesh, step.batch_axes,
+                           device=dev)
+        (state, m), t, tt, tb = _transport_ms(torch, dev,
+                                              lambda: step(state, batch))
+        cc_specs = train.state_specs(train.state_shapes(arch, par), arch,
+                                     mesh, par)["params"]
+        flat = [sh.relayout(x, mesh, s, c) for x, s, c in zip(
+            tree_flatten(state["params"])[0],
+            sh.spec_leaves(step.specs["params"]),
+            sh.spec_leaves(cc_specs))]
+        res[name] = {"metrics": {k: float(v) for k, v in m.items()},
+                     "params": flat, "ms": t, "transport_ms": tt,
+                     "transport_bytes": tb}
+        del state
+        _free(torch, dev)
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        res["peer"]["params"], res["central"]["params"]))
+    diff = float(col.pmax(torch.tensor(diff), mesh, "model"))
+    rel = {k: abs(res["peer"]["metrics"][k] - res["central"]["metrics"][k])
+           / abs(res["central"]["metrics"][k]) for k in ("loss", "grad_norm")}
+    bound = 2 * tcfg.lr
+    assert all(v <= 1e-5 for v in rel.values()) and diff <= bound, \
+        (rel, diff)
+    out["peer_fetch"] = {
+        "rel_err_vs_central": rel, "tolerance": 1e-5,
+        "params_max_abs_diff": diff, "params_bound": bound,
+        **{f"{n}_{k}": res[n][k] for n in res
+           for k in ("ms", "transport_ms", "transport_bytes")}}
+    ranks = _gather_obj(out)
+    if rank != 0:
+        return None
+    return {"arch": TRAIN_ARCH, "mesh": {"pod": 2, "model": 2},
+            "reduced": {"num_layers": f"24 -> {cfg['train_layers']}",
+                        "global_batch": f"256 -> {PODS}"},
+            "seq": cfg["train_seq"], "by_rank": ranks}
+
+
+def tp_rank(rank, cfg):
+    """One rank of the ``tensor_parallel`` world: every part in turn with a
+    barrier between; rank 0 returns the records, every rank its seconds a
+    part."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.mesh import make_mesh_compat, world_device
+    dev = world_device()
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    _time_transport(torch)
+    dm = make_mesh_compat((2, 2), ("data", "model"))
+    pm = make_mesh_compat((2, 2), ("pod", "model"))
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    out["prefill"], out["decode"] = tp_serve(torch, rank, cfg, dev, dm, fk)
+    _gather_obj(None)
+    seconds["prefill"] = seconds["decode"] = time.perf_counter() - t0
+    for part, fn in (("train_zero1", lambda: tp_train(torch, rank, cfg, dev,
+                                                      dm, False)),
+                     ("train_fsdp", lambda: tp_train(torch, rank, cfg, dev,
+                                                     dm, True)),
+                     ("pods", lambda: tp_pods(torch, rank, cfg, dev, pm))):
+        t0 = time.perf_counter()
+        out[part] = fn()
+        _free(torch, dev)
+        _gather_obj(None)
+        seconds[part] = time.perf_counter() - t0
+    return {"records": out if rank == 0 else None, "seconds": seconds}
+
+
+def run_tp(torch, cfg=None):
+    """Phase ``tensor_parallel``: one world of 4 ranks on the card (gloo
+    over a ``file://`` store in ``build/``); returns (the parts' records,
+    wall seconds)."""
+    import shutil
+    from repro_torch.launch.mesh import spawn_world
+    cfg = cfg or tp_config()
+    store_dir = ROOT / "build" / "tp_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store_dir.mkdir(parents=True)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = spawn_world(tp_rank, MESH_RANKS,
+                          f"file://{store_dir / 'store'}", args=(cfg,),
+                          device=cfg["device"], timeout_s=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    records = results[0]["records"]
+    for part in TP_PARTS:
+        records[part]["seconds"] = max(r["seconds"][part] for r in results)
+    return records, wall
+
+
 def main() -> int:
     try:
         import torch
@@ -3277,12 +3826,21 @@ def main() -> int:
               "transport": "gloo, staged through host memory",
               "nvidia_smi": smi, **mesh[part]})
 
-    # -- 11. the kernels line, the card, the result
+    # -- 11. tensor parallelism: four ranks sharing the card over gloo
+    torch.cuda.empty_cache()
+    tp, tp_wall = run_tp(torch)
+    for part in TP_PARTS:
+        emit({"phase": "tensor_parallel", "part": part, "ranks": MESH_RANKS,
+              "transport": "gloo, staged through host memory",
+              "nvidia_smi": smi, **tp[part]})
+
+    # -- 12. the kernels line, the card, the result
     flash_launches = {a: ss["launches"]["flash_attention_bhsd"]
                       for a, ss in sessions.items()
                       if ss["launches"]["flash_attention_bhsd"]}
+    flash_launches["tensor_parallel"] = sum(tp["prefill"]["flash_launches"])
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start,
-          "mesh_s": mesh_wall})
+          "mesh_s": mesh_wall, "tensor_parallel_s": tp_wall})
     t = timings[("100KB", 1)]
     merge_launches = {"serve": st["launches"],
                       "warm": warm["kernel_launches"],
@@ -3301,7 +3859,7 @@ def main() -> int:
         "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
         "launches": sum(flash_launches.values()),
         "launches_by_path": flash_launches,
-        "give_ups": fk.check_give_ups(),
+        "give_ups": fk.check_give_ups() + sum(tp["prefill"]["give_ups"]),
         "max_abs_err": max([max(fworst.values())] + [
             t["max_abs_err"] for t in flash_times.values()]),
         "ms": ft["ms"], "plain_ms": ft["plain_ms"],

@@ -1,0 +1,43 @@
+#!/usr/bin/env python3
+"""Run ``chip_smoke.py``'s ``tensor_parallel`` phase alone on one CUDA card.
+
+    python3 probes/tp_phase.py          # from the repository root
+
+Builds the kernels (flash is the phase's: each rank's prefill runs it on
+its heads), spawns the phase's world of 4 ranks sharing the card
+(``chip_smoke.run_tp``) and prints one JSON line a part after the card's
+name and power limit.  Any failed check raises, as in the smoke.
+"""
+import json
+import pathlib
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def main() -> int:
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    if not torch.cuda.is_available():
+        print("tp_phase: no CUDA device is available", file=sys.stderr)
+        return 2
+    print(sys.version, torch.__version__, torch.version.cuda, flush=True)
+    smi = cs.nvidia_smi_line()
+    print(smi, flush=True)
+    t0 = time.time()
+    build.build_all()
+    print("build_s", time.time() - t0, flush=True)
+    records, wall = cs.run_tp(torch)
+    for part in cs.TP_PARTS:
+        print(json.dumps({"part": part, "nvidia_smi": smi, **records[part]}),
+              flush=True)
+    print(json.dumps({"wall_s": wall}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -160,6 +160,26 @@ def train_state_from_numpy(arch, tree: dict, device=None,
             "step": _tensor(tree["step"], dev, None)}
 
 
+def params_to_rank(arch, tree: dict, mesh, specs: dict, device=None,
+                   dtype: Optional[torch.dtype] = None) -> dict:
+    """This rank's shards of the reference's parameter tree on ``mesh``:
+    ``params_from_numpy``, then ``parallel.sharding.local`` of ``specs``
+    (the reference's ``param_partition_specs``), so the ranks of a
+    tensor-parallel step compute from the reference's weights."""
+    from repro_torch.parallel.sharding import local
+    return local(params_from_numpy(arch, tree, device, dtype), mesh,
+                 specs)[0]
+
+
+def train_state_to_rank(arch, tree: dict, mesh, specs: dict, device=None,
+                        param_dtype: Optional[torch.dtype] = None) -> dict:
+    """This rank's shards of a train state (``train_state_from_numpy``'s
+    tree) on ``mesh`` by ``specs`` (``launch.train.state_specs``)."""
+    from repro_torch.parallel.sharding import local
+    return local(train_state_from_numpy(arch, tree, device, param_dtype),
+                 mesh, specs)[0]
+
+
 def train_state_to_numpy(state: dict) -> dict:
     """A train state or an outer state as (nested dicts of) host arrays
     (bfloat16 widens to float32)."""

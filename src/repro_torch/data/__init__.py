@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import DataPipeline, synthetic_batch
+from repro_torch.data.pipeline import DataPipeline, rank_batch, synthetic_batch
 
-__all__ = ["DataPipeline", "synthetic_batch"]
+__all__ = ["DataPipeline", "rank_batch", "synthetic_batch"]

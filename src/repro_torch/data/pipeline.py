@@ -86,6 +86,25 @@ def synthetic_batch(arch: ArchConfig, shape: ShapeConfig, seed: int,
     return {k: v.contiguous().to(dev) for k, v in batch.items()}
 
 
+def rank_batch(arch: ArchConfig, shape: ShapeConfig, seed: int, step: int,
+               mesh, axes=("data",), batch_override: Optional[int] = None,
+               device=None) -> Dict[str, torch.Tensor]:
+    """This rank's shard of ``step``'s batch on ``mesh``:
+    ``synthetic_batch`` with the rank's index over ``axes`` (its
+    ``axis_index`` on ``data``, or on ``("pod", "data")`` for CLOUD_CENTRAL
+    and PEER_FETCH, the first named major as a batch spec lays them) as
+    ``shard``, of their sizes' product; axes the mesh lacks count as 1."""
+    from repro_torch.parallel.collectives import axis_index, axis_size
+    shard, n = 0, 1
+    for a in axes:
+        if a in mesh.mesh_dim_names:
+            shard = shard * axis_size(mesh, a) + axis_index(mesh, a)
+            n *= axis_size(mesh, a)
+    return synthetic_batch(arch, shape, seed, step, shard=shard,
+                           num_shards=n, batch_override=batch_override,
+                           device=device)
+
+
 @dataclasses.dataclass
 class DataPipeline:
     """Host-side iterator with a replicable cursor keygroup on ``device``

@@ -43,9 +43,22 @@ over ``pod`` (pod i's backup holds pod i - 1's sessions, the reference's
 ``roll``) and ``migrate_sessions`` a local ``where`` on each rank.
 ``flash_decode=True`` on a mesh with no ``pod`` axis reads a cache sharded
 on the sequence over ``model`` (``attention.decode_self_attention_sharded``);
-its collectives cannot be captured, so that step runs eagerly.  Tensor
-parallelism of the weights over ``data``/``model`` raises
-``NotImplementedError``: it comes with the slice after the pod axis.
+its collectives cannot be captured, so that step runs eagerly.
+
+On a mesh whose ``data`` or ``model`` axis is larger than 1 (the dense
+family; ``model_zoo.check_mesh`` refuses the others) the steps are
+tensor-parallel: every rank holds its shards of the weights
+(``parallel.sharding.local`` of ``param_partition_specs``), its batch
+shard over ``data`` and a cache of its sessions' KV heads
+(``session_cache_specs``: by KV heads over ``model``, where the
+reference's ``cache_partition_specs`` puts internlm2's cache on the head
+dim; gathered, the two are the same tensor).  Prefill runs each rank's
+heads through flash under FLASH and returns the last logits gathered to
+every rank; decode's greedy token is the argmax over the vocabulary
+shards, ties to the lowest global index as ``jnp.argmax`` breaks them
+(``greedy_sharded``), and, its collectives not being capturable, runs
+eagerly.  With a ``pod`` axis too, each pod is a group of ranks, and the
+session ring runs over ``pod`` shard by shard.
 """
 from __future__ import annotations
 
@@ -81,28 +94,62 @@ def params_shape_tree(arch: ArchConfig) -> dict:
 # Prefill
 # ---------------------------------------------------------------------------
 
+def session_cache_specs(arch: ArchConfig, mesh, batch: int) -> dict:
+    """The tensor-parallel steps' layout of a dense cache of ``batch``
+    sessions (``init_cache``'s tree): ``k``/``v`` (L, B, S, KV, Dh) by
+    sessions over ``data`` (when it divides ``batch``) and by KV heads over
+    ``model``; ``length`` replicated."""
+    from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.parallel.sharding import P
+    sizes = axis_sizes(mesh)
+    data = sizes.get("data", 1)
+    bdim = "data" if data > 1 and batch % data == 0 else None
+    model = "model" if sizes.get("model", 1) > 1 else None
+    kv = P(None, bdim, None, model, None)
+    return {"k": kv, "v": kv, "length": P()}
+
+
 def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
                       impl: AttnImpl = AttnImpl.REFERENCE, device=None,
-                      compute_dtype=torch.bfloat16
+                      compute_dtype=torch.bfloat16, mesh=None
                       ) -> Callable[[dict, dict], tuple]:
     """``prefill(params, batch) -> (logits (B, 1, V), cache)`` for one pod:
     ``batch["tokens"]`` is (B, shape.seq_len), and the batch goes to
     ``forward_seq`` as its ``extra`` (the vlm's ``patch_embeds``,
     whisper's ``frame_embeds``: ``model_zoo.example_batch`` makes them);
-    the cache is ``forward_seq``'s, with ``length`` = ``shape.seq_len``."""
+    the cache is ``forward_seq``'s, with ``length`` = ``shape.seq_len``.
+
+    With ``mesh`` (``data`` x ``model``; the dense family): this rank's
+    parameter shards and its batch shard over ``data``
+    (``sharding.batch_specs``); the logits come back whole on every rank
+    (the reference's ``out_shardings=None``), the cache as the rank's
+    (``session_cache_specs``)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        from repro_torch.configs.base import ParallelConfig
+        from repro_torch.parallel.sharding import P, batch_specs, unlocal
+        zoo.check_mesh(arch, mesh, "make_prefill_step")
+        if "pod" in mesh.mesh_dim_names:
+            raise ValueError("make_prefill_step takes a (data, model) mesh")
+        bdim = batch_specs(arch, shape, mesh, ParallelConfig())["tokens"][0]
+        vocab = "model" if "model" in mesh.mesh_dim_names else None
+        logits_spec = P(bdim, None, vocab)
 
     def prefill(params: dict, batch: dict):
         check_on(dev, params, "params")
         check_on(dev, batch, "batch")
         logits, _, cache = zoo.forward_seq(arch, params, batch["tokens"],
                                            extra=batch, impl=impl,
-                                           return_cache=True,
+                                           return_cache=True, mesh=mesh,
                                            compute_dtype=compute_dtype)
         cache["length"] = torch.tensor(shape.seq_len, dtype=torch.int32,
                                        device=dev)
         # a copy, so the (B, S, V) logits are freed as the step returns
-        return logits[:, -1:, :].clone(), cache
+        last = logits[:, -1:, :].clone()
+        del logits
+        if mesh is not None:
+            last = unlocal(last, mesh, logits_spec)
+        return last, cache
 
     return prefill
 
@@ -111,19 +158,22 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
 # Decode
 # ---------------------------------------------------------------------------
 
-def _mesh_pods(mesh, flash_decode: bool, what: str) -> int:
-    """The mesh's pod count; inner axes of size > 1 only for a flash-decode
-    step on a mesh with no ``pod`` axis (sequence shards over ``model``)."""
-    from repro_torch.launch.mesh import axis_sizes
-    sizes = axis_sizes(mesh)
-    if flash_decode and "pod" not in sizes:
-        return 1
-    inner = {a: n for a, n in sizes.items() if a != "pod" and n > 1}
-    if inner:
-        raise NotImplementedError(
-            f"{what} over {inner}: tensor parallelism of the weights over "
-            "'data' and 'model' comes with the slice after the pod axis")
-    return sizes.get("pod", 1)
+def greedy_sharded(logits: torch.Tensor, mesh) -> torch.Tensor:
+    """The greedy token (B, 1) int32 from this rank's vocabulary shard of
+    the last logits (B, V / model): each rank's first maximum, the ``pmax``
+    of the values, then the ``pmin`` of the global ids among the ranks
+    that hold it, so a tie goes to the lowest global id as ``jnp.argmax``
+    breaks it.  A mesh with no ``model`` axis holds the whole vocabulary."""
+    from repro_torch.parallel.collectives import axis_index, pmax, pmin
+    v_local = logits.shape[-1]
+    idx = torch.argmax(logits, dim=-1)
+    if "model" not in mesh.mesh_dim_names:
+        return idx[:, None].to(torch.int32)
+    val = torch.gather(logits, -1, idx[:, None])[:, 0].float()
+    top = pmax(val, mesh, "model")
+    ids = idx + axis_index(mesh, "model") * v_local
+    best = torch.where(val == top, ids, torch.full_like(ids, 2 ** 62))
+    return pmin(best, mesh, "model")[:, None].to(torch.int32)
 
 
 def _unpod(step: Callable) -> Callable:
@@ -154,11 +204,26 @@ def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
     With ``mesh``: this rank's pod's cache (``init_cache``'s leaves,
     ``length`` 0-d) and token (B, 1); the step returns (B, 1).  With
     ``flash_decode`` too (no ``pod`` axis): the dense and moe caches are
-    the rank's sequence shards, and the step runs eagerly."""
+    the rank's sequence shards, and the step runs eagerly.  On inner axes
+    (``data`` or ``model`` > 1; the dense family): the rank's parameter
+    shards, its sessions' cache by KV heads (``session_cache_specs``) and
+    their tokens; the step runs eagerly and returns those sessions'
+    greedy tokens (``greedy_sharded``)."""
     dev = resolve_device(device)
     if mesh is not None:
-        _mesh_pods(mesh, flash_decode, "make_decode_step")
-        if flash_decode and "pod" not in mesh.mesh_dim_names:
+        fd = flash_decode and "pod" not in mesh.mesh_dim_names
+        if not fd and zoo.check_mesh(arch, mesh, "make_decode_step"):
+            def tp_step(params: dict, cache: Cache, token: torch.Tensor):
+                check_on(dev, params, "params")
+                check_on(dev, cache, "cache")
+                check_on(dev, token, "token")
+                logits, new = zoo.decode_step(arch, params, cache, token,
+                                              mesh=mesh,
+                                              compute_dtype=compute_dtype)
+                cache["length"].copy_(new["length"])
+                return greedy_sharded(logits[:, -1, :], mesh), cache
+            return tp_step
+        if fd:
             def sharded(params: dict, cache: Cache, token: torch.Tensor):
                 check_on(dev, params, "params")
                 check_on(dev, cache, "cache")
@@ -216,12 +281,14 @@ def make_replicate_sessions_step(device=None, mesh=None
     """``replicate(live) -> backup``: every leaf of the (nested) tree
     ``torch.roll(·, 1, 0)`` over the pod dim (pod i's backup slot holds pod
     i-1's sessions); the backup is a fresh copy, off the decode path.  With
-    ``mesh``: this rank's pod's sessions, sent to pod i + 1 (``ppermute``
-    pairs (i, i + 1)) as the backup comes from pod i - 1."""
+    ``mesh``: this rank's pod's sessions (on inner axes the rank's shard of
+    them), sent to pod i + 1 (``ppermute`` pairs (i, i + 1)) as the backup
+    comes from pod i - 1."""
     dev = resolve_device(device)
     if mesh is not None:
+        from repro_torch.launch.mesh import axis_sizes
         from repro_torch.parallel.collectives import ppermute
-        pods = _mesh_pods(mesh, False, "make_replicate_sessions_step")
+        pods = axis_sizes(mesh).get("pod", 1)
         perm = [(i, (i + 1) % pods) for i in range(pods)]
 
         def replicate_ranks(live: Cache) -> Cache:
@@ -246,8 +313,9 @@ def make_migrate_sessions_step(device=None, mesh=None
     reads its pod's flag; no exchange."""
     dev = resolve_device(device)
     if mesh is not None:
+        from repro_torch.launch.mesh import axis_sizes
         from repro_torch.parallel.collectives import axis_index
-        pods = _mesh_pods(mesh, False, "make_migrate_sessions_step")
+        pods = axis_sizes(mesh).get("pod", 1)
 
         def migrate_rank(live: Cache, backup: Cache,
                          dead: torch.Tensor) -> Cache:

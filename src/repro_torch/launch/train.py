@@ -21,20 +21,42 @@ CLOUD_CENTRAL (the paper's baseline) and PEER_FETCH (SyncMesh analogue)
 Without a mesh the pods are a stacked leading dim on one card, as
 ``core.replication.make_pod_replicate_step`` stacks them, and the factories
 take ``device`` (None: the card, which raises without one) where the
-reference takes a mesh.  With ``mesh=`` (a ``torch.distributed`` mesh whose
-only axis of size > 1 is ``pod``) each rank holds ONE pod's state, with no
-pod dim, and steps it on its own pod's batch: REPLICATED steps with no
-exchange; CLOUD_CENTRAL averages the gradients over ``pod`` (``psum / P``)
-before the update; the replicate step takes the mean of the deltas over
-``pod`` with ``psum / P`` (or, compressed, all-gathers the int8 payloads
-and scales).  Tensor parallelism and FSDP of whole steps over ``data`` and
-``model``, and PEER_FETCH on a mesh, raise ``NotImplementedError``: they
-come with the slice after the pod axis.  Every step writes the state IN
-PLACE (the counterpart of the reference's ``donate_argnums=(0,)``) and
-returns the same tensors.  Gradients come from ``torch.autograd`` through
-``AttnImpl.REFERENCE``, as in the reference; the kernels refuse autograd.
+reference takes a mesh.
+
+With ``mesh=`` (a ``torch.distributed`` mesh) every rank holds its shards
+of ONE pod's state, with no pod dim, laid out by the reference's specs
+(``state_specs``; ``parallel.sharding.local`` cuts them from a full
+state), and steps on its shard of the batch:
+
+* ``model`` > 1: tensor parallelism of the dense family (Megatron column
+  and row splits, vocab-parallel embedding, head and loss; ``models``);
+* ``data`` > 1: the batch over ``data`` and the loss's mean over the
+  global batch; a gradient is summed over every batch axis its leaf is
+  not sharded on;
+* ZeRO-1 (``zero1``, the moments sharded over ``data``): each rank
+  updates the region of a parameter its moment shard covers and the
+  regions are all-gathered back (``sharding.relayout``);
+* FSDP (``fsdp``): parameters sharded over ``data`` too, gathered at use
+  by ``collectives.gather_param``, whose transpose reduce-scatters their
+  gradients;
+* ``pod`` > 1: REPLICATED steps each pod (a group of ranks) on its own
+  with no pod collective; CLOUD_CENTRAL takes the batch over ``("pod",
+  "data")`` and sums the gradients over ``pod`` as well; PEER_FETCH
+  shards every leaf's largest free even dim over ``pod`` as well
+  (``add_pod_axis_spec``) and gathers it at use like FSDP.
+
+The gradient norm counts each element once (``optim.adamw.global_norm``);
+the replicate step works shard by shard, the int8 scale being the whole
+leaf's.  Other families on inner axes, ``seq_shard`` and Adafactor on
+inner axes raise ``NotImplementedError`` (``model_zoo.check_mesh``).
+Every step writes the state IN PLACE (the counterpart of the reference's
+``donate_argnums=(0,)``) and returns the same tensors.  Gradients come
+from ``torch.autograd`` through ``AttnImpl.REFERENCE``, as in the
+reference; the kernels refuse autograd.
 """
 from __future__ import annotations
+
+import functools
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -125,14 +147,40 @@ def opt_specs_tree(opt_shape: Any, arch: ArchConfig, mesh,
 
 
 def state_specs(state_shape: Any, arch: ArchConfig, mesh,
-                parallel: ParallelConfig) -> Dict[str, Any]:
+                parallel: ParallelConfig,
+                peer_fetch_pod: bool = False) -> Dict[str, Any]:
     """Specs of a train state: the params' rule, the optimiser's
-    (``opt_specs_tree``), the step replicated."""
-    from repro_torch.parallel.sharding import P, param_partition_specs
-    return {"params": param_partition_specs(state_shape["params"], arch,
-                                            mesh, parallel),
-            "opt": opt_specs_tree(state_shape["opt"], arch, mesh, parallel),
-            "step": P()}
+    (``opt_specs_tree``), the step replicated; ``peer_fetch_pod`` adds the
+    ``pod`` axis to every leaf (``add_pod_axis_spec``)."""
+    from repro_torch.parallel.sharding import (P, param_partition_specs,
+                                               tree_map_with_path)
+    specs = {"params": param_partition_specs(state_shape["params"], arch,
+                                             mesh, parallel),
+             "opt": opt_specs_tree(state_shape["opt"], arch, mesh, parallel),
+             "step": P()}
+    if peer_fetch_pod:
+        shapes = {"params": state_shape["params"], "opt": state_shape["opt"],
+                  "step": state_shape["step"]}
+        flat = {}
+        tree_map_with_path(lambda path, leaf: flat.__setitem__(
+            path, tuple(leaf.shape)), shapes)
+        specs = tree_map_with_path(
+            lambda path, spec: add_pod_axis_spec(spec, flat[path]), specs)
+    return specs
+
+
+def add_pod_axis_spec(spec, shape: tuple):
+    """PEER_FETCH: ``spec`` with the largest free dim of even size also
+    sharded over ``pod`` (FSDP across pods; the reference's
+    ``_add_pod_axis_spec``)."""
+    from repro_torch.parallel.sharding import P
+    assign = list(spec) + [None] * (len(shape) - len(spec))
+    free = [d for d in range(len(shape)) if assign[d] is None]
+    for d in sorted(free, key=lambda d: -shape[d]):
+        if shape[d] % 2 == 0 and shape[d] >= 2:
+            assign[d] = "pod"
+            break
+    return P(*assign)
 
 
 def stack_shapes(shapes: Any, n_pods: int) -> Any:
@@ -177,28 +225,18 @@ def value_and_grad(loss_fn, params, batch):
 
 def make_step_fn(arch: ArchConfig, parallel: ParallelConfig,
                  cfg: TrainConfig, impl: AttnImpl = AttnImpl.REFERENCE,
-                 compute_dtype=torch.bfloat16, mean_over=None) -> Callable:
+                 compute_dtype=torch.bfloat16) -> Callable:
     """``step(state, batch) -> (state, metrics)``: value and gradient of
     ``lm_loss``, ``warmup_cosine``'s lr at the state's step, then AdamW or
     Adafactor (``parallel.optimizer``), all written into ``state``;
     metrics ``loss``, ``ce``, ``lr`` and ``grad_norm`` (0-d tensors on the
-    state's device).  ``mean_over=(mesh, P)``: the loss, its parts and the
-    gradients are averaged over the mesh's ``pod`` axis (``psum / P``)
-    before the update (sync data parallelism across pods)."""
+    state's device)."""
     loss_fn = make_loss_fn(arch, parallel, impl, compute_dtype)
     update = (adafactor_update if parallel.optimizer == "adafactor"
               else adamw_update)
 
-    def pod_mean(tree):
-        from repro_torch.parallel.collectives import psum
-        mesh, pods = mean_over
-        return tree_map(lambda g: psum(g, mesh, "pod") / pods, tree)
-
     def step(state, batch):
         loss, parts, grads = value_and_grad(loss_fn, state["params"], batch)
-        if mean_over is not None:
-            loss, parts, grads = pod_mean(loss), pod_mean(parts), \
-                pod_mean(grads)
         lr = warmup_cosine(state["step"], cfg.lr, cfg.warmup_steps,
                            cfg.total_steps)
         params, opt, om = update(grads, state["opt"], state["params"], lr,
@@ -212,6 +250,133 @@ def make_step_fn(arch: ArchConfig, parallel: ParallelConfig,
     return step
 
 
+def batch_axes(arch: ArchConfig, shape: ShapeConfig, mesh,
+               parallel: ParallelConfig,
+               policy: ReplicationPolicy) -> Tuple[str, ...]:
+    """The axes a rank's batch is a shard of: ``data`` where
+    ``sharding.batch_specs`` puts the batch on it, and ``pod`` before it
+    for CLOUD_CENTRAL and PEER_FETCH on a mesh of several pods (each rank
+    steps on its own pod's batch)."""
+    from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.parallel.sharding import batch_specs
+    axes = ()
+    if axis_sizes(mesh).get("pod", 1) > 1 and policy in (
+            ReplicationPolicy.CLOUD_CENTRAL, ReplicationPolicy.PEER_FETCH):
+        axes = ("pod",)
+    if batch_specs(arch, shape, mesh, parallel)["tokens"][0] == "data":
+        axes += ("data",)
+    return axes
+
+
+def make_mesh_step_fn(arch: ArchConfig, shape: ShapeConfig,
+                      parallel: ParallelConfig, cfg: TrainConfig,
+                      impl: AttnImpl, compute_dtype, mesh,
+                      policy: ReplicationPolicy) -> Tuple[Callable, Any]:
+    """``(step, specs)``: ``make_step_fn``'s step on this rank's shards of
+    one pod's state (``specs``, the reference's ``state_specs``) and its
+    batch shard (``batch_axes``) (the module docstring); Adafactor only
+    where no leaf is sharded (its row and column means would need
+    collectives: ``NotImplementedError``).  The parameters' axes other
+    than ``model`` are gathered at use
+    (``gather_param``); a gradient is summed over the batch axes its leaf
+    is not sharded on, reduce-scattered (``psum_scatter``) where the
+    moments shard that axis (ZeRO-1) and all-reduced where they do not;
+    each moment shard's region of a parameter is updated (``relayout``
+    to the moments' layout and back) with the norm over the regions; the
+    metrics are the same on every rank.  ``step.grads(params, batch)``
+    gives the gradients whole on each rank's parameter shards."""
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel import sharding as sh
+    pods = sh.axis_sizes(mesh).get("pod", 1)
+    sshape = state_shapes(arch, parallel)
+    specs = state_specs(sshape, arch, mesh, parallel,
+                        peer_fetch_pod=(policy == ReplicationPolicy.PEER_FETCH
+                                        and pods > 1))
+    pspecs = sh.spec_leaves(specs["params"])
+    if parallel.optimizer == "adamw":
+        update = functools.partial(adamw_update, mesh=mesh, axes=[
+            sh.spec_axes(s) for s in sh.spec_leaves(specs["opt"]["m"])])
+        ospecs = sh.spec_leaves(specs["opt"]["m"])
+    elif any(sh.spec_axes(s) for s in pspecs):
+        raise NotImplementedError(
+            parallel.optimizer, f"{parallel.optimizer} on sharded leaves: "
+            "its row and column means would need collectives; it waits for "
+            f"ROADMAP {zoo.INNER_AXES_ITEM} (the moe family)")
+    else:
+        update, ospecs = adafactor_update, pspecs
+    baxes = batch_axes(arch, shape, mesh, parallel, policy)
+
+    def gather_at_use(params):
+        leaves, treedef = tree_flatten(params)
+        out = []
+        for x, spec in zip(leaves, pspecs):
+            for d, e in enumerate(spec):
+                if e is not None and e != "model":
+                    x = col.gather_param(x, mesh, e, d)
+            out.append(x)
+        return tree_unflatten(treedef, out)
+
+    def loss_fn(params, batch):
+        return zoo.lm_loss(arch, gather_at_use(params), batch, impl=impl,
+                           remat=parallel.remat, compute_dtype=compute_dtype,
+                           mesh=mesh, batch_axes=baxes)
+
+    def reduced_grads(params, batch):
+        """The loss, its parts, and each leaf's gradient summed over the
+        batch axes with the layout it then has (the parameter's, plus the
+        axes it was reduce-scattered over)."""
+        loss, parts, grads = value_and_grad(loss_fn, params, batch)
+        flat_g, treedef = tree_flatten(grads)
+        layouts = []
+        for i, (ps, os) in enumerate(zip(pspecs, ospecs)):
+            src = list(ps) + [None] * (flat_g[i].ndim - len(ps))
+            for a in baxes:
+                if a in sh.spec_axes(ps):
+                    continue
+                d = next((d for d, e in enumerate(os) if e == a), None)
+                if d is not None and src[d] is None:
+                    flat_g[i] = col.psum_scatter(flat_g[i], mesh, a, d)
+                    src[d] = a
+                else:
+                    flat_g[i] = col.psum(flat_g[i], mesh, a)
+            layouts.append(sh.P(*src))
+        return loss, parts, flat_g, layouts, treedef
+
+    def grads(params, batch):
+        _, _, flat_g, layouts, treedef = reduced_grads(params, batch)
+        return tree_unflatten(treedef, [
+            sh.relayout(g, mesh, lay, ps)
+            for g, lay, ps in zip(flat_g, layouts, pspecs)])
+
+    def step(state, batch):
+        loss, parts, flat_g, layouts, treedef = reduced_grads(
+            state["params"], batch)
+        flat_p = tree_flatten(state["params"])[0]
+        g_opt = [sh.relayout(g, mesh, lay, os)
+                 for g, lay, os in zip(flat_g, layouts, ospecs)]
+        p_opt = [sh.relayout(p, mesh, ps, os)
+                 for p, ps, os in zip(flat_p, pspecs, ospecs)]
+        del flat_g
+        lr = warmup_cosine(state["step"], cfg.lr, cfg.warmup_steps,
+                           cfg.total_steps)
+        _, opt, om = update(tree_unflatten(treedef, g_opt), state["opt"],
+                            tree_unflatten(treedef, p_opt), lr,
+                            weight_decay=cfg.weight_decay,
+                            grad_clip=cfg.grad_clip)
+        del g_opt
+        with torch.no_grad():
+            for p, po, ps, os in zip(flat_p, p_opt, pspecs, ospecs):
+                if po is not p:
+                    p.copy_(sh.relayout(po, mesh, os, ps))
+        state["step"].add_(1)
+        metrics = {"loss": loss, "ce": parts["ce"], "lr": lr, **om}
+        return {"params": state["params"], "opt": opt,
+                "step": state["step"]}, metrics
+
+    step.grads = grads
+    return step, specs
+
+
 # ---------------------------------------------------------------------------
 # Policy-aware builders
 # ---------------------------------------------------------------------------
@@ -220,20 +385,6 @@ def _pod(tree: Any, p: int) -> Any:
     """Pod ``p``'s slice of a pod-stacked tree (views: writes land in the
     stack)."""
     return tree_map(lambda x: x[p], tree)
-
-
-def pod_mesh_size(mesh, what: str) -> int:
-    """The size of ``mesh``'s ``pod`` axis (1 without one); any other axis
-    of size > 1 raises ``NotImplementedError``."""
-    from repro_torch.launch.mesh import axis_sizes
-    sizes = axis_sizes(mesh)
-    inner = {a: n for a, n in sizes.items() if a != "pod" and n > 1}
-    if inner:
-        raise NotImplementedError(
-            f"{what} over {inner}: tensor parallelism and FSDP of whole "
-            "steps over 'data' and 'model' come with the slice after the "
-            "pod axis")
-    return sizes.get("pod", 1)
 
 
 def make_train_step(arch: ArchConfig, shape: ShapeConfig, n_pods: int = 1,
@@ -259,19 +410,21 @@ def make_train_step(arch: ArchConfig, shape: ShapeConfig, n_pods: int = 1,
     step_fn = make_step_fn(arch, parallel, cfg, impl, compute_dtype)
 
     if mesh is not None:
-        pods = pod_mesh_size(mesh, "make_train_step")
-        if enoki.policy == ReplicationPolicy.PEER_FETCH and pods > 1:
-            raise NotImplementedError(
-                "PEER_FETCH on a mesh comes with the slice after the pod "
-                "axis")
-        if enoki.policy == ReplicationPolicy.CLOUD_CENTRAL and pods > 1:
-            step_fn = make_step_fn(arch, parallel, cfg, impl, compute_dtype,
-                                   mean_over=(mesh, pods))
+        from repro_torch.launch.mesh import axis_sizes
+        zoo.check_mesh(arch, mesh, "make_train_step", parallel)
+        policy = enoki.policy if axis_sizes(mesh).get("pod", 1) > 1 \
+            else ReplicationPolicy.REPLICATED
+        mesh_fn, specs = make_mesh_step_fn(arch, shape, parallel, cfg, impl,
+                                           compute_dtype, mesh, policy)
 
         def rank_step(state, batch):
             check_on(dev, state, "state")
             check_on(dev, batch, "batch")
-            return step_fn(state, batch)
+            return mesh_fn(state, batch)
+        rank_step.specs = specs
+        rank_step.grads = mesh_fn.grads
+        rank_step.batch_axes = batch_axes(arch, shape, mesh, parallel,
+                                          policy)
         return rank_step, sshape
 
     if n_pods == 1 or enoki.policy != ReplicationPolicy.REPLICATED:
@@ -308,22 +461,31 @@ def make_replicate_step(arch: ArchConfig, n_pods: int,
     wire would carry), their mean over the pods, ``diloco_outer_update``,
     and the outer params cast to the params' dtype in every pod's slice.
     ``outer_shape`` is ``diloco_init``'s tree on the meta device.  With
-    ``mesh`` (a pod mesh of ``n_pods``): this rank's pod's state, no pod
-    dim; the deltas' mean is ``psum / P`` over ``pod`` (compressed: the
-    int8 payloads and scales all-gathered and dequantised in pod order, as
-    the stacked form stacks them), the same on every rank."""
+    ``mesh`` (a mesh of ``n_pods`` pods): this rank's shards of its pod's
+    params and of the outer state (both laid out by the params' specs),
+    no pod dim; shard by shard, the deltas' mean is ``psum / P`` over
+    ``pod`` (compressed: the int8 payloads and scales all-gathered and
+    dequantised in pod order, as the stacked form stacks them, each scale
+    the whole leaf's), the same on every rank of ``pod``."""
     dev = resolve_device(device)
-    if mesh is not None and pod_mesh_size(mesh, "make_replicate_step") \
-            != n_pods:
-        raise ValueError(f"{n_pods} pods on a mesh of "
-                         f"{pod_mesh_size(mesh, 'make_replicate_step')}")
+    params = state_shapes(arch, parallel)["params"]
+    axes = None
+    if mesh is not None:
+        from repro_torch.launch.mesh import axis_sizes
+        from repro_torch.parallel import sharding as sh
+        zoo.check_mesh(arch, mesh, "make_replicate_step", parallel)
+        pods = axis_sizes(mesh).get("pod", 1)
+        if pods != n_pods:
+            raise ValueError(f"{n_pods} pods on a mesh of {pods}")
+        axes = [sh.spec_axes(s) for s in sh.spec_leaves(
+            sh.param_partition_specs(params, arch, mesh, parallel))]
 
-    def mean_delta(o, local):
+    def mean_delta(o, local, ax=()):
         if mesh is not None:
             from repro_torch.parallel.collectives import all_gather, psum
             d = o - local.float()
             if enoki.compress_deltas:
-                q = int8_compress(d)
+                q = int8_compress(d, mesh, ax)
                 qs = all_gather(q.q, mesh, "pod")
                 ss = all_gather(q.scale, mesh, "pod")
                 return torch.stack([int8_decompress(Int8Payload(qs[p], ss[p]))
@@ -339,7 +501,14 @@ def make_replicate_step(arch: ArchConfig, n_pods: int,
         check_on(dev, outer_state, "outer state")
         local = state["params"]
         with torch.no_grad():
-            deltas = tree_map(mean_delta, outer_state["outer_params"], local)
+            if axes is None:
+                deltas = tree_map(mean_delta, outer_state["outer_params"],
+                                  local)
+            else:
+                flat_o, treedef = tree_flatten(outer_state["outer_params"])
+                deltas = tree_unflatten(treedef, [
+                    mean_delta(o, l, ax) for o, l, ax in zip(
+                        flat_o, tree_flatten(local)[0], axes)])
             new_outer, outer_state = diloco_outer_update(
                 outer_state, deltas, enoki.outer_lr, enoki.outer_momentum)
             del deltas
@@ -348,5 +517,4 @@ def make_replicate_step(arch: ArchConfig, n_pods: int,
                 l.copy_(no.to(l.dtype).expand_as(l))
         return state, outer_state
 
-    params = state_shapes(arch, parallel)["params"]
     return replicate, diloco_init(params)

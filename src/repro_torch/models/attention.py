@@ -23,6 +23,14 @@ Whisper's cross-attention (decoder queries against the encoder output's
 K/V, projected once at prefill) is ``blockwise_attention``, plain torch, as
 in the reference.
 
+Tensor parallelism (``mesh`` given to ``self_attention`` and
+``decode_self_attention``): ``wq``/``wk``/``wv`` hold the rank's columns,
+so its heads are read from the weights' widths (``_project_qkv``), never
+from ``arch``: ``H / model`` query and ``KV / model`` key/value heads,
+the grouping ``h // (H / KV)`` holding on each rank.  The input enters
+through ``vary`` and ``wo`` (the rank's rows) leaves through one ``psum``
+over ``model``; a decode cache holds the rank's KV heads.
+
 Flash decode (``flash_decode_attention``, ``decode_self_attention_sharded``)
 runs on every rank of a mesh whose ``model`` axis shards the cache on the
 SEQUENCE: each rank holds S/n positions, computes a partial softmax over
@@ -36,7 +44,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, AttnImpl
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, tp_in, tp_out
 
 NEG_INF = -1e30
 
@@ -80,6 +88,8 @@ def attn_init(gen: torch.Generator, arch: ArchConfig,
 
 def _project_qkv(params: dict, xq: torch.Tensor, xkv: torch.Tensor,
                  arch: ArchConfig):
+    """q (B, Sq, H, Dh), k and v (B, Skv, KV, Dh), the head counts read
+    from the weights' widths (a rank's under tensor parallelism)."""
     dh = arch.resolved_head_dim
     q = xq @ params["wq"]
     k = xkv @ params["wk"]
@@ -90,9 +100,9 @@ def _project_qkv(params: dict, xq: torch.Tensor, xkv: torch.Tensor,
         v = v + params["bv"].to(v.dtype)
     B, Sq = xq.shape[:2]
     Skv = xkv.shape[1]
-    q = q.reshape(B, Sq, arch.num_heads, dh)
-    k = k.reshape(B, Skv, arch.num_kv_heads, dh)
-    v = v.reshape(B, Skv, arch.num_kv_heads, dh)
+    q = q.reshape(B, Sq, -1, dh)
+    k = k.reshape(B, Skv, -1, dh)
+    v = v.reshape(B, Skv, -1, dh)
     return q, k, v
 
 
@@ -207,7 +217,10 @@ def reference_attention(q, k, v, q_positions, kv_positions, causal=True,
 
 def self_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
                    arch: ArchConfig, causal: bool = True, window: int = 0,
-                   impl: AttnImpl = AttnImpl.REFERENCE) -> torch.Tensor:
+                   impl: AttnImpl = AttnImpl.REFERENCE,
+                   mesh=None) -> torch.Tensor:
+    """With ``mesh``: the rank's heads (the module docstring)."""
+    x = tp_in(x, mesh)
     q, k, v = _project_qkv(params, x, x, arch)
     if arch.rope_theta > 0:
         q = apply_rope(q, positions, arch.rope_theta)
@@ -222,7 +235,7 @@ def self_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
         out = blockwise_attention(q, k, v, positions, positions,
                                   causal=causal, window=window)
     B, S = x.shape[:2]
-    return out.reshape(B, S, -1) @ params["wo"]
+    return tp_out(out.reshape(B, S, -1) @ params["wo"], mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -232,10 +245,11 @@ def self_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
 def decode_self_attention(params: dict, x1: torch.Tensor,
                           cache_k: torch.Tensor, cache_v: torch.Tensor,
                           length: torch.Tensor, arch: ArchConfig,
-                          window: int = 0
+                          window: int = 0, mesh=None
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step.  x1 (B,1,D); cache (B,Smax,KV,Dh); length a 0-d
-    int tensor on the cache's device.
+    int tensor on the cache's device.  With ``mesh``: the rank's heads and
+    its KV heads' cache (the module docstring).
 
     The new K/V are written into ``cache_k``/``cache_v`` IN PLACE (the
     counterpart of the reference step's donated cache), at ``length``
@@ -245,6 +259,7 @@ def decode_self_attention(params: dict, x1: torch.Tensor,
     B = x1.shape[0]
     dh = arch.resolved_head_dim
     pos = length.reshape(1, 1).expand(B, 1).to(torch.int32)
+    x1 = tp_in(x1, mesh)
     q, k, v = _project_qkv(params, x1, x1, arch)
     if arch.rope_theta > 0:
         q = apply_rope(q, pos, arch.rope_theta)
@@ -254,7 +269,7 @@ def decode_self_attention(params: dict, x1: torch.Tensor,
     cache_k.index_copy_(1, slot, k.to(cache_k.dtype))
     cache_v.index_copy_(1, slot, v.to(cache_v.dtype))
 
-    G = arch.num_heads // KV
+    G = q.shape[2] // KV
     qg = _scaled(q, dh ** -0.5).reshape(B, 1, KV, G, dh)
     s = _einsum_f32("bqkgd,bskd->bqkgs", qg, cache_k)
     idx = torch.arange(Smax, device=cache_k.device)
@@ -264,7 +279,7 @@ def decode_self_attention(params: dict, x1: torch.Tensor,
     s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = _einsum_f32("bqkgs,bskd->bqkgd", p.to(cache_v.dtype), cache_v)
-    out = out.reshape(B, 1, -1).to(x1.dtype) @ params["wo"]
+    out = tp_out(out.reshape(B, 1, -1).to(x1.dtype) @ params["wo"], mesh)
     return out, cache_k, cache_v
 
 

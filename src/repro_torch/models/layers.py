@@ -4,10 +4,17 @@ counterpart of ``repro.models.layers``.
 The f32 upcasts sit where the reference has them: the norms and RoPE
 compute in float32 and cast back to the input's dtype, and the loss is
 float32 throughout.
+
+With ``mesh`` (tensor parallelism over its ``model`` axis) the MLPs are
+Megatron's: ``w_gate``/``w_up`` hold the rank's columns and ``w_down`` its
+rows; the input enters through ``vary`` (its cotangent summed over
+``model``) and the output leaves through one ``psum`` over ``model``, the
+row-parallel bias added after it.  ``cross_entropy_loss`` then reads
+vocab-sharded logits and takes the masked mean over the global batch.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -110,32 +117,55 @@ def _act(x: torch.Tensor, kind: Activation) -> torch.Tensor:
     return F.relu(x)
 
 
-def gated_mlp(params: dict, x: torch.Tensor, kind: Activation) -> torch.Tensor:
+def tp_in(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A column-parallel layer's input, the same on every rank of
+    ``model``: its cotangent is summed over ``model``."""
+    if mesh is None:
+        return x
+    from repro_torch.parallel.collectives import vary
+    return vary(x, mesh, "model")
+
+
+def tp_out(y: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel layer's partial output summed over ``model``."""
+    if mesh is None:
+        return y
+    from repro_torch.parallel.collectives import psum
+    return psum(y, mesh, "model")
+
+
+def gated_mlp(params: dict, x: torch.Tensor, kind: Activation,
+              mesh=None) -> torch.Tensor:
     """SwiGLU / GeGLU: down( act(x@gate) * (x@up) )."""
+    x = tp_in(x, mesh)
     gate = x @ params["w_gate"]
     up = x @ params["w_up"]
     if kind == Activation.GEGLU:
         h = _gelu(gate) * up
     else:
         h = F.silu(gate) * up
-    return h @ params["w_down"]
+    return tp_out(h @ params["w_down"], mesh)
 
 
-def plain_mlp(params: dict, x: torch.Tensor, kind: Activation) -> torch.Tensor:
-    h = x @ params["w_up"]
+def plain_mlp(params: dict, x: torch.Tensor, kind: Activation,
+              mesh=None) -> torch.Tensor:
+    """up, bias, activation, down, bias; with ``mesh`` the ``b_up`` handed
+    in is the rank's columns' (``transformer``'s tensor-parallel view)."""
+    h = tp_in(x, mesh) @ params["w_up"]
     if "b_up" in params:
         h = h + params["b_up"].to(h.dtype)
     h = _act(h, kind)
-    out = h @ params["w_down"]
+    out = tp_out(h @ params["w_down"], mesh)
     if "b_down" in params:
         out = out + params["b_down"].to(out.dtype)
     return out
 
 
-def mlp_apply(params: dict, x: torch.Tensor, kind: Activation) -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, kind: Activation,
+              mesh=None) -> torch.Tensor:
     if kind in (Activation.SWIGLU, Activation.GEGLU):
-        return gated_mlp(params, x, kind)
-    return plain_mlp(params, x, kind)
+        return gated_mlp(params, x, kind, mesh)
+    return plain_mlp(params, x, kind, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -179,15 +209,51 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, kind: Activation,
 # ---------------------------------------------------------------------------
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       mask: Optional[torch.Tensor] = None, mesh=None,
+                       vocab_axis: Optional[str] = None,
+                       batch_axes: Tuple[str, ...] = ()) -> torch.Tensor:
     """Mean token cross-entropy in f32: logsumexp minus the gold logit.
     logits (B, S, V) f32/bf16; labels (B, S) int; with ``mask`` (B, S) the
-    masked mean, its denominator clamped at 1."""
+    masked mean, its denominator clamped at 1.
+
+    On a ``mesh``: ``vocab_axis`` names the axis the logits' vocabulary is
+    sharded on (this rank holds ids ``[lo, lo + V_local)``): the row max
+    is the ``pmax`` of the ranks' (held constant, as logsumexp's shift
+    is), the normaliser the ``psum`` of their sums of exps, and the gold
+    logit comes from the rank that owns the label, added with ``psum``.
+    ``batch_axes`` name the axes the batch is sharded on: the mean is over
+    the GLOBAL batch, ``psum(sum nll * mask) / max(psum(sum mask), 1)``,
+    not the mean of the ranks' means."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if vocab_axis is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        from repro_torch.parallel.collectives import axis_index, pmax, psum
+        v_local = logits.shape[-1]
+        m = pmax(logits.detach().amax(dim=-1), mesh, vocab_axis)
+        sumexp = psum(torch.exp(logits - m[..., None]).sum(dim=-1), mesh,
+                      vocab_axis)
+        logz = m + torch.log(sumexp)
+        at = labels.long() - axis_index(mesh, vocab_axis) * v_local
+        mine = (at >= 0) & (at < v_local)
+        got = torch.gather(logits, -1, torch.clamp(at, 0, v_local - 1)[
+            ..., None])[..., 0]
+        gold = psum(torch.where(mine, got, torch.zeros_like(got)), mesh,
+                    vocab_axis)
     nll = logz - gold
+    if mesh is None or not batch_axes:
+        if mask is None:
+            return nll.mean()
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    from repro_torch.parallel.collectives import psum
     if mask is None:
-        return nll.mean()
-    mask = mask.float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        num = nll.sum()
+        den = torch.full((), float(nll.numel()), device=nll.device)
+    else:
+        mask = mask.float()
+        num, den = (nll * mask).sum(), mask.sum()
+    for a in batch_axes:
+        num, den = psum(num, mesh, a), psum(den, mesh, a)
+    return num / torch.clamp(den, min=1.0)

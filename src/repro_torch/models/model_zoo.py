@@ -16,11 +16,44 @@ from repro_torch.models import transformer
 from repro_torch.models.ssm import ssm_dims
 from repro_torch.models.xlstm import mlstm_dims
 
+#: where the families other than dense wait for their tensor parallelism
+INNER_AXES_ITEM = "queue 1 item 10d"
+
 init_params = transformer.init_params
 forward_seq = transformer.forward_seq
 decode_step = transformer.decode_step
 init_cache = transformer.init_cache
 lm_loss = transformer.lm_loss
+
+
+def inner_axes(mesh) -> Dict[str, int]:
+    """The axes of ``mesh`` other than ``pod`` whose size is > 1 (the
+    ``data`` and ``model`` axes a step shards over)."""
+    from repro_torch.launch.mesh import axis_sizes
+    return {a: n for a, n in axis_sizes(mesh).items()
+            if a != "pod" and n > 1}
+
+
+def check_mesh(arch: ArchConfig, mesh, what: str, parallel=None
+               ) -> Dict[str, int]:
+    """A step of ``arch`` on ``mesh``: the inner axes it shards over (the
+    dense family runs them tensor-parallel).  Another family on inner
+    axes, and ``seq_shard``, raise ``NotImplementedError`` naming the
+    family and ROADMAP's item; a width that ``model`` does not divide
+    raises ``ValueError`` (``transformer.check_tp_split``)."""
+    inner = inner_axes(mesh)
+    if not inner:
+        return inner
+    if arch.family != "dense":
+        raise NotImplementedError(
+            arch.family, f"{what} over {inner}: tensor parallelism of the "
+            f"{arch.family} family waits for ROADMAP {INNER_AXES_ITEM}")
+    if parallel is not None and parallel.seq_shard:
+        raise NotImplementedError(
+            "seq_shard", f"{what}: sequence sharding over 'model' waits for "
+            f"ROADMAP {INNER_AXES_ITEM}")
+    transformer.check_tp_split(arch, inner.get("model", 1))
+    return inner
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,19 @@ Both modes of a block:
   decode(params, x1, cache, length)   -> y, cache     (one token; the cache
                                                        is written in place)
 
+Tensor parallelism (the dense family, a ``mesh`` with a ``model`` axis):
+each rank holds its shards of the parameters (``parallel.sharding.local``
+of the reference's specs): the column-parallel projections' columns, the
+row-parallel ones' rows, the embedding's vocabulary rows ``[lo, hi)`` and
+``lm_head``'s vocabulary columns.  The residual stream is the same on
+every rank of ``model`` (and the rank's batch shard over ``data``).
+``_embed`` looks up the tokens in ``[lo, hi)``, zeroes the rest and sums
+over ``model``; every attention and MLP sums its row-parallel output over
+``model`` (``attention``, ``layers``); ``_head`` gives the rank's
+vocabulary shard of the logits (gemma's tied ``embed.T`` too), which
+``lm_loss`` reads through the vocab-parallel cross-entropy.  The decode
+cache holds the rank's KV heads (``init_cache(mesh=)``).
+
 The vlm and audio front ends are stubs, as in the reference: ``extra``
 carries ``patch_embeds`` (vlm: ``num_patches`` positions put in front of the
 text, the prompt's length kept) or ``frame_embeds`` (whisper: the
@@ -246,10 +259,14 @@ def init_params(arch: ArchConfig, seed: int = 0, dtype=torch.float32,
 # Sequence forward (train / prefill).  Returns (logits, aux_loss, cache|None)
 # ---------------------------------------------------------------------------
 
-def _dense_block_seq(lp, x, positions, arch, impl, window=0, causal=True):
+def _dense_block_seq(lp, x, positions, arch, impl, window=0, causal=True,
+                     mesh=None):
+    """One dense layer; with ``mesh``, tensor-parallel over ``model``."""
     x = x + attn.self_attention(lp["attn"], rmsnorm(x, lp["ln1"]), positions,
-                                arch, causal=causal, window=window, impl=impl)
-    x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]), arch.activation)
+                                arch, causal=causal, window=window, impl=impl,
+                                mesh=mesh)
+    x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]), arch.activation,
+                      mesh)
     return x
 
 
@@ -333,15 +350,75 @@ def _cast(tree, compute_dtype):
                 if a.is_floating_point() and a.ndim > 1 else a, tree)
 
 
+#: biases of column-parallel weights: the specs leave them replicated
+#: (1-D a layer), and a rank adds its columns' part
+_COL_BIASES = frozenset({"bq", "bk", "bv", "b_up"})
+
+
+def check_tp_split(arch: ArchConfig, model: int) -> None:
+    """``ValueError`` unless ``model`` divides every width the dense
+    family splits: the query and key/value heads (the reference would
+    split a head and let GSPMD reshard it), the MLP's hidden width and
+    the vocabulary (the specs would replicate a leaf the model code reads
+    as the rank's shard).  The same on every device."""
+    widths = {"query heads": arch.num_heads, "key/value heads":
+              arch.num_kv_heads, "d_ff": arch.d_ff,
+              "vocabulary": arch.vocab_size}
+    bad = {k: v for k, v in widths.items() if v % model}
+    if bad:
+        raise ValueError(f"{arch.name}: {bad} do not split over model = "
+                         f"{model}")
+
+
+def tp_mesh(arch: ArchConfig, mesh, flash_decode: bool = False):
+    """The mesh to run ``arch`` tensor-parallel on, or None: the dense
+    family on a mesh with a ``model`` axis (a flash-decode step shards the
+    cache on the sequence instead, and the other families take a mesh for
+    expert parallelism only).  Checks the widths against ``model``."""
+    if mesh is None or flash_decode or arch.family != "dense" \
+            or "model" not in mesh.mesh_dim_names:
+        return None
+    from repro_torch.parallel.collectives import axis_size
+    check_tp_split(arch, axis_size(mesh, "model"))
+    return mesh
+
+
+def tp_view(params: dict, mesh) -> dict:
+    """The rank's view of its parameter shards: each column-parallel
+    bias cut to the rank's columns (``collectives.shard``, whose
+    cotangent is gathered back); the rest as they are."""
+    from repro_torch.parallel.collectives import shard
+
+    def walk(tree):
+        return {k: (walk(v) if isinstance(v, dict) else
+                    shard(v, mesh, "model", v.ndim - 1) if k in _COL_BIASES
+                    else v) for k, v in tree.items()}
+    return walk(params)
+
+
 def _embed(arch: ArchConfig, params: dict, tokens: torch.Tensor,
-           compute_dtype) -> torch.Tensor:
-    x = params["embed"][tokens.long()].to(compute_dtype)
+           compute_dtype, mesh=None) -> torch.Tensor:
+    """The scaled embedding.  With ``mesh`` the rank holds vocabulary rows
+    ``[lo, lo + V / model)``: it looks up the tokens it owns, zeroes the
+    rest and sums over ``model`` (one rank adds each row: exact)."""
+    table = params["embed"]
+    if mesh is None:
+        x = table[tokens.long()].to(compute_dtype)
+    else:
+        from repro_torch.parallel.collectives import axis_index, psum
+        at = tokens.long() - axis_index(mesh, "model") * table.shape[0]
+        mine = (at >= 0) & (at < table.shape[0])
+        x = table[torch.clamp(at, 0, table.shape[0] - 1)].to(compute_dtype)
+        x = psum(torch.where(mine[..., None], x, torch.zeros_like(x)), mesh,
+                 "model")
     return x * torch.tensor(arch.d_model ** 0.5, dtype=compute_dtype)
 
 
 def _head(arch: ArchConfig, params: dict, x: torch.Tensor,
-          compute_dtype) -> torch.Tensor:
-    x = rmsnorm(x, params["final_norm"])
+          compute_dtype, mesh=None) -> torch.Tensor:
+    """Logits; with ``mesh`` the rank's vocabulary shard of them."""
+    from repro_torch.models.layers import tp_in
+    x = tp_in(rmsnorm(x, params["final_norm"]), mesh)
     head = params["embed"].T if arch.tie_embeddings else params["lm_head"]
     return x @ head.to(compute_dtype)
 
@@ -366,7 +443,9 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
     and whisper's encoder and decoder layers.  ``mesh`` and ``moe_impl="ep"``
     run the moe layers expert-parallel on every rank of the mesh
     (``_moe_block_seq``); the rest of the model is the same on every
-    rank.
+    rank.  For the dense family ``mesh`` runs the model tensor-parallel on
+    the rank's shards (the module docstring): the logits are the rank's
+    vocabulary shard and the cache holds its KV heads.
 
     The dense and moe caches hold the layer-stacked (L, B, S, KV, Dh)
     ``k`` and ``v``; whisper's the decoder's ``self_k``/``self_v`` (L, B,
@@ -380,9 +459,12 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
     sliding window when it is shorter than S, else S."""
     p = plan(arch)
     B, S = tokens.shape
+    tp = tp_mesh(arch, mesh)
+    if tp is not None:
+        params = tp_view(params, tp)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
-    x = _embed(arch, params, tokens, compute_dtype)
+    x = _embed(arch, params, tokens, compute_dtype, tp)
     if arch.frontend_stub == "clip_patches":
         patches = extra["patch_embeds"].to(compute_dtype) @ \
             params["patch_proj"].to(compute_dtype)
@@ -396,7 +478,7 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
     elif p["kind"] == "dense":
         def body(x, lp):
             lp = _cast(lp, compute_dtype)
-            y = _dense_block_seq(lp, x, positions, arch, impl)
+            y = _dense_block_seq(lp, x, positions, arch, impl, mesh=tp)
             return y, (_layer_kv(lp, x, positions, arch) if return_cache
                        else None)
 
@@ -478,20 +560,21 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
                 p["tail"])
             if return_cache:
                 cache["tail"] = tcs
-    logits = _head(arch, params, x, compute_dtype)
+    logits = _head(arch, params, x, compute_dtype, tp)
     return logits, aux_total, cache
 
 
 def _layer_kv(lp, x_in, positions, arch):
-    """Recompute this layer's K/V for the prefill cache (cheap vs attention)."""
+    """Recompute this layer's K/V for the prefill cache (cheap vs attention);
+    the KV heads are the weights' (a rank's under tensor parallelism)."""
     xn = rmsnorm(x_in, lp["ln1"])
     dh = arch.resolved_head_dim
     B, S = xn.shape[:2]
-    k = (xn @ lp["attn"]["wk"]).reshape(B, S, arch.num_kv_heads, dh)
-    v = (xn @ lp["attn"]["wv"]).reshape(B, S, arch.num_kv_heads, dh)
+    k = (xn @ lp["attn"]["wk"]).reshape(B, S, -1, dh)
+    v = (xn @ lp["attn"]["wv"]).reshape(B, S, -1, dh)
     if "bk" in lp["attn"]:
-        k = k + lp["attn"]["bk"].reshape(arch.num_kv_heads, dh).to(k.dtype)
-        v = v + lp["attn"]["bv"].reshape(arch.num_kv_heads, dh).to(v.dtype)
+        k = k + lp["attn"]["bk"].reshape(-1, dh).to(k.dtype)
+        v = v + lp["attn"]["bv"].reshape(-1, dh).to(v.dtype)
     if arch.rope_theta > 0:
         k = attn.apply_rope(k, positions, arch.rope_theta)
     return k, v
@@ -559,7 +642,7 @@ def _layer_kv_whisper(lp, x_in, arch):
 # ---------------------------------------------------------------------------
 
 def init_cache(arch: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> dict:
+               dtype=torch.bfloat16, device=None, mesh=None) -> dict:
     """A zeroed decode cache with a 0-d int32 ``length``, on ``device``
     (``None``: the CUDA card).  Dense and moe: layer-stacked (L, B,
     max_len, KV, Dh) ``k``/``v``.  whisper: the decoder's ``self_k``/
@@ -571,10 +654,19 @@ def init_cache(arch: ArchConfig, batch: int, max_len: int,
     (conv windows in ``dtype``, SSM states f32), and the shared block's
     ``shared_k``/``shared_v`` (G, B, W, KV, Dh) with ``shared_pos`` (G, B,
     W) = -1 (empty), W being a ring of ``sliding_window`` slots when that is
-    shorter than ``max_len``, else ``max_len``."""
+    shorter than ``max_len``, else ``max_len``.  With a tensor-parallel
+    ``mesh`` (``tp_mesh``): the rank's shape, ``batch / data`` sessions
+    (the global ``batch`` when ``data`` does not divide it) and
+    ``KV / model`` heads."""
     p = plan(arch)
     dev = resolve_device(device)
     kv = arch.num_kv_heads, arch.resolved_head_dim
+    if tp_mesh(arch, mesh) is not None:
+        from repro_torch.parallel.collectives import axis_size
+        kv = arch.num_kv_heads // axis_size(mesh, "model"), kv[1]
+        if "data" in mesh.mesh_dim_names and \
+                batch % axis_size(mesh, "data") == 0:
+            batch //= axis_size(mesh, "data")
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
     length = torch.zeros((), dtype=torch.int32, device=dev)
     if p["kind"] in ("dense", "moe"):
@@ -635,10 +727,16 @@ def decode_step(arch: ArchConfig, params: dict, cache: dict,
     gathered at ``length`` on the device (clamped to the cache, as the
     reference's gather clamps).  With ``flash_decode`` and a ``mesh``, the
     dense and moe caches are this rank's SEQUENCE shards over ``model``
-    and their attention is ``decode_self_attention_sharded``."""
+    and their attention is ``decode_self_attention_sharded``.  Without
+    ``flash_decode``, a ``mesh`` runs the dense family tensor-parallel:
+    the rank's parameter shards, its KV heads' cache, and its vocabulary
+    shard of the logits."""
     p = plan(arch)
     length = cache["length"]
-    x = _embed(arch, params, token, compute_dtype)
+    tp = tp_mesh(arch, mesh, flash_decode)
+    if tp is not None:
+        params = tp_view(params, tp)
+    x = _embed(arch, params, token, compute_dtype, tp)
     if p["kind"] in ("dense", "moe"):
         for i in range(p["layers"]):
             lp = _cast(_layer(params["blocks"], i), compute_dtype)
@@ -650,13 +748,13 @@ def decode_step(arch: ArchConfig, params: dict, cache: dict,
             else:
                 y, _, _ = attn.decode_self_attention(
                     lp["attn"], xn, cache["k"][i], cache["v"][i], length,
-                    arch)
+                    arch, mesh=tp)
             x = x + y
             xn = rmsnorm(x, lp["ln2"])
             if p["kind"] == "moe":
                 y, _ = moe_mod.moe_apply(lp["moe"], xn, arch, cap_multiple=8)
             else:
-                y = mlp_apply(lp["mlp"], xn, arch.activation)
+                y = mlp_apply(lp["mlp"], xn, arch.activation, tp)
             x = x + y
     elif p["kind"] == "whisper":
         n = cache["self_k"].shape[2]
@@ -711,7 +809,7 @@ def decode_step(arch: ArchConfig, params: dict, cache: dict,
         for i in range(p["tail"]):
             x = mamba(x, _cast(_layer(params["tail"], i), compute_dtype),
                       _layer(cache["tail"], i))
-    logits = _head(arch, params, x, compute_dtype)
+    logits = _head(arch, params, x, compute_dtype, tp)
     new_cache = dict(cache)
     new_cache["length"] = length + 1
     return logits, new_cache
@@ -751,15 +849,25 @@ def _ring_decode_attn(ap, x1, ck, cv, cpos, length, arch):
 def lm_loss(arch: ArchConfig, params: dict, batch: dict,
             impl: AttnImpl = AttnImpl.REFERENCE, remat: str = "none",
             mesh=None, moe_impl: str = "auto",
-            compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, dict]:
+            compute_dtype=torch.bfloat16,
+            batch_axes: Tuple[str, ...] = ()) -> Tuple[torch.Tensor, dict]:
     """Next-token cross-entropy plus the moe layers' aux loss: ``(loss,
     {"ce", "aux"})``.  ``batch``: ``tokens``, ``labels``, an optional
     ``loss_mask`` and the front ends' ``patch_embeds``/``frame_embeds``.
     Training differentiates it under ``AttnImpl.REFERENCE``: the kernels
-    have no backward and refuse to run under autograd (FLASH raises)."""
+    have no backward and refuse to run under autograd (FLASH raises).
+    With a ``mesh``: the dense family tensor-parallel (vocab-parallel
+    cross-entropy over ``model``), and ``batch`` the rank's shard over
+    ``batch_axes``, the mean taken over the global batch; the loss is
+    then the same on every rank."""
     logits, aux, _ = forward_seq(arch, params, batch["tokens"], extra=batch,
                                  impl=impl, remat=remat, mesh=mesh,
                                  moe_impl=moe_impl,
                                  compute_dtype=compute_dtype)
-    loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"))
+    tp = tp_mesh(arch, mesh)
+    loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"),
+                              mesh=mesh,
+                              vocab_axis="model" if tp is not None else None,
+                              batch_axes=batch_axes if mesh is not None
+                              else ())
     return loss + aux, {"ce": loss, "aux": aux}

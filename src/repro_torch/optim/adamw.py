@@ -21,10 +21,30 @@ import torch
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32 (0-d)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_flatten(tree)[0]))
+def global_norm(tree: Any, mesh=None, axes=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in f32 (0-d).
+
+    On a ``mesh`` each leaf is this rank's shard, and ``axes`` (one tuple
+    a leaf, in ``tree_flatten``'s order) names the axes it is sharded on:
+    the leaves' sums of squares are summed by their axes, and each sum
+    ``psum``-ed over those axes and no others, so every element counts
+    once (a leaf the same on every rank of an axis is not summed over
+    it).  The norm is then the same on every rank."""
+    leaves = tree_flatten(tree)[0]
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves))
+    from repro_torch.parallel.collectives import psum
+    parts: dict = {}
+    for x, ax in zip(leaves, axes):
+        sq = torch.sum(torch.square(x.float()))
+        parts[ax] = parts[ax] + sq if ax in parts else sq
+    total = 0
+    for ax, part in parts.items():       # the same order on every rank
+        for a in ax:
+            part = psum(part, mesh, a)
+        total = total + part
+    return torch.sqrt(total)
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -59,11 +79,14 @@ def adamw_init(params: Any, keep_master: bool = True) -> Dict[str, Any]:
 def adamw_update(grads: Any, state: Dict[str, Any], params: Any,
                  lr, weight_decay: float = 0.1, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
-                 grad_clip: float = 1.0) -> Tuple[Any, Dict[str, Any], dict]:
+                 grad_clip: float = 1.0, mesh=None,
+                 axes=None) -> Tuple[Any, Dict[str, Any], dict]:
     """One AdamW step, in place (module docstring): ``(params, state,
     {"grad_norm"})`` with the tensors handed in, updated.  ``lr`` is a
-    float or a 0-d f32 tensor."""
-    norm = global_norm(grads)
+    float or a 0-d f32 tensor.  On a ``mesh`` the trees are a rank's
+    shards and ``axes`` their sharded axes (``global_norm``); the update
+    is elementwise, so only the norm crosses ranks."""
+    norm = global_norm(grads, mesh, axes)
     scale = _clip_scale(norm, grad_clip)
     count = state["count"]
     count.add_(1)

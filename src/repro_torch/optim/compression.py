@@ -26,8 +26,18 @@ class Int8Payload(NamedTuple):
     scale: torch.Tensor    # () f32
 
 
-def int8_compress(x: torch.Tensor) -> Int8Payload:
-    scale = torch.clamp(torch.max(torch.abs(x)), min=1e-12) / 127.0
+def int8_compress(x: torch.Tensor, mesh=None, axes=()) -> Int8Payload:
+    """Symmetric int8 with one scale for the whole tensor.  With ``mesh``,
+    ``x`` is this rank's shard of a leaf sharded on ``axes``: the scale is
+    the whole leaf's (the ``pmax`` of the shards' max over ``axes``), as
+    the reference computes it from the whole leaf, and the shard is
+    quantised with it."""
+    peak = torch.max(torch.abs(x))
+    if mesh is not None:
+        from repro_torch.parallel.collectives import pmax
+        for a in axes:
+            peak = pmax(peak, mesh, a)
+    scale = torch.clamp(peak, min=1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return Int8Payload(q=q, scale=scale.to(torch.float32))
 

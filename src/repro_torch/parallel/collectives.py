@@ -23,11 +23,22 @@ its cotangent is that too and passes through unchanged (the transpose of
 ``psum`` over an invariant cotangent).  A value that is the same on every
 rank of an axis but feeds a per-rank computation goes through ``vary``
 (identity forward; its cotangents summed over the axis, the transpose of
-JAX's ``pvary``).  ``all_gather``'s cotangent, the same on every rank, is
-sliced to the rank's own part, and ``shard``'s (a rank's slice of a value
-the same on every rank) gathered back.  ``torch.distributed.nn``'s
-``all_reduce`` sums cotangents instead, which would multiply an
-expert-parallel layer's gradients by the axis size.
+JAX's ``pvary``).  Two gathers differ in their transpose, and the choice is the cotangent's:
+
+* ``all_gather`` slices the cotangent to the rank's own part (``g[index]``).
+  It is right where every rank of the axis holds the SAME cotangent, as in
+  ``moe_apply_ep``, whose gathered tokens feed a computation every rank
+  repeats alike.
+* ``gather_param`` (FSDP's gather of a parameter sharded over ``data`` or
+  ``pod``) reduce-scatters it (``psum_scatter``): each rank's cotangent
+  comes from its own batch shard, so the shard's gradient is the sum of
+  every rank's slice, JAX's transpose of ``all_gather`` for a value that
+  varies over the axis.
+
+``shard`` (a rank's slice of a value the same on every rank) gathers its
+cotangent back.  ``torch.distributed.nn``'s ``all_reduce`` sums cotangents
+instead, which would multiply an expert-parallel layer's gradients by the
+axis size.
 """
 from __future__ import annotations
 
@@ -86,6 +97,31 @@ def _all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return torch.stack(bufs).to(x.device)
 
 
+def _chunk(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's part of ``x`` cut evenly along ``dim`` in axis order."""
+    n = axis_size(mesh, axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks of {axis!r}")
+    return x.chunk(n, dim)[axis_index(mesh, axis)]
+
+
+def _cat_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in axis order."""
+    if axis_size(mesh, axis) == 1:
+        return x.detach().clone()
+    return torch.cat(_all_gather(x.contiguous(), mesh, axis).unbind(0), dim)
+
+
+def _reduce_scatter(x: torch.Tensor, mesh, axis: str,
+                    dim: int) -> torch.Tensor:
+    """The sum over ``axis``, cut along ``dim``: this rank's part.  gloo's
+    reduce-scatter is not in every torch build, so it is an all-reduce and
+    a slice (the same numbers, twice the bytes)."""
+    return _chunk(_all_reduce(x, mesh, axis, dist.ReduceOp.SUM), mesh, axis,
+                  dim).clone()
+
+
 class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
@@ -119,17 +155,38 @@ class _Gather(torch.autograd.Function):
         return g[ctx.index], None, None
 
 
+class _PSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _reduce_scatter(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _cat_gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _cat_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None, \
+            None
+
+
 class _Shard(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
         ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
-        n, i = axis_size(mesh, axis), axis_index(mesh, axis)
-        return x.chunk(n, dim)[i].clone()
+        return _chunk(x, mesh, axis, dim).clone()
 
     @staticmethod
     def backward(ctx, g):
-        parts = _all_gather(g.contiguous(), ctx.mesh, ctx.axis).unbind(0)
-        return torch.cat(parts, ctx.dim), None, None, None
+        return _cat_gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
 
 
 def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -143,10 +200,35 @@ def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return _all_reduce(x, mesh, axis, dist.ReduceOp.MAX)
 
 
+def pmin(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Elementwise min over the ranks of ``axis`` (``jax.lax.pmin``); no
+    gradient."""
+    return _all_reduce(x, mesh, axis, dist.ReduceOp.MIN)
+
+
 def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Every rank's ``x`` stacked on a new leading dim in axis order
-    (``jax.lax.all_gather(x, axis, axis=0)``)."""
+    (``jax.lax.all_gather(x, axis, axis=0)``).  Its cotangent is sliced to
+    the rank's part: use it where every rank's cotangent is the same (the
+    module docstring); a parameter gathered for ranks that each take their
+    own batch goes through ``gather_param``."""
     return _Gather.apply(x, mesh, axis)
+
+
+def psum_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0
+                 ) -> torch.Tensor:
+    """The sum over ``axis``, cut evenly along ``dim``: this rank's part
+    (``jax.lax.psum_scatter(..., tiled=True)``).  Its cotangent is
+    gathered back along ``dim``."""
+    return _PSumScatter.apply(x, mesh, axis, dim)
+
+
+def gather_param(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's shard of a parameter concatenated along ``dim`` in
+    axis order (FSDP's gather at use).  Its cotangent is reduce-scattered:
+    the shard's gradient sums every rank's contribution (the module
+    docstring)."""
+    return _GatherParam.apply(x, mesh, axis, dim)
 
 
 def vary(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -26,6 +26,13 @@ placements, one per mesh dim; ``place`` makes the DTensors from a full
 tree that every rank holds alike (no collective), and ``gather`` makes
 the full tensor back (the counterpart of ``full_tensor()``, through
 ``parallel.collectives``' transport).
+
+The steps of the port's tensor-parallel and FSDP paths hold plain tensors,
+not DTensors: ``local`` cuts a full tree to a rank's shards (what ``place``
+then ``to_local()`` gives) and names each leaf's sharded axes, which the
+gradient norm, the int8 scale and the ZeRO-1 update read; ``unlocal``
+gathers the full tensors back, and ``relayout`` moves a rank's shard from
+one spec to another (ZeRO-1's update regions, PEER_FETCH's pod shards).
 """
 from __future__ import annotations
 
@@ -283,3 +290,88 @@ def gather(x) -> torch.Tensor:
                                mesh.mesh_dim_names[i])
             local = torch.cat(parts.unbind(0), p.dim)
     return local
+
+
+# ---------------------------------------------------------------------------
+# Plain-tensor shards (the tensor-parallel steps)
+# ---------------------------------------------------------------------------
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def spec_axes(spec: P) -> tuple:
+    """The mesh axes ``spec`` shards on, in dim order."""
+    return tuple(a for e in spec for a in _entry_axes(e))
+
+
+def spec_leaves(specs: Any) -> list:
+    """The specs of a spec tree in ``core.tree.tree_flatten``'s leaf order
+    (dict keys sorted), a spec being a leaf."""
+    if _is_spec(specs):
+        return [specs]
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    return [s for x in specs for s in spec_leaves(x)]
+
+
+def _cut(x: torch.Tensor, mesh, spec: P) -> torch.Tensor:
+    """This rank's shard of the full ``x`` (a view): each dim cut evenly
+    over its axes, the first named major (DTensor's order)."""
+    from repro_torch.parallel.collectives import axis_index, axis_size
+    for d, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if not axes:
+            continue
+        n, i = 1, 0
+        for a in axes:
+            n, i = n * axis_size(mesh, a), i * axis_size(mesh, a) + \
+                axis_index(mesh, a)
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not split "
+                             f"over {axes}")
+        x = x.chunk(n, d)[i]
+    return x
+
+
+def local(tree: Any, mesh, specs: Any) -> Tuple[Any, Any]:
+    """``(shards, axes)``: this rank's shard of every leaf of the full
+    ``tree`` (a copy), and every leaf's sharded axes (a tuple of axis
+    names; ``()`` for a replicated leaf).  No collective: every rank holds
+    the full tree alike."""
+    shards = _zip_specs(lambda x, s: _cut(x, mesh, s).clone(), tree, specs)
+    axes = _zip_specs(lambda _, s: spec_axes(s), specs, specs)
+    return shards, axes
+
+
+def unlocal(x: torch.Tensor, mesh, spec: P) -> torch.Tensor:
+    """The full tensor from this rank's shard ``x`` of ``spec``: gathered
+    over each sharded axis (every rank of the mesh takes part)."""
+    from repro_torch.parallel.collectives import _cat_gather
+    for d, entry in enumerate(spec):
+        for a in reversed(_entry_axes(entry)):    # minor first
+            x = _cat_gather(x, mesh, a, d)
+    return x
+
+
+def relayout(x: torch.Tensor, mesh, src: P, dst: P) -> torch.Tensor:
+    """This rank's shard ``x`` of spec ``src`` as its shard of spec ``dst``:
+    dims whose axes differ are gathered over ``src``'s and cut over
+    ``dst``'s; the rest stay as they are (no collective when the specs
+    agree, and then ``x`` itself is returned)."""
+    from repro_torch.parallel.collectives import _cat_gather
+    nd = x.ndim
+    src = tuple(src) + (None,) * (nd - len(src))
+    dst = tuple(dst) + (None,) * (nd - len(dst))
+    if src == dst:
+        return x
+    cut = [None] * nd
+    for d in range(nd):
+        if src[d] == dst[d]:
+            continue
+        for a in reversed(_entry_axes(src[d])):
+            x = _cat_gather(x, mesh, a, d)
+        cut[d] = dst[d]
+    return _cut(x, mesh, P(*cut))

@@ -506,20 +506,31 @@ def make_mesh(cfg: MeshConfig, parent=None):
     return DeviceMesh(parent.device_type, ranks, mesh_dim_names=cfg.axes)
 
 
-def remesh(state, old_specs, new_mesh):
+def remesh(state, old_specs, new_mesh, old_mesh=None):
     """Re-place a tree of DTensors onto a new mesh.  A DTensor cannot move
     between meshes: each leaf is gathered on its old mesh (every rank of
     it takes part) and placed on the new one from that full copy; specs
     naming axes the new mesh lacks (e.g. 'pod' after collapse) are
-    stripped.  A rank outside the new mesh gets None leaves."""
+    stripped.  A rank outside the new mesh gets None leaves.
+
+    With ``old_mesh``, ``state`` is a tree of plain shards, as the
+    tensor-parallel steps hold them (``sharding.local``): each leaf is
+    gathered on ``old_mesh`` (``sharding.unlocal``) and cut to the rank's
+    shard of the stripped spec on the new mesh (``sharding.local``)."""
     from repro_torch.parallel import sharding as sh
     inside = new_mesh.get_coordinate() is not None
     names = set(new_mesh.mesh_dim_names)
 
     def move(x, spec):
-        full = sh.gather(x) if hasattr(x, "device_mesh") else x
+        if old_mesh is not None:
+            full = sh.unlocal(x, old_mesh, spec)
+        else:
+            full = sh.gather(x) if hasattr(x, "device_mesh") else x
         if not inside:
             return None
-        return sh.place(full, new_mesh, sh.strip_axes(spec, names))
+        new_spec = sh.strip_axes(spec, names)
+        if old_mesh is not None:
+            return sh.local(full, new_mesh, new_spec)[0]
+        return sh.place(full, new_mesh, new_spec)
 
     return sh._zip_specs(move, state, old_specs)

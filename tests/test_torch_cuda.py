@@ -1415,3 +1415,34 @@ def test_decode_sessions_ranks_on_the_card(card, card_world):
     """The pod-mesh decode (a captured graph a step), replicate and cache
     equal the stacked step's pods on the card bit for bit."""
     assert all(out["sess/equal"] for out in card_world)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: two ranks sharing the card (gloo)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tp_card_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the ranks share it")
+    import torch_tp_ranks as ranks
+    from repro_torch.launch.mesh import spawn_world
+    store = tmp_path_factory.mktemp("tp_card_world") / "store"
+    return spawn_world(ranks.card_tp_forms, 2, f"file://{store}",
+                       device="cuda", timeout_s=600)
+
+
+@pytest.mark.cuda
+def test_tensor_parallel_ranks_on_the_card(card, tp_card_world):
+    """internlm2-1.8b at full width, depth 2: each rank's FLASH prefill
+    launches the CUDA kernel once a layer on its heads (no give-up), the
+    gathered logits and caches within 5e-2 of the unsharded prefill; one
+    ZeRO-1 step's params within 2 x lr of the unsharded step's."""
+    import torch_tp_ranks as ranks
+    for out in tp_card_world:
+        assert out["flash_launches"] == ranks.CARD_LAYERS
+        assert out["give_ups"] == 0
+        assert out["prefill_rel"] < ranks.CARD_TOL
+        assert out["cache_rel"] < ranks.CARD_TOL
+        assert out["loss_rel"] < 1e-3
+        assert out["params_diff"] <= 2 * out["lr"]

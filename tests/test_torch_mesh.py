@@ -709,24 +709,59 @@ def test_sessions_ranks_equal_stacked_and_reference(pod_steps, reference):
 # ---------------------------------------------------------------------------
 
 class _Inner:
-    """Shape-only stand-in of a (pod 2, data 2) mesh."""
-    shape = {"pod": 2, "data": 2}
-    mesh_dim_names = None
+    """Shape-only stand-in of a (pod 2, data 2, model 2) mesh (the
+    factories read its axis sizes only)."""
+    shape = (2, 2, 2)
+    mesh_dim_names = ("pod", "data", "model")
 
 
-def test_inner_axes_raise_not_implemented():
-    arch = tc.reduced(tc.get_arch(ranks.TRAIN_ARCH))
+class _DataModel:
+    """Shape-only stand-in of a (data 2, model 2) mesh."""
+    shape = (2, 2)
+    mesh_dim_names = ("data", "model")
+
+
+#: case -> (arch id, ParallelConfig changes); None: the dense family runs
+INNER_CASES = {"dense": ("internlm2-1.8b", {}),
+               "moe": ("kimi-k2-1t-a32b", {}),
+               "vlm": ("phi-3-vision-4.2b", {}),
+               "hybrid": ("zamba2-7b", {}),
+               "ssm": ("xlstm-350m", {}),
+               "audio": ("whisper-tiny", {}),
+               "seq_shard": ("internlm2-1.8b", {"seq_shard": True}),
+               "adafactor": ("internlm2-1.8b", {"optimizer": "adafactor"})}
+
+
+@pytest.mark.parametrize("case", sorted(INNER_CASES))
+def test_inner_axes_raise_not_implemented(case):
+    """On a mesh whose ``data``/``model`` axes are > 1 the dense family's
+    factories build their tensor-parallel steps; every other family,
+    ``seq_shard=True`` and Adafactor raise ``NotImplementedError`` naming
+    ROADMAP's queue 1 item 10d (and the family or the option)."""
+    arch_id, changes = INNER_CASES[case]
+    arch = tc.reduced(tc.get_arch(arch_id))
     shape = tc.reduced_shape(tc.SHAPES_BY_NAME["train_4k"])
-    par = tc.ParallelConfig()
-    for call in (lambda: train.make_train_step(arch, shape, device="cpu",
-                                               mesh=_Inner),
-                 lambda: train.make_replicate_step(arch, 2, par,
-                                                   tc.EnokiConfig(),
-                                                   device="cpu", mesh=_Inner),
-                 lambda: serve.make_decode_step(arch, device="cpu",
-                                                mesh=_Inner)):
-        with pytest.raises(NotImplementedError, match="slice after the pod"):
+    pshape = tc.reduced_shape(tc.SHAPES_BY_NAME["prefill_32k"])
+    par = tc.ParallelConfig(**changes)
+    calls = [lambda: train.make_train_step(arch, shape, parallel=par,
+                                           device="cpu", mesh=_Inner)]
+    if case not in ("seq_shard", "adafactor"):
+        calls += [
+            lambda: train.make_replicate_step(arch, 2, par, tc.EnokiConfig(),
+                                              device="cpu", mesh=_Inner),
+            lambda: serve.make_decode_step(arch, device="cpu", mesh=_Inner),
+            lambda: serve.make_prefill_step(arch, pshape, device="cpu",
+                                            mesh=_DataModel)]
+    for call in calls:
+        if case == "dense":
+            got = call()
+            assert callable(got[0] if isinstance(got, tuple) else got)
+            continue
+        with pytest.raises(NotImplementedError, match="queue 1 item 10d") \
+                as info:
             call()
+        assert info.value.args[0] == (arch.family if case in (
+            "moe", "vlm", "hybrid", "ssm", "audio") else case)
 
 
 def test_world_needs_the_card_unless_told_and_mesh_needs_a_world(monkeypatch):
