@@ -174,7 +174,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    bit-identical after it, and equal to the stacked run's bit for bit)
    and ``sessions_pods`` (internlm2-1.8b, 2 ranks x 4 sessions, 8 decode
    steps, replicate, pod 0 dead, migrate: equal to the stacked run);
-11. tensor parallelism of the dense family, phase ``tensor_parallel``:
+11. tensor parallelism, phase ``tensor_parallel``:
    another world of 4 ranks on the card (gloo, staged through host
    memory, as in phase 10), one JSON line a part, each rank's ms beside
    its transport's and the unsharded twin's on the same card: ``prefill``
@@ -192,10 +192,25 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    REPLICATED steps and a round with int8 off and on, pods unequal before
    and bit-identical after; tensor-parallel session caches decoded,
    replicated round the pod ring and migrated; one PEER_FETCH step within
-   f32 rounding of one CLOUD_CENTRAL step);
+   f32 rounding of one CLOUD_CENTRAL step); then the moe and vlm
+   families, every rank's weights drawn block by block from seeds so no
+   rank holds the whole model (``_family_params``): ``moe_prefill``
+   (grok-1 at full width, depth 64 -> 2, (data 2, model 2), 4 prompts of
+   4,096, FLASH under "auto" and "ep", then 8 greedy steps: logits within
+   5e-2 of the unsharded card run on the tokens whose (token, layer)
+   routes and kept flags agree, the rest counted), ``moe_block`` (kimi-k2
+   at full width, depth 61 -> 1, (data 1, model 4): 96 experts, 16 query
+   and 2 KV heads of D=112 a rank, the shared expert column/row),
+   ``moe_train`` (grok-1, depth 64 -> 1, (data 1, model 4), the
+   reference's choices for it: bf16 params, Adafactor, remat "full",
+   FSDP; 2 steps: loss and grad norm within 1e-3, params within the
+   bound ``moe_train`` derives) and ``vlm`` (phi-3-vision at full width
+   and depth, (data 2, model 2), 4 prompts of 4,096 behind 576 patch
+   positions, 8 greedy steps, then a ZeRO-1 AdamW step at depth 32 -> 4);
+   flash launches = the layers a rank runs, give-ups 0;
 12. the smoke's seconds, the ``{"kernels": [...]}`` line (the merge
    kernel's launches by path: served, warm, runtime, replication and mesh;
-   flash's by model and the tensor-parallel prefill's, its give-ups (0)
+   flash's by model and the tensor-parallel prefills', its give-ups (0)
    and its times at the four geometries), then the card's name and power
    limit
    as ``nvidia-smi`` reports them, then ``{"ok": true, "device": ...}``.
@@ -283,6 +298,13 @@ MAIN_FLASH = (4, 4096, 16, 8, 128, 0)
 ZAMBA_FLASH = (4, 4096, 32, 32, 112, 4096)
 # phi-3-vision-4.2b's and gemma-7b's prefill layers (bf16, causal)
 PHI_FLASH = (4, 4096, 32, 32, 96, 0)
+# name -> B, S, H, KV, D of one rank's prefill attention layer in phase
+# tensor_parallel's family parts (bf16, causal): grok-1 on (data 2, model
+# 2), kimi-k2 on (data 1, model 4) (GQA 8:1 at D=112), phi-3-vision on
+# (data 2, model 2)
+TP_FAMILY_FLASH = {"grok-1-314b rank": (2, 4096, 24, 4, 128),
+                   "kimi-k2-1t-a32b rank": (1, 4096, 16, 2, 112),
+                   "phi-3-vision-4.2b rank": (2, 4096, 16, 16, 96)}
 GEMMA_FLASH = (4, 4096, 16, 16, 256, 0)
 # (B, H, S, P, N, chunk): tests/test_kernels.py's sweep, ragged S (a last
 # chunk of 72 and of 4 rows), in f32 and bf16; then the main path's geometry
@@ -1384,16 +1406,23 @@ def _flash_close(torch, fk, q, k, v, got, want, causal, window, what):
 
 def check_flash_sweep(torch, fk, fops):
     """Kernel vs plain over FLASH_CASES x dtypes x FLASH_MASKS, in the kernel
-    layout, then zamba2's geometry (bf16, causal, its window); the
+    layout, then zamba2's geometry (bf16, causal, its window) and the
+    tensor-parallel ranks' (TP_FAMILY_FLASH; bf16, causal); the
     model-layout wrapper (strided reads, no transposes) on the first and
-    the last two cases.  Returns (max abs err per dtype, the largest bf16
-    ratio to the rounding control, cases)."""
+    last of FLASH_CASES and on every geometry after them.  Returns (max
+    abs err per dtype, the largest bf16 ratio to the rounding control,
+    cases, {TP_FAMILY_FLASH name: its max abs err and bf16 ratio})."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst, cases, worst_ratio = {d: 0.0 for d in FLASH_TOL}, 0, 0.0
     B, S, H, KV, D, win = ZAMBA_FLASH
-    runs = [(c, tuple(FLASH_TOL), FLASH_MASKS) for c in FLASH_CASES] + [
-        ((B, S, S, H, KV, D), ("bfloat16",), [(True, win)])]
-    for i, ((B, Sq, Skv, H, KV, D), dtypes, masks) in enumerate(runs):
+    ends = (FLASH_CASES[0], FLASH_CASES[-1])
+    runs = [(c, tuple(FLASH_TOL), FLASH_MASKS, c in ends, None)
+            for c in FLASH_CASES] + [
+        ((B, S, S, H, KV, D), ("bfloat16",), [(True, win)], True, None)] + [
+        ((B, S, S, H, KV, D), ("bfloat16",), [(True, 0)], True, name)
+        for name, (B, S, H, KV, D) in TP_FAMILY_FLASH.items()]
+    named = {}
+    for (B, Sq, Skv, H, KV, D), dtypes, masks, layout, name in runs:
         for dtype in dtypes:
             q, k, v = _qkv(torch, gen, B, Sq, Skv, H, KV, D, dtype)
             for causal, window in masks:
@@ -1404,8 +1433,7 @@ def check_flash_sweep(torch, fk, fops):
                 got = fk.flash_attention_bhsd(q, k, v, causal=causal,
                                               window=window)
                 checks = [(got, what)]
-                if i in (0, len(runs) - 2, len(runs) - 1) and \
-                        window in (0, Sq):
+                if layout and window in (0, Sq):
                     checks.append((fops.flash_attention(
                         q.transpose(1, 2).contiguous(),
                         k.transpose(1, 2).contiguous(),
@@ -1419,9 +1447,14 @@ def check_flash_sweep(torch, fk, fops):
                     worst[dtype] = max(worst[dtype], err)
                     worst_ratio = max(worst_ratio, ratio or 0.0)
                     cases += 1
+                    if name is not None:
+                        mine = named.setdefault(name, {"max_abs_err": 0.0,
+                                                       "bf16_ratio": 0.0})
+                        mine["max_abs_err"] = max(mine["max_abs_err"], err)
+                        mine["bf16_ratio"] = max(mine["bf16_ratio"], ratio)
                 del want, got, checks
             del q, k, v
-    return worst, worst_ratio, cases
+    return worst, worst_ratio, cases, named
 
 
 def time_flash(torch, fk, flush, geometry, reps=20):
@@ -2545,6 +2578,8 @@ def _sync(torch, dev):
 
 def _free(torch, dev):
     if dev.type == "cuda":
+        import gc
+        gc.collect()                # tensors held only by reference cycles
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
 
@@ -2699,7 +2734,10 @@ def mesh_moe_ep(torch, rank, cfg, dev, mesh):
     xt = x.reshape(-1, arch.d_model)
     idx, _, _ = moe.route(shared["router"], xt, arch.moe)
     cap = moe.capacity(xt.shape[0], arch.moe)
-    _, kept = moe.ep_dispatch(idx, rank * e_local, e_local, cap)
+    flat = idx.reshape(-1)
+    rel = flat - rank * e_local
+    kept = (moe.rank_in_expert(flat, E) < cap) & (rel >= 0) & \
+        (rel < e_local)
     mine = {"ms": ms, "y": _digest(torch, y), "routes": _digest(torch, idx),
             "kept": kept.cpu().numpy(),
             "weight_bytes": sum(t.numel() * t.element_size()
@@ -3122,7 +3160,7 @@ TP_TRAIN_CFG = dict(lr=3e-4, warmup_steps=1, total_steps=10)
 TP_LOSS_TOL = 1e-3              # loss and grad_norm, TP against unsharded
 TP_POD_STEPS = 2
 TP_SESS_STEPS = 2
-TP_PARTS = ("prefill", "decode", "train_zero1", "train_fsdp", "pods")
+DENSE_PARTS = ("prefill", "decode", "train_zero1", "train_fsdp", "pods")
 
 #: host ms and bytes inside the port's collectives on this rank
 _TRANSPORT = {"ms": 0.0, "bytes": 0}
@@ -3136,7 +3174,14 @@ def tp_config(device="cuda", reduce=None):
             "seq": TP_SEQ, "decode_steps": TP_DECODE_STEPS,
             "train_layers": TP_TRAIN_LAYERS, "train_seq": TRAIN_SEQ,
             "train_batch": TP_TRAIN_BATCH, "train_steps": TP_TRAIN_STEPS,
-            "sess_cache": SESS_CACHE, "sess_length": SESS_LENGTH}
+            "sess_cache": SESS_CACHE, "sess_length": SESS_LENGTH,
+            "moe_layers": MOE_LAYERS, "block_layers": MOE_BLOCK_LAYERS,
+            "block_seq": MOE_BLOCK_SEQ, "moe_train_layers": MOE_TRAIN_LAYERS,
+            "moe_train_batch": MOE_TRAIN_BATCH,
+            "moe_train_steps": MOE_TRAIN_STEPS,
+            "vlm_train_layers": VLM_TRAIN_LAYERS,
+            "vlm_train_steps": VLM_TRAIN_STEPS, "warm_seq": WARM_SEQ,
+            "parts": TP_PARTS}
 
 
 def _time_transport(torch):
@@ -3581,6 +3626,818 @@ def tp_pods(torch, rank, cfg, dev, mesh):
             "seq": cfg["train_seq"], "by_rank": ranks}
 
 
+# ---------------------------------------------------------------------------
+# Phase tensor_parallel, the moe and vlm families
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, MOE_LAYERS = "grok-1-314b", 2          # moe_prefill: 64 -> 2
+MOE_BLOCK_ARCH, MOE_BLOCK_LAYERS = "kimi-k2-1t-a32b", 1   # moe_block: 61 -> 1
+MOE_BLOCK_SEQ = 4096            # one prompt
+MOE_TRAIN_LAYERS = 1            # moe_train: grok-1, depth 64 -> 1
+MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 2, 2
+MOE_TRAIN_CFG = dict(lr=1e-4, warmup_steps=1, total_steps=10)
+VLM_ARCH = "phi-3-vision-4.2b"  # vlm: full depth (32 layers)
+VLM_TRAIN_LAYERS = 4            # its ZeRO-1 step: depth 32 -> 4
+VLM_TRAIN_STEPS = 2            # the second loss reads the first update
+FAMILY_PARTS = ("moe_prefill", "moe_block", "moe_train", "vlm")
+WARM_SEQ = 1024                 # past the vlm's 576 patch positions
+TP_PARTS = DENSE_PARTS + FAMILY_PARTS
+#: the layer-stacked leaves the init leaves at zero (the norms' scales)
+ZERO_LEAVES = ("ln1", "ln2", "final_norm")
+#: the family parts' training check, leaf by leaf: ||ranks' params - the
+#: twin's|| <= TRAIN_MOVE_RATIO x ||the twin's params - the initial||.  A
+#: step left undone reads exactly 1 (the ranks' params are the initial
+#: ones).  Two runs that compute one update up to rounding end an element
+#: apart only where their pre-rounding values straddle a rounding point
+#: (one bf16 spacing of the element, or for AdamW's first, sign-like
+#: step a gradient's sign at rounding level), a share of about eps of the
+#: moved elements for updates that differ by eps relative: a ratio of
+#: about sqrt(eps), far under 1/2
+TRAIN_MOVE_RATIO = 0.5
+
+
+def _seeded_fill(torch, out, seed, coords, scale):
+    """``out`` (a block of a leaf, or a view of it in the whole leaf)
+    filled with normals x ``scale`` drawn one index of its first dim at a
+    time, each from a generator seeded by (``seed``, ``coords``, index):
+    the same numbers whether a rank draws its block or the twin the whole
+    leaf.  Drawn into a contiguous buffer, then copied (a view's strides
+    do not change what is drawn)."""
+    import hashlib
+    for j in range(out.shape[0]):
+        key = hashlib.sha256(repr((seed, coords, j)).encode()).digest()
+        gen = torch.Generator(device=out.device).manual_seed(
+            int.from_bytes(key[:8], "little") >> 1)
+        buf = torch.empty(out.shape[1:], dtype=out.dtype, device=out.device)
+        buf.normal_(generator=gen).mul_(scale)
+        out[j].copy_(buf)
+        del buf
+
+
+def _family_params(torch, arch, mesh, dev, seed, dtype, parallel=None,
+                   whole=False):
+    """``arch``'s parameters from ``seed`` at full width, cut in blocks
+    along every dim that ``param_partition_specs`` shards on ``mesh``,
+    each block drawn from its own seed (``_seeded_fill``): this rank's
+    shards, or (``whole``) the whole tree with the same numbers, so no rank
+    ever holds the whole model.  The norms' scales are zero, as the init
+    makes them; the embedding's scale 1; every other leaf's is its input
+    width ** -0.5 (the second-last dim); the router stays f32."""
+    import itertools
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.collectives import axis_index
+    meta = zoo.init_params(arch, dtype=dtype, device="meta")
+    specs = sh.param_partition_specs(meta, arch, mesh, parallel or
+                                     ParallelConfig(fsdp=False))
+    sizes = axis_sizes(mesh)
+    mine = {a: axis_index(mesh, a) for a in sizes}
+
+    def leaf(path, x, spec):
+        name = path[-1]
+        entries = tuple(spec) + (None,) * (x.ndim - len(spec))
+        blocks, here = [], []
+        for e in entries:
+            n, i = 1, 0
+            for a in sh._entry_axes(e):
+                n, i = n * sizes[a], i * sizes[a] + mine[a]
+            blocks.append(n)
+            here.append(i)
+        bshape = [s // n for s, n in zip(x.shape, blocks)]
+        if name in ZERO_LEAVES:
+            return torch.zeros(x.shape if whole else bshape, dtype=x.dtype,
+                               device=dev)
+        scale = 1.0 if name == "embed" else x.shape[-2] ** -0.5
+        seed_path = (seed, "/".join(path))
+        if not whole:
+            t = torch.empty(bshape, dtype=x.dtype, device=dev)
+            _seeded_fill(torch, t, seed_path, tuple(here), scale)
+            return t
+        t = torch.empty(x.shape, dtype=x.dtype, device=dev)
+        for coords in itertools.product(*(range(n) for n in blocks)):
+            view = t[tuple(slice(c * b, (c + 1) * b)
+                           for c, b in zip(coords, bshape))]
+            _seeded_fill(torch, view, seed_path, coords, scale)
+        return t
+
+    def walk(meta_t, spec_t, path):
+        if isinstance(meta_t, dict):
+            return {k: walk(meta_t[k], spec_t[k], path + (k,))
+                    for k in meta_t}
+        return leaf(path, meta_t, spec_t)
+    return walk(meta, specs, ())
+
+
+class _Spy:
+    """Within ``with``: the routes of every ``moe.route`` call and the
+    last input of ``transformer._head`` (the final hidden state), when
+    ``routes``/``hidden`` ask for them.  Inside the ``with`` it only keeps
+    references (no device work, no copy to the host), so a timed step
+    inside it times the step alone; on leaving, each route becomes its
+    assignments' experts sorted in a row, in host memory."""
+
+    def __init__(self, routes=True, hidden=True):
+        self.want_routes, self.want_hidden = routes, hidden
+        self.routes, self.hidden = [], None
+
+    def __enter__(self):
+        from repro_torch.models import moe, transformer
+        self._route, self._head = moe.route, transformer._head
+
+        def route(router_w, x, cfg, *args, **kwargs):
+            out = self._route(router_w, x, cfg, *args, **kwargs)
+            if self.want_routes:
+                self.routes.append(out[0])
+            return out
+
+        def head(arch, params, x, *args, **kwargs):
+            if self.want_hidden:
+                self.hidden = x.detach()
+            return self._head(arch, params, x, *args, **kwargs)
+        moe.route, transformer._head = route, head
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe, transformer
+        moe.route, transformer._head = self._route, self._head
+        self.routes = [r.sort(dim=-1).values.cpu() for r in self.routes]
+
+
+def _logits_err_on_agreeing(torch, arch, params, hidden, hidden0, agree):
+    """The largest |logits - logits0| over the tokens ``agree`` (B, S)
+    marks, relative to the largest |logits0| there, both computed from
+    the final hidden states with the one whole head (the vocab-parallel
+    head's columns are the same products), 512 tokens at a time."""
+    from repro_torch.models import transformer
+    x, x0 = hidden.reshape(-1, hidden.shape[-1]), \
+        hidden0.reshape(-1, hidden0.shape[-1])
+    keep = agree.reshape(-1).to(x.device)
+    x, x0 = x[keep], x0[keep]
+    num = den = 0.0
+    for i in range(0, x.shape[0], 512):
+        lg = transformer._head(arch, params, x[i:i + 512][None],
+                               torch.bfloat16).float()
+        lg0 = transformer._head(arch, params, x0[i:i + 512][None],
+                                torch.bfloat16).float()
+        num = max(num, float((lg - lg0).abs().max()))
+        den = max(den, float(lg0.abs().max()))
+    return num / max(den, 1e-30)
+
+
+def _kept(torch, routes, cfg, groups, multiple=128):
+    """(T, k) bool: which of the assignments ``routes`` (T, k), in batch
+    order, a dispatch keeps whose ``groups`` runs of tokens each rank
+    against their own capacity (1: the global batch, "auto"; data: the
+    reference's "ep")."""
+    from repro_torch.models import moe
+    out = []
+    for g in routes.chunk(groups):
+        rank = moe.rank_in_expert(g.reshape(-1), cfg.num_experts)
+        cap = moe.capacity(g.shape[0], cfg, multiple)
+        out.append((rank < cap).reshape(g.shape))
+    return torch.cat(out)
+
+
+def _route_agreement(torch, arch, routes, routes0, B, S, groups,
+                     multiple=128):
+    """(agree (B, S) bool, differing (token, layer) routes, assignments
+    dropped by the ranks, by the twin): the ranks' routes (gathered, in
+    batch order) against the twin's, layer by layer; a route agrees when
+    its experts and their kept flags (each run's own capacity rule) do."""
+    agree = torch.ones(B * S, dtype=torch.bool)
+    differ = dropped = dropped0 = 0
+    for r, r0 in zip(routes, routes0):
+        k = _kept(torch, r, arch.moe, groups, multiple)
+        k0 = _kept(torch, r0, arch.moe, 1, multiple)
+        dropped += int((~k).sum())
+        dropped0 += int((~k0).sum())
+        same = (r == r0).all(-1) & (k == k0).all(-1)
+        differ += int((~same).sum())
+        agree &= same
+    return agree.reshape(B, S), differ, dropped, dropped0
+
+
+def _gather_routes(torch, spy, mesh, axis="data"):
+    """Each call's routes over the ranks of ``axis`` in batch order (the
+    ranks of ``model`` route alike)."""
+    from repro_torch.parallel.collectives import _all_gather
+    return [torch.cat(_all_gather(r, mesh, axis).unbind(0)) for r in
+            spy.routes]
+
+
+def _family_batch(torch, arch, batch, seq, dev, seed):
+    from repro_torch.configs import ShapeConfig, StepKind
+    from repro_torch.models import model_zoo as zoo
+    shape = ShapeConfig("family", seq, batch, StepKind.PREFILL)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return zoo.example_batch(arch, shape, gen), shape
+
+
+def _family_prefill(torch, rank, cfg, dev, mesh, fk, arch, batch, shape,
+                    params, impls):
+    """The FLASH prefill on this rank's shards under each ``moe_impl`` of
+    ``impls``, after a ``warm_seq``-token warm-up: per form the rank's ms,
+    transport, flash launches (asserted = the layers), give-ups, the
+    gathered last logits, the ranks' routes and final hidden state (the
+    model column 0's, gathered over ``data`` in batch order), and the
+    cache of the first form."""
+    import repro_torch.launch.serve as serve
+    from repro_torch.configs import AttnImpl
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.collectives import _all_gather
+    bspec = {k: sh.P("data", *([None] * (v.ndim - 1)))
+             for k, v in batch.items()}
+    mine = sh.local(batch, mesh, bspec)[0]
+    warm = {k: v[:, :cfg["warm_seq"]].contiguous() if k == "tokens" else v
+            for k, v in mine.items()}
+    wshape = dataclasses.replace(shape, seq_len=cfg["warm_seq"])
+    serve.make_prefill_step(arch, wshape, impl=AttnImpl.FLASH, device=dev,
+                            mesh=mesh)(params, warm)
+    _free(torch, dev)
+    out, cache = {}, None
+    for impl in impls:
+        step = serve.make_prefill_step(arch, shape, impl=AttnImpl.FLASH,
+                                       device=dev, mesh=mesh, moe_impl=impl)
+        _sync(torch, dev)
+        n0 = fk.flash_attention_bhsd.launches
+        with _Spy() as spy:
+            (logits, c), ms, tms, tbytes = _transport_ms(
+                torch, dev, lambda: step(params, mine))
+        launches = fk.flash_attention_bhsd.launches - n0
+        give_ups = fk.check_give_ups() if dev.type == "cuda" else 0
+        if dev.type == "cuda":
+            assert launches == arch.num_layers, (launches, arch.num_layers)
+        assert give_ups == 0
+        hidden = torch.cat(_all_gather(spy.hidden.contiguous(), mesh,
+                                       "data").unbind(0))
+        out[impl] = {"ms": ms, "transport_ms": tms,
+                     "transport_bytes": tbytes, "flash_launches": launches,
+                     "give_ups": give_ups, "logits": logits,
+                     "routes": _gather_routes(torch, spy, mesh),
+                     "hidden": hidden if rank == 0 else None}
+        del spy, hidden
+        if cache is None:
+            cache = c
+        del c
+        _free(torch, dev)
+    return out, cache
+
+
+def _compare_prefill(torch, arch, full, runs, twin_logits, twin_routes,
+                     twin_hidden, B, S, data):
+    """Per form: last logits against the twin's (all rows), the logits on
+    the tokens whose routes agree (from the final hidden states), the
+    (token, layer) routes that differ and the assignments each dropped
+    ("ep" ranks each of the ``data`` shards against its own capacity)."""
+    rec = {}
+    for impl, r in runs.items():
+        agree, differ, dropped, dropped0 = _route_agreement(
+            torch, arch, r["routes"], twin_routes, B, S,
+            data if impl == "ep" else 1)
+        err = _logits_err_on_agreeing(torch, arch, full, r["hidden"],
+                                      twin_hidden, agree)
+        rec[impl] = {"rel_err_last_logits": _rel(torch, r["logits"],
+                                                 twin_logits),
+                     "rel_err_logits_agreeing": err,
+                     "routes": len(r["routes"]) * B * S,
+                     "routes_differing": differ,
+                     "dropped": dropped, "dropped_unsharded": dropped0,
+                     "tokens_with_differing_routes": int((~agree).sum()),
+                     "tokens": B * S}
+        assert err < PREFILL_REL_TOL, (impl, rec[impl])
+    return rec
+
+
+def moe_prefill(torch, rank, cfg, dev, mesh, fk):
+    """Part ``moe_prefill``: grok-1 at full width, depth 64 -> 2, bf16, on
+    (data 2, model 2) (4 experts, 24 query and 4 KV heads a rank): 4
+    prompts of ``seq`` (2 a data rank), FLASH, under "auto" and "ep"; then
+    ``decode_steps`` greedy steps from the "auto" cache.  Rank 0 then runs
+    the unsharded prefill and decode (fed the ranks' tokens) on the same
+    card, the ranks' weights freed.  Logits are compared on the tokens
+    whose (token, layer) routes agree with the twin's; the rest are
+    counted."""
+    import repro_torch.launch.serve as serve
+    from repro_torch.configs import AttnImpl
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as sh
+    arch = _arch(cfg, MOE_ARCH, num_layers=cfg["moe_layers"])
+    B, S = cfg["batch"], cfg["seq"]
+    params = _family_params(torch, arch, mesh, dev, 25, torch.bfloat16)
+    batch, shape = _family_batch(torch, arch, B, S, dev, 501)
+    runs, cache = _family_prefill(torch, rank, cfg, dev, mesh, fk, arch,
+                                  batch, shape, params, ("auto", "ep"))
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+    # decode from the "auto" cache
+    room = S + cfg["decode_steps"] + 8
+    dcache = zoo.init_cache(arch, B, room, device=dev, mesh=mesh)
+    for k in ("k", "v"):
+        dcache[k][:, :, :S].copy_(cache[k])
+    dcache["length"].copy_(cache["length"])
+    del cache
+    seen, greedy = [], serve.greedy_sharded
+
+    def capture(lg, m):
+        seen.append(lg)
+        return greedy(lg, m)
+    serve.greedy_sharded = capture
+    dstep = serve.make_decode_step(arch, device=dev, mesh=mesh, batch=B)
+    first = torch.argmax(runs["auto"]["logits"][:, -1, :], -1)[:, None].to(
+        torch.int32)
+    token = sh.local({"t": first}, mesh, {"t": sh.P("data", None)})[0]["t"]
+    dms, dtms, toks, step_logits, droutes = [], [], [], [], []
+    try:
+        for _ in range(cfg["decode_steps"]):
+            with _Spy(hidden=False) as spy:
+                (token, dcache), t, tt, _ = _transport_ms(
+                    torch, dev, lambda: dstep(params, dcache, token))
+            dms.append(t)
+            dtms.append(tt)
+            toks.append(sh.unlocal(token, mesh, sh.P("data", None)))
+            step_logits.append(sh.unlocal(seen.pop().float(), mesh,
+                                          sh.P("data", "model")))
+            droutes.append(_gather_routes(torch, spy, mesh))
+    finally:
+        serve.greedy_sharded = greedy
+    mine = {impl: {k: r[k] for k in ("ms", "transport_ms", "transport_bytes",
+                                     "flash_launches", "give_ups")}
+            for impl, r in runs.items()}
+    ranks = _gather_obj({"prefill": mine, "decode": {"ms": dms,
+                                                     "transport_ms": dtms},
+                         "peak_bytes": peak,
+                         "weight_bytes": sum(x.numel() * x.element_size()
+                                             for _, x in _leaves(params))})
+    del params, dcache
+    _free(torch, dev)
+    _gather_obj(None)
+    if rank != 0:
+        return None
+    full = _family_params(torch, arch, mesh, dev, 25, torch.bfloat16,
+                          whole=True)
+    plain = serve.make_prefill_step(arch, shape, impl=AttnImpl.FLASH,
+                                    device=dev)
+    with _Spy() as spy:
+        (logits0, cache0), ms0 = _rank_ms(torch, dev,
+                                          lambda: plain(full, batch))
+    if dev.type == "cuda":
+        fk.check_give_ups()
+    rec = _compare_prefill(torch, arch, full, runs, logits0, spy.routes,
+                           spy.hidden, B, S, 2)
+    del spy
+    dc0 = zoo.init_cache(arch, B, room, device=dev)
+    for k in ("k", "v"):
+        dc0[k][:, :, :S].copy_(cache0[k])
+    dc0["length"].copy_(cache0["length"])
+    del cache0
+    _free(torch, dev)
+    rels, differ, ms0s, sess_differ = [], 0, [], 0
+    token0 = first
+    for i in range(cfg["decode_steps"]):
+        with _Spy(hidden=False) as spy:
+            (lg0, dc0), t = _rank_ms(torch, dev, lambda: zoo.decode_step(
+                arch, full, dc0, token0))
+        ms0s.append(t)
+        lg0 = lg0[:, -1, :].float()
+        same, _, _, _ = _route_agreement(torch, arch, droutes[i],
+                                         spy.routes, B, 1, 1, multiple=8)
+        same = same.reshape(B)
+        sess_differ += int((~same).sum())
+        keep = same.to(lg0.device)
+        if keep.any():
+            rels.append(_rel(torch, step_logits[i][keep], lg0[keep]))
+        differ += int((torch.argmax(lg0, -1)[:, None].to(torch.int32)
+                       != toks[i]).sum())
+        token0 = toks[i]
+    del full, dc0
+    _free(torch, dev)
+    assert max(rels) < PREFILL_REL_TOL, rels
+    return {"arch": MOE_ARCH, "mesh": {"data": 2, "model": 2},
+            "reduced": {"num_layers": f"64 -> {arch.num_layers}"},
+            "batch": B, "seq": S, "layers": arch.num_layers,
+            "experts_a_rank": arch.moe.num_experts // 2, "impl": "flash",
+            "checks": rec, "tolerance": PREFILL_REL_TOL,
+            "flash_launches": {i: [r["prefill"][i]["flash_launches"]
+                                   for r in ranks] for i in runs},
+            "give_ups": {i: [r["prefill"][i]["give_ups"] for r in ranks]
+                         for i in runs},
+            "ms": {i: [r["prefill"][i]["ms"] for r in ranks] for i in runs},
+            "transport_ms": {i: [r["prefill"][i]["transport_ms"]
+                                 for r in ranks] for i in runs},
+            "transport_bytes": {i: [r["prefill"][i]["transport_bytes"]
+                                    for r in ranks] for i in runs},
+            "unsharded_ms": ms0,
+            "weight_bytes_a_rank": [r["weight_bytes"] for r in ranks],
+            "peak_bytes_a_rank": [r["peak_bytes"] for r in ranks],
+            "decode": {"steps": cfg["decode_steps"],
+                       "rel_err_logits": rels,
+                       "session_steps_with_differing_routes": sess_differ,
+                       "greedy_tokens_differing": differ,
+                       "greedy_tokens": B * cfg["decode_steps"],
+                       "ms": [r["decode"]["ms"] for r in ranks],
+                       "transport_ms": [r["decode"]["transport_ms"]
+                                        for r in ranks],
+                       "unsharded_ms": ms0s}}
+
+
+def moe_block(torch, rank, cfg, dev, mesh, fk):
+    """Part ``moe_block``: kimi-k2 at full width, depth 61 -> 1, bf16, on
+    (data 1, model 4): 96 experts, 16 query and 2 KV heads (D=112) a rank,
+    the shared expert column/row (1 % 4 != 0); one prompt of
+    ``block_seq``, FLASH; rank 0 then runs the unsharded block."""
+    import repro_torch.launch.serve as serve
+    from repro_torch.configs import AttnImpl
+    from repro_torch.models import moe
+    arch = _arch(cfg, MOE_BLOCK_ARCH, num_layers=cfg["block_layers"])
+    assert moe.expert_layout(arch, 4) == {"experts": "ep", "shared": "tp"}
+    S = cfg["block_seq"]
+    params = _family_params(torch, arch, mesh, dev, 26, torch.bfloat16)
+    batch, shape = _family_batch(torch, arch, 1, S, dev, 502)
+    runs, cache = _family_prefill(torch, rank, cfg, dev, mesh, fk, arch,
+                                  batch, shape, params, ("auto",))
+    del cache
+    mine = {k: runs["auto"][k] for k in ("ms", "transport_ms",
+                                         "transport_bytes", "flash_launches",
+                                         "give_ups")}
+    mine["weight_bytes"] = sum(x.numel() * x.element_size()
+                               for _, x in _leaves(params))
+    ranks = _gather_obj(mine)
+    del params
+    _free(torch, dev)
+    _gather_obj(None)
+    if rank != 0:
+        return None
+    full = _family_params(torch, arch, mesh, dev, 26, torch.bfloat16,
+                          whole=True)
+    plain = serve.make_prefill_step(arch, shape, impl=AttnImpl.FLASH,
+                                    device=dev)
+    with _Spy() as spy:
+        (logits0, _), ms0 = _rank_ms(torch, dev, lambda: plain(full, batch))
+    if dev.type == "cuda":
+        fk.check_give_ups()
+    rec = _compare_prefill(torch, arch, full, runs, logits0, spy.routes,
+                           spy.hidden, 1, S, 1)
+    del full, spy
+    _free(torch, dev)
+    return {"arch": MOE_BLOCK_ARCH, "mesh": {"data": 1, "model": 4},
+            "reduced": {"num_layers": f"61 -> {arch.num_layers}"},
+            "seq": S, "experts_a_rank": arch.moe.num_experts // 4,
+            "heads_a_rank": arch.num_heads // 4,
+            "kv_heads_a_rank": arch.num_kv_heads // 4,
+            "head_dim": arch.resolved_head_dim, "shared_expert": "tp",
+            "impl": "flash", "checks": rec, "tolerance": PREFILL_REL_TOL,
+            "flash_launches": [r["flash_launches"] for r in ranks],
+            "give_ups": [r["give_ups"] for r in ranks],
+            "ms": [r["ms"] for r in ranks],
+            "transport_ms": [r["transport_ms"] for r in ranks],
+            "transport_bytes": [r["transport_bytes"] for r in ranks],
+            "weight_bytes_a_rank": [r["weight_bytes"] for r in ranks],
+            "unsharded_ms": ms0}
+
+
+def _family_state(torch, arch, par, mesh, specs, dev, seed, dtype,
+                  whole=False):
+    """A train state whose params are ``_family_params``' (this rank's, or
+    the whole tree) in ``dtype``, the optimiser's state zeros (as
+    ``init_state`` makes it) at the rank's shapes."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch import train
+    from repro_torch.parallel import sharding as sh
+    params = _family_params(torch, arch, mesh, dev, seed, dtype,
+                            parallel=par, whole=whole)
+    shapes = train.state_shapes(arch, par)
+    if not whole:
+        shapes = sh.local(shapes, mesh, specs)[0]
+    assert "master" not in shapes["opt"] or dtype != torch.bfloat16, \
+        "bf16 AdamW params keep a master"
+    zeros = lambda t: tree_map(lambda m: torch.zeros(m.shape, dtype=m.dtype,
+                                                     device=dev), t)
+    return {"params": params, "opt": zeros(shapes["opt"]),
+            "step": zeros(shapes["step"])}
+
+
+def _whole_in_host(torch, tree, mesh, specs, rank):
+    """Rank 0's whole copy in host memory of a tree of this rank's shards:
+    leaf by leaf, every rank's shard sent to rank 0 (``dist.gather`` of
+    host tensors) and put at its place by its mesh coordinates; the other
+    ranks return {}.  No card holds a whole full-width tree, and each
+    shard crosses once."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.parallel import sharding as sh
+    sizes = axis_sizes(mesh)
+    coords = _gather_obj(dict(zip(mesh.mesh_dim_names,
+                                  mesh.get_coordinate())))
+    out = {}
+    for path, spec in sorted(_leaves(specs)):
+        node = tree
+        for k in path.split("/"):
+            node = node[k]
+        x = node.detach().to("cpu").contiguous()
+        parts = [torch.empty_like(x) for _ in coords] if rank == 0 else None
+        dist.gather(x, parts, dst=0)
+        if rank != 0:
+            continue
+        entries = tuple(spec) + (None,) * (x.ndim - len(spec))
+        counts = []
+        for e in entries:
+            n = 1
+            for a in sh._entry_axes(e):
+                n *= sizes[a]
+            counts.append(n)
+        whole = torch.empty([s * n for s, n in zip(x.shape, counts)],
+                            dtype=x.dtype)
+        for part, where in zip(parts, coords):
+            index = []
+            for e, s in zip(entries, x.shape):
+                i = 0
+                for a in sh._entry_axes(e):
+                    i = i * sizes[a] + where[a]
+                index.append(slice(i * s, (i + 1) * s))
+            whole[tuple(index)] = part
+        out[path] = whole
+        del parts
+    return out
+
+
+def _leaf_moves(torch, got, ref, was, chunk=1 << 26):
+    """(||got - ref||, ||ref - was||, max |got - ref|, max |ref - was|) of
+    three tensors of one shape, in f32 a chunk of elements at a time."""
+    g, r, w = (t.reshape(-1) for t in (got, ref, was))
+    d2 = m2 = dmax = mmax = 0.0
+    for i in range(0, r.numel(), chunk):
+        gi, ri, wi = (t[i:i + chunk].float() for t in (g, r, w))
+        d, m = gi - ri, ri - wi
+        d2 += float(d.square().sum(dtype=torch.float64))
+        m2 += float(m.square().sum(dtype=torch.float64))
+        dmax = max(dmax, float(d.abs().max()))
+        mmax = max(mmax, float(m.abs().max()))
+        del gi, ri, wi, d, m
+    return d2 ** 0.5, m2 ** 0.5, dmax, mmax
+
+
+def _family_train(torch, rank, cfg, dev, mesh, arch, shape, par, tcfg,
+                  steps, seed, axes, dtype):
+    """``steps`` steps of ``make_train_step(mesh=)`` from
+    ``_family_state``; rank 0 then runs the unsharded step on the same
+    card (the ranks' state freed) on the concatenated batches.  Returns
+    rank 0's record: losses and ``grad_norm`` against the twin's (within
+    TP_LOSS_TOL), and each leaf's ||ranks - twin|| over the twin's own
+    move ||twin - initial|| (within TRAIN_MOVE_RATIO; a step left undone
+    reads 1)."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import rank_batch, synthetic_batch
+    from repro_torch.launch import train
+    step, _ = train.make_train_step(arch, shape, parallel=par, cfg=tcfg,
+                                    device=dev, mesh=mesh)
+    state = _family_state(torch, arch, par, mesh, step.specs, dev, seed,
+                          dtype)
+    rows = []
+    for i in range(steps):
+        batch = rank_batch(arch, shape, 0, i, mesh, step.batch_axes,
+                           device=dev)
+        (state, m), t, tt, tb = _transport_ms(torch, dev,
+                                              lambda: step(state, batch))
+        rows.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]), "ms": t,
+                     "transport_ms": tt, "transport_bytes": tb})
+        del batch, m
+        _free(torch, dev)           # four ranks' caches share one card
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    whole = _whole_in_host(torch, state["params"], mesh,
+                           step.specs["params"], rank)
+    ranks = _gather_obj({"rows": rows, "peak_bytes": peak})
+    del state
+    _free(torch, dev)
+    _gather_obj(None)
+    if rank != 0:
+        return None
+    plain, _ = train.make_train_step(arch, shape, parallel=par, cfg=tcfg,
+                                     device=dev)
+    state0 = _family_state(torch, arch, par, mesh, None, dev, seed, dtype,
+                           whole=True)
+    init = tree_map(lambda x: x.to("cpu", copy=True), state0["params"])
+    from repro_torch.launch.mesh import axis_sizes
+    n = 1
+    for a in axes:
+        n *= axis_sizes(mesh).get(a, 1)
+    want, ms0 = [], []
+    for i in range(steps):
+        parts = [synthetic_batch(arch, shape, 0, i, shard=s, num_shards=n,
+                                 device=dev) for s in range(n)]
+        batch0 = {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+        (state0, m), t = _rank_ms(torch, dev, lambda: plain(state0, batch0))
+        want.append({"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"])})
+        ms0.append(t)
+    ref = dict(_leaves(state0["params"]))
+    init = dict(_leaves(init))
+    diff = moved = 0.0
+    ratios = {}
+    for k, r in ref.items():            # on the card, a leaf at a time
+        got, was = whole[k].to(dev), init[k].to(dev)
+        dn, mn, dmax, mmax = _leaf_moves(torch, got, r, was)
+        ratios[k] = dn / mn if mn > 0 else (0.0 if dn == 0 else math.inf)
+        diff, moved = max(diff, dmax), max(moved, mmax)
+        del got, was
+    del state0, ref
+    _free(torch, dev)
+    rel = {k: max(abs(r[k] - w[k]) / abs(w[k])
+                  for r, w in zip(ranks[0]["rows"], want))
+           for k in ("loss", "grad_norm")}
+    assert all(v < TP_LOSS_TOL for v in rel.values()), (rel, ranks[0], want)
+    worst = max(ratios, key=ratios.get)
+    assert ratios[worst] <= TRAIN_MOVE_RATIO, ratios
+    return {"losses": [r["loss"] for r in ranks[0]["rows"]],
+            "unsharded_losses": [w["loss"] for w in want],
+            "rel_err": rel, "tolerance": TP_LOSS_TOL,
+            "params_move_ratio_max": ratios[worst],
+            "params_move_ratio_worst_leaf": worst,
+            "params_move_ratio_median": sorted(ratios.values())[
+                len(ratios) // 2],
+            "params_move_ratio_bound": TRAIN_MOVE_RATIO,
+            "params_move_ratio_if_unchanged": 1.0,
+            "leaves_unmoved_by_twin": sum(
+                1 for k in ratios if ratios[k] == 0.0),
+            "params_max_abs_diff": diff, "twin_max_move": moved,
+            "ms": [[r["ms"] for r in rk["rows"]] for rk in ranks],
+            "transport_ms": [[r["transport_ms"] for r in rk["rows"]]
+                             for rk in ranks],
+            "transport_bytes": [rk["rows"][0]["transport_bytes"]
+                                for rk in ranks],
+            "peak_bytes_a_rank": [rk["peak_bytes"] for rk in ranks],
+            "unsharded_ms": ms0}
+
+
+def moe_train(torch, rank, cfg, dev, mesh):
+    """Part ``moe_train``: grok-1 at full width, depth 64 -> 1, on (data
+    1, model 4) with the reference's own choices for it
+    (``default_parallel``, ``param_dtype_for``): bf16 params, Adafactor,
+    remat "full", FSDP (data 1: nothing to shard); seq ``train_seq``, a
+    batch of 2, ``moe_train_steps`` steps, against the unsharded step
+    (losses, ``grad_norm``, and each leaf's move: ``_family_train``)."""
+    from repro_torch.configs import (ShapeConfig, StepKind, TrainConfig,
+                                     get_arch)
+    from repro_torch.launch import train
+    arch = _arch(cfg, MOE_ARCH, num_layers=cfg["moe_train_layers"])
+    shape = ShapeConfig("moe_train", cfg["train_seq"], cfg["moe_train_batch"],
+                        StepKind.TRAIN)
+    # the choices the reference makes for grok-1 itself (314 B parameters),
+    # not for its depth-cut copy
+    par = train.default_parallel(get_arch(MOE_ARCH), shape)
+    dtype = train.param_dtype_for(get_arch(MOE_ARCH))
+    assert par.optimizer == "adafactor" and par.fsdp and par.remat == "full"
+    assert dtype == torch.bfloat16
+    steps = cfg["moe_train_steps"]
+    rec = _family_train(torch, rank, cfg, dev, mesh, arch, shape, par,
+                        TrainConfig(**MOE_TRAIN_CFG), steps, 27, (), dtype)
+    if rec is None:
+        return None
+    return {"arch": MOE_ARCH, "mesh": {"data": 1, "model": 4},
+            "reduced": {"num_layers": f"64 -> {arch.num_layers}",
+                        "global_batch": f"256 -> {shape.global_batch}"},
+            "seq": shape.seq_len, "steps": steps,
+            "optimizer": par.optimizer, "param_dtype": "bfloat16",
+            "fsdp": par.fsdp, "remat": par.remat, **rec}
+
+
+def vlm(torch, rank, cfg, dev, mesh, fk):
+    """Part ``vlm``: phi-3-vision at full width and depth on (data 2,
+    model 2): 4 prompts of ``seq`` (576 patch positions, 2 a data rank),
+    FLASH, ``decode_steps`` greedy steps, each against the unsharded run;
+    then ``vlm_train_steps`` ZeRO-1 AdamW steps at depth 32 ->
+    ``vlm_train_layers`` (f32 params, bf16 compute, remat "block")."""
+    import repro_torch.launch.serve as serve
+    from repro_torch.configs import (AttnImpl, ShapeConfig, StepKind,
+                                     TrainConfig, get_arch)
+    from repro_torch.launch import train
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as sh
+    arch = _arch(cfg, VLM_ARCH)
+    B, S = cfg["batch"], cfg["seq"]
+    params = _family_params(torch, arch, mesh, dev, 28, torch.bfloat16)
+    batch, shape = _family_batch(torch, arch, B, S, dev, 503)
+    runs, cache = _family_prefill(torch, rank, cfg, dev, mesh, fk, arch,
+                                  batch, shape, params, ("auto",))
+    run = runs["auto"]
+    room = S + cfg["decode_steps"] + 8
+    dcache = zoo.init_cache(arch, B, room, device=dev, mesh=mesh)
+    for k in ("k", "v"):
+        dcache[k][:, :, :S].copy_(cache[k])
+    dcache["length"].copy_(cache["length"])
+    del cache
+    seen, greedy = [], serve.greedy_sharded
+
+    def capture(lg, m):
+        seen.append(lg)
+        return greedy(lg, m)
+    serve.greedy_sharded = capture
+    dstep = serve.make_decode_step(arch, device=dev, mesh=mesh, batch=B)
+    first = torch.argmax(run["logits"][:, -1, :], -1)[:, None].to(
+        torch.int32)
+    token = sh.local({"t": first}, mesh, {"t": sh.P("data", None)})[0]["t"]
+    dms, toks, step_logits = [], [], []
+    try:
+        for _ in range(cfg["decode_steps"]):
+            (token, dcache), t, _, _ = _transport_ms(
+                torch, dev, lambda: dstep(params, dcache, token))
+            dms.append(t)
+            toks.append(sh.unlocal(token, mesh, sh.P("data", None)))
+            step_logits.append(sh.unlocal(seen.pop().float(), mesh,
+                                          sh.P("data", "model")))
+    finally:
+        serve.greedy_sharded = greedy
+    mine = {k: run[k] for k in ("ms", "transport_ms", "transport_bytes",
+                                "flash_launches", "give_ups")}
+    ranks = _gather_obj({"prefill": mine, "decode_ms": dms})
+    del params, dcache
+    _free(torch, dev)
+    _gather_obj(None)
+    serve_rec = None
+    if rank == 0:
+        full = _family_params(torch, arch, mesh, dev, 28, torch.bfloat16,
+                              whole=True)
+        plain = serve.make_prefill_step(arch, shape, impl=AttnImpl.FLASH,
+                                        device=dev)
+        (logits0, cache0), ms0 = _rank_ms(torch, dev,
+                                          lambda: plain(full, batch))
+        if dev.type == "cuda":
+            fk.check_give_ups()
+        rel = _rel(torch, run["logits"], logits0)
+        assert rel < PREFILL_REL_TOL, rel
+        dc0 = zoo.init_cache(arch, B, room, device=dev)
+        for k in ("k", "v"):
+            dc0[k][:, :, :S].copy_(cache0[k])
+        dc0["length"].copy_(cache0["length"])
+        del cache0
+        rels, differ, ms0s, token0 = [], 0, [], first
+        for i in range(cfg["decode_steps"]):
+            (lg0, dc0), t = _rank_ms(torch, dev, lambda: zoo.decode_step(
+                arch, full, dc0, token0))
+            ms0s.append(t)
+            lg0 = lg0[:, -1, :].float()
+            rels.append(_rel(torch, step_logits[i], lg0))
+            differ += int((torch.argmax(lg0, -1)[:, None].to(torch.int32)
+                           != toks[i]).sum())
+            token0 = toks[i]
+        del full, dc0
+        _free(torch, dev)
+        assert max(rels) < PREFILL_REL_TOL, rels
+        serve_rec = {
+            "batch": B, "seq": S, "patch_positions": arch.num_patches,
+            "layers": arch.num_layers, "impl": "flash",
+            "rel_err_logits": rel, "tolerance": PREFILL_REL_TOL,
+            "flash_launches": [r["prefill"]["flash_launches"] for r in ranks],
+            "give_ups": [r["prefill"]["give_ups"] for r in ranks],
+            "ms": [r["prefill"]["ms"] for r in ranks],
+            "transport_ms": [r["prefill"]["transport_ms"] for r in ranks],
+            "transport_bytes": [r["prefill"]["transport_bytes"]
+                                for r in ranks],
+            "unsharded_ms": ms0,
+            "decode": {"steps": cfg["decode_steps"], "rel_err_logits": rels,
+                       "greedy_tokens_differing": differ,
+                       "greedy_tokens": B * cfg["decode_steps"],
+                       "ms": [r["decode_ms"] for r in ranks],
+                       "unsharded_ms": ms0s}}
+    _gather_obj(None)
+
+    tarch = _arch(cfg, VLM_ARCH, num_layers=cfg["vlm_train_layers"])
+    tshape = ShapeConfig("vlm_train", cfg["train_seq"], cfg["train_batch"],
+                         StepKind.TRAIN)
+    par = train.default_parallel(get_arch(VLM_ARCH), tshape)
+    dtype = train.param_dtype_for(get_arch(VLM_ARCH))
+    assert par.optimizer == "adamw" and par.zero1 and not par.fsdp
+    steps = cfg["vlm_train_steps"]
+    tcfg = TrainConfig(**TP_TRAIN_CFG)
+    trec = _family_train(torch, rank, cfg, dev, mesh, tarch, tshape, par,
+                         tcfg, steps, 29, ("data",), dtype)
+    if rank != 0:
+        return None
+    return {"arch": VLM_ARCH, "mesh": {"data": 2, "model": 2},
+            "prefill": serve_rec,
+            "train": {"reduced": {"num_layers": f"32 -> {tarch.num_layers}",
+                                  "global_batch":
+                                  f"256 -> {tshape.global_batch}"},
+                      "seq": tshape.seq_len, "steps": steps,
+                      "zero1": par.zero1, "fsdp": par.fsdp,
+                      "remat": par.remat, **trec}}
+
+
+def family_flash_launches(tp) -> int:
+    """Flash launches of the family parts' timed prefills, every rank."""
+    return (sum(sum(v) for v in tp["moe_prefill"]["flash_launches"].values())
+            + sum(tp["moe_block"]["flash_launches"])
+            + sum(tp["vlm"]["prefill"]["flash_launches"]))
+
+
+def family_give_ups(tp) -> int:
+    return (sum(sum(v) for v in tp["moe_prefill"]["give_ups"].values())
+            + sum(tp["moe_block"]["give_ups"])
+            + sum(tp["vlm"]["prefill"]["give_ups"]))
+
+
 def tp_rank(rank, cfg):
     """One rank of the ``tensor_parallel`` world: every part in turn with a
     barrier between; rank 0 returns the records, every rank its seconds a
@@ -3595,31 +4452,55 @@ def tp_rank(rank, cfg):
     _time_transport(torch)
     dm = make_mesh_compat((2, 2), ("data", "model"))
     pm = make_mesh_compat((2, 2), ("pod", "model"))
-    out, seconds = {}, {}
-    t0 = time.perf_counter()
-    out["prefill"], out["decode"] = tp_serve(torch, rank, cfg, dev, dm, fk)
-    _gather_obj(None)
-    seconds["prefill"] = seconds["decode"] = time.perf_counter() - t0
+    m4 = make_mesh_compat((1, 4), ("data", "model"))
+    parts = cfg["parts"]
+    out, seconds, memory = {}, {}, {}
+    if "prefill" in parts:
+        t0 = time.perf_counter()
+        out["prefill"], out["decode"] = tp_serve(torch, rank, cfg, dev, dm,
+                                                 fk)
+        _gather_obj(None)
+        seconds["prefill"] = seconds["decode"] = time.perf_counter() - t0
     for part, fn in (("train_zero1", lambda: tp_train(torch, rank, cfg, dev,
                                                       dm, False)),
                      ("train_fsdp", lambda: tp_train(torch, rank, cfg, dev,
                                                      dm, True)),
-                     ("pods", lambda: tp_pods(torch, rank, cfg, dev, pm))):
+                     ("pods", lambda: tp_pods(torch, rank, cfg, dev, pm)),
+                     ("moe_prefill", lambda: moe_prefill(torch, rank, cfg,
+                                                         dev, dm, fk)),
+                     ("moe_block", lambda: moe_block(torch, rank, cfg, dev,
+                                                     m4, fk)),
+                     ("moe_train", lambda: moe_train(torch, rank, cfg, dev,
+                                                     m4)),
+                     ("vlm", lambda: vlm(torch, rank, cfg, dev, dm, fk))):
+        if part not in parts:
+            continue
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+            memory[part] = {"before": torch.cuda.memory_allocated(dev)}
         t0 = time.perf_counter()
         out[part] = fn()
         _free(torch, dev)
         _gather_obj(None)
         seconds[part] = time.perf_counter() - t0
-    return {"records": out if rank == 0 else None, "seconds": seconds}
+        if dev.type == "cuda":
+            memory[part]["peak"] = torch.cuda.max_memory_allocated(dev)
+    return {"records": out if rank == 0 else None, "seconds": seconds,
+            "memory": memory}
 
 
 def run_tp(torch, cfg=None):
     """Phase ``tensor_parallel``: one world of 4 ranks on the card (gloo
     over a ``file://`` store in ``build/``); returns (the parts' records,
     wall seconds)."""
+    import os
     import shutil
     from repro_torch.launch.mesh import spawn_world
     cfg = cfg or tp_config()
+    # four ranks' caching allocators share the card: segments that grow in
+    # place keep each rank's freed blocks usable for other sizes (the
+    # spawned ranks read this at their first CUDA allocation)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     store_dir = ROOT / "build" / "tp_store"
     shutil.rmtree(store_dir, ignore_errors=True)
     store_dir.mkdir(parents=True)
@@ -3632,8 +4513,11 @@ def run_tp(torch, cfg=None):
                           device=cfg["device"], timeout_s=MESH_TIMEOUT_S)
     wall = time.perf_counter() - t0
     records = results[0]["records"]
-    for part in TP_PARTS:
+    for part in cfg["parts"]:
         records[part]["seconds"] = max(r["seconds"][part] for r in results)
+        if part in results[0]["memory"]:
+            records[part]["device_bytes_a_rank"] = [r["memory"][part]
+                                                    for r in results]
     return records, wall
 
 
@@ -3751,9 +4635,10 @@ def main() -> int:
           "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
 
     # -- 5. the flash-attention kernel against its plain version
-    fworst, fratio, fcases = check_flash_sweep(torch, fk, fops)
+    fworst, fratio, fcases, fnamed = check_flash_sweep(torch, fk, fops)
     emit({"phase": "kernel_sweep", "kernel": "flash_attention_bhsd",
           "cases": fcases, "max_abs_err": fworst, "tolerance": FLASH_TOL,
+          "tp_family_ranks": fnamed,
           "bf16_ratio_to_rounding": fratio,
           "bf16_ratio_limit": BF16_ROUNDING_FACTOR,
           "give_ups": fk.check_give_ups()})
@@ -3839,6 +4724,7 @@ def main() -> int:
                       for a, ss in sessions.items()
                       if ss["launches"]["flash_attention_bhsd"]}
     flash_launches["tensor_parallel"] = sum(tp["prefill"]["flash_launches"])
+    flash_launches["tensor_parallel_families"] = family_flash_launches(tp)
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start,
           "mesh_s": mesh_wall, "tensor_parallel_s": tp_wall})
     t = timings[("100KB", 1)]
@@ -3859,7 +4745,8 @@ def main() -> int:
         "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
         "launches": sum(flash_launches.values()),
         "launches_by_path": flash_launches,
-        "give_ups": fk.check_give_ups() + sum(tp["prefill"]["give_ups"]),
+        "give_ups": fk.check_give_ups() + sum(tp["prefill"]["give_ups"])
+        + family_give_ups(tp),
         "max_abs_err": max([max(fworst.values())] + [
             t["max_abs_err"] for t in flash_times.values()]),
         "ms": ft["ms"], "plain_ms": ft["plain_ms"],

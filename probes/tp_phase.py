@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py``'s ``tensor_parallel`` phase alone on one CUDA card.
 
-    python3 probes/tp_phase.py          # from the repository root
+    python3 probes/tp_phase.py                      # every part
+    python3 probes/tp_phase.py moe_prefill vlm      # these parts only
 
 Builds the kernels (flash is the phase's: each rank's prefill runs it on
 its heads), spawns the phase's world of 4 ranks sharing the card
@@ -31,8 +32,11 @@ def main() -> int:
     t0 = time.time()
     build.build_all()
     print("build_s", time.time() - t0, flush=True)
-    records, wall = cs.run_tp(torch)
-    for part in cs.TP_PARTS:
+    cfg = cs.tp_config()
+    if sys.argv[1:]:
+        cfg["parts"] = tuple(sys.argv[1:])
+    records, wall = cs.run_tp(torch, cfg)
+    for part in cfg["parts"]:
         print(json.dumps({"part": part, "nvidia_smi": smi, **records[part]}),
               flush=True)
     print(json.dumps({"wall_s": wall}))

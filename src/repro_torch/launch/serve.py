@@ -45,8 +45,9 @@ over ``pod`` (pod i's backup holds pod i - 1's sessions, the reference's
 on the sequence over ``model`` (``attention.decode_self_attention_sharded``);
 its collectives cannot be captured, so that step runs eagerly.
 
-On a mesh whose ``data`` or ``model`` axis is larger than 1 (the dense
-family; ``model_zoo.check_mesh`` refuses the others) the steps are
+On a mesh whose ``data`` or ``model`` axis is larger than 1 (the dense,
+vlm and moe families; ``model_zoo.check_mesh`` refuses the others) the
+steps are
 tensor-parallel: every rank holds its shards of the weights
 (``parallel.sharding.local`` of ``param_partition_specs``), its batch
 shard over ``data`` and a cache of its sessions' KV heads
@@ -57,12 +58,17 @@ heads through flash under FLASH and returns the last logits gathered to
 every rank; decode's greedy token is the argmax over the vocabulary
 shards, ties to the lowest global index as ``jnp.argmax`` breaks them
 (``greedy_sharded``), and, its collectives not being capturable, runs
-eagerly.  With a ``pod`` axis too, each pod is a group of ranks, and the
-session ring runs over ``pod`` shard by shard.
+eagerly.  A moe model routes the global batch's tokens (capacity and
+dispatch order over every data rank's sessions: ``moe.moe_apply_tp``):
+its prefill in the form of ``moe_impl`` ("ep": the reference's data
+shards; its ``serve.py`` hands the mesh to the model under "ep" only), its
+decode in the global form, as the reference's decode.  With a ``pod`` axis
+too, each pod is a group of ranks, and the session ring runs over ``pod``
+shard by shard.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -95,10 +101,10 @@ def params_shape_tree(arch: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def session_cache_specs(arch: ArchConfig, mesh, batch: int) -> dict:
-    """The tensor-parallel steps' layout of a dense cache of ``batch``
-    sessions (``init_cache``'s tree): ``k``/``v`` (L, B, S, KV, Dh) by
-    sessions over ``data`` (when it divides ``batch``) and by KV heads over
-    ``model``; ``length`` replicated."""
+    """The tensor-parallel steps' layout of a dense, vlm or moe cache of
+    ``batch`` sessions (``init_cache``'s tree): ``k``/``v`` (L, B, S, KV,
+    Dh) by sessions over ``data`` (when it divides ``batch``) and by KV
+    heads over ``model``; ``length`` replicated."""
     from repro_torch.launch.mesh import axis_sizes
     from repro_torch.parallel.sharding import P
     sizes = axis_sizes(mesh)
@@ -111,7 +117,8 @@ def session_cache_specs(arch: ArchConfig, mesh, batch: int) -> dict:
 
 def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
                       impl: AttnImpl = AttnImpl.REFERENCE, device=None,
-                      compute_dtype=torch.bfloat16, mesh=None
+                      compute_dtype=torch.bfloat16, mesh=None,
+                      moe_impl: str = "auto"
                       ) -> Callable[[dict, dict], tuple]:
     """``prefill(params, batch) -> (logits (B, 1, V), cache)`` for one pod:
     ``batch["tokens"]`` is (B, shape.seq_len), and the batch goes to
@@ -119,11 +126,13 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
     whisper's ``frame_embeds``: ``model_zoo.example_batch`` makes them);
     the cache is ``forward_seq``'s, with ``length`` = ``shape.seq_len``.
 
-    With ``mesh`` (``data`` x ``model``; the dense family): this rank's
-    parameter shards and its batch shard over ``data``
-    (``sharding.batch_specs``); the logits come back whole on every rank
-    (the reference's ``out_shardings=None``), the cache as the rank's
-    (``session_cache_specs``)."""
+    With ``mesh`` (``data`` x ``model``; the dense, vlm and moe
+    families): this rank's parameter shards and its batch shard over
+    ``data`` (``sharding.batch_specs``: the vlm's ``patch_embeds`` too);
+    the logits come back whole on every rank (the reference's
+    ``out_shardings=None``), the cache as the rank's
+    (``session_cache_specs``).  ``moe_impl`` is the moe layers' form
+    (``ParallelConfig.moe_impl``)."""
     dev = resolve_device(device)
     if mesh is not None:
         from repro_torch.configs.base import ParallelConfig
@@ -134,6 +143,7 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
         bdim = batch_specs(arch, shape, mesh, ParallelConfig())["tokens"][0]
         vocab = "model" if "model" in mesh.mesh_dim_names else None
         logits_spec = P(bdim, None, vocab)
+    axes = (bdim,) if mesh is not None and bdim else ()
 
     def prefill(params: dict, batch: dict):
         check_on(dev, params, "params")
@@ -141,7 +151,9 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
         logits, _, cache = zoo.forward_seq(arch, params, batch["tokens"],
                                            extra=batch, impl=impl,
                                            return_cache=True, mesh=mesh,
-                                           compute_dtype=compute_dtype)
+                                           moe_impl=moe_impl,
+                                           compute_dtype=compute_dtype,
+                                           batch_axes=axes)
         cache["length"] = torch.tensor(shape.seq_len, dtype=torch.int32,
                                        device=dev)
         # a copy, so the (B, S, V) logits are freed as the step returns
@@ -189,7 +201,8 @@ def _unpod(step: Callable) -> Callable:
 
 def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
                      compute_dtype=torch.bfloat16, mesh=None,
-                     flash_decode: bool = False
+                     flash_decode: bool = False,
+                     batch: Optional[int] = None
                      ) -> Callable[[dict, Cache, torch.Tensor], tuple]:
     """``step(params, cache, token) -> (next_token, cache)``, greedy.
 
@@ -205,21 +218,30 @@ def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
     ``length`` 0-d) and token (B, 1); the step returns (B, 1).  With
     ``flash_decode`` too (no ``pod`` axis): the dense and moe caches are
     the rank's sequence shards, and the step runs eagerly.  On inner axes
-    (``data`` or ``model`` > 1; the dense family): the rank's parameter
-    shards, its sessions' cache by KV heads (``session_cache_specs``) and
-    their tokens; the step runs eagerly and returns those sessions'
-    greedy tokens (``greedy_sharded``)."""
+    (``data`` or ``model`` > 1; the dense, vlm and moe families): the
+    rank's parameter shards, its sessions' cache by KV heads
+    (``session_cache_specs``) and their tokens; the step runs eagerly and
+    returns those sessions' greedy tokens (``greedy_sharded``).  ``batch``
+    is the global session count, which ``session_cache_specs`` cuts over
+    ``data`` when ``data`` divides it (None: it does); a moe model's
+    decode routes those global sessions' tokens."""
     dev = resolve_device(device)
     if mesh is not None:
         fd = flash_decode and "pod" not in mesh.mesh_dim_names
-        if not fd and zoo.check_mesh(arch, mesh, "make_decode_step"):
+        inner = {} if fd else zoo.check_mesh(arch, mesh, "make_decode_step")
+        if inner:
+            data = inner.get("data", 1)
+            axes = ("data",) if data > 1 and (batch is None or
+                                              batch % data == 0) else ()
+
             def tp_step(params: dict, cache: Cache, token: torch.Tensor):
                 check_on(dev, params, "params")
                 check_on(dev, cache, "cache")
                 check_on(dev, token, "token")
                 logits, new = zoo.decode_step(arch, params, cache, token,
                                               mesh=mesh,
-                                              compute_dtype=compute_dtype)
+                                              compute_dtype=compute_dtype,
+                                              batch_axes=axes)
                 cache["length"].copy_(new["length"])
                 return greedy_sharded(logits[:, -1, :], mesh), cache
             return tp_step

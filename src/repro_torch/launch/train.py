@@ -28,8 +28,10 @@ of ONE pod's state, with no pod dim, laid out by the reference's specs
 (``state_specs``; ``parallel.sharding.local`` cuts them from a full
 state), and steps on its shard of the batch:
 
-* ``model`` > 1: tensor parallelism of the dense family (Megatron column
-  and row splits, vocab-parallel embedding, head and loss; ``models``);
+* ``model`` > 1: tensor parallelism of the dense, vlm and moe families
+  (Megatron column and row splits, vocab-parallel embedding, head and
+  loss, the vlm's patches gathered, a moe layer's experts or expert
+  columns with the global batch's dispatch and aux; ``models``);
 * ``data`` > 1: the batch over ``data`` and the loss's mean over the
   global batch; a gradient is summed over every batch axis its leaf is
   not sharded on;
@@ -47,8 +49,10 @@ state), and steps on its shard of the batch:
 
 The gradient norm counts each element once (``optim.adamw.global_norm``);
 the replicate step works shard by shard, the int8 scale being the whole
-leaf's.  Other families on inner axes, ``seq_shard`` and Adafactor on
-inner axes raise ``NotImplementedError`` (``model_zoo.check_mesh``).
+leaf's.  Adafactor's factors keep the reference's layout (replicated; over
+``pod`` under PEER_FETCH), their means over whole leaves.  The hybrid,
+ssm and audio families on inner axes, and ``seq_shard``, raise
+``NotImplementedError`` (``model_zoo.check_mesh``).
 Every step writes the state IN PLACE (the counterpart of the reference's
 ``donate_argnums=(0,)``) and returns the same tensors.  Gradients come
 from ``torch.autograd`` through ``AttnImpl.REFERENCE``, as in the
@@ -274,10 +278,10 @@ def make_mesh_step_fn(arch: ArchConfig, shape: ShapeConfig,
                       policy: ReplicationPolicy) -> Tuple[Callable, Any]:
     """``(step, specs)``: ``make_step_fn``'s step on this rank's shards of
     one pod's state (``specs``, the reference's ``state_specs``) and its
-    batch shard (``batch_axes``) (the module docstring); Adafactor only
-    where no leaf is sharded (its row and column means would need
-    collectives: ``NotImplementedError``).  The parameters' axes other
-    than ``model`` are gathered at use
+    batch shard (``batch_axes``) (the module docstring); AdamW updates
+    each moment shard's region, Adafactor each parameter shard with its
+    means over whole leaves (``optim.adafactor``).  The parameters' axes
+    other than ``model`` are gathered at use
     (``gather_param``); a gradient is summed over the batch axes its leaf
     is not sharded on, reduce-scattered (``psum_scatter``) where the
     moments shard that axis (ZeRO-1) and all-reduced where they do not;
@@ -297,13 +301,12 @@ def make_mesh_step_fn(arch: ArchConfig, shape: ShapeConfig,
         update = functools.partial(adamw_update, mesh=mesh, axes=[
             sh.spec_axes(s) for s in sh.spec_leaves(specs["opt"]["m"])])
         ospecs = sh.spec_leaves(specs["opt"]["m"])
-    elif any(sh.spec_axes(s) for s in pspecs):
-        raise NotImplementedError(
-            parallel.optimizer, f"{parallel.optimizer} on sharded leaves: "
-            "its row and column means would need collectives; it waits for "
-            f"ROADMAP {zoo.INNER_AXES_ITEM} (the moe family)")
-    else:
-        update, ospecs = adafactor_update, pspecs
+    else:                     # Adafactor updates each leaf in its layout
+        from repro_torch.optim.adafactor import _flatten_up_to
+        update = functools.partial(
+            adafactor_update, mesh=mesh, specs=pspecs,
+            factor_specs=_flatten_up_to(specs["opt"]["v"], sshape["params"]))
+        ospecs = pspecs
     baxes = batch_axes(arch, shape, mesh, parallel, policy)
 
     def gather_at_use(params):
@@ -319,7 +322,8 @@ def make_mesh_step_fn(arch: ArchConfig, shape: ShapeConfig,
     def loss_fn(params, batch):
         return zoo.lm_loss(arch, gather_at_use(params), batch, impl=impl,
                            remat=parallel.remat, compute_dtype=compute_dtype,
-                           mesh=mesh, batch_axes=baxes)
+                           mesh=mesh, batch_axes=baxes,
+                           moe_impl=parallel.moe_impl)
 
     def reduced_grads(params, batch):
         """The loss, its parts, and each leaf's gradient summed over the

@@ -16,7 +16,8 @@ from repro_torch.models import transformer
 from repro_torch.models.ssm import ssm_dims
 from repro_torch.models.xlstm import mlstm_dims
 
-#: where the families other than dense wait for their tensor parallelism
+#: where the families without tensor parallelism (hybrid, ssm, audio) and
+#: ``seq_shard`` wait for it
 INNER_AXES_ITEM = "queue 1 item 10d"
 
 init_params = transformer.init_params
@@ -37,14 +38,15 @@ def inner_axes(mesh) -> Dict[str, int]:
 def check_mesh(arch: ArchConfig, mesh, what: str, parallel=None
                ) -> Dict[str, int]:
     """A step of ``arch`` on ``mesh``: the inner axes it shards over (the
-    dense family runs them tensor-parallel).  Another family on inner
-    axes, and ``seq_shard``, raise ``NotImplementedError`` naming the
-    family and ROADMAP's item; a width that ``model`` does not divide
-    raises ``ValueError`` (``transformer.check_tp_split``)."""
+    families of ``transformer.TP_FAMILIES``, dense, vlm and moe, run them
+    tensor-parallel).  Another family on inner axes, and ``seq_shard``,
+    raise ``NotImplementedError`` naming the family and ROADMAP's item; a
+    width that ``model`` does not divide raises ``ValueError``
+    (``transformer.check_tp_split``)."""
     inner = inner_axes(mesh)
     if not inner:
         return inner
-    if arch.family != "dense":
+    if arch.family not in transformer.TP_FAMILIES:
         raise NotImplementedError(
             arch.family, f"{what} over {inner}: tensor parallelism of the "
             f"{arch.family} family waits for ROADMAP {INNER_AXES_ITEM}")

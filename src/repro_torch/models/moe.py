@@ -29,9 +29,13 @@ Nothing here reads a tensor's value on the host (no ``bincount``,
 are a fixed-size ``scatter_add_``, and ``capacity`` is a Python int from
 static shapes, so a decode step can be captured.
 
-``moe_apply_ep`` is the expert-parallel dispatch over a (``data``,
-``model``) mesh, one rank a (data shard, expert column); its combine runs in
-the same fixed index order, then one ``psum`` over ``model``.
+``moe_apply_tp`` is the layer under tensor parallelism: the rank's batch
+chunk, its experts (or every expert's d_expert columns), and the global
+batch's capacity, dispatch order and aux (the reference's GSPMD
+semantics), or the reference's "ep" data shards; its combine runs in the
+same fixed index order, then one ``psum`` over ``model``.
+``moe_apply_ep``, the reference's expert-parallel dispatch of a batch that
+every rank holds, is its "ep" form on that batch.
 """
 from __future__ import annotations
 
@@ -71,7 +75,8 @@ def capacity(tokens: int, cfg: MoEConfig, multiple: int = 128) -> int:
     return max(multiple, ((c + multiple - 1) // multiple) * multiple)
 
 
-def route(router_w: torch.Tensor, x: torch.Tensor, cfg: MoEConfig
+def route(router_w: torch.Tensor, x: torch.Tensor, cfg: MoEConfig,
+          mesh=None, batch_axes: Tuple[str, ...] = ()
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k routing.  x (T, D) -> (expert_idx (T, k) int64, weight (T, k)
     in x's dtype, aux_loss f32).
@@ -79,7 +84,13 @@ def route(router_w: torch.Tensor, x: torch.Tensor, cfg: MoEConfig
     The reference computes ``x.astype(f32) @ router_w`` with a router the
     model has cast to the compute dtype; JAX promotes that mixed product to
     f32.  Both operands are upcast here, so the logits are the same f32
-    product of the same values."""
+    product of the same values.
+
+    With ``mesh`` and ``batch_axes`` (x is the rank's shard of the tokens
+    over those axes) the aux loss is the global batch's: the per-expert
+    counts and the sums of the probabilities ``psum``-ed over the axes and
+    divided by the global counts (a mean of the ranks' auxes is not it: a
+    product of means is not the mean of the products)."""
     logits = x.float() @ router_w.float()                     # (T, E)
     probs = torch.softmax(logits, dim=-1)
     weight, expert_idx = torch.topk(probs, cfg.top_k, dim=-1)  # (T, k)
@@ -91,9 +102,42 @@ def route(router_w: torch.Tensor, x: torch.Tensor, cfg: MoEConfig
     counts.scatter_add_(0, expert_idx.reshape(-1),
                         torch.ones((expert_idx.numel(),), dtype=torch.float32,
                                    device=x.device))
-    fraction = counts / (x.shape[0] * cfg.top_k)
-    aux = e * torch.sum(fraction * probs.mean(dim=0))
+    if mesh is None or not batch_axes:
+        fraction = counts / (x.shape[0] * cfg.top_k)
+        aux = e * torch.sum(fraction * probs.mean(dim=0))
+        return expert_idx, weight.to(x.dtype), aux
+    from repro_torch.parallel.collectives import chunk_index, psum
+    prob_sum = probs.sum(dim=0)
+    for a in batch_axes:
+        if a in mesh.mesh_dim_names:
+            counts = psum(counts, mesh, a)
+            prob_sum = psum(prob_sum, mesh, a)
+    tokens = x.shape[0] * chunk_index(mesh, batch_axes)[1]
+    aux = e * torch.sum(counts / (tokens * cfg.top_k) * (prob_sum / tokens))
     return expert_idx, weight.to(x.dtype), aux
+
+
+def _expert_counts(flat: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """(E,) int32: the assignments ``flat`` (A,) to each expert."""
+    counts = torch.zeros((num_experts,), dtype=torch.int32,
+                         device=flat.device)
+    return counts.scatter_add_(0, flat, torch.ones(
+        (flat.shape[0],), dtype=torch.int32, device=flat.device))
+
+
+def rank_in_expert(flat: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """(A,) int32: each assignment's rank among the assignments ``flat``
+    (A,) int64 to its expert, in index order (a stable sort by expert, then
+    the position past the expert's start)."""
+    a = flat.shape[0]
+    order = torch.argsort(flat, stable=True)                  # grouped by expert
+    counts = _expert_counts(flat, num_experts)
+    starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    sorted_e = flat[order]
+    rank_sorted = torch.arange(a, dtype=torch.int32,
+                               device=flat.device) - starts[sorted_e]
+    rank = torch.zeros((a,), dtype=torch.int32, device=flat.device)
+    return rank.scatter_(0, order, rank_sorted)
 
 
 def dispatch_indices(expert_idx: torch.Tensor, num_experts: int, cap: int
@@ -104,22 +148,45 @@ def dispatch_indices(expert_idx: torch.Tensor, num_experts: int, cap: int
     + the assignment's rank within expert e, or num_experts*cap (the trash
     row) when that rank is cap or more (dropped)."""
     flat = expert_idx.reshape(-1).long()                      # (A,)
-    a = flat.shape[0]
-    order = torch.argsort(flat, stable=True)                  # grouped by expert
-    counts = torch.zeros((num_experts,), dtype=torch.int32,
-                         device=flat.device)
-    counts.scatter_add_(0, flat, torch.ones((a,), dtype=torch.int32,
-                                            device=flat.device))
-    starts = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-    sorted_e = flat[order]
-    rank_sorted = torch.arange(a, dtype=torch.int32,
-                               device=flat.device) - starts[sorted_e]
-    rank = torch.zeros((a,), dtype=torch.int32, device=flat.device)
-    rank.scatter_(0, order, rank_sorted)
+    rank = rank_in_expert(flat, num_experts)
     kept = rank < cap
     slot = torch.where(kept, flat * cap + rank.long(),
                        torch.full_like(flat, num_experts * cap))
     return slot, kept
+
+
+def _experts(w: dict, tokens: torch.Tensor, weight: torch.Tensor,
+             slot: torch.Tensor, kept: torch.Tensor, n: int, cap: int,
+             dtype) -> torch.Tensor:
+    """The bucketed experts of every form: ``tokens`` (T, D), each copied
+    k times (token-major) into ``n`` x ``cap`` bucket rows at ``slot`` (the
+    rest to the trash row past ``n * cap``, which the experts never read),
+    the grouped SwiGLU FFN over the ``n`` experts of ``w`` (``w_gate``,
+    ``w_up``, ``w_down``), then each token's k kept contributions weighted
+    by ``weight`` (T, k) and added in index order in ``dtype``: (T, D)."""
+    t, d = tokens.shape
+    k = weight.shape[1]
+    buckets = torch.zeros((n * cap + 1, d), dtype=dtype, device=tokens.device)
+    buckets = buckets.index_copy(0, slot, tokens.repeat_interleave(k, dim=0))
+    buckets = buckets[:n * cap].reshape(n, cap, d)
+    # expert FFN: a grouped product over the expert dim
+    h = F.silu(torch.bmm(buckets, w["w_gate"])) * \
+        torch.bmm(buckets, w["w_up"])
+    y_buckets = torch.bmm(h, w["w_down"])
+    # gather back (the row past n * cap is zero) and combine with the
+    # routing weights, each token's k contributions in index order
+    y_flat = torch.cat([y_buckets.reshape(n * cap, d),
+                        torch.zeros((1, d), dtype=y_buckets.dtype,
+                                    device=tokens.device)])
+    gathered = torch.where(kept[:, None], y_flat[slot],
+                           torch.zeros((), dtype=y_flat.dtype,
+                                       device=tokens.device))
+    contrib = (gathered * weight.reshape(t * k, 1).to(gathered.dtype)
+               ).to(dtype).reshape(t, k, d)
+    y = contrib[:, 0]
+    for j in range(1, k):
+        y = y + contrib[:, j]
+    return y
 
 
 def moe_apply(params: dict, x: torch.Tensor, arch: ArchConfig,
@@ -127,36 +194,12 @@ def moe_apply(params: dict, x: torch.Tensor, arch: ArchConfig,
     """x (B, S, D) -> (y (B, S, D), aux_loss * aux_loss_weight)."""
     cfg = arch.moe
     B, S, D = x.shape
-    t, k, e = B * S, cfg.top_k, cfg.num_experts
+    t, e = B * S, cfg.num_experts
     xt = x.reshape(t, D)
     expert_idx, weight, aux = route(params["router"], xt, cfg)
     cap = capacity(t, cfg, cap_multiple)
     slot, kept = dispatch_indices(expert_idx, e, cap)
-
-    # copy tokens (each k times, token-major) into the buckets; the dropped
-    # land in the trash row past e * cap
-    buckets = torch.zeros((e * cap + 1, D), dtype=x.dtype, device=x.device)
-    buckets.index_copy_(0, slot, xt.repeat_interleave(k, dim=0))
-    buckets = buckets[:e * cap].reshape(e, cap, D)
-
-    # expert FFN: a grouped product over the expert dim
-    h = F.silu(torch.bmm(buckets, params["w_gate"])) * \
-        torch.bmm(buckets, params["w_up"])
-    y_buckets = torch.bmm(h, params["w_down"])
-
-    # gather back (the row past e * cap is zero) and combine with the
-    # routing weights, each token's k contributions in index order
-    y_flat = torch.cat([y_buckets.reshape(e * cap, D),
-                        torch.zeros((1, D), dtype=y_buckets.dtype,
-                                    device=x.device)])
-    gathered = torch.where(kept[:, None], y_flat[slot],
-                           torch.zeros((), dtype=y_flat.dtype,
-                                       device=x.device))
-    contrib = (gathered * weight.reshape(t * k, 1).to(gathered.dtype)
-               ).to(x.dtype).reshape(t, k, D)
-    y = contrib[:, 0]
-    for j in range(1, k):
-        y = y + contrib[:, j]
+    y = _experts(params, xt, weight, slot, kept, e, cap, x.dtype)
 
     if cfg.shared_expert:
         y = y + gated_mlp(params["shared"], xt, Activation.SWIGLU)
@@ -170,97 +213,146 @@ def expert_sharding_strategy(cfg: MoEConfig, model_shards: int) -> str:
     return "tp"
 
 
-# ---------------------------------------------------------------------------
-# Explicit expert-parallel dispatch over a mesh
-# ---------------------------------------------------------------------------
-#
-# Routing is computed globally (every rank alike), then each rank, at
-# (data d, model c), takes its data shard's tokens and keeps ONLY the
-# assignments that hit its model column's experts; the columns combine with
-# one psum over ``model`` and the data shards with one all_gather over
-# ``data`` (the reference's out_spec P("data", None) assembles the same
-# array), so every rank ends with the whole output.
-
-def _local(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor's local shard, or the tensor as it is."""
-    return t.to_local() if hasattr(t, "to_local") else t
-
-
-def ep_dispatch(expert_idx_l: torch.Tensor, lo: int, e_local: int, cap: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(slot, kept) of one rank's assignments (T_l, k) for its experts
-    ``lo .. lo + e_local - 1``: a foreign expert's assignment goes to a
-    trash bucket ``e_local`` (ranked there, never kept), and every
-    assignment not kept to the trash row ``e_local * cap``."""
-    rel = expert_idx_l.long() - lo
-    valid = (rel >= 0) & (rel < e_local)
-    eff = torch.where(valid, rel, torch.full_like(rel, e_local))
-    slot, kept = dispatch_indices(eff, e_local + 1, cap)
-    kept = kept & valid.reshape(-1)
-    slot = torch.where(kept, slot, torch.full_like(slot, e_local * cap))
-    return slot, kept
-
-
 def moe_apply_ep(params: dict, x: torch.Tensor, arch: ArchConfig, mesh,
                  cap_multiple: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Expert-parallel MoE on every rank of a (``data``, ``model``) mesh.
-    ``x`` (B, S, D) and the router and shared expert are the same on every
-    rank; ``w_gate``/``w_up``/``w_down`` are this rank's ``E / model``
-    experts (its ``model`` column's, as ``param_partition_specs`` shards
-    them), plain tensors or DTensors.  Needs E % model == 0 and (B*S) %
-    data == 0 (``ValueError`` otherwise; ``transformer._moe_block_seq``
-    falls back to ``moe_apply``).  Capacity is per data shard, as in the
-    reference.  Returns (y (B, S, D), aux * aux_loss_weight), the same on
-    every rank; gradients as ``parallel.collectives`` states them."""
+    """Expert-parallel MoE on every rank of a (``data``, ``model``) mesh,
+    the reference's ``moe_apply_ep``: ``x`` (B, S, D), the router and the
+    shared expert are the same on every rank, ``w_gate``/``w_up``/
+    ``w_down`` this rank's ``E / model`` experts (its ``model`` column's,
+    as ``param_partition_specs`` shards them).  Routing runs on the whole
+    batch; each rank dispatches its data shard's assignments to its
+    experts, with capacity per data shard as in the reference; one
+    ``psum`` over ``model`` and one ``all_gather`` over ``data`` give every
+    rank the whole output.  It is ``moe_apply_tp`` under "ep" with the
+    batch unsharded.  Needs E % model == 0 and (B*S) % data == 0
+    (``ValueError`` otherwise; the reference's callers fall back to
+    ``moe_apply``).  Returns (y (B, S, D), aux * aux_loss_weight), the same
+    on every rank; gradients as ``parallel.collectives`` states them."""
+    from repro_torch.launch.mesh import axis_sizes
+    sizes = axis_sizes(mesh)
+    n_model, n_data = sizes.get("model", 1), sizes.get("data", 1)
+    t = x.shape[0] * x.shape[1]
+    if arch.moe.num_experts % n_model or t % n_data:
+        raise ValueError(f"expert parallelism needs E % model == 0 and "
+                         f"tokens % data == 0: E={arch.moe.num_experts}, "
+                         f"model={n_model}, tokens={t}, data={n_data}")
+    return moe_apply_tp(params, x, arch, mesh, (), "ep", cap_multiple)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the rank's batch shard, its experts or expert columns
+# ---------------------------------------------------------------------------
+#
+# Under tensor parallelism (``transformer.tp_mesh``) the residual stream is
+# the rank's batch shard over ``batch_axes`` (the same on every rank of
+# ``model``), and the layer's leaves are the rank's shards by the
+# reference's specs (``expert_layout``).  The reference runs the layer under
+# GSPMD, which keeps the unsharded semantics; so does ``moe_apply_tp``:
+# capacity, dispatch order and aux are the global batch's ("auto"), or the
+# reference's data shards' ("ep").
+
+def expert_layout(arch: ArchConfig, model: int) -> dict:
+    """How ``parallel.sharding``'s rule lays a moe layer out over ``model``
+    ranks: ``experts`` "ep" (the expert dim over ``model``) or "tp" (E %
+    model != 0: ``w_gate``/``w_up`` by columns and ``w_down`` by rows of
+    d_expert); ``shared`` (kimi-k2's shared expert, else None) "layer"
+    when ``model`` divides the layer count (the rule's 3-D test also takes
+    the layer-stacked (L, d, f) leaves and shards their LAYER dim), else
+    "tp" (column/row on d_expert)."""
+    cfg = arch.moe
+    shared = None
+    if cfg.shared_expert:
+        shared = "layer" if arch.num_layers % model == 0 else "tp"
+    return {"experts": expert_sharding_strategy(cfg, model),
+            "shared": shared}
+
+
+def moe_apply_tp(params: dict, x: torch.Tensor, arch: ArchConfig, mesh,
+                 batch_axes: Tuple[str, ...] = (), moe_impl: str = "auto",
+                 cap_multiple: int = 128
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The moe layer on the rank's shards: x (B, S, D) is the rank's chunk
+    of the global batch over ``batch_axes`` (``collectives.chunk_index``),
+    the same on every rank of ``model``; ``params`` are the rank's leaves
+    (``expert_layout``; a layer-sharded shared expert gathered before, by
+    ``transformer.tp_view``).  Returns (y (B, S, D), aux *
+    aux_loss_weight), y the same on every rank of ``model``.
+
+    * "auto" (the reference's ``moe_apply`` over the whole batch):
+      capacity from the global token count; an assignment's bucket slot
+      is its rank among ALL assignments to its expert in global order, so
+      the rank's own rank plus the counts of the earlier chunks (an
+      ``all_gather`` of the per-expert counts, ``gather_chunks``).
+    * "ep" where the reference takes it (E % model == 0 and the global
+      tokens split over ``data``): capacity and ranks per reference data
+      shard, each a run of whole chunks; a batch the same on every data
+      rank is cut over ``data`` as ``moe_apply_ep`` cuts it.
+
+    The rank computes its experts' buckets (or, "tp", every expert's on
+    its d_expert columns), each token sums its k contributions in index
+    order, then one ``psum`` over ``model``; the shared expert is added
+    after it: column/row-parallel with its own ``psum`` when the rank holds
+    its d_expert columns ("tp"), else whole (gathered from its layer
+    shards, or ``moe_apply_ep``'s).  The aux
+    is the global batch's (``route``).  The tokens and routing weights
+    enter the expert computation through ``vary`` over ``model``."""
     from repro_torch.launch.mesh import axis_sizes
     from repro_torch.parallel.collectives import (all_gather, axis_index,
+                                                  chunk_index, gather_chunks,
                                                   psum, shard, vary)
     cfg = arch.moe
     B, S, D = x.shape
+    t, e = B * S, cfg.num_experts
     sizes = axis_sizes(mesh)
     n_model, n_data = sizes.get("model", 1), sizes.get("data", 1)
-    t, k = B * S, cfg.top_k
-    if cfg.num_experts % n_model or t % n_data:
-        raise ValueError(f"expert parallelism needs E % model == 0 and "
-                         f"tokens % data == 0: E={cfg.num_experts}, "
-                         f"model={n_model}, tokens={t}, data={n_data}")
-    e_local = cfg.num_experts // n_model
-    t_local = t // n_data
-    cap = capacity(t_local, cfg, cap_multiple)
+    ci, n = chunk_index(mesh, batch_axes)
+    lay = expert_layout(arch, n_model)
+    ep = (moe_impl == "ep" and e % n_model == 0 and (t * n) % n_data == 0)
+    split = ep and n == 1 and n_data > 1    # the batch on every data rank
+    if ep and not split and n % n_data:
+        raise ValueError(f"{n} batch chunks do not make the {n_data} data "
+                         f"shards of expert parallelism")
 
     xt = x.reshape(t, D)
-    expert_idx, weight, aux = route(params["router"], xt, cfg)
-    wg, wu, wd = (vary(_local(params[n]), mesh, "data")
-                  for n in ("w_gate", "w_up", "w_down"))
-    if wg.shape[0] != e_local:
-        raise ValueError(f"{tuple(wg.shape)[0]} experts on a rank; "
-                         f"E / model is {e_local}")
-    xt_l = vary(shard(xt, mesh, "data"), mesh, "model")
-    w_l = vary(shard(weight, mesh, "data"), mesh, "model")
-    eidx_l = expert_idx.chunk(n_data)[axis_index(mesh, "data")]
+    expert_idx, weight, aux = route(params["router"], xt, cfg, mesh,
+                                    batch_axes)
+    w = {name: params[name] for name in ("w_gate", "w_up", "w_down")}
+    if split:
+        tokens = shard(xt, mesh, "data")
+        w_tok = shard(weight, mesh, "data")
+        eidx = expert_idx.chunk(n_data)[axis_index(mesh, "data")]
+        w = {name: vary(v, mesh, "data") for name, v in w.items()}
+        cap = capacity(t // n_data, cfg, cap_multiple)
+        per = 1
+    else:
+        tokens, w_tok, eidx = xt, weight, expert_idx
+        per = n // n_data if ep else n       # chunks a dispatch group
+        cap = capacity(t * per, cfg, cap_multiple)
+    flat = eidx.reshape(-1).long()
+    local_rank = rank_in_expert(flat, e)     # among the rank's own tokens
+    rank = local_rank                        # among the group's, in order
+    if per > 1:                              # every rank of the group calls
+        table = gather_chunks(_expert_counts(flat, e), mesh, batch_axes)
+        first = ci - ci % per
+        rank = rank + table[first:ci].sum(0, dtype=torch.int32)[flat]
+    if lay["experts"] == "ep":
+        e_local = e // n_model
+        lo = axis_index(mesh, "model") * e_local
+    else:
+        e_local, lo = e, 0
+    rel = flat - lo
+    kept = (rank < cap) & (rel >= 0) & (rel < e_local)
+    slot = torch.where(kept, rel * cap + local_rank.long(),
+                       torch.full_like(flat, e_local * cap))
 
-    slot, kept = ep_dispatch(eidx_l, axis_index(mesh, "model") * e_local,
-                             e_local, cap)
-    buckets = torch.zeros((e_local * cap + 1, D), dtype=x.dtype,
-                          device=x.device)
-    buckets = buckets.index_copy(0, slot, xt_l.repeat_interleave(k, dim=0))
-    buckets = buckets[:e_local * cap].reshape(e_local, cap, D)
-    h = F.silu(torch.bmm(buckets, wg)) * torch.bmm(buckets, wu)
-    y_buckets = torch.bmm(h, wd)
-    y_flat = torch.cat([y_buckets.reshape(e_local * cap, D),
-                        torch.zeros((1, D), dtype=y_buckets.dtype,
-                                    device=x.device)])
-    gathered = torch.where(kept[:, None], y_flat[slot],
-                           torch.zeros((), dtype=y_flat.dtype,
-                                       device=x.device))
-    contrib = (gathered * w_l.reshape(t_local * k, 1).to(gathered.dtype)
-               ).to(x.dtype).reshape(t_local, k, D)
-    y = contrib[:, 0]
-    for j in range(1, k):
-        y = y + contrib[:, j]
+    y = _experts(w, vary(tokens, mesh, "model"), vary(w_tok, mesh, "model"),
+                 slot, kept, e_local, cap, x.dtype)
     y = psum(y, mesh, "model")
-    y = all_gather(y, mesh, "data").reshape(t, D)
+    if split:
+        y = all_gather(y, mesh, "data").reshape(t, D)
 
-    if cfg.shared_expert:
-        y = y + gated_mlp(params["shared"], xt, Activation.SWIGLU)
+    if cfg.shared_expert:          # by d_expert columns, or whole
+        cut = params["shared"]["w_down"].shape[0] < cfg.d_expert
+        y = y + gated_mlp(params["shared"], xt, Activation.SWIGLU,
+                          mesh if cut else None)
     return y.reshape(B, S, D), aux * cfg.aux_loss_weight

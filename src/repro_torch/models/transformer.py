@@ -21,7 +21,8 @@ Both modes of a block:
   decode(params, x1, cache, length)   -> y, cache     (one token; the cache
                                                        is written in place)
 
-Tensor parallelism (the dense family, a ``mesh`` with a ``model`` axis):
+Tensor parallelism (the dense, vlm and moe families, a ``mesh`` with a
+``model`` axis; ``tp_mesh``):
 each rank holds its shards of the parameters (``parallel.sharding.local``
 of the reference's specs): the column-parallel projections' columns, the
 row-parallel ones' rows, the embedding's vocabulary rows ``[lo, hi)`` and
@@ -32,7 +33,11 @@ over ``model``; every attention and MLP sums its row-parallel output over
 ``model`` (``attention``, ``layers``); ``_head`` gives the rank's
 vocabulary shard of the logits (gemma's tied ``embed.T`` too), which
 ``lm_loss`` reads through the vocab-parallel cross-entropy.  The decode
-cache holds the rank's KV heads (``init_cache(mesh=)``).
+cache holds the rank's KV heads (``init_cache(mesh=)``).  The vlm's
+``patch_proj`` gives the rank's d / model columns of the patches, gathered
+over ``model`` before they join the text.  A moe layer holds its rank's
+experts or expert columns and runs ``moe.moe_apply_tp``, which keeps the
+global batch's capacity, dispatch order and aux.
 
 The vlm and audio front ends are stubs, as in the reference: ``extra``
 carries ``patch_embeds`` (vlm: ``num_patches`` positions put in front of the
@@ -271,22 +276,18 @@ def _dense_block_seq(lp, x, positions, arch, impl, window=0, causal=True,
 
 
 def _moe_block_seq(lp, x, positions, arch, impl, mesh=None,
-                   moe_impl="auto"):
-    """Expert-parallel (``moe_apply_ep``) when ``moe_impl`` is "ep" and the
-    mesh takes it (E % model == 0 and B*S % data == 0), else
-    ``moe_apply``, as the reference falls back."""
+                   moe_impl="auto", batch_axes=()):
+    """One moe layer; with ``mesh``, tensor-parallel over ``model``: the
+    attention on the rank's heads, then ``moe_apply_tp`` in the form
+    ``moe_impl`` and the mesh select (the reference's "ep" where the mesh
+    takes it, E % model == 0 and the tokens split over ``data``, else its
+    fall-back, the global batch's dispatch)."""
     x = x + attn.self_attention(lp["attn"], rmsnorm(x, lp["ln1"]), positions,
-                                arch, impl=impl)
+                                arch, impl=impl, mesh=mesh)
     xn = rmsnorm(x, lp["ln2"])
-    B, S, _ = xn.shape
-    ep_ok = False
     if mesh is not None:
-        from repro_torch.launch.mesh import axis_sizes
-        sizes = axis_sizes(mesh)
-        ep_ok = (arch.moe.num_experts % sizes.get("model", 1) == 0
-                 and (B * S) % sizes.get("data", 1) == 0)
-    if moe_impl == "ep" and ep_ok:
-        y, aux = moe_mod.moe_apply_ep(lp["moe"], xn, arch, mesh)
+        y, aux = moe_mod.moe_apply_tp(lp["moe"], xn, arch, mesh, batch_axes,
+                                      moe_impl)
     else:
         y, aux = moe_mod.moe_apply(lp["moe"], xn, arch)
     return x + y, aux
@@ -356,26 +357,41 @@ _COL_BIASES = frozenset({"bq", "bk", "bv", "b_up"})
 
 
 def check_tp_split(arch: ArchConfig, model: int) -> None:
-    """``ValueError`` unless ``model`` divides every width the dense
-    family splits: the query and key/value heads (the reference would
-    split a head and let GSPMD reshard it), the MLP's hidden width and
-    the vocabulary (the specs would replicate a leaf the model code reads
-    as the rank's shard).  The same on every device."""
+    """``ValueError`` unless ``model`` divides every width the family
+    splits: the query and key/value heads (the reference would split a head
+    and let GSPMD reshard it) and the vocabulary (the specs would replicate
+    a leaf the model code reads as the rank's shard); the dense MLP's
+    hidden width (dense and vlm), the vlm's ``patch_proj`` columns
+    (d_model), and for the moe family d_expert wherever the specs cut it
+    (the experts when E % model != 0, a shared expert when the layer count
+    is not a multiple of ``model``: ``moe.expert_layout``).  The same on
+    every device."""
     widths = {"query heads": arch.num_heads, "key/value heads":
-              arch.num_kv_heads, "d_ff": arch.d_ff,
-              "vocabulary": arch.vocab_size}
+              arch.num_kv_heads, "vocabulary": arch.vocab_size}
+    if arch.family == "moe":
+        lay = moe_mod.expert_layout(arch, model)
+        if lay["experts"] == "tp" or lay["shared"] == "tp":
+            widths["d_expert"] = arch.moe.d_expert
+    else:
+        widths["d_ff"] = arch.d_ff
+    if arch.frontend_stub == "clip_patches":
+        widths["d_model"] = arch.d_model
     bad = {k: v for k, v in widths.items() if v % model}
     if bad:
         raise ValueError(f"{arch.name}: {bad} do not split over model = "
                          f"{model}")
 
 
+#: the families a ``model`` axis runs tensor-parallel
+TP_FAMILIES = ("dense", "vlm", "moe")
+
+
 def tp_mesh(arch: ArchConfig, mesh, flash_decode: bool = False):
-    """The mesh to run ``arch`` tensor-parallel on, or None: the dense
-    family on a mesh with a ``model`` axis (a flash-decode step shards the
-    cache on the sequence instead, and the other families take a mesh for
-    expert parallelism only).  Checks the widths against ``model``."""
-    if mesh is None or flash_decode or arch.family != "dense" \
+    """The mesh to run ``arch`` tensor-parallel on, or None: a family of
+    ``TP_FAMILIES`` on a mesh with a ``model`` axis (a flash-decode step
+    shards the cache on the sequence instead).  Checks the widths against
+    ``model``."""
+    if mesh is None or flash_decode or arch.family not in TP_FAMILIES \
             or "model" not in mesh.mesh_dim_names:
         return None
     from repro_torch.parallel.collectives import axis_size
@@ -383,17 +399,27 @@ def tp_mesh(arch: ArchConfig, mesh, flash_decode: bool = False):
     return mesh
 
 
-def tp_view(params: dict, mesh) -> dict:
+def tp_view(params: dict, mesh, arch: ArchConfig) -> dict:
     """The rank's view of its parameter shards: each column-parallel
     bias cut to the rank's columns (``collectives.shard``, whose
-    cotangent is gathered back); the rest as they are."""
-    from repro_torch.parallel.collectives import shard
+    cotangent is gathered back); a moe shared expert sharded on its layer
+    dim (``moe.expert_layout``) gathered over ``model``
+    (``all_gather_dim``: every rank then runs it alike, so its cotangent
+    is sliced back); the rest as they are."""
+    from repro_torch.parallel.collectives import (all_gather_dim, axis_size,
+                                                  shard)
 
     def walk(tree):
         return {k: (walk(v) if isinstance(v, dict) else
                     shard(v, mesh, "model", v.ndim - 1) if k in _COL_BIASES
                     else v) for k, v in tree.items()}
-    return walk(params)
+    out = walk(params)
+    if arch.family == "moe" and moe_mod.expert_layout(
+            arch, axis_size(mesh, "model"))["shared"] == "layer":
+        moe = out["blocks"]["moe"]
+        moe["shared"] = {k: all_gather_dim(v, mesh, "model", 0)
+                         for k, v in moe["shared"].items()}
+    return out
 
 
 def _embed(arch: ArchConfig, params: dict, tokens: torch.Tensor,
@@ -429,7 +455,8 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
                 remat: str = "none",
                 return_cache: bool = False,
                 mesh=None, moe_impl: str = "auto",
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16,
+                batch_axes: Tuple[str, ...] = ()):
     """tokens (B, S) int -> (logits (B, S, V), aux f32, cache | None).
     Positions are 0..S-1 in every row.  ``impl`` picks the attention path
     and, in the Mamba-2 and mLSTM layers, the scan (FLASH: the kernels).
@@ -440,12 +467,12 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
     load-balancing loss (0 elsewhere).  ``remat`` ("none", "block",
     "full"; ``_remat``) wraps each layer body the reference wraps: the dense
     and moe layers, xlstm's mLSTM layers, zamba2's Mamba-2 layers and tail,
-    and whisper's encoder and decoder layers.  ``mesh`` and ``moe_impl="ep"``
-    run the moe layers expert-parallel on every rank of the mesh
-    (``_moe_block_seq``); the rest of the model is the same on every
-    rank.  For the dense family ``mesh`` runs the model tensor-parallel on
-    the rank's shards (the module docstring): the logits are the rank's
-    vocabulary shard and the cache holds its KV heads.
+    and whisper's encoder and decoder layers.  ``mesh`` runs the model
+    tensor-parallel on the rank's shards (``tp_mesh``; the module
+    docstring): the logits are the rank's vocabulary shard and the cache
+    holds its KV heads; ``tokens`` are the rank's chunk of the global batch
+    over ``batch_axes``, which the moe layers' capacity, dispatch order and
+    aux read (``moe_apply_tp`` in the form ``moe_impl``).
 
     The dense and moe caches hold the layer-stacked (L, B, S, KV, Dh)
     ``k`` and ``v``; whisper's the decoder's ``self_k``/``self_v`` (L, B,
@@ -461,13 +488,17 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
     B, S = tokens.shape
     tp = tp_mesh(arch, mesh)
     if tp is not None:
-        params = tp_view(params, tp)
+        params = tp_view(params, tp, arch)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     x = _embed(arch, params, tokens, compute_dtype, tp)
     if arch.frontend_stub == "clip_patches":
-        patches = extra["patch_embeds"].to(compute_dtype) @ \
+        from repro_torch.models.layers import tp_in
+        patches = tp_in(extra["patch_embeds"].to(compute_dtype), tp) @ \
             params["patch_proj"].to(compute_dtype)
+        if tp is not None:          # the rank's d / model columns
+            from repro_torch.parallel.collectives import all_gather_dim
+            patches = all_gather_dim(patches, tp, "model", -1)
         x = torch.cat([patches, x[:, :S - arch.num_patches]], dim=1)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
@@ -488,8 +519,8 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
     elif p["kind"] == "moe":
         def body(x, lp):
             lp = _cast(lp, compute_dtype)
-            y, aux = _moe_block_seq(lp, x, positions, arch, impl, mesh,
-                                    moe_impl)
+            y, aux = _moe_block_seq(lp, x, positions, arch, impl, tp,
+                                    moe_impl, batch_axes)
             return y, ((aux, _layer_kv(lp, x, positions, arch))
                        if return_cache else aux)
 
@@ -655,9 +686,9 @@ def init_cache(arch: ArchConfig, batch: int, max_len: int,
     ``shared_k``/``shared_v`` (G, B, W, KV, Dh) with ``shared_pos`` (G, B,
     W) = -1 (empty), W being a ring of ``sliding_window`` slots when that is
     shorter than ``max_len``, else ``max_len``.  With a tensor-parallel
-    ``mesh`` (``tp_mesh``): the rank's shape, ``batch / data`` sessions
-    (the global ``batch`` when ``data`` does not divide it) and
-    ``KV / model`` heads."""
+    ``mesh`` (``tp_mesh``): the rank's
+    shape, ``batch / data`` sessions (the global ``batch`` when ``data``
+    does not divide it) and ``KV / model`` heads."""
     p = plan(arch)
     dev = resolve_device(device)
     kv = arch.num_kv_heads, arch.resolved_head_dim
@@ -711,7 +742,8 @@ def init_cache(arch: ArchConfig, batch: int, max_len: int,
 
 def decode_step(arch: ArchConfig, params: dict, cache: dict,
                 token: torch.Tensor, mesh=None, flash_decode: bool = False,
-                compute_dtype=torch.bfloat16):
+                compute_dtype=torch.bfloat16,
+                batch_axes: Tuple[str, ...] = ()):
     """token (B, 1) int -> (logits (B, 1, V), cache').
 
     Every cache leaf is written IN PLACE (the counterpart of the reference
@@ -728,14 +760,16 @@ def decode_step(arch: ArchConfig, params: dict, cache: dict,
     reference's gather clamps).  With ``flash_decode`` and a ``mesh``, the
     dense and moe caches are this rank's SEQUENCE shards over ``model``
     and their attention is ``decode_self_attention_sharded``.  Without
-    ``flash_decode``, a ``mesh`` runs the dense family tensor-parallel:
-    the rank's parameter shards, its KV heads' cache, and its vocabulary
-    shard of the logits."""
+    ``flash_decode``, a ``mesh`` runs the model tensor-parallel
+    (``tp_mesh``): the rank's
+    parameter shards, its KV heads' cache, and its vocabulary shard of the
+    logits; the moe layers route the global batch's tokens (the rank's
+    chunk over ``batch_axes``: ``moe_apply_tp``)."""
     p = plan(arch)
     length = cache["length"]
     tp = tp_mesh(arch, mesh, flash_decode)
     if tp is not None:
-        params = tp_view(params, tp)
+        params = tp_view(params, tp, arch)
     x = _embed(arch, params, token, compute_dtype, tp)
     if p["kind"] in ("dense", "moe"):
         for i in range(p["layers"]):
@@ -751,7 +785,10 @@ def decode_step(arch: ArchConfig, params: dict, cache: dict,
                     arch, mesh=tp)
             x = x + y
             xn = rmsnorm(x, lp["ln2"])
-            if p["kind"] == "moe":
+            if p["kind"] == "moe" and tp is not None:
+                y, _ = moe_mod.moe_apply_tp(lp["moe"], xn, arch, tp,
+                                            batch_axes, cap_multiple=8)
+            elif p["kind"] == "moe":
                 y, _ = moe_mod.moe_apply(lp["moe"], xn, arch, cap_multiple=8)
             else:
                 y = mlp_apply(lp["mlp"], xn, arch.activation, tp)
@@ -850,20 +887,23 @@ def lm_loss(arch: ArchConfig, params: dict, batch: dict,
             impl: AttnImpl = AttnImpl.REFERENCE, remat: str = "none",
             mesh=None, moe_impl: str = "auto",
             compute_dtype=torch.bfloat16,
-            batch_axes: Tuple[str, ...] = ()) -> Tuple[torch.Tensor, dict]:
+            batch_axes: Tuple[str, ...] = ()
+            ) -> Tuple[torch.Tensor, dict]:
     """Next-token cross-entropy plus the moe layers' aux loss: ``(loss,
     {"ce", "aux"})``.  ``batch``: ``tokens``, ``labels``, an optional
     ``loss_mask`` and the front ends' ``patch_embeds``/``frame_embeds``.
     Training differentiates it under ``AttnImpl.REFERENCE``: the kernels
     have no backward and refuse to run under autograd (FLASH raises).
-    With a ``mesh``: the dense family tensor-parallel (vocab-parallel
-    cross-entropy over ``model``), and ``batch`` the rank's shard over
-    ``batch_axes``, the mean taken over the global batch; the loss is
+    With a ``mesh``: the model tensor-parallel (``tp_mesh``; vocab-parallel
+    cross-entropy over ``model``),
+    and ``batch`` the rank's shard over ``batch_axes``, the mean taken
+    over the global batch and the moe aux the global batch's; the loss is
     then the same on every rank."""
     logits, aux, _ = forward_seq(arch, params, batch["tokens"], extra=batch,
                                  impl=impl, remat=remat, mesh=mesh,
                                  moe_impl=moe_impl,
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype,
+                                 batch_axes=batch_axes)
     tp = tp_mesh(arch, mesh)
     loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"),
                               mesh=mesh,

@@ -35,6 +35,12 @@ JAX's ``pvary``).  Two gathers differ in their transpose, and the choice is the 
   every rank's slice, JAX's transpose of ``all_gather`` for a value that
   varies over the axis.
 
+``all_gather_dim`` concatenates ``all_gather``'s parts along a dim (the
+vlm's patch columns, a shared expert cut on its layer dim), with the same
+sliced cotangent.  ``chunk_index`` and ``gather_chunks`` name a rank's
+chunk of a batch cut over several axes and gather a small table (the moe
+layer's per-expert counts) in that chunk order, with no gradient.
+
 ``shard`` (a rank's slice of a value the same on every rank) gathers its
 cotangent back.  ``torch.distributed.nn``'s ``all_reduce`` sums cotangents
 instead, which would multiply an expert-parallel layer's gradients by the
@@ -215,6 +221,15 @@ def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return _Gather.apply(x, mesh, axis)
 
 
+def all_gather_dim(x: torch.Tensor, mesh, axis: str, dim: int
+                   ) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in axis order; its
+    cotangent sliced to the rank's part, as ``all_gather``'s (a value
+    every rank then uses alike: the vlm's projected patches, a shared
+    expert sharded on its layer dim)."""
+    return torch.cat(all_gather(x, mesh, axis).unbind(0), dim)
+
+
 def psum_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0
                  ) -> torch.Tensor:
     """The sum over ``axis``, cut evenly along ``dim``: this rank's part
@@ -240,6 +255,29 @@ def shard(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """This rank's part of ``x`` (the same on every rank of ``axis``), cut
     evenly along ``dim`` in axis order: a body's in_spec."""
     return _Shard.apply(x, mesh, axis, dim)
+
+
+def chunk_index(mesh, axes: Sequence[str]) -> Tuple[int, int]:
+    """``(i, n)``: this rank's chunk of a value cut evenly over ``axes``
+    (a batch spec's entry, the first named major) and the number of
+    chunks; axes the mesh lacks count as 1."""
+    i, n = 0, 1
+    for a in axes:
+        if a in mesh.mesh_dim_names:
+            i, n = i * axis_size(mesh, a) + axis_index(mesh, a), \
+                n * axis_size(mesh, a)
+    return i, n
+
+
+def gather_chunks(x: torch.Tensor, mesh, axes: Sequence[str]
+                  ) -> torch.Tensor:
+    """Every rank's ``x`` over ``axes`` stacked on a new leading dim in
+    chunk order (``chunk_index``): an ``all_gather`` an axis, the minor
+    first.  No gradient: for small tables such as per-expert counts."""
+    x = x.detach()[None]
+    for a in reversed([a for a in axes if a in mesh.mesh_dim_names]):
+        x = _all_gather(x.contiguous(), mesh, a).flatten(0, 1)
+    return x
 
 
 def ppermute(x: torch.Tensor, mesh, axis: str,

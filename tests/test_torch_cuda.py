@@ -1446,3 +1446,30 @@ def test_tensor_parallel_ranks_on_the_card(card, tp_card_world):
         assert out["cache_rel"] < ranks.CARD_TOL
         assert out["loss_rel"] < 1e-3
         assert out["params_diff"] <= 2 * out["lr"]
+
+
+@pytest.fixture(scope="module")
+def tp_family_card_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the ranks share it")
+    import torch_tp_family_ranks as franks
+    from repro_torch.launch.mesh import spawn_world
+    store = tmp_path_factory.mktemp("tp_family_card_world") / "store"
+    return spawn_world(franks.card_family_forms, 2, f"file://{store}",
+                       device="cuda", timeout_s=600)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["grok-1-314b", "phi-3-vision-4.2b"],
+                         ids=["moe", "vlm"])
+def test_tensor_parallel_family_prefill_on_the_card(card, arch_id,
+                                                    tp_family_card_world):
+    """At full width, bf16, FLASH: grok-1's prefill by experts on (data 1,
+    model 2) and phi-3-vision's on (data 2, model 1): each rank launches
+    the CUDA kernel once a layer on its heads (no give-up), the gathered
+    logits within 5e-2 of the unsharded prefill on the card."""
+    import torch_tp_family_ranks as franks
+    for out in tp_family_card_world:
+        assert out[f"{arch_id}/flash_launches"] == out[f"{arch_id}/layers"]
+        assert out[f"{arch_id}/give_ups"] == 0
+        assert out[f"{arch_id}/prefill_rel"] < franks.CARD_TOL

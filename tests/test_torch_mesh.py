@@ -28,6 +28,7 @@ a time limit on every wait); the rank bodies are in
   jitted steps on its (2, 2, 2) mesh within ``tests/test_torch_train.py``'s
   bounds (both packages in f32), greedy tokens equal.
 """
+import dataclasses
 import functools
 import os
 import pathlib
@@ -471,10 +472,12 @@ def test_ep_moe_matches_unsharded_without_drops(decode_ep):
 
 @pytest.mark.parametrize("geometry", ["2x8", "1x7"])
 def test_forward_seq_expert_parallel_on_a_mesh(decode_ep, geometry):
-    """``forward_seq(mesh=..., moe_impl="ep")`` runs each moe layer
-    expert-parallel (within 1e-4 and aux within 1e-6 of "auto"); with 7
-    tokens, which do not split over data 2, it falls back to
-    ``moe_apply`` and equals "auto" bit for bit (the reference's rule)."""
+    """``forward_seq(mesh=..., moe_impl="ep")`` on each rank's shards
+    runs each moe layer expert-parallel (the rank's vocabulary shard of the
+    logits within 1e-4 and aux within 1e-6 of the unsharded "auto" run);
+    with 7 tokens, which do not split over data 2, it falls back to the
+    global dispatch and equals "auto" on the same mesh bit for bit (the
+    reference's rule)."""
     for out in decode_ep:
         assert out[f"fwd/{geometry}/err"] < EP_TOL
         assert out[f"fwd/{geometry}/aux_diff"] < AUX_TOL
@@ -721,7 +724,8 @@ class _DataModel:
     mesh_dim_names = ("data", "model")
 
 
-#: case -> (arch id, ParallelConfig changes); None: the dense family runs
+#: case -> (arch id, ParallelConfig changes); dense, moe, vlm and
+#: adafactor build, the rest raise
 INNER_CASES = {"dense": ("internlm2-1.8b", {}),
                "moe": ("kimi-k2-1t-a32b", {}),
                "vlm": ("phi-3-vision-4.2b", {}),
@@ -730,16 +734,21 @@ INNER_CASES = {"dense": ("internlm2-1.8b", {}),
                "audio": ("whisper-tiny", {}),
                "seq_shard": ("internlm2-1.8b", {"seq_shard": True}),
                "adafactor": ("internlm2-1.8b", {"optimizer": "adafactor"})}
+#: case -> reduced-arch changes: the reduced kimi-k2 keeps one KV head
+#: (its 8:1 ratio at 4 heads), which model = 2 cannot split
+INNER_ARCH_CHANGES = {"moe": {"num_kv_heads": 2}}
 
 
 @pytest.mark.parametrize("case", sorted(INNER_CASES))
 def test_inner_axes_raise_not_implemented(case):
-    """On a mesh whose ``data``/``model`` axes are > 1 the dense family's
-    factories build their tensor-parallel steps; every other family,
-    ``seq_shard=True`` and Adafactor raise ``NotImplementedError`` naming
-    ROADMAP's queue 1 item 10d (and the family or the option)."""
+    """On a mesh whose ``data``/``model`` axes are > 1 the dense, moe and
+    vlm families' factories build their tensor-parallel steps, Adafactor's
+    too; the hybrid, ssm and audio families and ``seq_shard=True`` raise
+    ``NotImplementedError`` naming ROADMAP's queue 1 item 10d (and the
+    family or the option)."""
     arch_id, changes = INNER_CASES[case]
-    arch = tc.reduced(tc.get_arch(arch_id))
+    arch = dataclasses.replace(tc.reduced(tc.get_arch(arch_id)),
+                               **INNER_ARCH_CHANGES.get(case, {}))
     shape = tc.reduced_shape(tc.SHAPES_BY_NAME["train_4k"])
     pshape = tc.reduced_shape(tc.SHAPES_BY_NAME["prefill_32k"])
     par = tc.ParallelConfig(**changes)
@@ -753,7 +762,7 @@ def test_inner_axes_raise_not_implemented(case):
             lambda: serve.make_prefill_step(arch, pshape, device="cpu",
                                             mesh=_DataModel)]
     for call in calls:
-        if case == "dense":
+        if case in ("dense", "moe", "vlm", "adafactor"):
             got = call()
             assert callable(got[0] if isinstance(got, tuple) else got)
             continue
