@@ -304,7 +304,8 @@ PHI_FLASH = (4, 4096, 32, 32, 96, 0)
 # (data 2, model 2)
 TP_FAMILY_FLASH = {"grok-1-314b rank": (2, 4096, 24, 4, 128),
                    "kimi-k2-1t-a32b rank": (1, 4096, 16, 2, 112),
-                   "phi-3-vision-4.2b rank": (2, 4096, 16, 16, 96)}
+                   "phi-3-vision-4.2b rank": (2, 4096, 16, 16, 96),
+                   "zamba2-7b shared block rank": (2, 4096, 16, 16, 112)}
 GEMMA_FLASH = (4, 4096, 16, 16, 256, 0)
 # (B, H, S, P, N, chunk): tests/test_kernels.py's sweep, ragged S (a last
 # chunk of 72 and of 4 rows), in f32 and bf16; then the main path's geometry
@@ -314,6 +315,11 @@ SSD_CASES = [(1, 2, 128, 32, 16, 32), (2, 4, 256, 64, 64, 64),
              (2, 2, 100, 32, 16, 32)]
 SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 MAIN_SSD = (4, 112, 4096, 64, 64, 128)
+# name -> (B, H, S, P, N, chunk) of one rank's Mamba-2 layer in phase
+# tensor_parallel's hybrid parts (f32 as the model feeds it): zamba2-7b's
+# 112 SSM heads over model 2 and 4, 2 prompts a data rank
+TP_RECURRENT_SSD = {"zamba2-7b rank, model 2": (2, 56, 4096, 64, 64, 128),
+                    "zamba2-7b rank, model 4": (2, 28, 4096, 64, 64, 128)}
 # (B, H, S, d, chunk): tests/test_kernels.py's sweep, reduced xlstm-350m's
 # head dim 128, xlstm-350m's 512 and a ragged column tile (d=80: two CTAs a
 # (b, h), the second 16 columns wide; chunk 20), in f32 and bf16; then the
@@ -323,6 +329,9 @@ MLSTM_CASES = [(1, 2, 128, 32, 32), (2, 2, 64, 64, 16), (1, 4, 256, 16, 64),
                (2, 2, 128, 128, 16), (1, 2, 256, 512, 64), (1, 3, 100, 80, 20)]
 MLSTM_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 MAIN_MLSTM = (4, 4, 2048, 512, 64)
+# name -> (B, H, S, d, chunk) of one rank's mLSTM layer in phase
+# tensor_parallel's ssm parts (f32): xlstm-350m's 4 heads over model 2
+TP_RECURRENT_MLSTM = {"xlstm-350m rank, model 2": (2, 2, 2048, 512, 64)}
 # sessions path: 2 pods x 4 sessions for each model; 4,096-token prompts,
 # 2,048 for xlstm-350m (the xLSTM paper's training context, which also keeps
 # its sequential sLSTM loop inside the smoke's time), 384 for whisper-tiny
@@ -1531,25 +1540,32 @@ def _ssd_close(torch, got, want, dtype, what):
 
 
 def check_ssd_sweep(torch, sk, sops):
-    """Kernel vs plain over SSD_CASES x dtypes and the main geometry in f32,
-    in the kernel layout; the model-layout wrapper (strided reads of x,
-    a_dt and y; dt weighting) on a ragged case and at the main geometry.
-    Returns (max abs err per dtype, cases)."""
+    """Kernel vs plain over SSD_CASES x dtypes, the main geometry and the
+    tensor-parallel ranks' (TP_RECURRENT_SSD) in f32, in the kernel
+    layout; the model-layout wrapper (strided reads of x, a_dt and y; dt
+    weighting) on a ragged case and at the main geometry.  Returns (max
+    abs err per dtype, cases, {TP_RECURRENT_SSD name: its max abs
+    err})."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    worst, cases = {d: 0.0 for d in SSD_TOL}, 0
-    runs = [(c, tuple(SSD_TOL)) for c in SSD_CASES] + [(MAIN_SSD,
-                                                        ("float32",))]
-    for i, ((B, H, S, P, N, chunk), dtypes) in enumerate(runs):
+    worst, cases, named = {d: 0.0 for d in SSD_TOL}, 0, {}
+    main = len(SSD_CASES)
+    runs = [(c, tuple(SSD_TOL), None) for c in SSD_CASES] + [
+        (MAIN_SSD, ("float32",), None)] + [
+        (c, ("float32",), name) for name, c in TP_RECURRENT_SSD.items()]
+    for i, ((B, H, S, P, N, chunk), dtypes, name) in enumerate(runs):
         for dtype in dtypes:
             what = f"B={B} H={H} S={S} P={P} N={N} chunk={chunk} {dtype}"
             x, a, b, c = _ssd_inputs(torch, gen, B, H, S, P, N, dtype)
             want = sk.ssd_chunk_bhcp_plain(x, a, b, c, chunk=chunk)
             got = sk.ssd_chunk_bhcp(x, a, b, c, chunk=chunk)
             torch.cuda.synchronize()
-            worst[dtype] = max(worst[dtype], _ssd_close(torch, got, want,
-                                                        dtype, what))
+            err = _ssd_close(torch, got, want, dtype, what)
+            worst[dtype] = max(worst[dtype], err)
+            if name is not None:
+                named[name] = {"max_abs_err": err,
+                               "tolerance": SSD_TOL[dtype]}
             cases += 1
-            if i in (3, len(runs) - 1) and dtype == "float32":
+            if i in (3, main) and dtype == "float32":
                 # the model layout: x (B,S,H,P) with dt apart, b/c (B,S,N)
                 dt = torch.rand((B, S, H), generator=gen, device="cuda") + 0.5
                 xm = x.transpose(1, 2).contiguous()
@@ -1565,7 +1581,7 @@ def check_ssd_sweep(torch, sk, sops):
                     what + " (model layout)"))
                 cases += 1
             del x, a, b, c, want, got
-    return worst, cases
+    return worst, cases, named
 
 
 def ssd_work(B, H, S, P, N, chunk, itemsize):
@@ -1654,25 +1670,32 @@ def _mlstm_close(torch, got, want, dtype, what):
 
 
 def check_mlstm_sweep(torch, mk, mops):
-    """Kernel vs plain over MLSTM_CASES x dtypes and the main geometry in
-    f32, in the kernel layout; the model-layout wrapper (strided reads of
-    q/k/v and the gates, h written through a view) at d=128 and at the main
-    geometry.  Returns (max abs err per dtype, cases)."""
+    """Kernel vs plain over MLSTM_CASES x dtypes, the main geometry and the
+    tensor-parallel ranks' (TP_RECURRENT_MLSTM) in f32, in the kernel
+    layout; the model-layout wrapper (strided reads of q/k/v and the
+    gates, h written through a view) at d=128 and at the main geometry.
+    Returns (max abs err per dtype, cases, {TP_RECURRENT_MLSTM name: its
+    max abs err})."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    worst, cases = {d: 0.0 for d in MLSTM_TOL}, 0
-    runs = [(c, tuple(MLSTM_TOL)) for c in MLSTM_CASES] + [(MAIN_MLSTM,
-                                                            ("float32",))]
-    for i, ((B, H, S, d, chunk), dtypes) in enumerate(runs):
+    worst, cases, named = {d: 0.0 for d in MLSTM_TOL}, 0, {}
+    main = len(MLSTM_CASES)
+    runs = [(c, tuple(MLSTM_TOL), None) for c in MLSTM_CASES] + [
+        (MAIN_MLSTM, ("float32",), None)] + [
+        (c, ("float32",), name) for name, c in TP_RECURRENT_MLSTM.items()]
+    for i, ((B, H, S, d, chunk), dtypes, name) in enumerate(runs):
         for dtype in dtypes:
             what = f"B={B} H={H} S={S} d={d} chunk={chunk} {dtype}"
             ins = _mlstm_inputs(torch, gen, B, H, S, d, dtype)
             want = mk.mlstm_chunk_bhsd_plain(*ins, chunk=chunk)
             got = mk.mlstm_chunk_bhsd(*ins, chunk=chunk)
             torch.cuda.synchronize()
-            worst[dtype] = max(worst[dtype], _mlstm_close(
-                torch, got, want, dtype, what))
+            err = _mlstm_close(torch, got, want, dtype, what)
+            worst[dtype] = max(worst[dtype], err)
+            if name is not None:
+                named[name] = {"max_abs_err": err,
+                               "tolerance": MLSTM_TOL[dtype]}
             cases += 1
-            if i in (3, len(runs) - 1) and dtype == "float32":
+            if i in (3, main) and dtype == "float32":
                 # the model layout: q/k/v (B,S,H,d), gates (B,S,H)
                 model = [x.transpose(1, 2).contiguous() for x in ins]
                 h, carry = mops.mlstm_chunk(*model, chunk=chunk)
@@ -1682,7 +1705,7 @@ def check_mlstm_sweep(torch, mk, mops):
                     what + " (model layout)"))
                 cases += 1
             del ins, want, got
-    return worst, cases
+    return worst, cases, named
 
 
 def mlstm_work(B, H, S, d, chunk, itemsize):
@@ -1825,27 +1848,33 @@ def _rel_err(torch, a, b) -> float:
     return num / (den + 1e-6)
 
 
-def check_slstm_scan(torch, xlstm, params, arch):
+def check_slstm_scan(torch, xlstm, params, arch, batch=None, prompt=None,
+                     device="cuda"):
     """The captured sLSTM scan against the eager loop over time, bit for
     bit (hs and the carry), on the first sLSTM layer's weights and card
-    inputs at the prefill's shape (B=SESSIONS, S=the prompt) and at a
-    ragged S of 100 (a 36-step tail: blocks of 32 and 4); the loop's and
-    the scan's wall ms at the prefill's shape."""
+    inputs at the prefill's shape (B = ``batch``, SESSIONS by default; S =
+    ``prompt``, the model's prompt by default) and at a ragged S of 100 (a
+    36-step tail: blocks of 32 and 4); the loop's and the scan's wall ms
+    at the prefill's shape."""
     cell = params["blocks"]["slstm"]["cell"]
     r, b = cell["r"][0], cell["b"][0]
     h = arch.xlstm.num_heads
-    gen = torch.Generator(device="cuda").manual_seed(5)
+    B = batch or SESSIONS
+    dev = torch.device(device)
+    timed = (lambda fn: _wall_ms(torch, fn)) if dev.type == "cuda" else \
+        (lambda fn: _rank_ms(torch, dev, fn))      # a CPU rehearsal
+    gen = torch.Generator(device=device).manual_seed(5)
     out = {}
-    for S in (PROMPTS[arch.name], 100):
-        wx = torch.randn((SESSIONS, S, 4 * arch.d_model), generator=gen,
-                         device="cuda").to(torch.bfloat16)
-        init = xlstm.slstm_cache_init(arch, SESSIONS, torch.bfloat16,
-                                      device="cuda")
+    for S in (prompt or PROMPTS[arch.name], 100):
+        wx = torch.randn((B, S, 4 * arch.d_model), generator=gen,
+                         device=device).to(torch.bfloat16)
+        init = xlstm.slstm_cache_init(arch, B, torch.bfloat16,
+                                      device=device)
         carry = (init["c"], init["n"], init["m"], init["h"])
-        (ghs, gc), scan_ms = _wall_ms(
-            torch, lambda: xlstm.slstm_scan(wx, r, b, carry, h))
-        (ehs, ec), loop_ms = _wall_ms(
-            torch, lambda: xlstm.slstm_loop(wx, r, b, carry, h))
+        (ghs, gc), scan_ms = timed(
+            lambda: xlstm.slstm_scan(wx, r, b, carry, h))
+        (ehs, ec), loop_ms = timed(
+            lambda: xlstm.slstm_loop(wx, r, b, carry, h))
         assert torch.equal(ghs, ehs), f"sLSTM scan != loop at S={S}"
         for x, y in zip(gc, ec):
             assert torch.equal(x, y), f"sLSTM carry != loop at S={S}"
@@ -3181,6 +3210,11 @@ def tp_config(device="cuda", reduce=None):
             "moe_train_steps": MOE_TRAIN_STEPS,
             "vlm_train_layers": VLM_TRAIN_LAYERS,
             "vlm_train_steps": VLM_TRAIN_STEPS, "warm_seq": WARM_SEQ,
+            "hybrid_layers": HYBRID_LAYERS,
+            "hybrid_train_layers": HYBRID_TRAIN_LAYERS,
+            "ssm_seq": SSM_SEQ, "ssm_train_seq": SSM_TRAIN_SEQ,
+            "recurrent_train_batch": RECURRENT_TRAIN_BATCH,
+            "recurrent_train_steps": RECURRENT_TRAIN_STEPS,
             "parts": TP_PARTS}
 
 
@@ -4179,19 +4213,23 @@ def _leaf_moves(torch, got, ref, was, chunk=1 << 26):
 
 
 def _family_train(torch, rank, cfg, dev, mesh, arch, shape, par, tcfg,
-                  steps, seed, axes, dtype):
+                  steps, seed, axes, dtype, must_check=(),
+                  compute_dtype=None):
     """``steps`` steps of ``make_train_step(mesh=)`` from
     ``_family_state``; rank 0 then runs the unsharded step on the same
     card (the ranks' state freed) on the concatenated batches.  Returns
     rank 0's record: losses and ``grad_norm`` against the twin's (within
     TP_LOSS_TOL), and each leaf's ||ranks - twin|| over the twin's own
     move ||twin - initial|| (within TRAIN_MOVE_RATIO; a step left undone
-    reads 1)."""
+    reads 1); each leaf path of ``must_check`` must be among the checked
+    leaves, and its ratio is reported.  ``compute_dtype``: both runs'
+    (None: the steps' default, bf16)."""
     from repro_torch.core.tree import tree_map
     from repro_torch.data import rank_batch, synthetic_batch
     from repro_torch.launch import train
+    cd = {} if compute_dtype is None else {"compute_dtype": compute_dtype}
     step, _ = train.make_train_step(arch, shape, parallel=par, cfg=tcfg,
-                                    device=dev, mesh=mesh)
+                                    device=dev, mesh=mesh, **cd)
     state = _family_state(torch, arch, par, mesh, step.specs, dev, seed,
                           dtype)
     rows = []
@@ -4215,7 +4253,7 @@ def _family_train(torch, rank, cfg, dev, mesh, arch, shape, par, tcfg,
     if rank != 0:
         return None
     plain, _ = train.make_train_step(arch, shape, parallel=par, cfg=tcfg,
-                                     device=dev)
+                                     device=dev, **cd)
     state0 = _family_state(torch, arch, par, mesh, None, dev, seed, dtype,
                            whole=True)
     init = tree_map(lambda x: x.to("cpu", copy=True), state0["params"])
@@ -4250,6 +4288,10 @@ def _family_train(torch, rank, cfg, dev, mesh, arch, shape, par, tcfg,
     assert all(v < TP_LOSS_TOL for v in rel.values()), (rel, ranks[0], want)
     worst = max(ratios, key=ratios.get)
     assert ratios[worst] <= TRAIN_MOVE_RATIO, ratios
+    missing = [k for k in must_check if k not in ratios]
+    assert not missing, (missing, sorted(ratios))
+    extra = {"must_check_ratios": {k: ratios[k] for k in must_check}} \
+        if must_check else {}
     return {"losses": [r["loss"] for r in ranks[0]["rows"]],
             "unsharded_losses": [w["loss"] for w in want],
             "rel_err": rel, "tolerance": TP_LOSS_TOL,
@@ -4268,7 +4310,7 @@ def _family_train(torch, rank, cfg, dev, mesh, arch, shape, par, tcfg,
             "transport_bytes": [rk["rows"][0]["transport_bytes"]
                                 for rk in ranks],
             "peak_bytes_a_rank": [rk["peak_bytes"] for rk in ranks],
-            "unsharded_ms": ms0}
+            "unsharded_ms": ms0, **extra}
 
 
 def moe_train(torch, rank, cfg, dev, mesh):
@@ -4438,6 +4480,293 @@ def family_give_ups(tp) -> int:
             + sum(tp["vlm"]["prefill"]["give_ups"]))
 
 
+# ---------------------------------------------------------------------------
+# Phase tensor_parallel, the hybrid and ssm families (a world of their own)
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH, HYBRID_LAYERS = "zamba2-7b", 13   # hybrid_prefill: 81 -> 13
+HYBRID_TRAIN_LAYERS = 7         # hybrid_train: 81 -> 7 (one group, a tail)
+SSM_ARCH = "xlstm-350m"         # full depth: 21 mLSTM and 3 sLSTM layers
+SSM_SEQ = 2048                  # ssm_prefill's prompts (PROMPTS)
+SSM_TRAIN_SEQ = 512             # ssm_train: three eager sLSTM loops a step
+                                # (74.8 s for the part at 1,024)
+RECURRENT_TRAIN_BATCH = 2       # 1 a data rank
+RECURRENT_TRAIN_STEPS = 2
+RECURRENT_PARTS = ("hybrid_prefill", "ssm_prefill", "hybrid_train",
+                   "ssm_train")
+
+
+def _kernel_counters():
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.mlstm_chunk import kernel as mk
+    from repro_torch.kernels.ssd_chunk import kernel as sk
+    return {"flash_attention_bhsd": fk.flash_attention_bhsd,
+            "ssd_chunk_bhcp": sk.ssd_chunk_bhcp,
+            "mlstm_chunk_bhsd": mk.mlstm_chunk_bhsd}
+
+
+def _tp_cut_leaves(arch):
+    """The leaf paths ``transformer.tp_view`` cuts with ``shard`` (the
+    Mamba-2 and mLSTM leaves the specs leave whole)."""
+    from repro_torch.models import transformer
+    if arch.family == "hybrid":
+        stacks = ["blocks"] + (["tail"] if transformer.plan(arch)["tail"]
+                               else [])
+        return [f"{st}/mamba/{k}" for st in stacks
+                for k in transformer.MAMBA_CUTS]
+    return [f"blocks/mlstm/cell/{k}" for k in transformer.MLSTM_CUTS]
+
+
+def _recurrent_serve(torch, rank, cfg, dev, mesh, fk, arch, S, seed, pseed):
+    """A FLASH prefill of ``cfg["batch"]`` prompts of ``S`` tokens (2 a data
+    rank) on this rank's shards after a ``warm_seq``-token warm-up, then
+    ``decode_steps`` greedy steps from its cache; every kernel's launches
+    in the timed prefill (asserted: ``expected_launches`` a rank), flash
+    give-ups (0), the rank's ms, transport and peak bytes.  Rank 0 then
+    runs the unsharded prefill and decode (fed the ranks' tokens) on the
+    same card, the ranks' weights freed: the last logits and every cache
+    leaf (gathered) within PREFILL_REL_TOL, each decode step's logits too,
+    greedy tokens that differ counted.  Returns (rank 0's record or None,
+    the rank's own params freed)."""
+    import repro_torch.launch.serve as serve
+    from repro_torch.configs import AttnImpl
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as sh
+    B = cfg["batch"]
+    counters = _kernel_counters()
+    params = _family_params(torch, arch, mesh, dev, seed, torch.bfloat16)
+    batch, shape = _family_batch(torch, arch, B, S, dev, pseed)
+    mine = sh.local(batch, mesh, {"tokens": sh.P("data", None)})[0]
+    warm = {"tokens": mine["tokens"][:, :cfg["warm_seq"]].contiguous()}
+    wshape = dataclasses.replace(shape, seq_len=cfg["warm_seq"])
+    serve.make_prefill_step(arch, wshape, impl=AttnImpl.FLASH, device=dev,
+                            mesh=mesh)(params, warm)
+    _free(torch, dev)
+    step = serve.make_prefill_step(arch, shape, impl=AttnImpl.FLASH,
+                                   device=dev, mesh=mesh)
+    _sync(torch, dev)
+    n0 = {k: c.launches for k, c in counters.items()}
+    (logits, cache), ms, tms, tbytes = _transport_ms(
+        torch, dev, lambda: step(params, mine))
+    launches = {k: c.launches - n0[k] for k, c in counters.items()}
+    give_ups = fk.check_give_ups() if dev.type == "cuda" else 0
+    want = {k: expected_launches(arch).get(k, 0) for k in counters}
+    if dev.type == "cuda":
+        assert launches == want, (launches, want)
+    assert give_ups == 0
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    cspecs = serve.session_cache_specs(arch, mesh, B)
+    whole = tree_map(lambda x: x.clone(), _whole(cache, mesh, cspecs))
+
+    seen, greedy = [], serve.greedy_sharded
+
+    def capture(lg, m):
+        seen.append(lg)
+        return greedy(lg, m)
+    serve.greedy_sharded = capture
+    dstep = serve.make_decode_step(arch, device=dev, mesh=mesh, batch=B)
+    first = torch.argmax(logits[:, -1, :], -1)[:, None].to(torch.int32)
+    token = sh.local({"t": first}, mesh, {"t": sh.P("data", None)})[0]["t"]
+    dms, dtms, toks, step_logits = [], [], [], []
+    try:
+        for _ in range(cfg["decode_steps"]):
+            (token, cache), t, tt, _ = _transport_ms(
+                torch, dev, lambda: dstep(params, cache, token))
+            dms.append(t)
+            dtms.append(tt)
+            toks.append(sh.unlocal(token, mesh, sh.P("data", None)))
+            step_logits.append(sh.unlocal(seen.pop().float(), mesh,
+                                          sh.P("data", "model")))
+    finally:
+        serve.greedy_sharded = greedy
+    ranks = _gather_obj({"ms": ms, "transport_ms": tms,
+                         "transport_bytes": tbytes, "launches": launches,
+                         "give_ups": give_ups, "peak_bytes": peak,
+                         "weight_bytes": sum(x.numel() * x.element_size()
+                                             for _, x in _leaves(params)),
+                         "decode_ms": dms, "decode_transport_ms": dtms})
+    del params, cache
+    _free(torch, dev)
+    _gather_obj(None)
+    if rank != 0:
+        return None
+    full = _family_params(torch, arch, mesh, dev, seed, torch.bfloat16,
+                          whole=True)
+    plain = serve.make_prefill_step(arch, shape, impl=AttnImpl.FLASH,
+                                    device=dev)
+    (logits0, cache0), ms0 = _rank_ms(torch, dev, lambda: plain(full, batch))
+    if dev.type == "cuda":
+        fk.check_give_ups()
+    rel = _rel(torch, logits, logits0)
+    cache_rel = {k: _rel(torch, x, dict(_leaves(cache0))[k])
+                 for k, x in _leaves(whole) if x.is_floating_point()}
+    del whole
+    rels, differ, ms0s, token0 = [], 0, [], first
+    for i in range(cfg["decode_steps"]):
+        (lg0, cache0), t = _rank_ms(torch, dev, lambda: zoo.decode_step(
+            arch, full, cache0, token0))
+        ms0s.append(t)
+        lg0 = lg0[:, -1, :].float()
+        rels.append(_rel(torch, step_logits[i], lg0))
+        differ += int((torch.argmax(lg0, -1)[:, None].to(torch.int32)
+                       != toks[i]).sum())
+        token0 = toks[i]
+    del full, cache0
+    _free(torch, dev)
+    assert rel < PREFILL_REL_TOL, rel
+    assert max(cache_rel.values()) < PREFILL_REL_TOL, cache_rel
+    assert max(rels) < PREFILL_REL_TOL, rels
+    worst = max(cache_rel, key=cache_rel.get)
+    return {"batch": B, "seq": S, "impl": "flash", "layers": arch.num_layers,
+            "rel_err_last_logits": rel, "tolerance": PREFILL_REL_TOL,
+            "rel_err_cache_max": cache_rel[worst],
+            "rel_err_cache_worst_leaf": worst,
+            "cache_leaves_checked": len(cache_rel),
+            "launches": [r["launches"] for r in ranks],
+            "expected_launches_a_rank": want,
+            "give_ups": [r["give_ups"] for r in ranks],
+            "ms": [r["ms"] for r in ranks],
+            "transport_ms": [r["transport_ms"] for r in ranks],
+            "transport_bytes": [r["transport_bytes"] for r in ranks],
+            "unsharded_ms": ms0,
+            "weight_bytes_a_rank": [r["weight_bytes"] for r in ranks],
+            "peak_bytes_a_rank": [r["peak_bytes"] for r in ranks],
+            "decode": {"steps": cfg["decode_steps"], "rel_err_logits": rels,
+                       "greedy_tokens_differing": differ,
+                       "greedy_tokens": B * cfg["decode_steps"],
+                       "ms": [r["decode_ms"] for r in ranks],
+                       "transport_ms": [r["decode_transport_ms"]
+                                        for r in ranks],
+                       "unsharded_ms": ms0s}}
+
+
+def hybrid_prefill(torch, rank, cfg, dev, mesh, fk):
+    """Part ``hybrid_prefill``: zamba2-7b at full width, depth 81 -> 13 (2
+    groups of 6 Mamba-2 layers with the shared block, then a tail layer),
+    bf16, on (data 2, model 2): each rank's SSD on 56 of the 112 SSM heads
+    (13 calls) and flash on 16 of the 32 attention heads (2 launches), 4
+    prompts of ``seq`` (2 a data rank), FLASH, then ``decode_steps``
+    greedy steps (``_recurrent_serve``)."""
+    arch = _arch(cfg, HYBRID_ARCH, num_layers=cfg["hybrid_layers"])
+    rec = _recurrent_serve(torch, rank, cfg, dev, mesh, fk, arch,
+                           cfg["seq"], 30, 504)
+    if rec is None:
+        return None
+    from repro_torch.models.ssm import ssm_dims
+    return {"arch": HYBRID_ARCH, "mesh": {"data": 2, "model": 2},
+            "reduced": {"num_layers": f"81 -> {arch.num_layers}"},
+            "ssm_heads_a_rank": ssm_dims(arch)[1] // 2,
+            "heads_a_rank": arch.num_heads // 2,
+            "kv_heads_a_rank": arch.num_kv_heads // 2,
+            "head_dim": arch.resolved_head_dim, **rec}
+
+
+def ssm_prefill(torch, rank, cfg, dev, mesh, fk):
+    """Part ``ssm_prefill``: xlstm-350m at full width and depth (21 mLSTM
+    and 3 sLSTM layers) on (data 2, model 2): each rank's mLSTM kernel on
+    2 of the 4 heads (21 calls), the sLSTM recurrence whole on every rank;
+    4 prompts of ``ssm_seq`` (2 a data rank), FLASH, then
+    ``decode_steps`` greedy steps (``_recurrent_serve``); every rank's
+    captured sLSTM scan against its eager loop, bit for bit, on the rank's
+    sLSTM weights at its prefill's shape."""
+    from repro_torch.models import xlstm
+    arch = _arch(cfg, SSM_ARCH)
+    rec = _recurrent_serve(torch, rank, cfg, dev, mesh, fk, arch,
+                           cfg["ssm_seq"], 31, 505)
+    params = _family_params(torch, arch, mesh, dev, 31, torch.bfloat16)
+    scan = check_slstm_scan(torch, xlstm, params, arch,
+                            batch=cfg["batch"] // 2, prompt=cfg["ssm_seq"],
+                            device=dev)
+    del params
+    _free(torch, dev)
+    scans = _gather_obj(scan)
+    if rec is None:
+        return None
+    return {"arch": SSM_ARCH, "mesh": {"data": 2, "model": 2},
+            "reduced": {}, "mlstm_heads_a_rank":
+            arch.xlstm.num_heads // 2, "slstm_scan_check": scans, **rec}
+
+
+def _recurrent_train(torch, rank, cfg, dev, mesh, arch_id, arch, seq, seed,
+                     compute_dtype=None):
+    """``recurrent_train_steps`` steps of the reference's own choices for
+    the arch (``default_parallel``, ``param_dtype_for``: f32 AdamW params,
+    ZeRO-1, remat "block"; bf16 compute unless ``compute_dtype``) at
+    ``seq``, a batch of 2 on (data 2, model 2), against the unsharded step
+    (``_family_train``), every leaf that ``tp_view`` cuts among the
+    checked ones."""
+    from repro_torch.configs import (ShapeConfig, StepKind, TrainConfig,
+                                     get_arch)
+    from repro_torch.launch import train
+    shape = ShapeConfig(f"{arch_id}_train", seq,
+                        cfg["recurrent_train_batch"], StepKind.TRAIN)
+    par = train.default_parallel(get_arch(arch_id), shape)
+    dtype = train.param_dtype_for(get_arch(arch_id))
+    assert par.optimizer == "adamw" and par.zero1 and not par.fsdp
+    steps = cfg["recurrent_train_steps"]
+    rec = _family_train(torch, rank, cfg, dev, mesh, arch, shape, par,
+                        TrainConfig(**TP_TRAIN_CFG), steps, seed, ("data",),
+                        dtype, must_check=_tp_cut_leaves(arch),
+                        compute_dtype=compute_dtype)
+    if rec is None:
+        return None
+    return {"arch": arch_id, "mesh": {"data": 2, "model": 2},
+            "seq": seq, "steps": steps, "optimizer": par.optimizer,
+            "zero1": par.zero1, "fsdp": par.fsdp, "remat": par.remat,
+            "param_dtype": str(dtype).removeprefix("torch."),
+            "compute_dtype": str(compute_dtype or torch.bfloat16)
+            .removeprefix("torch."), **rec}
+
+
+def hybrid_train(torch, rank, cfg, dev, mesh):
+    """Part ``hybrid_train``: zamba2-7b at full width, depth 81 -> 7 (one
+    group of 6 Mamba-2 layers and the shared block, then a tail layer),
+    seq ``train_seq`` (``_recurrent_train``)."""
+    arch = _arch(cfg, HYBRID_ARCH, num_layers=cfg["hybrid_train_layers"])
+    rec = _recurrent_train(torch, rank, cfg, dev, mesh, HYBRID_ARCH, arch,
+                           cfg["train_seq"], 32)
+    if rec is not None:
+        rec["reduced"] = {"num_layers": f"81 -> {arch.num_layers}",
+                          "global_batch": "256 -> "
+                          f"{cfg['recurrent_train_batch']}"}
+    return rec
+
+
+def ssm_train(torch, rank, cfg, dev, mesh):
+    """Part ``ssm_train``: xlstm-350m at full width and depth, seq
+    ``ssm_train_seq`` (``_recurrent_train``; the sLSTM's eager loop under
+    autograd), in f32 compute: its tied embedding (scale 1, as the
+    reference draws it) gives logits of std ~sqrt(d), and the extra bf16
+    rounding of each row-parallel partial sum moved the gradient norm by
+    3e-3 against the unsharded bf16 step in the CPU rehearsal (reduced
+    width), past TP_LOSS_TOL; in f32 the CPU tests hold the two to 1e-5."""
+    arch = _arch(cfg, SSM_ARCH)
+    rec = _recurrent_train(torch, rank, cfg, dev, mesh, SSM_ARCH, arch,
+                           cfg["ssm_train_seq"], 33, torch.float32)
+    if rec is not None:
+        rec["reduced"] = {"seq_len": f"4096 -> {cfg['ssm_train_seq']}",
+                          "global_batch": "256 -> "
+                          f"{cfg['recurrent_train_batch']}"}
+    return rec
+
+
+def recurrent_launches(rtp) -> dict:
+    """Each kernel's launches in the recurrent parts' timed prefills,
+    every rank."""
+    out = {}
+    for part in ("hybrid_prefill", "ssm_prefill"):
+        for r in rtp[part]["launches"]:
+            for k, n in r.items():
+                out[k] = out.get(k, 0) + n
+    return out
+
+
+def recurrent_give_ups(rtp) -> int:
+    return sum(sum(rtp[p]["give_ups"]) for p in ("hybrid_prefill",
+                                                 "ssm_prefill"))
+
+
 def tp_rank(rank, cfg):
     """One rank of the ``tensor_parallel`` world: every part in turn with a
     barrier between; rank 0 returns the records, every rank its seconds a
@@ -4472,7 +4801,15 @@ def tp_rank(rank, cfg):
                                                      m4, fk)),
                      ("moe_train", lambda: moe_train(torch, rank, cfg, dev,
                                                      m4)),
-                     ("vlm", lambda: vlm(torch, rank, cfg, dev, dm, fk))):
+                     ("vlm", lambda: vlm(torch, rank, cfg, dev, dm, fk)),
+                     ("hybrid_prefill", lambda: hybrid_prefill(
+                         torch, rank, cfg, dev, dm, fk)),
+                     ("ssm_prefill", lambda: ssm_prefill(torch, rank, cfg,
+                                                         dev, dm, fk)),
+                     ("hybrid_train", lambda: hybrid_train(torch, rank, cfg,
+                                                           dev, dm)),
+                     ("ssm_train", lambda: ssm_train(torch, rank, cfg, dev,
+                                                     dm))):
         if part not in parts:
             continue
         if dev.type == "cuda":
@@ -4663,18 +5000,20 @@ def main() -> int:
                    "phi-3-vision-4.2b D=96": fp, "gemma-7b D=256": fg}
 
     # -- 6. the SSD chunk kernel against its plain version
-    sworst, scases = check_ssd_sweep(torch, sk, sops)
+    sworst, scases, snamed = check_ssd_sweep(torch, sk, sops)
     emit({"phase": "kernel_sweep", "kernel": "ssd_chunk_bhcp",
-          "cases": scases, "max_abs_err": sworst, "tolerance": SSD_TOL})
+          "cases": scases, "max_abs_err": sworst, "tolerance": SSD_TOL,
+          "tp_recurrent_ranks": snamed})
     sd = time_ssd(torch, sk, flush)
     emit({"phase": "kernel_time", "kernel": "ssd_chunk_bhcp",
           "geometry": "zamba2-7b Mamba-2 layer, prefill", "nvidia_smi": smi,
           **sd})
 
     # -- 7. the mLSTM chunk kernel against its plain version
-    mworst, mcases = check_mlstm_sweep(torch, mk, mops)
+    mworst, mcases, mnamed = check_mlstm_sweep(torch, mk, mops)
     emit({"phase": "kernel_sweep", "kernel": "mlstm_chunk_bhsd",
-          "cases": mcases, "max_abs_err": mworst, "tolerance": MLSTM_TOL})
+          "cases": mcases, "max_abs_err": mworst, "tolerance": MLSTM_TOL,
+          "tp_recurrent_ranks": mnamed})
     ml = time_mlstm(torch, mk, flush)
     emit({"phase": "kernel_time", "kernel": "mlstm_chunk_bhsd",
           "geometry": "xlstm-350m mLSTM layer, prefill", "nvidia_smi": smi,
@@ -4719,14 +5058,33 @@ def main() -> int:
               "transport": "gloo, staged through host memory",
               "nvidia_smi": smi, **tp[part]})
 
+    # -- 11b. tensor parallelism of the hybrid and ssm families: a world of
+    # four ranks of their own
+    torch.cuda.empty_cache()
+    rtp, rtp_wall = run_tp(torch, dict(tp_config(), parts=RECURRENT_PARTS))
+    for part in RECURRENT_PARTS:
+        emit({"phase": "tensor_parallel", "part": part, "ranks": MESH_RANKS,
+              "transport": "gloo, staged through host memory",
+              "nvidia_smi": smi, **rtp[part]})
+    rlaunch = recurrent_launches(rtp)
+
     # -- 12. the kernels line, the card, the result
     flash_launches = {a: ss["launches"]["flash_attention_bhsd"]
                       for a, ss in sessions.items()
                       if ss["launches"]["flash_attention_bhsd"]}
     flash_launches["tensor_parallel"] = sum(tp["prefill"]["flash_launches"])
     flash_launches["tensor_parallel_families"] = family_flash_launches(tp)
+    flash_launches["tensor_parallel_recurrent"] = rlaunch[
+        "flash_attention_bhsd"]
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start,
-          "mesh_s": mesh_wall, "tensor_parallel_s": tp_wall})
+          "mesh_s": mesh_wall, "tensor_parallel_s": tp_wall,
+          "tensor_parallel_recurrent_s": rtp_wall})
+    ssd_launches = {
+        "zamba2-7b": sessions["zamba2-7b"]["launches"]["ssd_chunk_bhcp"],
+        "tensor_parallel_recurrent": rlaunch["ssd_chunk_bhcp"]}
+    mlstm_launches = {
+        "xlstm-350m": sessions["xlstm-350m"]["launches"]["mlstm_chunk_bhsd"],
+        "tensor_parallel_recurrent": rlaunch["mlstm_chunk_bhsd"]}
     t = timings[("100KB", 1)]
     merge_launches = {"serve": st["launches"],
                       "warm": warm["kernel_launches"],
@@ -4746,7 +5104,7 @@ def main() -> int:
         "launches": sum(flash_launches.values()),
         "launches_by_path": flash_launches,
         "give_ups": fk.check_give_ups() + sum(tp["prefill"]["give_ups"])
-        + family_give_ups(tp),
+        + family_give_ups(tp) + recurrent_give_ups(rtp),
         "max_abs_err": max([max(fworst.values())] + [
             t["max_abs_err"] for t in flash_times.values()]),
         "ms": ft["ms"], "plain_ms": ft["plain_ms"],
@@ -4757,16 +5115,20 @@ def main() -> int:
             for g, t in flash_times.items()}}, {
         "name": "ssd_chunk_bhcp", "route": "cuda", "source": SSD_SOURCE,
         "replaces": SSD_REPLACES,
-        "launches": sessions["zamba2-7b"]["launches"]["ssd_chunk_bhcp"],
-        "max_abs_err": max(max(sworst.values()), sd["max_abs_err"]),
+        "launches": sum(ssd_launches.values()),
+        "launches_by_path": ssd_launches,
+        "max_abs_err": max([max(sworst.values()), sd["max_abs_err"]] + [
+            t["max_abs_err"] for t in snamed.values()]),
         "ms": sd["ms"], "plain_ms": sd["plain_ms"],
         "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
         "bound_units": sd["bound_units"], "fma_bound_ms": sd["fma_bound_ms"],
         "library_ms": None}, {
         "name": "mlstm_chunk_bhsd", "route": "cuda", "source": MLSTM_SOURCE,
         "replaces": MLSTM_REPLACES,
-        "launches": sessions["xlstm-350m"]["launches"]["mlstm_chunk_bhsd"],
-        "max_abs_err": max(max(mworst.values()), ml["max_abs_err"]),
+        "launches": sum(mlstm_launches.values()),
+        "launches_by_path": mlstm_launches,
+        "max_abs_err": max([max(mworst.values()), ml["max_abs_err"]] + [
+            t["max_abs_err"] for t in mnamed.values()]),
         "ms": ml["ms"], "plain_ms": ml["plain_ms"],
         "bound_ms": ml["bound_ms"], "bound_by": ml["bound_by"],
         "bound_units": ml["bound_units"], "fma_bound_ms": ml["fma_bound_ms"],

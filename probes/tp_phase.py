@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py``'s ``tensor_parallel`` phase alone on one CUDA card.
 
-    python3 probes/tp_phase.py                      # every part
+    python3 probes/tp_phase.py                      # the first world's parts
     python3 probes/tp_phase.py moe_prefill vlm      # these parts only
+    python3 probes/tp_phase.py hybrid_prefill ssm_prefill hybrid_train \
+        ssm_train                                   # the second world's
 
 Builds the kernels (flash is the phase's: each rank's prefill runs it on
 its heads), spawns the phase's world of 4 ranks sharing the card

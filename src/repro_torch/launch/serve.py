@@ -45,15 +45,15 @@ over ``pod`` (pod i's backup holds pod i - 1's sessions, the reference's
 on the sequence over ``model`` (``attention.decode_self_attention_sharded``);
 its collectives cannot be captured, so that step runs eagerly.
 
-On a mesh whose ``data`` or ``model`` axis is larger than 1 (the dense,
-vlm and moe families; ``model_zoo.check_mesh`` refuses the others) the
-steps are
+On a mesh whose ``data`` or ``model`` axis is larger than 1 (every family
+but audio; ``model_zoo.check_mesh`` refuses it) the steps are
 tensor-parallel: every rank holds its shards of the weights
 (``parallel.sharding.local`` of ``param_partition_specs``), its batch
-shard over ``data`` and a cache of its sessions' KV heads
-(``session_cache_specs``: by KV heads over ``model``, where the
-reference's ``cache_partition_specs`` puts internlm2's cache on the head
-dim; gathered, the two are the same tensor).  Prefill runs each rank's
+shard over ``data`` and its sessions' cache cut over ``model``
+(``session_cache_specs``: KV heads, and zamba2's and xlstm's recurrent
+states by heads or d_inner columns, where the reference's
+``cache_partition_specs`` picks a dim by size; gathered, the two are the
+same tensor).  Prefill runs each rank's
 heads through flash under FLASH and returns the last logits gathered to
 every rank; decode's greedy token is the argmax over the vocabulary
 shards, ties to the lowest global index as ``jnp.argmax`` breaks them
@@ -101,17 +101,48 @@ def params_shape_tree(arch: ArchConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def session_cache_specs(arch: ArchConfig, mesh, batch: int) -> dict:
-    """The tensor-parallel steps' layout of a dense, vlm or moe cache of
-    ``batch`` sessions (``init_cache``'s tree): ``k``/``v`` (L, B, S, KV,
-    Dh) by sessions over ``data`` (when it divides ``batch``) and by KV
-    heads over ``model``; ``length`` replicated."""
+    """The tensor-parallel steps' layout of a cache of ``batch`` sessions
+    (``init_cache``'s tree): every leaf by sessions over ``data`` (when it
+    divides ``batch``); ``length`` replicated.  Over ``model``: the dense,
+    vlm and moe ``k``/``v`` (L, B, S, KV, Dh) by KV heads; zamba2's
+    Mamba-2 ``conv_x`` by d_inner and ``state`` (..., B, H, P, N) by SSM
+    heads, ``conv_B``/``conv_C`` whole, the shared block's ``shared_k``/
+    ``shared_v`` by KV heads and ``shared_pos`` whole; xlstm's mLSTM
+    ``conv`` by d_inner and ``C``/``n``/``m`` by heads, its sLSTM ``c``,
+    ``n``, ``m`` and ``h`` whole.  The reference's
+    ``cache_partition_specs`` picks a dim by size; gathered, the two are
+    the same tensor."""
     from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.models.transformer import plan
     from repro_torch.parallel.sharding import P
     sizes = axis_sizes(mesh)
     data = sizes.get("data", 1)
-    bdim = "data" if data > 1 and batch % data == 0 else None
-    model = "model" if sizes.get("model", 1) > 1 else None
-    kv = P(None, bdim, None, model, None)
+    b = "data" if data > 1 and batch % data == 0 else None
+    m = "model" if sizes.get("model", 1) > 1 else None
+    p = plan(arch)
+    if p["kind"] == "zamba":
+        def mamba(*lead):
+            return {"conv_x": P(*lead, b, None, m),
+                    "conv_B": P(*lead, b, None, None),
+                    "conv_C": P(*lead, b, None, None),
+                    "state": P(*lead, b, m, None, None)}
+        kv = P(None, b, None, m, None)
+        out = {"mamba": mamba(None, None), "shared_k": kv, "shared_v": kv,
+               "shared_pos": P(None, b, None), "length": P()}
+        if p["tail"]:
+            out["tail"] = mamba(None)
+        return out
+    if p["kind"] == "xlstm":
+        return {"mlstm": {"conv": P(None, None, b, None, m),
+                          "C": P(None, None, b, m, None, None),
+                          "n": P(None, None, b, m, None),
+                          "m": P(None, None, b, m)},
+                "slstm": {"c": P(None, b, None, None),
+                          "n": P(None, b, None, None),
+                          "m": P(None, b, None),
+                          "h": P(None, b, None, None)},
+                "length": P()}
+    kv = P(None, b, None, m, None)
     return {"k": kv, "v": kv, "length": P()}
 
 
@@ -126,8 +157,8 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
     whisper's ``frame_embeds``: ``model_zoo.example_batch`` makes them);
     the cache is ``forward_seq``'s, with ``length`` = ``shape.seq_len``.
 
-    With ``mesh`` (``data`` x ``model``; the dense, vlm and moe
-    families): this rank's parameter shards and its batch shard over
+    With ``mesh`` (``data`` x ``model``; every family but audio): this
+    rank's parameter shards and its batch shard over
     ``data`` (``sharding.batch_specs``: the vlm's ``patch_embeds`` too);
     the logits come back whole on every rank (the reference's
     ``out_shardings=None``), the cache as the rank's
@@ -218,9 +249,9 @@ def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
     ``length`` 0-d) and token (B, 1); the step returns (B, 1).  With
     ``flash_decode`` too (no ``pod`` axis): the dense and moe caches are
     the rank's sequence shards, and the step runs eagerly.  On inner axes
-    (``data`` or ``model`` > 1; the dense, vlm and moe families): the
-    rank's parameter shards, its sessions' cache by KV heads
-    (``session_cache_specs``) and their tokens; the step runs eagerly and
+    (``data`` or ``model`` > 1; every family but audio): the rank's
+    parameter shards, its sessions' cache (``session_cache_specs``) and
+    their tokens; the step runs eagerly and
     returns those sessions' greedy tokens (``greedy_sharded``).  ``batch``
     is the global session count, which ``session_cache_specs`` cuts over
     ``data`` when ``data`` divides it (None: it does); a moe model's

@@ -28,10 +28,11 @@ of ONE pod's state, with no pod dim, laid out by the reference's specs
 (``state_specs``; ``parallel.sharding.local`` cuts them from a full
 state), and steps on its shard of the batch:
 
-* ``model`` > 1: tensor parallelism of the dense, vlm and moe families
-  (Megatron column and row splits, vocab-parallel embedding, head and
-  loss, the vlm's patches gathered, a moe layer's experts or expert
-  columns with the global batch's dispatch and aux; ``models``);
+* ``model`` > 1: tensor parallelism of the dense, vlm, moe, hybrid and
+  ssm families (Megatron column and row splits, vocab-parallel
+  embedding, head and loss, the vlm's patches gathered, a moe layer's
+  experts or expert columns with the global batch's dispatch and aux,
+  the Mamba-2 and mLSTM scans on the rank's heads; ``models``);
 * ``data`` > 1: the batch over ``data`` and the loss's mean over the
   global batch; a gradient is summed over every batch axis its leaf is
   not sharded on;
@@ -50,9 +51,9 @@ state), and steps on its shard of the batch:
 The gradient norm counts each element once (``optim.adamw.global_norm``);
 the replicate step works shard by shard, the int8 scale being the whole
 leaf's.  Adafactor's factors keep the reference's layout (replicated; over
-``pod`` under PEER_FETCH), their means over whole leaves.  The hybrid,
-ssm and audio families on inner axes, and ``seq_shard``, raise
-``NotImplementedError`` (``model_zoo.check_mesh``).
+``pod`` under PEER_FETCH), their means over whole leaves.  The audio
+family on inner axes, and ``seq_shard``, raise ``NotImplementedError``
+(``model_zoo.check_mesh``).
 Every step writes the state IN PLACE (the counterpart of the reference's
 ``donate_argnums=(0,)``) and returns the same tensors.  Gradients come
 from ``torch.autograd`` through ``AttnImpl.REFERENCE``, as in the

@@ -5,7 +5,8 @@ The f32 upcasts sit where the reference has them: the norms and RoPE
 compute in float32 and cast back to the input's dtype, and the loss is
 float32 throughout.
 
-With ``mesh`` (tensor parallelism over its ``model`` axis) the MLPs are
+With ``mesh`` (tensor parallelism over its ``model`` axis) ``rmsnorm``
+normalises a row whose columns are cut over ``model``, and the MLPs are
 Megatron's: ``w_gate``/``w_up`` hold the rank's columns and ``w_down`` its
 rows; the input enters through ``vary`` (its cotangent summed over
 ``model``) and the output leaves through one ``psum`` over ``model``, the
@@ -26,11 +27,22 @@ from repro_torch.configs.base import Activation
 # Norms
 # ---------------------------------------------------------------------------
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-5) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
+            mesh=None) -> torch.Tensor:
+    """With ``mesh``: ``x`` and ``scale`` are this rank's columns of a row
+    cut over ``model`` (a gated norm over a sharded d_inner), and the mean
+    square is the whole row's: the ranks' sums of squares are summed over
+    ``model``.  The sum then scales this rank's own columns, so its
+    cotangent is summed over ``model`` too (``vary``)."""
     dtype = x.dtype
     x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
+    if mesh is None:
+        var = torch.mean(x * x, dim=-1, keepdim=True)
+    else:
+        from repro_torch.parallel.collectives import axis_size, psum, vary
+        ss = psum(torch.sum(x * x, dim=-1, keepdim=True), mesh, "model")
+        var = vary(ss, mesh, "model") / (x.shape[-1] *
+                                         axis_size(mesh, "model"))
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.float())).to(dtype)
 

@@ -16,8 +16,8 @@ from repro_torch.models import transformer
 from repro_torch.models.ssm import ssm_dims
 from repro_torch.models.xlstm import mlstm_dims
 
-#: where the families without tensor parallelism (hybrid, ssm, audio) and
-#: ``seq_shard`` wait for it
+#: where the family without tensor parallelism (audio) and ``seq_shard``
+#: wait for it
 INNER_AXES_ITEM = "queue 1 item 10d"
 
 init_params = transformer.init_params
@@ -38,8 +38,9 @@ def inner_axes(mesh) -> Dict[str, int]:
 def check_mesh(arch: ArchConfig, mesh, what: str, parallel=None
                ) -> Dict[str, int]:
     """A step of ``arch`` on ``mesh``: the inner axes it shards over (the
-    families of ``transformer.TP_FAMILIES``, dense, vlm and moe, run them
-    tensor-parallel).  Another family on inner axes, and ``seq_shard``,
+    families of ``transformer.TP_FAMILIES``, dense, vlm, moe, hybrid and
+    ssm, run them tensor-parallel).  Another family (audio) on inner axes,
+    and ``seq_shard``,
     raise ``NotImplementedError`` naming the family and ROADMAP's item; a
     width that ``model`` does not divide raises ``ValueError``
     (``transformer.check_tp_split``)."""

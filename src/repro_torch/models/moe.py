@@ -93,7 +93,11 @@ def route(router_w: torch.Tensor, x: torch.Tensor, cfg: MoEConfig,
     product of means is not the mean of the products)."""
     logits = x.float() @ router_w.float()                     # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    weight, expert_idx = torch.topk(probs, cfg.top_k, dim=-1)  # (T, k)
+    # lax.top_k's choice: a stable descending sort, so equal probabilities
+    # go lowest expert first (torch.topk breaks ties in no set order)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weight = top.values[:, :cfg.top_k]                         # (T, k)
+    expert_idx = top.indices[:, :cfg.top_k]
     weight = weight / torch.clamp(weight.sum(-1, keepdim=True), min=1e-9)
     # Switch aux loss: E * sum_e fraction_e * mean_prob_e (whole counts in
     # f32: exact, in any order of addition)

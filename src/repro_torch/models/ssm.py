@@ -20,6 +20,18 @@ Conventions: n_groups=1 (B, C shared across heads), A scalar per head.
 
 Decode writes the cache it is handed IN PLACE (the conv windows and the
 state) and returns the same tensors.
+
+Tensor parallelism (``mesh`` with a ``model`` axis): ``w_z`` and ``w_x``
+hold the rank's d_inner columns, ``w_out`` its rows (one ``psum`` over
+``model`` a layer), and ``transformer.tp_view`` has cut ``conv_x``,
+``norm``, ``w_dt``, ``A_log``, ``D`` and ``dt_bias`` to the rank's columns
+and heads, so the scan runs on the rank's H / model heads.  ``w_B``,
+``w_C``, ``conv_B`` and ``conv_C`` run whole on every rank; B and C then
+feed the rank's own heads, so they pass through ``shared_for_heads``
+(their cotangent summed over ``model``).  The gated norm normalises over
+the whole d_inner (``layers.rmsnorm(mesh=)``).  The cache holds the
+rank's ``conv_x`` columns and state heads, ``conv_B`` and ``conv_C``
+whole.
 """
 from __future__ import annotations
 
@@ -29,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, AttnImpl
-from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.models.layers import dense_init, rmsnorm, tp_in, tp_out
 
 
 def ssm_dims(arch: ArchConfig) -> Tuple[int, int, int]:
@@ -172,24 +184,32 @@ def ssd_step(x1: torch.Tensor, a_dt1: torch.Tensor, B1: torch.Tensor,
 # Full block (sequence + decode modes)
 # ---------------------------------------------------------------------------
 
+def shared_for_heads(t: torch.Tensor, mesh) -> torch.Tensor:
+    """B or C, computed whole on every rank of ``model``, before the scan
+    of the rank's own heads: the same values, the cotangent summed over
+    ``model`` (each rank's covers only its heads)."""
+    return tp_in(t, mesh)
+
+
 def mamba2_seq(params: dict, x: torch.Tensor, arch: ArchConfig,
                return_state: bool = False,
-               impl: AttnImpl = AttnImpl.REFERENCE):
+               impl: AttnImpl = AttnImpl.REFERENCE, mesh=None):
     """x (B,S,D) -> y (B,S,D) [, cache].  The scan's inputs are f32, as in
-    the reference; FLASH runs the SSD kernel, REFERENCE the plain scan."""
+    the reference; FLASH runs the SSD kernel, REFERENCE the plain scan.
+    With ``mesh``: the rank's heads (the module docstring)."""
     cfg = arch.ssm
-    di, h, n = ssm_dims(arch)
     Bb, S, _ = x.shape
-    z = x @ params["w_z"]
-    x_pre = x @ params["w_x"]
+    xv = tp_in(x, mesh)
+    z = xv @ params["w_z"]
+    x_pre = xv @ params["w_x"]
     b_pre = x @ params["w_B"]
     c_pre = x @ params["w_C"]
     xi = F.silu(causal_conv(x_pre, params["conv_x"]))
-    B_ = F.silu(causal_conv(b_pre, params["conv_B"]))
-    C_ = F.silu(causal_conv(c_pre, params["conv_C"]))
-    dt = F.softplus((x @ params["w_dt"]).float() + params["dt_bias"])  # (B,S,H)
+    B_ = shared_for_heads(F.silu(causal_conv(b_pre, params["conv_B"])), mesh)
+    C_ = shared_for_heads(F.silu(causal_conv(c_pre, params["conv_C"])), mesh)
+    dt = F.softplus((xv @ params["w_dt"]).float() + params["dt_bias"])
     a = -torch.exp(params["A_log"])                              # (H,)
-    xi_h = xi.reshape(Bb, S, h, cfg.head_dim).float()
+    xi_h = xi.reshape(Bb, S, -1, cfg.head_dim).float()
     if impl == AttnImpl.FLASH:
         from repro_torch.kernels.ssd_chunk.ops import ssd_chunk
         y, final_state = ssd_chunk(xi_h, a * dt, B_.float(), C_.float(), dt,
@@ -198,9 +218,9 @@ def mamba2_seq(params: dict, x: torch.Tensor, arch: ArchConfig,
         y, final_state = ssd_scan(xi_h, a * dt, B_.float(), C_.float(), dt,
                                   cfg.chunk_size)
     y = y + xi_h * params["D"][:, None]
-    y = y.reshape(Bb, S, di).to(x.dtype)
-    y = rmsnorm(y, params["norm"]) * F.silu(z)
-    out = y @ params["w_out"]
+    y = y.reshape(Bb, S, -1).to(x.dtype)
+    y = rmsnorm(y, params["norm"], mesh=mesh) * F.silu(z)
+    out = tp_out(y @ params["w_out"], mesh)
     if not return_state:
         return out
     # copies, so the cache does not keep the (B, S, ·) projections alive
@@ -212,37 +232,41 @@ def mamba2_seq(params: dict, x: torch.Tensor, arch: ArchConfig,
 
 
 def mamba2_cache_init(arch: ArchConfig, batch: int, dtype=torch.float32,
-                      device=None) -> dict:
+                      device=None, model: int = 1) -> dict:
+    """A zeroed cache; ``model`` > 1: a rank's part of it (d_inner / model
+    conv columns and H / model state heads)."""
     cfg = arch.ssm
     di, h, n = ssm_dims(arch)
     w = cfg.conv_width - 1
     zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
     return {
-        "conv_x": zeros((batch, w, di), dtype),
+        "conv_x": zeros((batch, w, di // model), dtype),
         "conv_B": zeros((batch, w, n), dtype),
         "conv_C": zeros((batch, w, n), dtype),
-        "state": zeros((batch, h, cfg.head_dim, n), torch.float32),
+        "state": zeros((batch, h // model, cfg.head_dim, n), torch.float32),
     }
 
 
 def mamba2_decode(params: dict, x1: torch.Tensor, cache: dict,
-                  arch: ArchConfig) -> Tuple[torch.Tensor, dict]:
-    """x1 (B, 1, D) -> (y (B, 1, D), cache), the cache written in place."""
+                  arch: ArchConfig, mesh=None) -> Tuple[torch.Tensor, dict]:
+    """x1 (B, 1, D) -> (y (B, 1, D), cache), the cache written in place.
+    With ``mesh``: the rank's heads and cache (the module docstring)."""
     cfg = arch.ssm
-    di, h, n = ssm_dims(arch)
     xq = x1[:, 0, :]
-    z = xq @ params["w_z"]
-    xi, _ = conv_step(xq @ params["w_x"], cache["conv_x"], params["conv_x"])
+    xv = tp_in(xq, mesh)
+    z = xv @ params["w_z"]
+    xi, _ = conv_step(xv @ params["w_x"], cache["conv_x"], params["conv_x"])
     xi = F.silu(xi)
     B_, _ = conv_step(xq @ params["w_B"], cache["conv_B"], params["conv_B"])
     C_, _ = conv_step(xq @ params["w_C"], cache["conv_C"], params["conv_C"])
-    B_, C_ = F.silu(B_), F.silu(C_)
-    dt = F.softplus((xq @ params["w_dt"]).float() + params["dt_bias"])  # (B,H)
+    B_ = shared_for_heads(F.silu(B_), mesh)
+    C_ = shared_for_heads(F.silu(C_), mesh)
+    dt = F.softplus((xv @ params["w_dt"]).float() + params["dt_bias"])
     a = -torch.exp(params["A_log"])
-    xi_h = xi.reshape(-1, h, cfg.head_dim).float()
+    xi_h = xi.reshape(xq.shape[0], -1, cfg.head_dim).float()
     y, _ = ssd_step(xi_h, a * dt, B_.float(), C_.float(), dt, cache["state"])
     y = y + xi_h * params["D"][:, None]
-    y = y.reshape(-1, di).to(x1.dtype)
-    y = rmsnorm(y, params["norm"]) * F.silu(z)
-    y = y @ params["w_out"]
+    y = y.reshape(xq.shape[0], -1).to(x1.dtype)
+    y = rmsnorm(y, params["norm"], mesh=mesh) * F.silu(z)
+    y = tp_out(y @ params["w_out"], mesh)
     return y[:, None, :], cache

@@ -21,8 +21,8 @@ Both modes of a block:
   decode(params, x1, cache, length)   -> y, cache     (one token; the cache
                                                        is written in place)
 
-Tensor parallelism (the dense, vlm and moe families, a ``mesh`` with a
-``model`` axis; ``tp_mesh``):
+Tensor parallelism (the dense, vlm, moe, hybrid and ssm families, a
+``mesh`` with a ``model`` axis; ``tp_mesh``):
 each rank holds its shards of the parameters (``parallel.sharding.local``
 of the reference's specs): the column-parallel projections' columns, the
 row-parallel ones' rows, the embedding's vocabulary rows ``[lo, hi)`` and
@@ -37,7 +37,12 @@ cache holds the rank's KV heads (``init_cache(mesh=)``).  The vlm's
 ``patch_proj`` gives the rank's d / model columns of the patches, gathered
 over ``model`` before they join the text.  A moe layer holds its rank's
 experts or expert columns and runs ``moe.moe_apply_tp``, which keeps the
-global batch's capacity, dispatch order and aux.
+global batch's capacity, dispatch order and aux.  zamba2's Mamba-2 layers
+and xlstm's mLSTM layers run their scans on the rank's heads (``ssm``,
+``xlstm``; ``tp_view`` cuts the per-head and per-column leaves the specs
+leave whole), xlstm's sLSTM recurrence runs whole on every rank, and
+zamba2's shared block is a dense layer on the rank's heads, its ring
+cache by KV heads.
 
 The vlm and audio front ends are stubs, as in the reference: ``extra``
 carries ``patch_embeds`` (vlm: ``num_patches`` positions put in front of the
@@ -62,7 +67,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (apply_rope, cross_entropy_loss,
                                        dense_init, mlp_apply, mlp_init,
-                                       rmsnorm, sinusoidal_positions)
+                                       rmsnorm, sinusoidal_positions, tp_in,
+                                       tp_out)
 
 
 # ---------------------------------------------------------------------------
@@ -358,22 +364,34 @@ _COL_BIASES = frozenset({"bq", "bk", "bv", "b_up"})
 
 def check_tp_split(arch: ArchConfig, model: int) -> None:
     """``ValueError`` unless ``model`` divides every width the family
-    splits: the query and key/value heads (the reference would split a head
-    and let GSPMD reshard it) and the vocabulary (the specs would replicate
-    a leaf the model code reads as the rank's shard); the dense MLP's
-    hidden width (dense and vlm), the vlm's ``patch_proj`` columns
-    (d_model), and for the moe family d_expert wherever the specs cut it
-    (the experts when E % model != 0, a shared expert when the layer count
-    is not a multiple of ``model``: ``moe.expert_layout``).  The same on
-    every device."""
-    widths = {"query heads": arch.num_heads, "key/value heads":
-              arch.num_kv_heads, "vocabulary": arch.vocab_size}
+    splits: the vocabulary (the specs would replicate a leaf the model
+    code reads as the rank's shard); the query and key/value heads of
+    every family with attention (the reference would split a head and let
+    GSPMD reshard it); the dense MLP's hidden width (dense, vlm and
+    zamba2's shared block), the vlm's ``patch_proj`` columns (d_model),
+    and for the moe family d_expert wherever the specs cut it (the experts
+    when E % model != 0, a shared expert when the layer count is not a
+    multiple of ``model``: ``moe.expert_layout``); zamba2's SSM heads and
+    d_inner; xlstm's mLSTM heads and d_inner and its sLSTM feed-forward
+    width.  The same on every device."""
+    widths = {"vocabulary": arch.vocab_size}
+    if arch.family != "ssm":
+        widths.update({"query heads": arch.num_heads,
+                       "key/value heads": arch.num_kv_heads})
     if arch.family == "moe":
         lay = moe_mod.expert_layout(arch, model)
         if lay["experts"] == "tp" or lay["shared"] == "tp":
             widths["d_expert"] = arch.moe.d_expert
+    elif arch.family == "ssm":
+        di, h, _ = xlstm_mod.mlstm_dims(arch)
+        widths.update({"mLSTM heads": h, "mLSTM d_inner": di,
+                       "sLSTM d_ff": int(arch.xlstm.proj_factor_slstm *
+                                         arch.d_model)})
     else:
         widths["d_ff"] = arch.d_ff
+    if arch.family == "hybrid":
+        di, h, _ = ssm_mod.ssm_dims(arch)
+        widths.update({"SSM heads": h, "SSM d_inner": di})
     if arch.frontend_stub == "clip_patches":
         widths["d_model"] = arch.d_model
     bad = {k: v for k, v in widths.items() if v % model}
@@ -383,7 +401,15 @@ def check_tp_split(arch: ArchConfig, model: int) -> None:
 
 
 #: the families a ``model`` axis runs tensor-parallel
-TP_FAMILIES = ("dense", "vlm", "moe")
+TP_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm")
+
+#: the Mamba-2 and mLSTM leaves the specs leave whole that ``tp_view``
+#: cuts to the rank's heads or d_inner columns: the Mamba-2 ones on their
+#: last dim; the mLSTM ``conv``, ``b_i`` and ``b_f`` on their last dim,
+#: ``norm`` (H, dh) on its heads and ``w_if`` (di, 2H) on its heads in
+#: both halves
+MAMBA_CUTS = ("conv_x", "norm", "w_dt", "A_log", "D", "dt_bias")
+MLSTM_CUTS = ("conv", "b_i", "b_f", "norm", "w_if")
 
 
 def tp_mesh(arch: ArchConfig, mesh, flash_decode: bool = False):
@@ -405,7 +431,11 @@ def tp_view(params: dict, mesh, arch: ArchConfig) -> dict:
     cotangent is gathered back); a moe shared expert sharded on its layer
     dim (``moe.expert_layout``) gathered over ``model``
     (``all_gather_dim``: every rank then runs it alike, so its cotangent
-    is sliced back); the rest as they are."""
+    is sliced back); the Mamba-2 and mLSTM leaves the specs replicate that
+    belong to a head or a d_inner column cut to the rank's (``shard``;
+    ``MAMBA_CUTS`` and ``MLSTM_CUTS``: ``w_if`` by heads in both its
+    halves, the input gates ``[:H]`` and the forget gates ``[H:]``); the
+    rest as they are."""
     from repro_torch.parallel.collectives import (all_gather_dim, axis_size,
                                                   shard)
 
@@ -419,6 +449,19 @@ def tp_view(params: dict, mesh, arch: ArchConfig) -> dict:
         moe = out["blocks"]["moe"]
         moe["shared"] = {k: all_gather_dim(v, mesh, "model", 0)
                          for k, v in moe["shared"].items()}
+    last = lambda v: shard(v, mesh, "model", v.ndim - 1)
+    if arch.family == "hybrid":
+        for stack in ("blocks", "tail"):
+            if stack in out:
+                m = out[stack]["mamba"]
+                m.update({k: last(m[k]) for k in MAMBA_CUTS})
+    if arch.family == "ssm":
+        c = out["blocks"]["mlstm"]["cell"]
+        c.update({k: last(c[k]) for k in MLSTM_CUTS[:3]})  # conv, b_i, b_f
+        c["norm"] = shard(c["norm"], mesh, "model", c["norm"].ndim - 2)
+        w = c["w_if"]
+        c["w_if"] = shard(w.unflatten(-1, (2, -1)), mesh, "model",
+                          w.ndim).flatten(-2)
     return out
 
 
@@ -443,7 +486,6 @@ def _embed(arch: ArchConfig, params: dict, tokens: torch.Tensor,
 def _head(arch: ArchConfig, params: dict, x: torch.Tensor,
           compute_dtype, mesh=None) -> torch.Tensor:
     """Logits; with ``mesh`` the rank's vocabulary shard of them."""
-    from repro_torch.models.layers import tp_in
     x = tp_in(rmsnorm(x, params["final_norm"]), mesh)
     head = params["embed"].T if arch.tie_embeddings else params["lm_head"]
     return x @ head.to(compute_dtype)
@@ -483,7 +525,9 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
     f32 states), and the shared block's
     ``shared_k``/``shared_v`` (G, B, win, KV, Dh) of the last ``win``
     positions with their ``shared_pos`` (G, B, win), ``win`` being the
-    sliding window when it is shorter than S, else S."""
+    sliding window when it is shorter than S, else S.  Under tensor
+    parallelism each recurrent leaf holds the rank's columns or heads
+    (``ssm``, ``xlstm``; the sLSTM state whole)."""
     p = plan(arch)
     B, S = tokens.shape
     tp = tp_mesh(arch, mesh)
@@ -493,7 +537,6 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
                              device=tokens.device).expand(B, S)
     x = _embed(arch, params, tokens, compute_dtype, tp)
     if arch.frontend_stub == "clip_patches":
-        from repro_torch.models.layers import tp_in
         patches = tp_in(extra["patch_embeds"].to(compute_dtype), tp) @ \
             params["patch_proj"].to(compute_dtype)
         if tp is not None:          # the rank's d / model columns
@@ -532,7 +575,8 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
     elif p["kind"] == "xlstm":
         def mbody(x, lp):
             y = xlstm_mod.mlstm_seq(lp["cell"], rmsnorm(x, lp["ln"]), arch,
-                                    return_state=return_cache, impl=impl)
+                                    return_state=return_cache, impl=impl,
+                                    mesh=tp)
             if return_cache:
                 y, mc = y
                 return x + y, mc
@@ -544,7 +588,7 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
                            p["mlstm_per"])
             sp = gp["slstm"]
             y = xlstm_mod.slstm_seq(sp["cell"], rmsnorm(x, sp["ln"]), arch,
-                                    return_state=return_cache)
+                                    return_state=return_cache, mesh=tp)
             if return_cache:
                 y, sc = y
                 return x + y, (mcs, sc)
@@ -559,7 +603,8 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
 
         def mamba_body(x, lp):
             y = ssm_mod.mamba2_seq(lp["mamba"], rmsnorm(x, lp["ln"]), arch,
-                                   return_state=return_cache, impl=impl)
+                                   return_state=return_cache, impl=impl,
+                                   mesh=tp)
             if return_cache:
                 y, mc = y
                 return x + y, mc
@@ -570,7 +615,7 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
             x, mcs = _scan(_remat(mamba_body, remat), x, gp, p["mamba_per"])
             x_pre = x
             x = _dense_block_seq(shared, x, positions, arch, impl,
-                                 window=arch.sliding_window)
+                                 window=arch.sliding_window, mesh=tp)
             if not return_cache:
                 return x, None
             k, v = _layer_kv(shared, x_pre, positions, arch)
@@ -688,13 +733,16 @@ def init_cache(arch: ArchConfig, batch: int, max_len: int,
     shorter than ``max_len``, else ``max_len``.  With a tensor-parallel
     ``mesh`` (``tp_mesh``): the rank's
     shape, ``batch / data`` sessions (the global ``batch`` when ``data``
-    does not divide it) and ``KV / model`` heads."""
+    does not divide it), ``KV / model`` heads and the recurrent states'
+    rank parts (``mamba2_cache_init``, ``mlstm_cache_init``)."""
     p = plan(arch)
     dev = resolve_device(device)
     kv = arch.num_kv_heads, arch.resolved_head_dim
+    model = 1
     if tp_mesh(arch, mesh) is not None:
         from repro_torch.parallel.collectives import axis_size
-        kv = arch.num_kv_heads // axis_size(mesh, "model"), kv[1]
+        model = axis_size(mesh, "model")
+        kv = arch.num_kv_heads // model, kv[1]
         if "data" in mesh.mesh_dim_names and \
                 batch % axis_size(mesh, "data") == 0:
             batch //= axis_size(mesh, "data")
@@ -715,14 +763,15 @@ def init_cache(arch: ArchConfig, batch: int, max_len: int,
         g, m = p["groups"], p["mlstm_per"]
         return {
             "mlstm": _stack([_stack([xlstm_mod.mlstm_cache_init(
-                arch, batch, dtype, device=dev) for _ in range(m)])
+                arch, batch, dtype, device=dev, model=model)
+                for _ in range(m)])
                 for _ in range(g)]),
             "slstm": _stack([xlstm_mod.slstm_cache_init(
                 arch, batch, dtype, device=dev) for _ in range(g)]),
             "length": length}
     g, m = p["groups"], p["mamba_per"]
     mamba = lambda n: _stack([ssm_mod.mamba2_cache_init(
-        arch, batch, dtype, device=dev) for _ in range(n)])
+        arch, batch, dtype, device=dev, model=model) for _ in range(n)])
     win = arch.sliding_window
     slots = win if 0 < win < max_len else max_len
     out = {"mamba": _stack([mamba(m) for _ in range(g)]),
@@ -762,8 +811,9 @@ def decode_step(arch: ArchConfig, params: dict, cache: dict,
     and their attention is ``decode_self_attention_sharded``.  Without
     ``flash_decode``, a ``mesh`` runs the model tensor-parallel
     (``tp_mesh``): the rank's
-    parameter shards, its KV heads' cache, and its vocabulary shard of the
-    logits; the moe layers route the global batch's tokens (the rank's
+    parameter shards, its KV heads' cache and recurrent states' rank
+    parts, and its vocabulary shard of the logits; the moe layers route
+    the global batch's tokens (the rank's
     chunk over ``batch_axes``: ``moe_apply_tp``)."""
     p = plan(arch)
     length = cache["length"]
@@ -817,18 +867,19 @@ def decode_step(arch: ArchConfig, params: dict, cache: dict,
             for i in range(p["mlstm_per"]):
                 lp = _layer(gp["mlstm"], i)
                 y, _ = xlstm_mod.mlstm_decode(lp["cell"], rmsnorm(x, lp["ln"]),
-                                              _layer(mc, i), arch)
+                                              _layer(mc, i), arch, tp)
                 x = x + y
             sp = gp["slstm"]
             y, _ = xlstm_mod.slstm_decode(sp["cell"], rmsnorm(x, sp["ln"]),
-                                          _layer(cache["slstm"], g), arch)
+                                          _layer(cache["slstm"], g), arch,
+                                          tp)
             x = x + y
     else:
         shared = _cast(params["shared"], compute_dtype)
 
         def mamba(x, lp, c):
             y, _ = ssm_mod.mamba2_decode(lp["mamba"], rmsnorm(x, lp["ln"]),
-                                         c, arch)
+                                         c, arch, tp)
             return x + y
 
         for g in range(p["groups"]):
@@ -840,9 +891,10 @@ def decode_step(arch: ArchConfig, params: dict, cache: dict,
             x = x + _ring_decode_attn(shared["attn"], xn,
                                       cache["shared_k"][g],
                                       cache["shared_v"][g],
-                                      cache["shared_pos"][g], length, arch)
+                                      cache["shared_pos"][g], length, arch,
+                                      tp)
             x = x + mlp_apply(shared["mlp"], rmsnorm(x, shared["ln2"]),
-                              arch.activation)
+                              arch.activation, tp)
         for i in range(p["tail"]):
             x = mamba(x, _cast(_layer(params["tail"], i), compute_dtype),
                       _layer(cache["tail"], i))
@@ -852,14 +904,16 @@ def decode_step(arch: ArchConfig, params: dict, cache: dict,
     return logits, new_cache
 
 
-def _ring_decode_attn(ap, x1, ck, cv, cpos, length, arch):
+def _ring_decode_attn(ap, x1, ck, cv, cpos, length, arch, mesh=None):
     """Sliding-window decode with a ring cache.  ck/cv (B, W, KV, Dh);
     cpos (B, W) holds the absolute position in each slot (-1: empty).  The
     new K/V and position go IN PLACE to slot ``length % W`` (a device
-    index: no host sync); slots holding positions in [0, length] attend."""
+    index: no host sync); slots holding positions in [0, length] attend.
+    With ``mesh``: the rank's heads and its KV heads' ring."""
     B = x1.shape[0]
     dh = arch.resolved_head_dim
     pos = length.reshape(1, 1).expand(B, 1).to(torch.int32)
+    x1 = tp_in(x1, mesh)
     q, k, v = attn._project_qkv(ap, x1, x1, arch)
     if arch.rope_theta > 0:
         q = apply_rope(q, pos, arch.rope_theta)
@@ -869,14 +923,14 @@ def _ring_decode_attn(ap, x1, ck, cv, cpos, length, arch):
     ck.index_copy_(1, slot, k.to(ck.dtype))
     cv.index_copy_(1, slot, v.to(cv.dtype))
     cpos.index_copy_(1, slot, pos)
-    G = arch.num_heads // KV
+    G = q.shape[2] // KV
     qg = attn._scaled(q, dh ** -0.5).reshape(B, 1, KV, G, dh)
     s = attn._einsum_f32("bqkgd,bskd->bqkgs", qg, ck)
     valid = (cpos >= 0) & (cpos <= length)
     s = torch.where(valid[:, None, None, None, :], s, attn.NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = attn._einsum_f32("bqkgs,bskd->bqkgd", p.to(cv.dtype), cv)
-    return out.reshape(B, 1, -1).to(x1.dtype) @ ap["wo"]
+    return tp_out(out.reshape(B, 1, -1).to(x1.dtype) @ ap["wo"], mesh)
 
 
 # ---------------------------------------------------------------------------

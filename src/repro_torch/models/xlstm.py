@@ -24,6 +24,19 @@ Block structure (pre-LN residual):
 
 Decode writes the cache it is handed IN PLACE (mLSTM: the conv window, C,
 n, m; sLSTM: c, n, m, h) and returns the same tensors.
+
+Tensor parallelism (``mesh`` with a ``model`` axis).  mLSTM: ``w_up`` and
+``w_gate`` hold the rank's d_inner columns, and ``transformer.tp_view``
+has cut ``conv``, ``norm``, ``b_i``, ``b_f`` and both halves of ``w_if``
+to the rank's columns and heads.  ``w_q``, ``w_k`` and ``w_v`` read the
+whole conv output ``u`` and up-projection, gathered over ``model``
+(``gather_param``: each rank reads them for its own heads, so their
+cotangents are reduce-scattered back), and give the rank's heads, the
+cell's and the groupnorm's; ``w_down`` holds its rows (one ``psum``).
+sLSTM: ``w_in``, ``r``, ``b`` and ``norm`` stay whole, so the recurrence
+runs whole on every rank; its GeGLU feed-forward is column/row parallel.
+The cache holds the rank's mLSTM conv columns and C, n, m heads, and the
+whole sLSTM state.
 """
 from __future__ import annotations
 
@@ -35,7 +48,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, AttnImpl
 from repro_torch.core.graphs import StepCache
 from repro_torch.kernels.mlstm_chunk.ops import mlstm_chunk
-from repro_torch.models.layers import _gelu, dense_init, groupnorm_heads
+from repro_torch.models.layers import (_gelu, dense_init, groupnorm_heads,
+                                       tp_in, tp_out)
 from repro_torch.models.ssm import causal_conv, conv_step
 
 
@@ -160,10 +174,14 @@ def mlstm_cell_step(q1, k1, v1, log_i1, log_f1, carry):
     return num / den[..., None], (C, n, m)
 
 
-def _mlstm_qkv(params, x, arch):
-    up = x @ params["w_up"]
-    gate = x @ params["w_gate"]
-    return up, gate
+def _whole_columns(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The rank's d_inner columns of ``t`` gathered whole over ``model``
+    (``gather_param``: its cotangent reduce-scattered, as each rank reads
+    the whole for its own heads)."""
+    if mesh is None:
+        return t
+    from repro_torch.parallel.collectives import gather_param
+    return gather_param(t, mesh, "model", t.ndim - 1)
 
 
 def _mlstm_gates(params, u, h: int):
@@ -178,18 +196,22 @@ def _mlstm_gates(params, u, h: int):
 
 def mlstm_seq(params: dict, x: torch.Tensor, arch: ArchConfig,
               return_state: bool = False,
-              impl: AttnImpl = AttnImpl.REFERENCE):
+              impl: AttnImpl = AttnImpl.REFERENCE, mesh=None):
     """x (B,S,D) -> y (B,S,D) [, cache].  q/k/v and the gates are f32, as
     in the reference; FLASH runs the mLSTM kernel over the chunk the plain
-    cell would take, REFERENCE the plain cell."""
-    di, h, dh = mlstm_dims(arch)
+    cell would take, REFERENCE the plain cell.  With ``mesh``: the rank's
+    heads (the module docstring)."""
+    _, _, dh = mlstm_dims(arch)
     B, S, _ = x.shape
-    up, gate = _mlstm_qkv(params, x, arch)
+    xv = tp_in(x, mesh)
+    up = xv @ params["w_up"]
+    gate = xv @ params["w_gate"]
     u = F.silu(causal_conv(up, params["conv"]))
-    q = (u @ params["w_q"]).reshape(B, S, h, dh).float()
-    k = (u @ params["w_k"]).reshape(B, S, h, dh).float()
-    v = (up @ params["w_v"]).reshape(B, S, h, dh).float()
-    log_i, log_f = _mlstm_gates(params, u, h)
+    u_all, up_all = _whole_columns(u, mesh), _whole_columns(up, mesh)
+    q = (u_all @ params["w_q"]).reshape(B, S, -1, dh).float()
+    k = (u_all @ params["w_k"]).reshape(B, S, -1, dh).float()
+    v = (up_all @ params["w_v"]).reshape(B, S, -1, dh).float()
+    log_i, log_f = _mlstm_gates(params, u_all, q.shape[2])
     if impl == AttnImpl.FLASH:
         hcell, (C, n, m) = mlstm_chunk(
             q, k, v, log_i, log_f,
@@ -198,8 +220,8 @@ def mlstm_seq(params: dict, x: torch.Tensor, arch: ArchConfig,
         hcell, (C, n, m) = mlstm_cell_seq(q, k, v, log_i, log_f,
                                           arch.xlstm.chunk_size)
     hcell = groupnorm_heads(hcell.to(x.dtype), params["norm"])
-    out = hcell.reshape(B, S, di) * F.silu(gate)
-    out = out @ params["w_down"]
+    out = hcell.reshape(B, S, -1) * F.silu(gate)
+    out = tp_out(out @ params["w_down"], mesh)
     if not return_state:
         return out
     # a copy, so the cache does not keep the (B, S, ·) projection alive
@@ -207,8 +229,11 @@ def mlstm_seq(params: dict, x: torch.Tensor, arch: ArchConfig,
 
 
 def mlstm_cache_init(arch: ArchConfig, batch: int, dtype=torch.float32,
-                     device=None) -> dict:
+                     device=None, model: int = 1) -> dict:
+    """A zeroed cache; ``model`` > 1: a rank's part of it (d_inner / model
+    conv columns, H / model heads of C, n and m)."""
     di, h, dh = mlstm_dims(arch)
+    di, h = di // model, h // model
     zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=device)
     return {
         "conv": zeros((batch, 3, di), dtype),
@@ -219,23 +244,25 @@ def mlstm_cache_init(arch: ArchConfig, batch: int, dtype=torch.float32,
 
 
 def mlstm_decode(params: dict, x1: torch.Tensor, cache: dict,
-                 arch: ArchConfig) -> Tuple[torch.Tensor, dict]:
-    """x1 (B, 1, D) -> (y (B, 1, D), cache), the cache written in place."""
-    di, h, dh = mlstm_dims(arch)
-    xq = x1[:, 0, :]
+                 arch: ArchConfig, mesh=None) -> Tuple[torch.Tensor, dict]:
+    """x1 (B, 1, D) -> (y (B, 1, D), cache), the cache written in place.
+    With ``mesh``: the rank's heads and cache (the module docstring)."""
+    _, _, dh = mlstm_dims(arch)
+    xq = tp_in(x1[:, 0, :], mesh)
     up = xq @ params["w_up"]
     gate = xq @ params["w_gate"]
     u, _ = conv_step(up, cache["conv"], params["conv"])
-    u = F.silu(u)
-    q = (u @ params["w_q"]).reshape(-1, h, dh).float()
-    k = (u @ params["w_k"]).reshape(-1, h, dh).float()
-    v = (up @ params["w_v"]).reshape(-1, h, dh).float()
-    log_i, log_f = _mlstm_gates(params, u, h)
+    u_all = _whole_columns(F.silu(u), mesh)
+    up_all = _whole_columns(up, mesh)
+    q = (u_all @ params["w_q"]).reshape(xq.shape[0], -1, dh).float()
+    k = (u_all @ params["w_k"]).reshape(xq.shape[0], -1, dh).float()
+    v = (up_all @ params["w_v"]).reshape(xq.shape[0], -1, dh).float()
+    log_i, log_f = _mlstm_gates(params, u_all, q.shape[1])
     hc, _ = mlstm_cell_step(q, k, v, log_i, log_f,
                             (cache["C"], cache["n"], cache["m"]))
     hc = groupnorm_heads(hc[:, None].to(x1.dtype), params["norm"])[:, 0]
-    out = (hc.reshape(-1, di) * F.silu(gate)) @ params["w_down"]
-    return out[:, None, :], cache
+    out = (hc.reshape(xq.shape[0], -1) * F.silu(gate)) @ params["w_down"]
+    return tp_out(out, mesh)[:, None, :], cache
 
 
 # ---------------------------------------------------------------------------
@@ -378,23 +405,31 @@ def _slstm_cell(params, x, arch, carry):
                       arch.xlstm.num_heads)                     # (B,S,H,dh)
 
 
+def _slstm_ffn(params: dict, y: torch.Tensor, mesh) -> torch.Tensor:
+    """GeGLU FFN (proj factor 4/3; jax.nn.gelu is the tanh approximation),
+    with ``mesh`` column/row parallel over ``model``."""
+    y = tp_in(y, mesh)
+    g = _gelu(y @ params["w_ff_gate"]) * (y @ params["w_ff_up"])
+    return tp_out(g @ params["w_ff_down"], mesh)
+
+
 def slstm_seq(params: dict, x: torch.Tensor, arch: ArchConfig,
-              return_state: bool = False):
+              return_state: bool = False, mesh=None):
+    """x (B,S,D) -> y (B,S,D) [, cache]; with ``mesh`` the recurrence
+    whole on every rank and the feed-forward column/row parallel."""
     B, S, d = x.shape
     init = slstm_cache_init(arch, B, x.dtype, device=x.device)
     hs, carry = _slstm_cell(params, x, arch,
                             (init["c"], init["n"], init["m"], init["h"]))
     y = groupnorm_heads(hs.to(x.dtype), params["norm"]).reshape(B, S, d)
-    # GeGLU FFN (proj factor 4/3); jax.nn.gelu is the tanh approximation
-    g = _gelu(y @ params["w_ff_gate"]) * (y @ params["w_ff_up"])
-    out = g @ params["w_ff_down"]
+    out = _slstm_ffn(params, y, mesh)
     if not return_state:
         return out
     return out, {"c": carry[0], "n": carry[1], "m": carry[2], "h": carry[3]}
 
 
 def slstm_decode(params: dict, x1: torch.Tensor, cache: dict,
-                 arch: ArchConfig) -> Tuple[torch.Tensor, dict]:
+                 arch: ArchConfig, mesh=None) -> Tuple[torch.Tensor, dict]:
     """x1 (B, 1, D) -> (y (B, 1, D), cache), the cache written in place."""
     B, _, d = x1.shape
     h = arch.xlstm.num_heads
@@ -405,6 +440,4 @@ def slstm_decode(params: dict, x1: torch.Tensor, cache: dict,
         cache[key].copy_(new)
     y = groupnorm_heads(hid[:, None].to(x1.dtype),
                         params["norm"]).reshape(B, 1, d)
-    g = _gelu(y @ params["w_ff_gate"]) * (y @ params["w_ff_up"])
-    out = g @ params["w_ff_down"]
-    return out, cache
+    return _slstm_ffn(params, y, mesh), cache

@@ -9,7 +9,8 @@ compressors:
   deterministic round-half-to-even (``torch.round``, as ``jnp.round``);
 * top-k sparsification (magnitude): keeps the k largest entries; the
   residual is returned for the caller to feed back (error feedback).
-  ``torch.topk`` and ``lax.top_k`` may order equal magnitudes differently.
+  The entries are ``lax.top_k``'s, in its order: by descending magnitude,
+  the lowest index first among equal magnitudes.
 """
 from __future__ import annotations
 
@@ -70,7 +71,10 @@ def topk_compress(x: torch.Tensor, k: int
     term."""
     flat = x.reshape(-1).to(torch.float32)
     k = min(k, flat.shape[0])
-    idx = torch.topk(torch.abs(flat), k).indices
+    # a stable descending sort keeps lax.top_k's tie order (torch.topk
+    # breaks ties in no set order)
+    idx = torch.sort(torch.abs(flat), descending=True,
+                     stable=True).indices[:k]
     vals = flat[idx]
     residual = flat.index_fill(0, idx, 0.0).reshape(x.shape)
     return TopKPayload(values=vals, indices=idx.to(torch.int32),

@@ -359,6 +359,40 @@ def test_moe_apply_on_the_card_equals_the_cpu(card, arch_id, cap_multiple):
     assert abs(float(gaux) - float(waux)) <= 1e-6 * abs(float(waux))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_experts,top_k", [(8, 2), (16, 4)])
+def test_tied_top_k_on_the_card_equals_the_cpu(card, num_experts, top_k):
+    """The stable descending sort that ``moe.route`` and
+    ``compression.topk_compress`` take their top-k from picks the CPU's
+    indices on the card too when values tie: whole-number router logits
+    with all-zero tokens (every expert ties), and a tie-heavy flat leaf of
+    four magnitudes."""
+    import dataclasses
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import moe
+    from repro_torch.optim.compression import topk_compress
+    arch = reduced(get_arch("grok-1-314b"))
+    cfg = dataclasses.replace(arch.moe, num_experts=num_experts, top_k=top_k)
+    gen = torch.Generator().manual_seed(num_experts)
+    router = torch.randint(-2, 3, (arch.d_model, num_experts),
+                           generator=gen).float()
+    x = (torch.rand((64, arch.d_model), generator=gen) < 0.02).float()
+    x[:16] = 0.0
+    want = moe.route(router, x, cfg)
+    got = moe.route(router.to(card), x.to(card), cfg)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[0][0].cpu(), torch.arange(top_k))
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-6, atol=1e-6)
+    flat = (torch.randint(0, 4, (4096,), generator=gen)
+            * torch.randint(0, 2, (4096,), generator=gen).mul(2).sub(1)
+            ).float()
+    for k in (1, 100, 1500):
+        wp, wr = topk_compress(flat, k)
+        gp, gr = topk_compress(flat.to(card), k)
+        assert torch.equal(gp.indices.cpu(), wp.indices)
+        assert torch.equal(gr.cpu(), wr)
+
+
 # ---------------------------------------------------------------------------
 # ssd chunk
 # ---------------------------------------------------------------------------
@@ -1473,3 +1507,42 @@ def test_tensor_parallel_family_prefill_on_the_card(card, arch_id,
         assert out[f"{arch_id}/flash_launches"] == out[f"{arch_id}/layers"]
         assert out[f"{arch_id}/give_ups"] == 0
         assert out[f"{arch_id}/prefill_rel"] < franks.CARD_TOL
+
+
+@pytest.fixture(scope="module")
+def tp_recurrent_card_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the ranks share it")
+    import torch_tp_recurrent_ranks as rranks
+    from repro_torch.launch.mesh import spawn_world
+    store = tmp_path_factory.mktemp("tp_recurrent_card_world") / "store"
+    return spawn_world(rranks.card_recurrent_forms, 2, f"file://{store}",
+                       device="cuda", timeout_s=600)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["hybrid", "ssm"])
+def test_tensor_parallel_recurrent_prefill_on_the_card(card, family,
+                                                       tp_recurrent_card_world):
+    """At full width, bf16, FLASH on (data 1, model 2): zamba2 at 7 layers
+    (each rank's SSD on 56 of the 112 SSM heads, once a Mamba-2 layer;
+    flash on 16 of the 32 heads once for the shared block) and xlstm at 8
+    (the mLSTM kernel on 2 of the 4 heads once an mLSTM layer), no flash
+    give-up; the gathered logits and every cache leaf within 5e-2 of the
+    unsharded prefill on the card."""
+    import torch_tp_recurrent_ranks as rranks
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import plan
+    layers = rranks.CARD_CASES[family][0]
+    import dataclasses
+    p = plan(dataclasses.replace(get_arch(rranks.ARCHS[family]),
+                                 num_layers=layers))
+    want = ({"ssd": layers, "flash": p["groups"], "mlstm": 0}
+            if family == "hybrid" else
+            {"ssd": 0, "flash": 0, "mlstm": p["groups"] * p["mlstm_per"]})
+    for out in tp_recurrent_card_world:
+        for k, n in want.items():
+            assert out[f"{family}/{k}_launches"] == n, (k, out)
+        assert out[f"{family}/give_ups"] == 0
+        assert out[f"{family}/prefill_rel"] < rranks.CARD_TOL
+        assert out[f"{family}/cache_rel"] < rranks.CARD_TOL

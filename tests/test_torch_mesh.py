@@ -724,8 +724,8 @@ class _DataModel:
     mesh_dim_names = ("data", "model")
 
 
-#: case -> (arch id, ParallelConfig changes); dense, moe, vlm and
-#: adafactor build, the rest raise
+#: case -> (arch id, ParallelConfig changes); dense, moe, vlm, hybrid,
+#: ssm and adafactor build, the rest raise
 INNER_CASES = {"dense": ("internlm2-1.8b", {}),
                "moe": ("kimi-k2-1t-a32b", {}),
                "vlm": ("phi-3-vision-4.2b", {}),
@@ -741,9 +741,9 @@ INNER_ARCH_CHANGES = {"moe": {"num_kv_heads": 2}}
 
 @pytest.mark.parametrize("case", sorted(INNER_CASES))
 def test_inner_axes_raise_not_implemented(case):
-    """On a mesh whose ``data``/``model`` axes are > 1 the dense, moe and
-    vlm families' factories build their tensor-parallel steps, Adafactor's
-    too; the hybrid, ssm and audio families and ``seq_shard=True`` raise
+    """On a mesh whose ``data``/``model`` axes are > 1 the dense, moe,
+    vlm, hybrid and ssm families' factories build their tensor-parallel
+    steps, Adafactor's too; the audio family and ``seq_shard=True`` raise
     ``NotImplementedError`` naming ROADMAP's queue 1 item 10d (and the
     family or the option)."""
     arch_id, changes = INNER_CASES[case]
@@ -762,15 +762,15 @@ def test_inner_axes_raise_not_implemented(case):
             lambda: serve.make_prefill_step(arch, pshape, device="cpu",
                                             mesh=_DataModel)]
     for call in calls:
-        if case in ("dense", "moe", "vlm", "adafactor"):
+        if case in ("dense", "moe", "vlm", "hybrid", "ssm", "adafactor"):
             got = call()
             assert callable(got[0] if isinstance(got, tuple) else got)
             continue
         with pytest.raises(NotImplementedError, match="queue 1 item 10d") \
                 as info:
             call()
-        assert info.value.args[0] == (arch.family if case in (
-            "moe", "vlm", "hybrid", "ssm", "audio") else case)
+        assert info.value.args[0] == (arch.family if case == "audio"
+                                      else case)
 
 
 def test_world_needs_the_card_unless_told_and_mesh_needs_a_world(monkeypatch):

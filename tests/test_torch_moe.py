@@ -2,9 +2,10 @@
 
 Reduced grok-1 (top-2 of 8 experts) and reduced kimi-k2 (top-2 of 8 with a
 shared expert), d 128, experts of 128.  Router weights, expert weights and
-activations are made by numpy from a seed (normal draws: no ties in the
-top-k, where the two packages' sorts could order equal probabilities
-differently) and handed to both packages.  Routes and bucket slots are
+activations are made by numpy from a seed and handed to both packages
+(normal draws; the tie cases draw whole-number logits and all-zero
+tokens, where equal probabilities go lowest expert first in both, as
+``lax.top_k`` breaks ties).  Routes and bucket slots are
 compared exactly; the routing weights and the aux loss in float32 at 1e-6
 (the same f32 arithmetic up to summation order).  The layer's output is
 held to 1e-5 of its largest magnitude: the reference draws expert weights
@@ -192,3 +193,72 @@ def test_expert_sharding_strategy_matches(shards, want):
         assert got == ref_moe.expert_sharding_strategy(cfg_r, shards)
     assert moe.expert_sharding_strategy(tc.get_arch("grok-1-314b").moe,
                                         shards) == want
+
+
+TIE_CASES = [(8, 1), (8, 2), (16, 2), (16, 4)]
+
+
+def _tied(arch_r, arch_t, num_experts, top_k, seed):
+    """Both packages' archs at ``num_experts`` and ``top_k``, a router of
+    whole numbers in [-2, 2] and (T, d) tokens of 0s and 1s whose first
+    quarter is all zero: every logit a small integer, exact in f32, so
+    equal logits give equal probabilities and ties at the k-th place are
+    common (every expert ties on a zero token)."""
+    import dataclasses
+    arch_r = dataclasses.replace(arch_r, moe=dataclasses.replace(
+        arch_r.moe, num_experts=num_experts, top_k=top_k))
+    arch_t = dataclasses.replace(arch_t, moe=dataclasses.replace(
+        arch_t.moe, num_experts=num_experts, top_k=top_k))
+    p = jax.device_get(ref_moe.moe_init(jax.random.PRNGKey(seed), arch_r))
+    p = jax.tree.map(np.array, p)
+    rng = np.random.default_rng(seed)
+    p["router"] = rng.integers(-2, 3, p["router"].shape).astype(np.float32)
+    x = (rng.random((T, arch_r.d_model)) < 0.02).astype(np.float32)
+    x[:T // 4] = 0.0
+    return (arch_r, arch_t, jax.tree.map(jnp.asarray, p),
+            jax.tree.map(torch.from_numpy, p), x)
+
+
+@pytest.mark.parametrize("num_experts,top_k", TIE_CASES,
+                         ids=[f"E{e}k{k}" for e, k in TIE_CASES])
+def test_route_breaks_ties_as_the_reference(num_experts, top_k):
+    """Tied probabilities go lowest expert first, as ``lax.top_k`` picks
+    them: routes and bucket slots exactly, weights and aux at 1e-6; the
+    inputs hold ties at the k-th place (all-zero tokens tie every
+    expert)."""
+    arch_r, arch_t, pr, pt, x = _tied(*_archs("grok-1-314b"), num_experts,
+                                      top_k, 11)
+    we, ww, wa = ref_moe.route(pr["router"], jnp.asarray(x), arch_r.moe)
+    ge, gw, ga = moe.route(pt["router"], torch.from_numpy(x), arch_t.moe)
+    probs = np.asarray(jax.nn.softmax(jnp.asarray(x) @ pr["router"], -1))
+    kth = np.sort(probs, -1)[:, ::-1]
+    if top_k < num_experts:
+        assert (kth[:, top_k - 1] == kth[:, top_k]).sum() >= T // 4
+    np.testing.assert_array_equal(to_np(ge), np.asarray(we))
+    np.testing.assert_array_equal(to_np(ge[0]), np.arange(top_k))
+    np.testing.assert_allclose(to_np(gw), to_np(ww), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(float(ga), float(wa), rtol=1e-6)
+    cap = moe.capacity(T, arch_t.moe, 8)
+    ws, wk = ref_moe.dispatch_indices(we, num_experts, cap)
+    gs, gk = moe.dispatch_indices(ge, num_experts, cap)
+    np.testing.assert_array_equal(to_np(gs), np.asarray(ws))
+    np.testing.assert_array_equal(to_np(gk), np.asarray(wk))
+
+
+@pytest.mark.parametrize("num_experts,top_k", TIE_CASES,
+                         ids=[f"E{e}k{k}" for e, k in TIE_CASES])
+@pytest.mark.parametrize("mult", [128, 4])
+def test_moe_apply_on_tied_routes(num_experts, top_k, mult):
+    """The layer on the tied inputs (kimi-k2: with its shared expert),
+    without drops and with most of the low experts' buckets overflowing
+    (``cap_multiple`` 4: which tokens drop follows the tie order): output
+    within 1e-5 of its scale, aux within 1e-6."""
+    arch_r, arch_t, pr, pt, x = _tied(*_archs("kimi-k2-1t-a32b"),
+                                      num_experts, top_k, 12)
+    x = x.reshape(2, T // 2, -1)
+    want, waux = ref_moe.moe_apply(pr, jnp.asarray(x), arch_r,
+                                   cap_multiple=mult)
+    got, gaux = moe.moe_apply(pt, torch.from_numpy(x), arch_t,
+                              cap_multiple=mult)
+    _close(got, want)
+    np.testing.assert_allclose(float(gaux), float(waux), rtol=1e-6)

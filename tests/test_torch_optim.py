@@ -195,6 +195,32 @@ def test_topk_compression_matches_reference(k):
         np.asarray(ref_comp.topk_decompress(wp)))
 
 
+TIE_DRAWS = {"sign_pair": (np.array([1.0, -1.0, 1.0, 0.0], np.float32), 1),
+             "tie_heavy": (None, 12)}
+
+
+@pytest.mark.parametrize("case", sorted(TIE_DRAWS))
+def test_topk_compression_breaks_ties_as_the_reference(case):
+    """Equal magnitudes: the entries ``lax.top_k`` keeps, in its order
+    (lowest index first among equals), the same residual.  x = [1, -1, 1,
+    0] with k = 1 keeps index 0; the tie-heavy draw holds 60 entries of
+    four magnitudes and their signs, cut by k = 12 inside a tied run."""
+    x, k = TIE_DRAWS[case]
+    if x is None:
+        rng = np.random.default_rng(17)
+        x = (rng.integers(0, 4, 60) * rng.choice([-1.0, 1.0], 60)).reshape(
+            5, 12).astype(np.float32)
+        mags = np.sort(np.abs(x).reshape(-1))[::-1]
+        assert mags[k - 1] == mags[k]
+    wp, wr = ref_comp.topk_compress(jnp.asarray(x), k)
+    gp, gr = compression.topk_compress(torch.from_numpy(x), k)
+    np.testing.assert_array_equal(gp.indices.numpy(), np.asarray(wp.indices))
+    np.testing.assert_array_equal(gp.values.numpy(), np.asarray(wp.values))
+    np.testing.assert_array_equal(gr.numpy(), np.asarray(wr))
+    if case == "sign_pair":
+        assert gp.indices.tolist() == [0]
+
+
 # ---------------------------------------------------------------------------
 # DiLoCo
 # ---------------------------------------------------------------------------
