@@ -186,7 +186,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    step's logits within 5e-2 of the unsharded step fed the same tokens,
    the greedy tokens that differ counted), ``train_zero1`` and
    ``train_fsdp`` (internlm2-1.8b at full width, depth 24 -> 4, seq
-   4,096, a batch of 2, AdamW, remat "block", 3 steps with ZeRO-1, then
+   4,096, a batch of 2, AdamW, remat "block", a step with ZeRO-1, then
    with FSDP: loss and grad norm within 1e-3 of the unsharded step's,
    params within 2 x lr x steps) and ``pods`` ((pod 2, model 2):
    REPLICATED steps and a round with int8 off and on, pods unequal before
@@ -203,10 +203,17 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    and 2 KV heads of D=112 a rank, the shared expert column/row),
    ``moe_train`` (grok-1, depth 64 -> 1, (data 1, model 4), the
    reference's choices for it: bf16 params, Adafactor, remat "full",
-   FSDP; 2 steps: loss and grad norm within 1e-3, params within the
+   FSDP; a step: loss and grad norm within 1e-3, params within the
    bound ``moe_train`` derives) and ``vlm`` (phi-3-vision at full width
    and depth, (data 2, model 2), 4 prompts of 4,096 behind 576 patch
    positions, 8 greedy steps, then a ZeRO-1 AdamW step at depth 32 -> 4);
+   then ``audio`` (whisper-tiny at full width and depth, (data 2, model
+   2): 3 of its 6 heads a rank, its odd vocabulary whole on every rank; 4
+   prompts of 384 tokens behind 1,500 frames, FLASH, 8 greedy steps,
+   every cache leaf against the twin's; two ZeRO-1 AdamW steps in f32
+   compute) and ``seq_shard`` (the ``prefill`` part's prompts under
+   ``ParallelConfig(seq_shard=True)``: each rank holds (2, 2,048) tokens;
+   the logits and cache against the twin's and the ``prefill`` part's);
    flash launches = the layers a rank runs, give-ups 0;
 12. the smoke's seconds, the ``{"kernels": [...]}`` line (the merge
    kernel's launches by path: served, warm, runtime, replication and mesh;
@@ -307,6 +314,11 @@ TP_FAMILY_FLASH = {"grok-1-314b rank": (2, 4096, 24, 4, 128),
                    "phi-3-vision-4.2b rank": (2, 4096, 16, 16, 96),
                    "zamba2-7b shared block rank": (2, 4096, 16, 16, 112)}
 GEMMA_FLASH = (4, 4096, 16, 16, 256, 0)
+# name -> B, S, H, KV, D, causal of one rank's whisper-tiny attention in
+# phase tensor_parallel's audio part (bf16): its encoder over 1,500 frames,
+# its decoder over 384 tokens, 3 of the 6 heads on (data 2, model 2)
+TP_AUDIO_FLASH = {"whisper-tiny encoder rank": (2, 1500, 3, 3, 64, False),
+                  "whisper-tiny decoder rank": (2, 384, 3, 3, 64, True)}
 # (B, H, S, P, N, chunk): tests/test_kernels.py's sweep, ragged S (a last
 # chunk of 72 and of 4 rows), in f32 and bf16; then the main path's geometry
 # (zamba2-7b's Mamba-2 prefill, f32 as the model feeds it)
@@ -1416,11 +1428,13 @@ def _flash_close(torch, fk, q, k, v, got, want, causal, window, what):
 def check_flash_sweep(torch, fk, fops):
     """Kernel vs plain over FLASH_CASES x dtypes x FLASH_MASKS, in the kernel
     layout, then zamba2's geometry (bf16, causal, its window) and the
-    tensor-parallel ranks' (TP_FAMILY_FLASH; bf16, causal); the
+    tensor-parallel ranks' (TP_FAMILY_FLASH; bf16, causal; TP_AUDIO_FLASH,
+    whisper's, its encoder's not causal); the
     model-layout wrapper (strided reads, no transposes) on the first and
     last of FLASH_CASES and on every geometry after them.  Returns (max
     abs err per dtype, the largest bf16 ratio to the rounding control,
-    cases, {TP_FAMILY_FLASH name: its max abs err and bf16 ratio})."""
+    cases, {TP_FAMILY_FLASH and TP_AUDIO_FLASH name: its max abs err and
+    bf16 ratio})."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst, cases, worst_ratio = {d: 0.0 for d in FLASH_TOL}, 0, 0.0
     B, S, H, KV, D, win = ZAMBA_FLASH
@@ -1429,7 +1443,9 @@ def check_flash_sweep(torch, fk, fops):
             for c in FLASH_CASES] + [
         ((B, S, S, H, KV, D), ("bfloat16",), [(True, win)], True, None)] + [
         ((B, S, S, H, KV, D), ("bfloat16",), [(True, 0)], True, name)
-        for name, (B, S, H, KV, D) in TP_FAMILY_FLASH.items()]
+        for name, (B, S, H, KV, D) in TP_FAMILY_FLASH.items()] + [
+        ((B, S, S, H, KV, D), ("bfloat16",), [(causal, 0)], True, name)
+        for name, (B, S, H, KV, D, causal) in TP_AUDIO_FLASH.items()]
     named = {}
     for (B, Sq, Skv, H, KV, D), dtypes, masks, layout, name in runs:
         for dtype in dtypes:
@@ -3184,12 +3200,16 @@ TP_BATCH, TP_SEQ = 4, 4096      # prefill: 2 sessions a data rank
 TP_DECODE_STEPS = 8
 TP_TRAIN_LAYERS = 4             # depth 24 -> 4
 TP_TRAIN_BATCH = 2              # 1 a data rank
-TP_TRAIN_STEPS = 3
+TP_TRAIN_STEPS = 1              # 3 -> 1 for the smoke's time (the audio
+                                # and seq_shard parts)
 TP_TRAIN_CFG = dict(lr=3e-4, warmup_steps=1, total_steps=10)
 TP_LOSS_TOL = 1e-3              # loss and grad_norm, TP against unsharded
-TP_POD_STEPS = 2
-TP_SESS_STEPS = 2
+TP_POD_STEPS = 1                # 2 -> 1 for the smoke's time
+TP_SESS_STEPS = 1               # 2 -> 1 for the smoke's time
 DENSE_PARTS = ("prefill", "decode", "train_zero1", "train_fsdp", "pods")
+#: the audio family and the dense family's prefill under seq_shard, in the
+#: first world after the family parts (``tp_audio``, ``tp_seq_shard``)
+AUDIO_SEQ_PARTS = ("audio", "seq_shard")
 
 #: host ms and bytes inside the port's collectives on this rank
 _TRANSPORT = {"ms": 0.0, "bytes": 0}
@@ -3215,6 +3235,7 @@ def tp_config(device="cuda", reduce=None):
             "ssm_seq": SSM_SEQ, "ssm_train_seq": SSM_TRAIN_SEQ,
             "recurrent_train_batch": RECURRENT_TRAIN_BATCH,
             "recurrent_train_steps": RECURRENT_TRAIN_STEPS,
+            "audio_seq": AUDIO_SEQ, "audio_train_steps": AUDIO_TRAIN_STEPS,
             "parts": TP_PARTS}
 
 
@@ -3278,13 +3299,14 @@ def _tp_tokens(torch, arch, cfg, dev):
                          generator=gen, device=dev, dtype=torch.int32)
 
 
-def tp_serve(torch, rank, cfg, dev, mesh, fk):
+def tp_serve(torch, rank, cfg, dev, mesh, fk, kept=None):
     """Parts ``prefill`` and ``decode``: internlm2-1.8b at full width and
     depth on (data 2, model 2), FLASH, 4 prompts of ``seq`` tokens (2 a
     data rank), then ``decode_steps`` greedy steps from that cache; rank 0
     then runs the unsharded prefill and the unsharded decode step (fed
     the ranks' tokens) on the same card.  Returns (prefill, decode)
-    records on rank 0."""
+    records on rank 0, where ``kept`` (a dict) also takes the gathered last
+    logits and K/V in host memory."""
     import repro_torch.launch.serve as serve
     from repro_torch.configs import AttnImpl
     from repro_torch.models import model_zoo as zoo
@@ -3301,9 +3323,12 @@ def tp_serve(torch, rank, cfg, dev, mesh, fk):
     step = serve.make_prefill_step(arch, _tp_prefill_shape(cfg, S),
                                    impl=AttnImpl.FLASH, device=dev, mesh=mesh)
     _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     n0 = fk.flash_attention_bhsd.launches
     (logits, cache), ms, tms, tbytes = _transport_ms(
         torch, dev, lambda: step(params, batch))
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     launches = fk.flash_attention_bhsd.launches - n0
     give_ups = fk.check_give_ups() if dev.type == "cuda" else 0
     cspecs = serve.session_cache_specs(arch, mesh, cfg["batch"])
@@ -3312,7 +3337,8 @@ def tp_serve(torch, rank, cfg, dev, mesh, fk):
     if rank != 0:
         del whole
     prefill_rank = {"ms": ms, "transport_ms": tms, "transport_bytes": tbytes,
-                    "flash_launches": launches, "give_ups": give_ups}
+                    "flash_launches": launches, "give_ups": give_ups,
+                    "peak_bytes": peak}
 
     # decode: the prefill cache in a rank's cache with room for the steps
     room = S + cfg["decode_steps"] + 8
@@ -3361,6 +3387,9 @@ def tp_serve(torch, rank, cfg, dev, mesh, fk):
         fk.check_give_ups()
     rel_logits = _rel(torch, logits, logits0)
     rel_cache = max(_rel(torch, whole[k], cache0[k]) for k in ("k", "v"))
+    if kept is not None:                # beside the seq_shard part's
+        kept.update({"logits": logits.float().cpu(), "k": whole["k"].cpu(),
+                     "v": whole["v"].cpu()})
     del whole
     assert rel_logits < PREFILL_REL_TOL, rel_logits
     assert rel_cache < PREFILL_REL_TOL, rel_cache
@@ -3378,6 +3407,8 @@ def tp_serve(torch, rank, cfg, dev, mesh, fk):
                "transport_ms": [r["prefill"]["transport_ms"] for r in ranks],
                "transport_bytes": [r["prefill"]["transport_bytes"]
                                    for r in ranks],
+               "peak_bytes_a_rank": [r["prefill"]["peak_bytes"]
+                                     for r in ranks],
                "unsharded_ms": ms0}
 
     # the unsharded decode step, fed the ranks' tokens
@@ -3668,16 +3699,18 @@ MOE_ARCH, MOE_LAYERS = "grok-1-314b", 2          # moe_prefill: 64 -> 2
 MOE_BLOCK_ARCH, MOE_BLOCK_LAYERS = "kimi-k2-1t-a32b", 1   # moe_block: 61 -> 1
 MOE_BLOCK_SEQ = 4096            # one prompt
 MOE_TRAIN_LAYERS = 1            # moe_train: grok-1, depth 64 -> 1
-MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 2, 2
+MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 2, 1   # steps 2 -> 1 for the time
 MOE_TRAIN_CFG = dict(lr=1e-4, warmup_steps=1, total_steps=10)
 VLM_ARCH = "phi-3-vision-4.2b"  # vlm: full depth (32 layers)
 VLM_TRAIN_LAYERS = 4            # its ZeRO-1 step: depth 32 -> 4
-VLM_TRAIN_STEPS = 2            # the second loss reads the first update
+VLM_TRAIN_STEPS = 1             # 2 -> 1 for the smoke's time (a second
+                                # loss read the first update)
 FAMILY_PARTS = ("moe_prefill", "moe_block", "moe_train", "vlm")
 WARM_SEQ = 1024                 # past the vlm's 576 patch positions
-TP_PARTS = DENSE_PARTS + FAMILY_PARTS
-#: the layer-stacked leaves the init leaves at zero (the norms' scales)
-ZERO_LEAVES = ("ln1", "ln2", "final_norm")
+TP_PARTS = DENSE_PARTS + FAMILY_PARTS + AUDIO_SEQ_PARTS
+#: the leaves the init leaves at zero (the norms' scales; whisper's
+#: cross-attention and encoder-output norms too)
+ZERO_LEAVES = ("ln1", "ln2", "final_norm", "ln_x", "enc_norm")
 #: the family parts' training check, leaf by leaf: ||ranks' params - the
 #: twin's|| <= TRAIN_MOVE_RATIO x ||the twin's params - the initial||.  A
 #: step left undone reads exactly 1 (the ranks' params are the initial
@@ -4481,17 +4514,286 @@ def family_give_ups(tp) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Phase tensor_parallel, the audio family and seq_shard (the first world)
+# ---------------------------------------------------------------------------
+
+AUDIO_ARCH = "whisper-tiny"     # audio: full width and depth (4 + 4 layers)
+AUDIO_SEQ = 384                 # audio: decoder tokens behind 1,500 frames
+AUDIO_TRAIN_STEPS = 2
+
+
+def tp_audio(torch, rank, cfg, dev, mesh, fk):
+    """Part ``audio``: whisper-tiny at full width and depth (6 heads, 3 a
+    rank; its 51,865-token vocabulary whole on every rank) on (data 2,
+    model 2): 4 prompts of ``audio_seq`` tokens behind 1,500 frames (2 a
+    data rank), FLASH, then ``decode_steps`` greedy steps, each against
+    the unsharded run on the card; then ``audio_train_steps`` ZeRO-1 AdamW
+    steps at seq ``audio_seq`` (f32 params and compute, remat "block")."""
+    import repro_torch.launch.serve as serve
+    from repro_torch.configs import (AttnImpl, ParallelConfig, ShapeConfig,
+                                     StepKind, TrainConfig, get_arch)
+    from repro_torch.launch import train
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.transformer import vocab_split
+    from repro_torch.parallel import sharding as sh
+    arch = _arch(cfg, AUDIO_ARCH)
+    B, S = cfg["batch"], cfg["audio_seq"]
+    layers = arch.encoder_layers + arch.num_layers
+    params = _family_params(torch, arch, mesh, dev, 30, torch.bfloat16)
+    batch, shape = _family_batch(torch, arch, B, S, dev, 504)
+    mine = sh.local(batch, mesh, sh.batch_specs(arch, shape, mesh,
+                                                ParallelConfig()))[0]
+    step = serve.make_prefill_step(arch, shape, impl=AttnImpl.FLASH,
+                                   device=dev, mesh=mesh)
+    step(params, mine)                  # warm: the same shape
+    _free(torch, dev)
+    n0 = fk.flash_attention_bhsd.launches
+    (logits, cache), ms, tms, tbytes = _transport_ms(
+        torch, dev, lambda: step(params, mine))
+    launches = fk.flash_attention_bhsd.launches - n0
+    give_ups = fk.check_give_ups() if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        assert launches == layers, (launches, layers)
+    assert give_ups == 0
+    cspecs = serve.session_cache_specs(arch, mesh, B)
+    whole = _whole(cache, mesh, cspecs)
+    if rank != 0:
+        del whole
+
+    # decode: the prefill cache in a rank's cache with room for the steps
+    room = S + cfg["decode_steps"] + 8
+    dcache = zoo.init_cache(arch, B, room, device=dev, mesh=mesh)
+    for k in ("self_k", "self_v"):
+        dcache[k][:, :, :S].copy_(cache[k])
+    for k in ("cross_k", "cross_v", "length"):
+        dcache[k].copy_(cache[k])
+    del cache
+    seen, decode_step = [], zoo.decode_step
+
+    def capture(*args, **kwargs):   # the logits each step takes its token from
+        out = decode_step(*args, **kwargs)
+        seen.append(out[0])
+        return out
+    zoo.decode_step = capture
+    # whisper-tiny's 51,865 logits are whole on every rank; a vocabulary
+    # that model divides (the CPU rehearsal's) is cut over it
+    vocab = "model" if vocab_split(arch, mesh) else None
+    dstep = serve.make_decode_step(arch, device=dev, mesh=mesh, batch=B)
+    first = torch.argmax(logits[:, -1, :], -1)[:, None].to(torch.int32)
+    token = sh.local({"t": first}, mesh, {"t": sh.P("data", None)})[0]["t"]
+    dms, dtms, toks, step_logits = [], [], [], []
+    try:
+        for _ in range(cfg["decode_steps"]):
+            (token, dcache), t, tt, _ = _transport_ms(
+                torch, dev, lambda: dstep(params, dcache, token))
+            dms.append(t)
+            dtms.append(tt)
+            toks.append(sh.unlocal(token, mesh, sh.P("data", None)))
+            step_logits.append(sh.unlocal(seen.pop()[:, -1].float(), mesh,
+                                          sh.P("data", vocab)))
+    finally:
+        zoo.decode_step = decode_step
+    mine_rec = {"ms": ms, "transport_ms": tms, "transport_bytes": tbytes,
+                "flash_launches": launches, "give_ups": give_ups,
+                "decode_ms": dms, "decode_transport_ms": dtms}
+    ranks = _gather_obj(mine_rec)
+    del params, dcache
+    _free(torch, dev)
+    _gather_obj(None)
+    serve_rec = None
+    if rank == 0:
+        full = _family_params(torch, arch, mesh, dev, 30, torch.bfloat16,
+                              whole=True)
+        plain = serve.make_prefill_step(arch, shape, impl=AttnImpl.FLASH,
+                                        device=dev)
+        plain(full, batch)
+        (logits0, cache0), ms0 = _rank_ms(torch, dev,
+                                          lambda: plain(full, batch))
+        if dev.type == "cuda":
+            fk.check_give_ups()
+        rel = _rel(torch, logits, logits0)
+        rel_cache = {k: _rel(torch, whole[k], cache0[k])
+                     for k in ("self_k", "self_v", "cross_k", "cross_v")}
+        assert int(whole["length"]) == int(cache0["length"]) == S
+        del whole
+        assert rel < PREFILL_REL_TOL, rel
+        assert max(rel_cache.values()) < PREFILL_REL_TOL, rel_cache
+        dc0 = zoo.init_cache(arch, B, room, device=dev)
+        for k in ("self_k", "self_v"):
+            dc0[k][:, :, :S].copy_(cache0[k])
+        for k in ("cross_k", "cross_v", "length"):
+            dc0[k].copy_(cache0[k])
+        del cache0
+        rels, differ, ms0s, token0 = [], 0, [], first
+        for i in range(cfg["decode_steps"]):
+            (lg0, dc0), t = _rank_ms(torch, dev, lambda: zoo.decode_step(
+                arch, full, dc0, token0))
+            ms0s.append(t)
+            lg0 = lg0[:, -1, :].float()
+            rels.append(_rel(torch, step_logits[i], lg0))
+            differ += int((torch.argmax(lg0, -1)[:, None].to(torch.int32)
+                           != toks[i]).sum())
+            token0 = toks[i]
+        del full, dc0
+        _free(torch, dev)
+        assert max(rels) < PREFILL_REL_TOL, rels
+        serve_rec = {
+            "batch": B, "seq": S, "frames": arch.num_patches,
+            "layers": {"encoder": arch.encoder_layers,
+                       "decoder": arch.num_layers},
+            "heads_a_rank": arch.num_heads // 2,
+            "vocabulary": ("cut over model" if vocab else
+                           f"whole on every rank ({arch.vocab_size} % 2 "
+                           "!= 0)"),
+            "impl": "flash", "rel_err_logits": rel,
+            "rel_err_cache": rel_cache, "tolerance": PREFILL_REL_TOL,
+            "flash_launches": [r["flash_launches"] for r in ranks],
+            "give_ups": [r["give_ups"] for r in ranks],
+            "ms": [r["ms"] for r in ranks],
+            "transport_ms": [r["transport_ms"] for r in ranks],
+            "transport_bytes": [r["transport_bytes"] for r in ranks],
+            "unsharded_ms": ms0,
+            "decode": {"steps": cfg["decode_steps"], "rel_err_logits": rels,
+                       "greedy_tokens_differing": differ,
+                       "greedy_tokens": B * cfg["decode_steps"],
+                       "ms": [r["decode_ms"] for r in ranks],
+                       "transport_ms": [r["decode_transport_ms"]
+                                        for r in ranks],
+                       "unsharded_ms": ms0s}}
+    _gather_obj(None)
+
+    tshape = ShapeConfig("audio_train", S, cfg["train_batch"],
+                         StepKind.TRAIN)
+    par = train.default_parallel(get_arch(AUDIO_ARCH), tshape)
+    dtype = train.param_dtype_for(get_arch(AUDIO_ARCH))
+    assert par.optimizer == "adamw" and par.zero1 and not par.fsdp
+    steps = cfg["audio_train_steps"]
+    trec = _family_train(torch, rank, cfg, dev, mesh, arch, tshape, par,
+                         TrainConfig(**TP_TRAIN_CFG), steps, 31, ("data",),
+                         dtype, compute_dtype=torch.float32)
+    if rank != 0:
+        return None
+    return {"arch": AUDIO_ARCH, "mesh": {"data": 2, "model": 2},
+            "prefill": serve_rec,
+            "train": {"seq": S, "frames": arch.num_patches,
+                      "global_batch": tshape.global_batch, "steps": steps,
+                      "zero1": par.zero1, "fsdp": par.fsdp,
+                      "remat": par.remat, "param_dtype": str(dtype),
+                      "compute_dtype": "float32", **trec}}
+
+
+def tp_seq_shard(torch, rank, cfg, dev, mesh, fk, prefill_rec=None,
+                 prefill_out=None):
+    """Part ``seq_shard``: internlm2-1.8b's prefill at full width and depth
+    on (data 2, model 2) under ``ParallelConfig(seq_shard=True)``: the
+    ``prefill`` part's 4 prompts of ``seq`` tokens, each rank holding
+    (2, seq / 2) of them, FLASH; against the unsharded prefill on the
+    card, and beside the ``prefill`` part's times and output (its last
+    logits and gathered K/V in rank 0's host memory) when that part ran
+    first in this world (``prefill_rec``, ``prefill_out``)."""
+    import repro_torch.launch.serve as serve
+    from repro_torch.configs import AttnImpl, ParallelConfig
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.parallel import sharding as sh
+    arch = _arch(cfg, TP_ARCH)
+    S = cfg["seq"]
+    par = ParallelConfig(seq_shard=True)
+    params = _tp_params(torch, arch, mesh, dev)
+    tokens = _tp_tokens(torch, arch, cfg, dev)
+    spec = {"tokens": sh.P("data", "model")}
+    batch = sh.local({"tokens": tokens}, mesh, spec)[0]
+    warm = serve.make_prefill_step(arch, _tp_prefill_shape(cfg, 256),
+                                   impl=AttnImpl.FLASH, device=dev,
+                                   mesh=mesh, parallel=par)
+    warm(params, sh.local({"tokens": tokens[:, :256].contiguous()}, mesh,
+                          spec)[0])
+    step = serve.make_prefill_step(arch, _tp_prefill_shape(cfg, S),
+                                   impl=AttnImpl.FLASH, device=dev,
+                                   mesh=mesh, parallel=par)
+    _free(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    n0 = fk.flash_attention_bhsd.launches
+    (logits, cache), ms, tms, tbytes = _transport_ms(
+        torch, dev, lambda: step(params, batch))
+    launches = fk.flash_attention_bhsd.launches - n0
+    give_ups = fk.check_give_ups() if dev.type == "cuda" else 0
+    if dev.type == "cuda":
+        assert launches == arch.num_layers, (launches, arch.num_layers)
+    assert give_ups == 0
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    cspecs = serve.session_cache_specs(arch, mesh, cfg["batch"])
+    whole = _whole(cache, mesh, cspecs)
+    ranks = _gather_obj({"ms": ms, "transport_ms": tms,
+                         "transport_bytes": tbytes,
+                         "flash_launches": launches, "give_ups": give_ups,
+                         "peak_bytes": peak,
+                         "rank_tokens": list(batch["tokens"].shape)})
+    del params, cache
+    if rank != 0:
+        del whole
+    _free(torch, dev)
+    _gather_obj(None)
+    if rank != 0:
+        return None
+    full = zoo.init_params(arch, seed=0, dtype=torch.bfloat16, device=dev)
+    plain = serve.make_prefill_step(arch, _tp_prefill_shape(cfg, S),
+                                    impl=AttnImpl.FLASH, device=dev)
+    plain(full, {"tokens": tokens[:, :256].contiguous()})
+    (logits0, cache0), ms0 = _rank_ms(torch, dev,
+                                      lambda: plain(full, {"tokens": tokens}))
+    if dev.type == "cuda":
+        fk.check_give_ups()
+    del full
+    rel = _rel(torch, logits, logits0)
+    rel_cache = {k: _rel(torch, whole[k], cache0[k]) for k in ("k", "v")}
+    assert int(whole["length"]) == int(cache0["length"]) == S
+    del cache0, logits0
+    assert rel < PREFILL_REL_TOL, rel
+    assert max(rel_cache.values()) < PREFILL_REL_TOL, rel_cache
+    beside = None
+    if prefill_out:
+        beside = {"max_abs_diff_logits": float(
+            (logits.float().cpu() - prefill_out["logits"]).abs().max())}
+        for k in ("k", "v"):
+            beside[f"max_abs_diff_{k}"] = float(
+                (whole[k].cpu().float() - prefill_out[k].float()).abs()
+                .max())
+        beside["rel_err_logits"] = _rel(torch, logits.float().cpu(),
+                                        prefill_out["logits"])
+    del whole
+    _free(torch, dev)
+    keys = ("ms", "transport_ms", "transport_bytes", "peak_bytes_a_rank")
+    return {"arch": TP_ARCH, "mesh": {"data": 2, "model": 2},
+            "batch": cfg["batch"], "seq": S, "layers": arch.num_layers,
+            "impl": "flash", "rank_tokens": ranks[0]["rank_tokens"],
+            "rel_err_logits": rel, "rel_err_cache": rel_cache,
+            "tolerance": PREFILL_REL_TOL,
+            "flash_launches": [r["flash_launches"] for r in ranks],
+            "give_ups": [r["give_ups"] for r in ranks],
+            **{k: [r[k] for r in ranks] for k in keys[:3]},
+            "peak_bytes_a_rank": [r["peak_bytes"] for r in ranks],
+            "unsharded_ms": ms0,
+            "prefill_part": ({k: prefill_rec[k] for k in keys}
+                             if prefill_rec else None),
+            "against_prefill_part": beside}
+
+
+# ---------------------------------------------------------------------------
 # Phase tensor_parallel, the hybrid and ssm families (a world of their own)
 # ---------------------------------------------------------------------------
 
-HYBRID_ARCH, HYBRID_LAYERS = "zamba2-7b", 13   # hybrid_prefill: 81 -> 13
+HYBRID_ARCH, HYBRID_LAYERS = "zamba2-7b", 7    # hybrid_prefill: 81 -> 7
+                                # (13 until PR 27: one group and a tail
+                                # still run every kernel)
 HYBRID_TRAIN_LAYERS = 7         # hybrid_train: 81 -> 7 (one group, a tail)
 SSM_ARCH = "xlstm-350m"         # full depth: 21 mLSTM and 3 sLSTM layers
 SSM_SEQ = 2048                  # ssm_prefill's prompts (PROMPTS)
-SSM_TRAIN_SEQ = 512             # ssm_train: three eager sLSTM loops a step
-                                # (74.8 s for the part at 1,024)
+SSM_TRAIN_SEQ = 256             # ssm_train: three eager sLSTM loops a step
+                                # (74.8 s for the part at 1,024; 512 until
+                                # the audio and seq_shard parts came)
 RECURRENT_TRAIN_BATCH = 2       # 1 a data rank
-RECURRENT_TRAIN_STEPS = 2
+RECURRENT_TRAIN_STEPS = 1       # 2 -> 1 for the smoke's time
 RECURRENT_PARTS = ("hybrid_prefill", "ssm_prefill", "hybrid_train",
                    "ssm_train")
 
@@ -4642,10 +4944,11 @@ def _recurrent_serve(torch, rank, cfg, dev, mesh, fk, arch, S, seed, pseed):
 
 
 def hybrid_prefill(torch, rank, cfg, dev, mesh, fk):
-    """Part ``hybrid_prefill``: zamba2-7b at full width, depth 81 -> 13 (2
-    groups of 6 Mamba-2 layers with the shared block, then a tail layer),
-    bf16, on (data 2, model 2): each rank's SSD on 56 of the 112 SSM heads
-    (13 calls) and flash on 16 of the 32 attention heads (2 launches), 4
+    """Part ``hybrid_prefill``: zamba2-7b at full width, depth 81 ->
+    ``hybrid_layers`` (7: a group of 6 Mamba-2 layers with the shared
+    block, then a tail layer), bf16, on (data 2, model 2): each rank's SSD
+    on 56 of the 112 SSM heads (a call a Mamba-2 layer) and flash on 16 of
+    the 32 attention heads (a launch a group), 4
     prompts of ``seq`` (2 a data rank), FLASH, then ``decode_steps``
     greedy steps (``_recurrent_serve``)."""
     arch = _arch(cfg, HYBRID_ARCH, num_layers=cfg["hybrid_layers"])
@@ -4784,10 +5087,12 @@ def tp_rank(rank, cfg):
     m4 = make_mesh_compat((1, 4), ("data", "model"))
     parts = cfg["parts"]
     out, seconds, memory = {}, {}, {}
+    # rank 0's host copy of the prefill part's output, for the seq_shard part
+    kept = {} if "seq_shard" in parts else None
     if "prefill" in parts:
         t0 = time.perf_counter()
         out["prefill"], out["decode"] = tp_serve(torch, rank, cfg, dev, dm,
-                                                 fk)
+                                                 fk, kept)
         _gather_obj(None)
         seconds["prefill"] = seconds["decode"] = time.perf_counter() - t0
     for part, fn in (("train_zero1", lambda: tp_train(torch, rank, cfg, dev,
@@ -4802,6 +5107,11 @@ def tp_rank(rank, cfg):
                      ("moe_train", lambda: moe_train(torch, rank, cfg, dev,
                                                      m4)),
                      ("vlm", lambda: vlm(torch, rank, cfg, dev, dm, fk)),
+                     ("audio", lambda: tp_audio(torch, rank, cfg, dev, dm,
+                                                fk)),
+                     ("seq_shard", lambda: tp_seq_shard(
+                         torch, rank, cfg, dev, dm, fk, out.get("prefill"),
+                         kept)),
                      ("hybrid_prefill", lambda: hybrid_prefill(
                          torch, rank, cfg, dev, dm, fk)),
                      ("ssm_prefill", lambda: ssm_prefill(torch, rank, cfg,
@@ -5076,6 +5386,10 @@ def main() -> int:
     flash_launches["tensor_parallel_families"] = family_flash_launches(tp)
     flash_launches["tensor_parallel_recurrent"] = rlaunch[
         "flash_attention_bhsd"]
+    flash_launches["tensor_parallel_audio"] = sum(
+        tp["audio"]["prefill"]["flash_launches"])
+    flash_launches["tensor_parallel_seq_shard"] = sum(
+        tp["seq_shard"]["flash_launches"])
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start,
           "mesh_s": mesh_wall, "tensor_parallel_s": tp_wall,
           "tensor_parallel_recurrent_s": rtp_wall})
@@ -5104,7 +5418,9 @@ def main() -> int:
         "launches": sum(flash_launches.values()),
         "launches_by_path": flash_launches,
         "give_ups": fk.check_give_ups() + sum(tp["prefill"]["give_ups"])
-        + family_give_ups(tp) + recurrent_give_ups(rtp),
+        + family_give_ups(tp) + recurrent_give_ups(rtp)
+        + sum(tp["audio"]["prefill"]["give_ups"])
+        + sum(tp["seq_shard"]["give_ups"]),
         "max_abs_err": max([max(fworst.values())] + [
             t["max_abs_err"] for t in flash_times.values()]),
         "ms": ft["ms"], "plain_ms": ft["plain_ms"],

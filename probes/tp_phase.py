@@ -3,6 +3,8 @@
 
     python3 probes/tp_phase.py                      # the first world's parts
     python3 probes/tp_phase.py moe_prefill vlm      # these parts only
+    python3 probes/tp_phase.py prefill audio seq_shard   # whisper-tiny and
+                                    # seq_shard beside the dense prefill
     python3 probes/tp_phase.py hybrid_prefill ssm_prefill hybrid_train \
         ssm_train                                   # the second world's
 

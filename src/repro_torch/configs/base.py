@@ -205,7 +205,7 @@ class ParallelConfig:
 
     fsdp: bool = False           # shard params over "data" (ZeRO-3 style)
     zero1: bool = True           # shard optimizer state over "data"
-    seq_shard: bool = False      # shard sequence dim over "data" (prefill SP)
+    seq_shard: bool = False      # shard sequence dim over "model" (prefill SP)
     remat: str = "none"          # none | block | full — activation checkpointing
     use_scan: bool = True        # scan over layers (keeps HLO small)
     optimizer: str = "adamw"     # adamw | adafactor

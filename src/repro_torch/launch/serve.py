@@ -45,21 +45,24 @@ over ``pod`` (pod i's backup holds pod i - 1's sessions, the reference's
 on the sequence over ``model`` (``attention.decode_self_attention_sharded``);
 its collectives cannot be captured, so that step runs eagerly.
 
-On a mesh whose ``data`` or ``model`` axis is larger than 1 (every family
-but audio; ``model_zoo.check_mesh`` refuses it) the steps are
-tensor-parallel: every rank holds its shards of the weights
-(``parallel.sharding.local`` of ``param_partition_specs``), its batch
-shard over ``data`` and its sessions' cache cut over ``model``
+On a mesh whose ``data`` or ``model`` axis is larger than 1 the steps of
+every family are tensor-parallel: every rank holds its shards of the
+weights (``parallel.sharding.local`` of ``param_partition_specs``), its
+batch shard over ``data`` and its sessions' cache cut over ``model``
 (``session_cache_specs``: KV heads, and zamba2's and xlstm's recurrent
 states by heads or d_inner columns, where the reference's
 ``cache_partition_specs`` picks a dim by size; gathered, the two are the
 same tensor).  Prefill runs each rank's
 heads through flash under FLASH and returns the last logits gathered to
-every rank; decode's greedy token is the argmax over the vocabulary
-shards, ties to the lowest global index as ``jnp.argmax`` breaks them
-(``greedy_sharded``), and, its collectives not being capturable, runs
-eagerly.  A moe model routes the global batch's tokens (capacity and
-dispatch order over every data rank's sessions: ``moe.moe_apply_tp``):
+every rank; with ``ParallelConfig(seq_shard=True)`` its tokens are the
+rank's slice of the sequence too (``forward_seq(seq_shard=True)``), with
+the same logits and cache.  Decode's greedy token is the argmax over the
+vocabulary shards, ties to the lowest global index as ``jnp.argmax``
+breaks them (``greedy_sharded``), or the plain argmax where ``model``
+does not divide the vocabulary (whisper's 51,865: every rank holds the
+whole logits); its collectives not being capturable, it runs eagerly.
+A moe model routes the global batch's tokens (capacity and dispatch
+order over every data rank's sessions: ``moe.moe_apply_tp``):
 its prefill in the form of ``moe_impl`` ("ep": the reference's data
 shards; its ``serve.py`` hands the mesh to the model under "ep" only), its
 decode in the global form, as the reference's decode.  With a ``pod`` axis
@@ -72,7 +75,8 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, AttnImpl, ShapeConfig
+from repro_torch.configs.base import (ArchConfig, AttnImpl, ParallelConfig,
+                                      ShapeConfig)
 from repro_torch.core.graphs import StepCache
 from repro_torch.core.tree import tree_map
 from repro_torch.device import check_on, resolve_device
@@ -111,7 +115,8 @@ def session_cache_specs(arch: ArchConfig, mesh, batch: int) -> dict:
     ``conv`` by d_inner and ``C``/``n``/``m`` by heads, its sLSTM ``c``,
     ``n``, ``m`` and ``h`` whole.  The reference's
     ``cache_partition_specs`` picks a dim by size; gathered, the two are
-    the same tensor."""
+    the same tensor.  whisper's ``self_k``/``self_v`` (L, B, S, KV, Dh)
+    and ``cross_k``/``cross_v`` (L, B, F, KV, Dh) by KV heads too."""
     from repro_torch.launch.mesh import axis_sizes
     from repro_torch.models.transformer import plan
     from repro_torch.parallel.sharding import P
@@ -143,13 +148,17 @@ def session_cache_specs(arch: ArchConfig, mesh, batch: int) -> dict:
                           "h": P(None, b, None, None)},
                 "length": P()}
     kv = P(None, b, None, m, None)
+    if p["kind"] == "whisper":
+        return {"self_k": kv, "self_v": kv, "cross_k": kv, "cross_v": kv,
+                "length": P()}
     return {"k": kv, "v": kv, "length": P()}
 
 
 def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
                       impl: AttnImpl = AttnImpl.REFERENCE, device=None,
                       compute_dtype=torch.bfloat16, mesh=None,
-                      moe_impl: str = "auto"
+                      moe_impl: Optional[str] = None,
+                      parallel: Optional[ParallelConfig] = None
                       ) -> Callable[[dict, dict], tuple]:
     """``prefill(params, batch) -> (logits (B, 1, V), cache)`` for one pod:
     ``batch["tokens"]`` is (B, shape.seq_len), and the batch goes to
@@ -157,22 +166,34 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
     whisper's ``frame_embeds``: ``model_zoo.example_batch`` makes them);
     the cache is ``forward_seq``'s, with ``length`` = ``shape.seq_len``.
 
-    With ``mesh`` (``data`` x ``model``; every family but audio): this
-    rank's parameter shards and its batch shard over
-    ``data`` (``sharding.batch_specs``: the vlm's ``patch_embeds`` too);
-    the logits come back whole on every rank (the reference's
-    ``out_shardings=None``), the cache as the rank's
-    (``session_cache_specs``).  ``moe_impl`` is the moe layers' form
-    (``ParallelConfig.moe_impl``)."""
+    With ``mesh`` (``data`` x ``model``): this rank's parameter shards and
+    its batch shard over ``data`` (``sharding.batch_specs``: the vlm's
+    ``patch_embeds`` and whisper's ``frame_embeds`` too); the logits come
+    back whole on every rank (the reference's ``out_shardings=None``), the
+    cache as the rank's (``session_cache_specs``).  ``parallel`` (the
+    reference's argument) gives ``seq_shard``: the tokens are then the
+    rank's (B / data, S / model) block, as ``batch_specs`` lays them, and
+    ``model`` must divide S (``ValueError``); logits and cache are those
+    without it.  ``moe_impl`` is the moe layers' form (None:
+    ``parallel.moe_impl``, "auto" without ``parallel``)."""
     dev = resolve_device(device)
+    parallel = parallel or ParallelConfig()
+    moe_impl = moe_impl or parallel.moe_impl
+    seq_shard = False
     if mesh is not None:
-        from repro_torch.configs.base import ParallelConfig
+        from repro_torch.launch.mesh import axis_sizes
+        from repro_torch.models.transformer import vocab_split
         from repro_torch.parallel.sharding import P, batch_specs, unlocal
-        zoo.check_mesh(arch, mesh, "make_prefill_step")
+        zoo.check_mesh(arch, mesh)
         if "pod" in mesh.mesh_dim_names:
             raise ValueError("make_prefill_step takes a (data, model) mesh")
-        bdim = batch_specs(arch, shape, mesh, ParallelConfig())["tokens"][0]
-        vocab = "model" if "model" in mesh.mesh_dim_names else None
+        model = axis_sizes(mesh).get("model", 1)
+        seq_shard = parallel.seq_shard and "model" in mesh.mesh_dim_names
+        if seq_shard and shape.seq_len % model:
+            raise ValueError(f"seq_shard: model = {model} does not divide "
+                             f"the prompt's {shape.seq_len} positions")
+        bdim = batch_specs(arch, shape, mesh, parallel)["tokens"][0]
+        vocab = "model" if vocab_split(arch, mesh) else None
         logits_spec = P(bdim, None, vocab)
     axes = (bdim,) if mesh is not None and bdim else ()
 
@@ -184,7 +205,8 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
                                            return_cache=True, mesh=mesh,
                                            moe_impl=moe_impl,
                                            compute_dtype=compute_dtype,
-                                           batch_axes=axes)
+                                           batch_axes=axes,
+                                           seq_shard=seq_shard)
         cache["length"] = torch.tensor(shape.seq_len, dtype=torch.int32,
                                        device=dev)
         # a copy, so the (B, S, V) logits are freed as the step returns
@@ -249,21 +271,24 @@ def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
     ``length`` 0-d) and token (B, 1); the step returns (B, 1).  With
     ``flash_decode`` too (no ``pod`` axis): the dense and moe caches are
     the rank's sequence shards, and the step runs eagerly.  On inner axes
-    (``data`` or ``model`` > 1; every family but audio): the rank's
-    parameter shards, its sessions' cache (``session_cache_specs``) and
-    their tokens; the step runs eagerly and
-    returns those sessions' greedy tokens (``greedy_sharded``).  ``batch``
+    (``data`` or ``model`` > 1): the rank's parameter shards, its
+    sessions' cache (``session_cache_specs``) and their tokens; the step
+    runs eagerly and returns those sessions' greedy tokens
+    (``greedy_sharded``, or the plain argmax of logits whole on every
+    rank where ``model`` does not divide the vocabulary).  ``batch``
     is the global session count, which ``session_cache_specs`` cuts over
     ``data`` when ``data`` divides it (None: it does); a moe model's
     decode routes those global sessions' tokens."""
     dev = resolve_device(device)
     if mesh is not None:
         fd = flash_decode and "pod" not in mesh.mesh_dim_names
-        inner = {} if fd else zoo.check_mesh(arch, mesh, "make_decode_step")
+        inner = {} if fd else zoo.check_mesh(arch, mesh)
         if inner:
+            from repro_torch.models.transformer import vocab_split
             data = inner.get("data", 1)
             axes = ("data",) if data > 1 and (batch is None or
                                               batch % data == 0) else ()
+            split = vocab_split(arch, mesh)
 
             def tp_step(params: dict, cache: Cache, token: torch.Tensor):
                 check_on(dev, params, "params")
@@ -274,7 +299,10 @@ def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
                                               compute_dtype=compute_dtype,
                                               batch_axes=axes)
                 cache["length"].copy_(new["length"])
-                return greedy_sharded(logits[:, -1, :], mesh), cache
+                if split:
+                    return greedy_sharded(logits[:, -1, :], mesh), cache
+                nxt = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+                return nxt.to(torch.int32), cache
             return tp_step
         if fd:
             def sharded(params: dict, cache: Cache, token: torch.Tensor):

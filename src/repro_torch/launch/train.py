@@ -28,11 +28,13 @@ of ONE pod's state, with no pod dim, laid out by the reference's specs
 (``state_specs``; ``parallel.sharding.local`` cuts them from a full
 state), and steps on its shard of the batch:
 
-* ``model`` > 1: tensor parallelism of the dense, vlm, moe, hybrid and
-  ssm families (Megatron column and row splits, vocab-parallel
-  embedding, head and loss, the vlm's patches gathered, a moe layer's
-  experts or expert columns with the global batch's dispatch and aux,
-  the Mamba-2 and mLSTM scans on the rank's heads; ``models``);
+* ``model`` > 1: tensor parallelism of every family (Megatron column
+  and row splits, vocab-parallel embedding, head and loss where
+  ``model`` divides the vocabulary, whole ones elsewhere, the vlm's
+  patches and whisper's frames gathered, a moe layer's experts or expert
+  columns with the global batch's dispatch and aux, the Mamba-2 and
+  mLSTM scans on the rank's heads, whisper's cross-attention on them;
+  ``models``);
 * ``data`` > 1: the batch over ``data`` and the loss's mean over the
   global batch; a gradient is summed over every batch axis its leaf is
   not sharded on;
@@ -51,9 +53,9 @@ state), and steps on its shard of the batch:
 The gradient norm counts each element once (``optim.adamw.global_norm``);
 the replicate step works shard by shard, the int8 scale being the whole
 leaf's.  Adafactor's factors keep the reference's layout (replicated; over
-``pod`` under PEER_FETCH), their means over whole leaves.  The audio
-family on inner axes, and ``seq_shard``, raise ``NotImplementedError``
-(``model_zoo.check_mesh``).
+``pod`` under PEER_FETCH), their means over whole leaves.  ``seq_shard``
+changes nothing in a train step (``sharding.batch_specs`` cuts only a
+prefill's sequence), as in the reference.
 Every step writes the state IN PLACE (the counterpart of the reference's
 ``donate_argnums=(0,)``) and returns the same tensors.  Gradients come
 from ``torch.autograd`` through ``AttnImpl.REFERENCE``, as in the
@@ -416,7 +418,7 @@ def make_train_step(arch: ArchConfig, shape: ShapeConfig, n_pods: int = 1,
 
     if mesh is not None:
         from repro_torch.launch.mesh import axis_sizes
-        zoo.check_mesh(arch, mesh, "make_train_step", parallel)
+        zoo.check_mesh(arch, mesh)
         policy = enoki.policy if axis_sizes(mesh).get("pod", 1) > 1 \
             else ReplicationPolicy.REPLICATED
         mesh_fn, specs = make_mesh_step_fn(arch, shape, parallel, cfg, impl,
@@ -478,7 +480,7 @@ def make_replicate_step(arch: ArchConfig, n_pods: int,
     if mesh is not None:
         from repro_torch.launch.mesh import axis_sizes
         from repro_torch.parallel import sharding as sh
-        zoo.check_mesh(arch, mesh, "make_replicate_step", parallel)
+        zoo.check_mesh(arch, mesh)
         pods = axis_sizes(mesh).get("pod", 1)
         if pods != n_pods:
             raise ValueError(f"{n_pods} pods on a mesh of {pods}")

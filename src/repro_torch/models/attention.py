@@ -23,8 +23,9 @@ Whisper's cross-attention (decoder queries against the encoder output's
 K/V, projected once at prefill) is ``blockwise_attention``, plain torch, as
 in the reference.
 
-Tensor parallelism (``mesh`` given to ``self_attention`` and
-``decode_self_attention``): ``wq``/``wk``/``wv`` hold the rank's columns,
+Tensor parallelism (``mesh`` given to ``self_attention``,
+``decode_self_attention``, ``cross_attention`` and ``project_cross_kv``):
+``wq``/``wk``/``wv`` hold the rank's columns,
 so its heads are read from the weights' widths (``_project_qkv``), never
 from ``arch``: ``H / model`` query and ``KV / model`` key/value heads,
 the grouping ``h // (H / KV)`` holding on each rank.  The input enters
@@ -218,8 +219,9 @@ def reference_attention(q, k, v, q_positions, kv_positions, causal=True,
 def self_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
                    arch: ArchConfig, causal: bool = True, window: int = 0,
                    impl: AttnImpl = AttnImpl.REFERENCE,
-                   mesh=None) -> torch.Tensor:
-    """With ``mesh``: the rank's heads (the module docstring)."""
+                   mesh=None, return_kv: bool = False):
+    """With ``mesh``: the rank's heads (the module docstring).  With
+    ``return_kv``: ``(out, (k, v))``, k after RoPE, for a prefill cache."""
     x = tp_in(x, mesh)
     q, k, v = _project_qkv(params, x, x, arch)
     if arch.rope_theta > 0:
@@ -235,7 +237,8 @@ def self_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
         out = blockwise_attention(q, k, v, positions, positions,
                                   causal=causal, window=window)
     B, S = x.shape[:2]
-    return tp_out(out.reshape(B, S, -1) @ params["wo"], mesh)
+    out = tp_out(out.reshape(B, S, -1) @ params["wo"], mesh)
+    return (out, (k, v)) if return_kv else out
 
 
 # ---------------------------------------------------------------------------
@@ -356,29 +359,35 @@ def decode_self_attention_sharded(params: dict, x1: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def cross_attention(params: dict, x: torch.Tensor, kv_cache_k: torch.Tensor,
-                    kv_cache_v: torch.Tensor, arch: ArchConfig) -> torch.Tensor:
+                    kv_cache_v: torch.Tensor, arch: ArchConfig,
+                    mesh=None) -> torch.Tensor:
     """Decoder->encoder cross-attention against precomputed K/V (whisper):
-    every query sees every encoder position."""
+    every query sees every encoder position.  With ``mesh``: the rank's
+    query heads against its KV heads' K/V, ``wo`` row-parallel (one
+    ``tp_out``)."""
     B, Sq = x.shape[:2]
     dh = arch.resolved_head_dim
-    q = (x @ params["wq"]).reshape(B, Sq, arch.num_heads, dh)
+    q = (tp_in(x, mesh) @ params["wq"]).reshape(B, Sq, -1, dh)
     if "bq" in params:
-        q = q + params["bq"].reshape(arch.num_heads, dh).to(q.dtype)
+        q = q + params["bq"].reshape(-1, dh).to(q.dtype)
     Skv = kv_cache_k.shape[1]
     pos_q = torch.zeros((B, Sq), dtype=torch.int32, device=x.device)
     pos_kv = torch.zeros((B, Skv), dtype=torch.int32, device=x.device)
     out = blockwise_attention(q, kv_cache_k, kv_cache_v, pos_q, pos_kv,
                               causal=False)
-    return out.reshape(B, Sq, -1) @ params["wo"]
+    return tp_out(out.reshape(B, Sq, -1) @ params["wo"], mesh)
 
 
-def project_cross_kv(params: dict, enc_out: torch.Tensor, arch: ArchConfig):
-    """K/V of the encoder output, computed once at prefill (whisper)."""
+def project_cross_kv(params: dict, enc_out: torch.Tensor, arch: ArchConfig,
+                     mesh=None):
+    """K/V of the encoder output, computed once at prefill (whisper); with
+    ``mesh`` the rank's KV heads."""
     B, S = enc_out.shape[:2]
     dh = arch.resolved_head_dim
-    k = (enc_out @ params["wk"]).reshape(B, S, arch.num_kv_heads, dh)
-    v = (enc_out @ params["wv"]).reshape(B, S, arch.num_kv_heads, dh)
+    enc_out = tp_in(enc_out, mesh)
+    k = (enc_out @ params["wk"]).reshape(B, S, -1, dh)
+    v = (enc_out @ params["wv"]).reshape(B, S, -1, dh)
     if "bk" in params:
-        k = k + params["bk"].reshape(arch.num_kv_heads, dh).to(k.dtype)
-        v = v + params["bv"].reshape(arch.num_kv_heads, dh).to(v.dtype)
+        k = k + params["bk"].reshape(-1, dh).to(k.dtype)
+        v = v + params["bv"].reshape(-1, dh).to(v.dtype)
     return k, v

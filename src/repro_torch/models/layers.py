@@ -12,6 +12,11 @@ rows; the input enters through ``vary`` (its cotangent summed over
 ``model``) and the output leaves through one ``psum`` over ``model``, the
 row-parallel bias added after it.  ``cross_entropy_loss`` then reads
 vocab-sharded logits and takes the masked mean over the global batch.
+
+A ``SeqSharded`` mesh (the prefill's ``seq_shard``) is Megatron's sequence
+parallelism: the residual stream between layers is the rank's slice of the
+sequence, a layer takes its input whole (``seq_gather`` after the norm)
+and ``tp_out`` reduce-scatters its row-parallel output back to the slice.
 """
 from __future__ import annotations
 
@@ -129,6 +134,46 @@ def _act(x: torch.Tensor, kind: Activation) -> torch.Tensor:
     return F.relu(x)
 
 
+class SeqSharded:
+    """A mesh whose ``model`` axis also cuts the residual stream's
+    sequence (dim 1) between layers: every attribute is the mesh's, and
+    ``seq_gather``, ``seq_part`` and ``tp_out`` read the cut."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __getattr__(self, name):
+        return getattr(self.mesh, name)
+
+
+def seq_sharded(mesh) -> bool:
+    return isinstance(mesh, SeqSharded)
+
+
+def unsharded(mesh):
+    """The mesh itself of a ``SeqSharded`` one (None stays None)."""
+    return mesh.mesh if seq_sharded(mesh) else mesh
+
+
+def seq_gather(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A layer's input (B, S, ...) whole: under ``SeqSharded`` the ranks'
+    slices gathered over ``model`` (its cotangent, the same on every rank,
+    sliced back); else ``x``."""
+    if not seq_sharded(mesh):
+        return x
+    from repro_torch.parallel.collectives import all_gather_dim
+    return all_gather_dim(x, mesh, "model", 1)
+
+
+def seq_part(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Under ``SeqSharded``, this rank's slice of a (B, S, ...) value the
+    same on every rank (no collective); else ``x``."""
+    if not seq_sharded(mesh):
+        return x
+    from repro_torch.parallel.collectives import shard
+    return shard(x, mesh, "model", 1)
+
+
 def tp_in(x: torch.Tensor, mesh) -> torch.Tensor:
     """A column-parallel layer's input, the same on every rank of
     ``model``: its cotangent is summed over ``model``."""
@@ -139,10 +184,13 @@ def tp_in(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def tp_out(y: torch.Tensor, mesh) -> torch.Tensor:
-    """A row-parallel layer's partial output summed over ``model``."""
+    """A row-parallel layer's partial output summed over ``model``; under
+    ``SeqSharded`` reduce-scattered to the rank's slice of the sequence."""
     if mesh is None:
         return y
-    from repro_torch.parallel.collectives import psum
+    from repro_torch.parallel.collectives import psum, psum_scatter
+    if seq_sharded(mesh):
+        return psum_scatter(y, mesh, "model", 1)
     return psum(y, mesh, "model")
 
 
@@ -189,11 +237,12 @@ def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
     """Normal(0, 1) * scale (default fan_in**-0.5), drawn in f32 from
     ``gen`` on the generator's device (on the meta device, which has no
     generator, ``gen`` only names the device: shapes, no numbers)."""
+    if gen.device.type == "meta":   # shapes only (a meta draw would load
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")  # dynamo)
     fan_in = shape[0] if len(shape) >= 2 else 1
     s = scale if scale is not None else fan_in ** -0.5
-    meta = gen.device.type == "meta"
-    w = torch.randn(tuple(shape), generator=None if meta else gen,
-                    dtype=torch.float32, device=gen.device)
+    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=gen.device)
     return (w * s).to(dtype)
 
 

@@ -16,10 +16,6 @@ from repro_torch.models import transformer
 from repro_torch.models.ssm import ssm_dims
 from repro_torch.models.xlstm import mlstm_dims
 
-#: where the family without tensor parallelism (audio) and ``seq_shard``
-#: wait for it
-INNER_AXES_ITEM = "queue 1 item 10d"
-
 init_params = transformer.init_params
 forward_seq = transformer.forward_seq
 decode_step = transformer.decode_step
@@ -35,27 +31,14 @@ def inner_axes(mesh) -> Dict[str, int]:
             if a != "pod" and n > 1}
 
 
-def check_mesh(arch: ArchConfig, mesh, what: str, parallel=None
-               ) -> Dict[str, int]:
-    """A step of ``arch`` on ``mesh``: the inner axes it shards over (the
-    families of ``transformer.TP_FAMILIES``, dense, vlm, moe, hybrid and
-    ssm, run them tensor-parallel).  Another family (audio) on inner axes,
-    and ``seq_shard``,
-    raise ``NotImplementedError`` naming the family and ROADMAP's item; a
+def check_mesh(arch: ArchConfig, mesh) -> Dict[str, int]:
+    """A step of ``arch`` on ``mesh``: the inner axes it shards over, which
+    every family runs tensor-parallel (``transformer.TP_FAMILIES``); a
     width that ``model`` does not divide raises ``ValueError``
     (``transformer.check_tp_split``)."""
     inner = inner_axes(mesh)
-    if not inner:
-        return inner
-    if arch.family not in transformer.TP_FAMILIES:
-        raise NotImplementedError(
-            arch.family, f"{what} over {inner}: tensor parallelism of the "
-            f"{arch.family} family waits for ROADMAP {INNER_AXES_ITEM}")
-    if parallel is not None and parallel.seq_shard:
-        raise NotImplementedError(
-            "seq_shard", f"{what}: sequence sharding over 'model' waits for "
-            f"ROADMAP {INNER_AXES_ITEM}")
-    transformer.check_tp_split(arch, inner.get("model", 1))
+    if inner:
+        transformer.check_tp_split(arch, inner.get("model", 1))
     return inner
 
 

@@ -21,28 +21,45 @@ Both modes of a block:
   decode(params, x1, cache, length)   -> y, cache     (one token; the cache
                                                        is written in place)
 
-Tensor parallelism (the dense, vlm, moe, hybrid and ssm families, a
-``mesh`` with a ``model`` axis; ``tp_mesh``):
+Tensor parallelism (every family, a ``mesh`` with a ``model`` axis;
+``tp_mesh``):
 each rank holds its shards of the parameters (``parallel.sharding.local``
 of the reference's specs): the column-parallel projections' columns, the
-row-parallel ones' rows, the embedding's vocabulary rows ``[lo, hi)`` and
-``lm_head``'s vocabulary columns.  The residual stream is the same on
-every rank of ``model`` (and the rank's batch shard over ``data``).
-``_embed`` looks up the tokens in ``[lo, hi)``, zeroes the rest and sums
-over ``model``; every attention and MLP sums its row-parallel output over
-``model`` (``attention``, ``layers``); ``_head`` gives the rank's
-vocabulary shard of the logits (gemma's tied ``embed.T`` too), which
-``lm_loss`` reads through the vocab-parallel cross-entropy.  The decode
-cache holds the rank's KV heads (``init_cache(mesh=)``).  The vlm's
-``patch_proj`` gives the rank's d / model columns of the patches, gathered
-over ``model`` before they join the text.  A moe layer holds its rank's
-experts or expert columns and runs ``moe.moe_apply_tp``, which keeps the
-global batch's capacity, dispatch order and aux.  zamba2's Mamba-2 layers
+row-parallel ones' rows, and, where ``model`` divides the vocabulary
+(``vocab_split``), the embedding's vocabulary rows ``[lo, hi)`` and
+``lm_head``'s vocabulary columns; elsewhere (whisper's 51,865) both whole
+on every rank, as the specs' divisibility guard leaves them.  The
+residual stream is the same on every rank of ``model`` (and the rank's
+batch shard over ``data``).  A split ``_embed`` looks up the tokens in
+``[lo, hi)``, zeroes the rest and sums over ``model``; every attention and
+MLP sums its row-parallel output over ``model`` (``attention``,
+``layers``); a split ``_head`` gives the rank's vocabulary shard of the
+logits (gemma's tied ``embed.T`` too), which ``lm_loss`` reads through the
+vocab-parallel cross-entropy; a whole one gives every rank the whole
+logits.  The decode cache holds the rank's KV heads
+(``init_cache(mesh=)``).  The vlm's ``patch_proj`` and whisper's
+``frame_proj`` give the rank's d / model columns, gathered over ``model``
+before the patches join the text or the frames enter the encoder;
+whisper's encoder and decoder layers are dense ones on the rank's heads,
+and its cross-attention reads the rank's KV heads of the encoder output.
+A moe layer holds its rank's experts or expert columns and runs
+``moe.moe_apply_tp``, which keeps the global batch's capacity, dispatch
+order and aux.  zamba2's Mamba-2 layers
 and xlstm's mLSTM layers run their scans on the rank's heads (``ssm``,
 ``xlstm``; ``tp_view`` cuts the per-head and per-column leaves the specs
 leave whole), xlstm's sLSTM recurrence runs whole on every rank, and
 zamba2's shared block is a dense layer on the rank's heads, its ring
 cache by KV heads.
+
+``forward_seq(seq_shard=True)`` (the prefill's ``ParallelConfig.seq_shard``)
+adds Megatron's sequence parallelism over ``model`` (``layers.SeqSharded``):
+the tokens are the rank's slice of the sequence, the residual stream
+between layers is that slice, each layer takes its normed input gathered
+whole and reduce-scatters its row-parallel output (``tp_out``); attention,
+the scans and the moe layer run on the rank's heads, experts or columns
+over the whole sequence at its global positions, the sLSTM and the
+patches whole on every rank, each rank keeping its slice.  whisper's
+encoder is not cut.
 
 The vlm and audio front ends are stubs, as in the reference: ``extra``
 carries ``patch_embeds`` (vlm: ``num_patches`` positions put in front of the
@@ -65,10 +82,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import (apply_rope, cross_entropy_loss,
-                                       dense_init, mlp_apply, mlp_init,
-                                       rmsnorm, sinusoidal_positions, tp_in,
-                                       tp_out)
+from repro_torch.models.layers import (SeqSharded, apply_rope,
+                                       cross_entropy_loss, dense_init,
+                                       mlp_apply, mlp_init, rmsnorm,
+                                       seq_gather, seq_part,
+                                       sinusoidal_positions, tp_in, tp_out,
+                                       unsharded)
 
 
 # ---------------------------------------------------------------------------
@@ -271,32 +290,44 @@ def init_params(arch: ArchConfig, seed: int = 0, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 def _dense_block_seq(lp, x, positions, arch, impl, window=0, causal=True,
-                     mesh=None):
-    """One dense layer; with ``mesh``, tensor-parallel over ``model``."""
-    x = x + attn.self_attention(lp["attn"], rmsnorm(x, lp["ln1"]), positions,
-                                arch, causal=causal, window=window, impl=impl,
-                                mesh=mesh)
-    x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]), arch.activation,
-                      mesh)
-    return x
+                     mesh=None, return_kv=False):
+    """One dense layer; with ``mesh``, tensor-parallel over ``model`` (a
+    ``SeqSharded`` one: ``x`` the rank's slice of the sequence, each
+    sublayer's normed input gathered whole).  With ``return_kv``: ``(x,
+    (k, v))``, the attention's K/V for a prefill cache."""
+    y = attn.self_attention(lp["attn"], seq_gather(rmsnorm(x, lp["ln1"]),
+                                                   mesh), positions, arch,
+                            causal=causal, window=window, impl=impl,
+                            mesh=mesh, return_kv=return_kv)
+    y, kv = y if return_kv else (y, None)
+    x = x + y
+    x = x + mlp_apply(lp["mlp"], seq_gather(rmsnorm(x, lp["ln2"]), mesh),
+                      arch.activation, mesh)
+    return (x, kv) if return_kv else x
 
 
 def _moe_block_seq(lp, x, positions, arch, impl, mesh=None,
-                   moe_impl="auto", batch_axes=()):
+                   moe_impl="auto", batch_axes=(), return_kv=False):
     """One moe layer; with ``mesh``, tensor-parallel over ``model``: the
     attention on the rank's heads, then ``moe_apply_tp`` in the form
     ``moe_impl`` and the mesh select (the reference's "ep" where the mesh
     takes it, E % model == 0 and the tokens split over ``data``, else its
-    fall-back, the global batch's dispatch)."""
-    x = x + attn.self_attention(lp["attn"], rmsnorm(x, lp["ln1"]), positions,
-                                arch, impl=impl, mesh=mesh)
-    xn = rmsnorm(x, lp["ln2"])
+    fall-back, the global batch's dispatch); under ``SeqSharded`` on the
+    whole sequence, each rank keeping its slice of the output.  Returns
+    ``(x, aux)``, or ``(x, aux, (k, v))`` with ``return_kv``."""
+    y = attn.self_attention(lp["attn"], seq_gather(rmsnorm(x, lp["ln1"]),
+                                                   mesh), positions, arch,
+                            impl=impl, mesh=mesh, return_kv=return_kv)
+    y, kv = y if return_kv else (y, None)
+    x = x + y
+    xn = seq_gather(rmsnorm(x, lp["ln2"]), mesh)
     if mesh is not None:
-        y, aux = moe_mod.moe_apply_tp(lp["moe"], xn, arch, mesh, batch_axes,
-                                      moe_impl)
+        y, aux = moe_mod.moe_apply_tp(lp["moe"], xn, arch, unsharded(mesh),
+                                      batch_axes, moe_impl)
+        y = seq_part(y, mesh)
     else:
         y, aux = moe_mod.moe_apply(lp["moe"], xn, arch)
-    return x + y, aux
+    return (x + y, aux, kv) if return_kv else (x + y, aux)
 
 
 def _unstack(tree, n: int) -> list:
@@ -364,17 +395,18 @@ _COL_BIASES = frozenset({"bq", "bk", "bv", "b_up"})
 
 def check_tp_split(arch: ArchConfig, model: int) -> None:
     """``ValueError`` unless ``model`` divides every width the family
-    splits: the vocabulary (the specs would replicate a leaf the model
-    code reads as the rank's shard); the query and key/value heads of
-    every family with attention (the reference would split a head and let
-    GSPMD reshard it); the dense MLP's hidden width (dense, vlm and
-    zamba2's shared block), the vlm's ``patch_proj`` columns (d_model),
-    and for the moe family d_expert wherever the specs cut it (the experts
-    when E % model != 0, a shared expert when the layer count is not a
-    multiple of ``model``: ``moe.expert_layout``); zamba2's SSM heads and
-    d_inner; xlstm's mLSTM heads and d_inner and its sLSTM feed-forward
-    width.  The same on every device."""
-    widths = {"vocabulary": arch.vocab_size}
+    splits: the query and key/value heads of every family with attention
+    (the reference would split a head and let GSPMD reshard it); the
+    dense MLP's hidden width (dense, vlm, whisper and zamba2's shared
+    block), the vlm's ``patch_proj`` and whisper's ``frame_proj`` columns
+    (d_model), and for the moe family d_expert wherever the specs cut it
+    (the experts when E % model != 0, a shared expert when the layer count
+    is not a multiple of ``model``: ``moe.expert_layout``); zamba2's SSM
+    heads and d_inner; xlstm's mLSTM heads and d_inner and its sLSTM
+    feed-forward width.  The vocabulary is not among them: where ``model``
+    does not divide it, the embedding and head stay whole
+    (``vocab_split``).  The same on every device."""
+    widths = {}
     if arch.family != "ssm":
         widths.update({"query heads": arch.num_heads,
                        "key/value heads": arch.num_kv_heads})
@@ -392,7 +424,7 @@ def check_tp_split(arch: ArchConfig, model: int) -> None:
     if arch.family == "hybrid":
         di, h, _ = ssm_mod.ssm_dims(arch)
         widths.update({"SSM heads": h, "SSM d_inner": di})
-    if arch.frontend_stub == "clip_patches":
+    if arch.frontend_stub in ("clip_patches", "audio_frames"):
         widths["d_model"] = arch.d_model
     bad = {k: v for k, v in widths.items() if v % model}
     if bad:
@@ -401,7 +433,7 @@ def check_tp_split(arch: ArchConfig, model: int) -> None:
 
 
 #: the families a ``model`` axis runs tensor-parallel
-TP_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm")
+TP_FAMILIES = ("dense", "vlm", "moe", "hybrid", "ssm", "audio")
 
 #: the Mamba-2 and mLSTM leaves the specs leave whole that ``tp_view``
 #: cuts to the rank's heads or d_inner columns: the Mamba-2 ones on their
@@ -423,6 +455,22 @@ def tp_mesh(arch: ArchConfig, mesh, flash_decode: bool = False):
     from repro_torch.parallel.collectives import axis_size
     check_tp_split(arch, axis_size(mesh, "model"))
     return mesh
+
+
+def vocab_split(arch: ArchConfig, mesh) -> bool:
+    """True when the tensor-parallel ``mesh`` (``tp_mesh``) cuts the
+    vocabulary over ``model``: ``model`` divides it, the divisibility
+    guard of the specs' ``embed`` and ``lm_head`` rules."""
+    if mesh is None:
+        return False
+    from repro_torch.launch.mesh import axis_sizes
+    sizes = axis_sizes(mesh)
+    return "model" in sizes and arch.vocab_size % sizes["model"] == 0
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    """The global positions 0..S-1 of every row (B, S) int32."""
+    return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
 def tp_view(params: dict, mesh, arch: ArchConfig) -> dict:
@@ -467,28 +515,46 @@ def tp_view(params: dict, mesh, arch: ArchConfig) -> dict:
 
 def _embed(arch: ArchConfig, params: dict, tokens: torch.Tensor,
            compute_dtype, mesh=None) -> torch.Tensor:
-    """The scaled embedding.  With ``mesh`` the rank holds vocabulary rows
-    ``[lo, lo + V / model)``: it looks up the tokens it owns, zeroes the
-    rest and sums over ``model`` (one rank adds each row: exact)."""
+    """The scaled embedding.  With a ``mesh`` that cuts the vocabulary
+    (``vocab_split``) the rank holds rows ``[lo, lo + V / model)``: it
+    looks up the tokens it owns, zeroes the rest and sums over ``model``
+    (one rank adds each row: exact), reduce-scattered to the rank's slice
+    under ``SeqSharded``; with a whole table every rank looks up every
+    token (its slice under ``SeqSharded``)."""
     table = params["embed"]
-    if mesh is None:
-        x = table[tokens.long()].to(compute_dtype)
+    if not vocab_split(arch, mesh):
+        x = seq_part(table[tokens.long()].to(compute_dtype), mesh)
     else:
-        from repro_torch.parallel.collectives import axis_index, psum
+        from repro_torch.parallel.collectives import axis_index
         at = tokens.long() - axis_index(mesh, "model") * table.shape[0]
         mine = (at >= 0) & (at < table.shape[0])
         x = table[torch.clamp(at, 0, table.shape[0] - 1)].to(compute_dtype)
-        x = psum(torch.where(mine[..., None], x, torch.zeros_like(x)), mesh,
-                 "model")
+        x = tp_out(torch.where(mine[..., None], x, torch.zeros_like(x)),
+                   mesh)
     return x * torch.tensor(arch.d_model ** 0.5, dtype=compute_dtype)
 
 
 def _head(arch: ArchConfig, params: dict, x: torch.Tensor,
           compute_dtype, mesh=None) -> torch.Tensor:
-    """Logits; with ``mesh`` the rank's vocabulary shard of them."""
-    x = tp_in(rmsnorm(x, params["final_norm"]), mesh)
+    """Logits; with a ``mesh`` that cuts the vocabulary the rank's shard
+    of them (its input through ``tp_in``), else the whole logits on every
+    rank (each rank's cotangent of ``x`` is then whole already)."""
+    x = rmsnorm(x, params["final_norm"])
+    if vocab_split(arch, mesh):
+        x = tp_in(x, mesh)
     head = params["embed"].T if arch.tie_embeddings else params["lm_head"]
     return x @ head.to(compute_dtype)
+
+
+def _last_position(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Under ``SeqSharded``: the sequence's last row (B, 1, d), which the
+    last rank of ``model`` holds, on every rank (a ``psum`` of it and the
+    others' zeros: exact)."""
+    from repro_torch.parallel.collectives import axis_index, axis_size, psum
+    x1 = x[:, -1:]
+    if axis_index(mesh, "model") != axis_size(mesh, "model") - 1:
+        x1 = torch.zeros_like(x1)
+    return psum(x1, mesh, "model")
 
 
 def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
@@ -498,7 +564,8 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
                 return_cache: bool = False,
                 mesh=None, moe_impl: str = "auto",
                 compute_dtype=torch.bfloat16,
-                batch_axes: Tuple[str, ...] = ()):
+                batch_axes: Tuple[str, ...] = (),
+                seq_shard: bool = False):
     """tokens (B, S) int -> (logits (B, S, V), aux f32, cache | None).
     Positions are 0..S-1 in every row.  ``impl`` picks the attention path
     and, in the Mamba-2 and mLSTM layers, the scan (FLASH: the kernels).
@@ -514,7 +581,11 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
     docstring): the logits are the rank's vocabulary shard and the cache
     holds its KV heads; ``tokens`` are the rank's chunk of the global batch
     over ``batch_axes``, which the moe layers' capacity, dispatch order and
-    aux read (``moe_apply_tp`` in the form ``moe_impl``).
+    aux read (``moe_apply_tp`` in the form ``moe_impl``).  With
+    ``seq_shard`` too (the module docstring), ``tokens`` (B, S / model)
+    are the rank's slice of the sequence, ``model`` must divide S, and the
+    logits are the last position's (B, 1, ·), on every rank; the cache is
+    the one without ``seq_shard``.
 
     The dense and moe caches hold the layer-stacked (L, B, S, KV, Dh)
     ``k`` and ``v``; whisper's the decoder's ``self_k``/``self_v`` (L, B,
@@ -529,43 +600,52 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
     parallelism each recurrent leaf holds the rank's columns or heads
     (``ssm``, ``xlstm``; the sLSTM state whole)."""
     p = plan(arch)
-    B, S = tokens.shape
     tp = tp_mesh(arch, mesh)
     if tp is not None:
         params = tp_view(params, tp, arch)
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device).expand(B, S)
-    x = _embed(arch, params, tokens, compute_dtype, tp)
+    # sp: the mesh of the layers' collectives, SeqSharded under seq_shard
+    sp = SeqSharded(tp) if seq_shard and tp is not None else tp
+    ids = _seq_ids(tokens, sp)
+    B, S = ids.shape
+    positions = _positions(B, S, tokens.device)
     if arch.frontend_stub == "clip_patches":
+        # the text follows the patches: position i >= P holds token i - P
+        P = arch.num_patches
+        x = _embed(arch, params, torch.cat([ids[:, :P], ids[:, :S - P]], 1),
+                   compute_dtype, sp)
         patches = tp_in(extra["patch_embeds"].to(compute_dtype), tp) @ \
             params["patch_proj"].to(compute_dtype)
         if tp is not None:          # the rank's d / model columns
             from repro_torch.parallel.collectives import all_gather_dim
             patches = all_gather_dim(patches, tp, "model", -1)
-        x = torch.cat([patches, x[:, :S - arch.num_patches]], dim=1)
+        patches = seq_part(torch.cat([patches, patches.new_zeros(
+            (B, S - P, arch.d_model))], 1), sp)
+        is_patch = seq_part(positions < P, sp)
+        x = torch.where(is_patch[..., None], patches, x)
+    else:
+        x = _embed(arch, params, ids, compute_dtype, sp)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
 
     if p["kind"] == "whisper":
         x, cache = _whisper_seq(arch, params, x, positions, extra, impl,
-                                remat, return_cache, compute_dtype)
+                                remat, return_cache, compute_dtype, sp)
     elif p["kind"] == "dense":
         def body(x, lp):
-            lp = _cast(lp, compute_dtype)
-            y = _dense_block_seq(lp, x, positions, arch, impl, mesh=tp)
-            return y, (_layer_kv(lp, x, positions, arch) if return_cache
-                       else None)
+            out = _dense_block_seq(_cast(lp, compute_dtype), x, positions,
+                                   arch, impl, mesh=sp,
+                                   return_kv=return_cache)
+            return out if return_cache else (out, None)
 
         x, kv = _scan(_remat(body, remat), x, params["blocks"], p["layers"])
         if return_cache:
             cache = {"k": kv[0], "v": kv[1]}
     elif p["kind"] == "moe":
         def body(x, lp):
-            lp = _cast(lp, compute_dtype)
-            y, aux = _moe_block_seq(lp, x, positions, arch, impl, tp,
-                                    moe_impl, batch_axes)
-            return y, ((aux, _layer_kv(lp, x, positions, arch))
-                       if return_cache else aux)
+            out = _moe_block_seq(_cast(lp, compute_dtype), x, positions, arch,
+                                 impl, sp, moe_impl, batch_axes,
+                                 return_kv=return_cache)
+            return out[0], out[1:] if return_cache else out[1]
 
         x, out = _scan(_remat(body, remat), x, params["blocks"], p["layers"])
         auxs = out[0] if return_cache else out
@@ -574,9 +654,10 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
             cache = {"k": out[1][0], "v": out[1][1]}
     elif p["kind"] == "xlstm":
         def mbody(x, lp):
-            y = xlstm_mod.mlstm_seq(lp["cell"], rmsnorm(x, lp["ln"]), arch,
-                                    return_state=return_cache, impl=impl,
-                                    mesh=tp)
+            y = xlstm_mod.mlstm_seq(lp["cell"],
+                                    seq_gather(rmsnorm(x, lp["ln"]), sp),
+                                    arch, return_state=return_cache,
+                                    impl=impl, mesh=sp)
             if return_cache:
                 y, mc = y
                 return x + y, mc
@@ -586,9 +667,10 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
             gp = _cast(gp, compute_dtype)
             x, mcs = _scan(_remat(mbody, remat), x, gp["mlstm"],
                            p["mlstm_per"])
-            sp = gp["slstm"]
-            y = xlstm_mod.slstm_seq(sp["cell"], rmsnorm(x, sp["ln"]), arch,
-                                    return_state=return_cache, mesh=tp)
+            sl = gp["slstm"]
+            y = xlstm_mod.slstm_seq(sl["cell"],
+                                    seq_gather(rmsnorm(x, sl["ln"]), sp),
+                                    arch, return_state=return_cache, mesh=sp)
             if return_cache:
                 y, sc = y
                 return x + y, (mcs, sc)
@@ -602,9 +684,10 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
         win = arch.sliding_window if 0 < arch.sliding_window < S else S
 
         def mamba_body(x, lp):
-            y = ssm_mod.mamba2_seq(lp["mamba"], rmsnorm(x, lp["ln"]), arch,
-                                   return_state=return_cache, impl=impl,
-                                   mesh=tp)
+            y = ssm_mod.mamba2_seq(lp["mamba"],
+                                   seq_gather(rmsnorm(x, lp["ln"]), sp),
+                                   arch, return_state=return_cache,
+                                   impl=impl, mesh=sp)
             if return_cache:
                 y, mc = y
                 return x + y, mc
@@ -613,12 +696,12 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
         def group(x, gp):
             gp = _cast(gp, compute_dtype)
             x, mcs = _scan(_remat(mamba_body, remat), x, gp, p["mamba_per"])
-            x_pre = x
             x = _dense_block_seq(shared, x, positions, arch, impl,
-                                 window=arch.sliding_window, mesh=tp)
+                                 window=arch.sliding_window, mesh=sp,
+                                 return_kv=return_cache)
             if not return_cache:
                 return x, None
-            k, v = _layer_kv(shared, x_pre, positions, arch)
+            x, (k, v) = x
             # ring layout: position p -> slot p % win; the last `win`
             # positions land on slots (S-win+i) % win == i when win | S
             return x, (mcs, k[:, -win:].clone(), v[:, -win:].clone())
@@ -636,81 +719,76 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
                 p["tail"])
             if return_cache:
                 cache["tail"] = tcs
+    if sp is not tp:
+        x = _last_position(x, tp)
     logits = _head(arch, params, x, compute_dtype, tp)
     return logits, aux_total, cache
 
 
-def _layer_kv(lp, x_in, positions, arch):
-    """Recompute this layer's K/V for the prefill cache (cheap vs attention);
-    the KV heads are the weights' (a rank's under tensor parallelism)."""
-    xn = rmsnorm(x_in, lp["ln1"])
-    dh = arch.resolved_head_dim
-    B, S = xn.shape[:2]
-    k = (xn @ lp["attn"]["wk"]).reshape(B, S, -1, dh)
-    v = (xn @ lp["attn"]["wv"]).reshape(B, S, -1, dh)
-    if "bk" in lp["attn"]:
-        k = k + lp["attn"]["bk"].reshape(-1, dh).to(k.dtype)
-        v = v + lp["attn"]["bv"].reshape(-1, dh).to(v.dtype)
-    if arch.rope_theta > 0:
-        k = attn.apply_rope(k, positions, arch.rope_theta)
-    return k, v
+def _seq_ids(tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """The token ids (B, S) whole: under ``SeqSharded`` the ranks' slices
+    gathered over ``model``."""
+    if not isinstance(mesh, SeqSharded):
+        return tokens
+    from repro_torch.parallel.collectives import _cat_gather
+    return _cat_gather(tokens, mesh, "model", 1)
 
 
 def _whisper_seq(arch, params, x, positions, extra, impl, remat,
-                 return_cache, compute_dtype):
+                 return_cache, compute_dtype, mesh=None):
     """Encoder over the frame embeddings (non-causal), decoder over the
     tokens (x: their embedding): self-attention, cross-attention against
-    the encoder output, MLP.  Returns (x, cache | None)."""
+    the encoder output, MLP.  Returns (x, cache | None).  With ``mesh``:
+    the rank's heads and columns (``frame_proj``'s gathered); under
+    ``SeqSharded`` the decoder's residual is the rank's slice of the
+    tokens, the encoder whole on every rank."""
     p = plan(arch)
     dev = x.device
-    frames = extra["frame_embeds"].to(compute_dtype) @ \
+    tp = unsharded(mesh)
+    frames = tp_in(extra["frame_embeds"].to(compute_dtype), tp) @ \
         params["frame_proj"].to(compute_dtype)
+    if tp is not None:              # the rank's d / model columns
+        from repro_torch.parallel.collectives import all_gather_dim
+        frames = all_gather_dim(frames, tp, "model", -1)
     B, F = frames.shape[:2]
     frames = frames + sinusoidal_positions(F, arch.d_model,
                                            device=dev).to(compute_dtype)
-    enc_pos = torch.arange(F, dtype=torch.int32, device=dev).expand(B, F)
+    enc_pos = _positions(B, F, dev)
 
     def enc_body(h, lp):
         lp = _cast(lp, compute_dtype)
-        return _dense_block_seq(lp, h, enc_pos, arch, impl,
-                                causal=False), None
+        return _dense_block_seq(lp, h, enc_pos, arch, impl, causal=False,
+                                mesh=tp), None
 
     frames, _ = _scan(_remat(enc_body, remat), frames, params["enc_blocks"],
                       p["enc"])
     enc = rmsnorm(frames, params["enc_norm"])
 
-    S = x.shape[1]
-    x = x + sinusoidal_positions(S, arch.d_model,
-                                 device=dev).to(compute_dtype)
+    S = positions.shape[1]
+    x = x + seq_part(sinusoidal_positions(S, arch.d_model, device=dev).to(
+        compute_dtype)[None], mesh)
 
     def dec_body(h, lp):
         lp = _cast(lp, compute_dtype)
-        h_pre = h
-        h = h + attn.self_attention(lp["self_attn"], rmsnorm(h, lp["ln1"]),
-                                    positions, arch, causal=True, impl=impl)
-        ck, cv = attn.project_cross_kv(lp["cross_attn"], enc, arch)
-        h = h + attn.cross_attention(lp["cross_attn"], rmsnorm(h, lp["ln_x"]),
-                                     ck, cv, arch)
-        h = h + mlp_apply(lp["mlp"], rmsnorm(h, lp["ln2"]), arch.activation)
-        return h, ((_layer_kv_whisper(lp, h_pre, arch), (ck, cv))
-                   if return_cache else None)
+        y = attn.self_attention(lp["self_attn"],
+                                seq_gather(rmsnorm(h, lp["ln1"]), mesh),
+                                positions, arch, causal=True, impl=impl,
+                                mesh=mesh, return_kv=return_cache)
+        y, skv = y if return_cache else (y, None)
+        h = h + y
+        ck, cv = attn.project_cross_kv(lp["cross_attn"], enc, arch, tp)
+        h = h + attn.cross_attention(lp["cross_attn"],
+                                     seq_gather(rmsnorm(h, lp["ln_x"]), mesh),
+                                     ck, cv, arch, mesh)
+        h = h + mlp_apply(lp["mlp"], seq_gather(rmsnorm(h, lp["ln2"]), mesh),
+                          arch.activation, mesh)
+        return h, ((skv, (ck, cv)) if return_cache else None)
 
     x, kv = _scan(_remat(dec_body, remat), x, params["dec_blocks"], p["dec"])
     if not return_cache:
         return x, None
     (sk, sv), (ck, cv) = kv
     return x, {"self_k": sk, "self_v": sv, "cross_k": ck, "cross_v": cv}
-
-
-def _layer_kv_whisper(lp, x_in, arch):
-    """This decoder layer's self-attention K/V for the prefill cache (no
-    RoPE: whisper's positions are added to the embeddings)."""
-    xn = rmsnorm(x_in, lp["ln1"])
-    dh = arch.resolved_head_dim
-    B, S = xn.shape[:2]
-    k = (xn @ lp["self_attn"]["wk"]).reshape(B, S, arch.num_kv_heads, dh)
-    v = (xn @ lp["self_attn"]["wv"]).reshape(B, S, arch.num_kv_heads, dh)
-    return k, v
 
 
 # ---------------------------------------------------------------------------
@@ -852,14 +930,14 @@ def decode_step(arch: ArchConfig, params: dict, cache: dict,
             lp = _cast(_layer(params["dec_blocks"], i), compute_dtype)
             y, _, _ = attn.decode_self_attention(
                 lp["self_attn"], rmsnorm(x, lp["ln1"]), cache["self_k"][i],
-                cache["self_v"][i], length, arch)
+                cache["self_v"][i], length, arch, mesh=tp)
             x = x + y
             x = x + attn.cross_attention(lp["cross_attn"],
                                          rmsnorm(x, lp["ln_x"]),
                                          cache["cross_k"][i],
-                                         cache["cross_v"][i], arch)
+                                         cache["cross_v"][i], arch, tp)
             x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]),
-                              arch.activation)
+                              arch.activation, tp)
     elif p["kind"] == "xlstm":
         for g in range(p["groups"]):
             gp = _cast(_layer(params["blocks"], g), compute_dtype)
@@ -949,7 +1027,7 @@ def lm_loss(arch: ArchConfig, params: dict, batch: dict,
     Training differentiates it under ``AttnImpl.REFERENCE``: the kernels
     have no backward and refuse to run under autograd (FLASH raises).
     With a ``mesh``: the model tensor-parallel (``tp_mesh``; vocab-parallel
-    cross-entropy over ``model``),
+    cross-entropy over ``model`` where it cuts the vocabulary),
     and ``batch`` the rank's shard over ``batch_axes``, the mean taken
     over the global batch and the moe aux the global batch's; the loss is
     then the same on every rank."""
@@ -961,7 +1039,8 @@ def lm_loss(arch: ArchConfig, params: dict, batch: dict,
     tp = tp_mesh(arch, mesh)
     loss = cross_entropy_loss(logits, batch["labels"], batch.get("loss_mask"),
                               mesh=mesh,
-                              vocab_axis="model" if tp is not None else None,
+                              vocab_axis="model" if vocab_split(arch, tp)
+                              else None,
                               batch_axes=batch_axes if mesh is not None
                               else ())
     return loss + aux, {"ce": loss, "aux": aux}

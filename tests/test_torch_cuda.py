@@ -1546,3 +1546,32 @@ def test_tensor_parallel_recurrent_prefill_on_the_card(card, family,
         assert out[f"{family}/give_ups"] == 0
         assert out[f"{family}/prefill_rel"] < rranks.CARD_TOL
         assert out[f"{family}/cache_rel"] < rranks.CARD_TOL
+
+
+@pytest.fixture(scope="module")
+def tp_audio_card_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the ranks share it")
+    import torch_tp_audio_ranks as aranks
+    from repro_torch.launch.mesh import spawn_world
+    store = tmp_path_factory.mktemp("tp_audio_card_world") / "store"
+    return spawn_world(aranks.card_audio_forms, 2, f"file://{store}",
+                       device="cuda", timeout_s=600)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["audio", "seq_shard"])
+def test_tensor_parallel_audio_and_seq_shard_on_the_card(card, case,
+                                                         tp_audio_card_world):
+    """At full width, bf16, FLASH on (data 1, model 2): whisper-tiny (each
+    rank's flash on 3 of the 6 heads, once an encoder and once a decoder
+    layer; the vocabulary whole on every rank) and internlm2-1.8b at 4
+    layers under ``seq_shard`` (each rank's flash on its heads over the
+    gathered sequence, once a layer): no give-up, the gathered logits and
+    every cache leaf within 5e-2 of the unsharded prefill on the card."""
+    import torch_tp_audio_ranks as aranks
+    for out in tp_audio_card_world:
+        assert out[f"{case}/flash_launches"] == out[f"{case}/layers"]
+        assert out[f"{case}/give_ups"] == 0
+        assert out[f"{case}/prefill_rel"] < aranks.CARD_TOL
+        assert out[f"{case}/cache_rel"] < aranks.CARD_TOL

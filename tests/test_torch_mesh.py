@@ -724,8 +724,8 @@ class _DataModel:
     mesh_dim_names = ("data", "model")
 
 
-#: case -> (arch id, ParallelConfig changes); dense, moe, vlm, hybrid,
-#: ssm and adafactor build, the rest raise
+#: case -> (arch id, ParallelConfig changes): every family, ``seq_shard``
+#: and Adafactor build
 INNER_CASES = {"dense": ("internlm2-1.8b", {}),
                "moe": ("kimi-k2-1t-a32b", {}),
                "vlm": ("phi-3-vision-4.2b", {}),
@@ -740,12 +740,13 @@ INNER_ARCH_CHANGES = {"moe": {"num_kv_heads": 2}}
 
 
 @pytest.mark.parametrize("case", sorted(INNER_CASES))
-def test_inner_axes_raise_not_implemented(case):
-    """On a mesh whose ``data``/``model`` axes are > 1 the dense, moe,
-    vlm, hybrid and ssm families' factories build their tensor-parallel
-    steps, Adafactor's too; the audio family and ``seq_shard=True`` raise
-    ``NotImplementedError`` naming ROADMAP's queue 1 item 10d (and the
-    family or the option)."""
+def test_inner_axes_build_every_family(case):
+    """On a mesh whose ``data``/``model`` axes are > 1 every family's
+    factories build their tensor-parallel steps, Adafactor's too, and
+    ``seq_shard=True``: its prefill (``make_prefill_step(parallel=)``), and
+    a train step whose specs and batch axes are those without it, leaf by
+    leaf (the flag cuts only a prefill's sequence;
+    ``tests/test_torch_seq_shard.py`` steps both on ranks)."""
     arch_id, changes = INNER_CASES[case]
     arch = dataclasses.replace(tc.reduced(tc.get_arch(arch_id)),
                                **INNER_ARCH_CHANGES.get(case, {}))
@@ -754,7 +755,10 @@ def test_inner_axes_raise_not_implemented(case):
     par = tc.ParallelConfig(**changes)
     calls = [lambda: train.make_train_step(arch, shape, parallel=par,
                                            device="cpu", mesh=_Inner)]
-    if case not in ("seq_shard", "adafactor"):
+    if case == "seq_shard":
+        calls.append(lambda: serve.make_prefill_step(
+            arch, pshape, device="cpu", mesh=_DataModel, parallel=par))
+    elif case != "adafactor":
         calls += [
             lambda: train.make_replicate_step(arch, 2, par, tc.EnokiConfig(),
                                               device="cpu", mesh=_Inner),
@@ -762,15 +766,22 @@ def test_inner_axes_raise_not_implemented(case):
             lambda: serve.make_prefill_step(arch, pshape, device="cpu",
                                             mesh=_DataModel)]
     for call in calls:
-        if case in ("dense", "moe", "vlm", "hybrid", "ssm", "adafactor"):
-            got = call()
-            assert callable(got[0] if isinstance(got, tuple) else got)
-            continue
-        with pytest.raises(NotImplementedError, match="queue 1 item 10d") \
-                as info:
-            call()
-        assert info.value.args[0] == (arch.family if case == "audio"
-                                      else case)
+        got = call()
+        assert callable(got[0] if isinstance(got, tuple) else got)
+    if case == "seq_shard":
+        on, _ = calls[0]()
+        off, _ = train.make_train_step(
+            arch, shape, parallel=dataclasses.replace(par, seq_shard=False),
+            device="cpu", mesh=_Inner)
+        assert on.batch_axes == off.batch_axes
+        assert _spec_paths(on.specs) == _spec_paths(off.specs)
+
+
+def _spec_paths(tree, path=""):
+    if isinstance(tree, dict):
+        return {k: v for key in sorted(tree)
+                for k, v in _spec_paths(tree[key], f"{path}/{key}").items()}
+    return {path: tuple(tree)}
 
 
 def test_world_needs_the_card_unless_told_and_mesh_needs_a_world(monkeypatch):
