@@ -10,7 +10,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    (one ``nvcc`` per source, all started together); then the registers,
    static shared memory and spills that ``-Xptxas=-v`` reported for the
    wgmma flash kernel (by head dim, D=256 included), the three SSD
-   kernels, the two mLSTM kernels and the merge kernel;
+   kernels, the two mLSTM kernels and the merge kernel.  The dry-run's
+   three children (phase 9c) start before the build, and the sweeps of
+   phases 2, 5, 6 and 7 run right after it, before anything is timed:
+   the children run beside untimed work only;
 2. the merge kernel against its plain version on the card — ``enoki_merge_rows``
    (snapshot pointers by value, a row's chunk blocks one cluster) bit-exact
    over a sweep of shapes, payload dtypes (f32, bf16, int32, uint8) and
@@ -112,7 +115,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    grok-1: 2 x 4; phi-3-vision: 2 x 32; whisper: 2 x (4 encoder + 4
    decoder) attention launches), the FLASH prefill's logits agree with the
    REFERENCE path's (rel < 5e-2; grok-1's on the tokens whose routes agree
-   on both paths, the differing routes counted), 60 greedy decode
+   on both paths, the differing routes counted), 28 greedy decode
    steps (zamba2's wrap its 4,096-slot ring) with ``replicate_sessions``
    every R=8 and every leaf of each backup equal to its peer's live state,
    pod 0 fails and ``migrate_sessions`` restores it with staleness 4 <= R, 4
@@ -141,11 +144,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    the card and on the CPU from the same state and batch: loss, grad norm
    and every gradient leaf within 1e-4, params within 2 x lr (elements
    beyond 1e-6 counted); ``replicated``: REPLICATED, 2 pods stacked,
-   depth 24 -> 4, seq 4,096, batch 1 a pod, an anti-entropy round every 2
+   depth 24 -> 2, seq 4,096, batch 1 a pod, an anti-entropy round every 2
    of 4 steps, int8 compression off and on: pods differ before each round
    and are bit-identical after it, the outer round 2, ms a step and a
    round (CUDA events), payload bytes a round; ``xlstm_grads``: xlstm-350m
-   at full width and depth, seq 2,048, one loss and backward: every
+   at full width and depth, seq 1,024, one loss and backward: every
    gradient finite, the sLSTM weights' non-zero, ``SLSTM_STEPS`` neither
    capturing nor replaying; ``flash_refuses``: the three model kernels and
    ``lm_loss(impl=FLASH)`` raise under autograd;
@@ -167,25 +170,27 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    arena a rank, "full" and "ring": every rank byte-identical to its pod
    of the stacked step on the card, P - 1 and 1 merge launches a rank,
    ms a round and its transport), ``remesh`` (internlm2-1.8b's bf16
-   params placed by ``param_partition_specs`` on (pod 2, model 2), a pod
+   params at depth 24 -> 8 placed by ``param_partition_specs`` on (pod 2, model 2), a pod
    lost, every leaf re-meshed onto the survivors bit-identical),
    ``train_pods`` (REPLICATED, one pod a rank on 2 ranks, ``train.
    replicated``'s settings, int8 off: pods differ before each round,
    bit-identical after it, and equal to the stacked run's bit for bit)
-   and ``sessions_pods`` (internlm2-1.8b, 2 ranks x 4 sessions, 8 decode
-   steps, replicate, pod 0 dead, migrate: equal to the stacked run);
+   and ``sessions_pods`` (internlm2-1.8b at depth 24 -> 8, 2 ranks x 4
+   sessions, 4 decode steps, replicate, pod 0 dead, migrate: equal to the
+   stacked run);
 11. tensor parallelism, phase ``tensor_parallel``:
    another world of 4 ranks on the card (gloo, staged through host
    memory, as in phase 10), one JSON line a part, each rank's ms beside
    its transport's and the unsharded twin's on the same card: ``prefill``
-   (internlm2-1.8b at full width and depth, bf16, FLASH, (data 2, model
-   2), 4 prompts of 4,096 tokens, 2 a data rank: each rank runs the flash
-   kernel on its 8 query and 4 KV heads, 24 launches a rank, give-ups 0;
+   (internlm2-1.8b at full width, depth 24 -> 8, bf16, FLASH, (data 2,
+   model 2), 4 prompts of 4,096 tokens, 2 a data rank: each rank runs the
+   flash kernel on its 8 query and 4 KV heads, 8 launches a rank,
+   give-ups 0;
    the gathered last logits and caches within 5e-2 of rank 0's unsharded
-   FLASH prefill), ``decode`` (8 greedy steps from that cache: each
+   FLASH prefill), ``decode`` (4 greedy steps from that cache: each
    step's logits within 5e-2 of the unsharded step fed the same tokens,
    the greedy tokens that differ counted), ``train_zero1`` and
-   ``train_fsdp`` (internlm2-1.8b at full width, depth 24 -> 4, seq
+   ``train_fsdp`` (internlm2-1.8b at full width, depth 24 -> 2, seq
    4,096, a batch of 2, AdamW, remat "block", a step with ZeRO-1, then
    with FSDP: loss and grad norm within 1e-3 of the unsharded step's,
    params within 2 x lr x steps) and ``pods`` ((pod 2, model 2):
@@ -196,7 +201,7 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    families, every rank's weights drawn block by block from seeds so no
    rank holds the whole model (``_family_params``): ``moe_prefill``
    (grok-1 at full width, depth 64 -> 2, (data 2, model 2), 4 prompts of
-   4,096, FLASH under "auto" and "ep", then 8 greedy steps: logits within
+   4,096, FLASH under "auto" and "ep", then 4 greedy steps: logits within
    5e-2 of the unsharded card run on the tokens whose (token, layer)
    routes and kept flags agree, the rest counted), ``moe_block`` (kimi-k2
    at full width, depth 61 -> 1, (data 1, model 4): 96 experts, 16 query
@@ -204,17 +209,37 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    ``moe_train`` (grok-1, depth 64 -> 1, (data 1, model 4), the
    reference's choices for it: bf16 params, Adafactor, remat "full",
    FSDP; a step: loss and grad norm within 1e-3, params within the
-   bound ``moe_train`` derives) and ``vlm`` (phi-3-vision at full width
-   and depth, (data 2, model 2), 4 prompts of 4,096 behind 576 patch
-   positions, 8 greedy steps, then a ZeRO-1 AdamW step at depth 32 -> 4);
+   bound ``moe_train`` derives) and ``vlm`` (phi-3-vision at full width,
+   depth 32 -> 8, (data 2, model 2), 4 prompts of 4,096 behind 576 patch
+   positions, 4 greedy steps, then a ZeRO-1 AdamW step at depth 32 -> 2);
    then ``audio`` (whisper-tiny at full width and depth, (data 2, model
    2): 3 of its 6 heads a rank, its odd vocabulary whole on every rank; 4
-   prompts of 384 tokens behind 1,500 frames, FLASH, 8 greedy steps,
-   every cache leaf against the twin's; two ZeRO-1 AdamW steps in f32
+   prompts of 384 tokens behind 1,500 frames, FLASH, 4 greedy steps,
+   every cache leaf against the twin's; one ZeRO-1 AdamW step in f32
    compute) and ``seq_shard`` (the ``prefill`` part's prompts under
    ``ParallelConfig(seq_shard=True)``: each rank holds (2, 2,048) tokens;
    the logits and cache against the twin's and the ``prefill`` part's);
    flash launches = the layers a rank runs, give-ups 0;
+9b. the cost walker, phase ``roofline`` (``launch.roofline``): one pod's
+   FLASH prefill of internlm2-1.8b, zamba2-7b and xlstm-350m (the
+   sessions phase's prompts) run once under ``CostMode``, untimed: FLOPs,
+   bytes, the kernels' launches (each equal to its wrapper's counter
+   delta: 24 flash; 81 SSD and 13 flash; 21 mLSTM), the roofline's bound
+   at the card's data-sheet peaks, its dominant term, the roofline
+   fraction and the useful-FLOPs ratio against ``model_flops``, the
+   walker's peak bytes beside ``max_memory_allocated``; then the same
+   step timed; then ``serving_costs()`` (the batched fold per bucket, the
+   K-way merges), its merge launches equal to the merge kernel's counter;
+9c. the dry-run, phase ``dryrun`` (``launch.dryrun``): the train phase's
+   ``full`` configuration (internlm2-1.8b, seq 4,096, batch 1, AdamW,
+   remat "block") run on fake tensors in a one-rank fake world, its peak
+   bytes within 10 % of the train phase's measured peak, its matmul FLOPs
+   beside 6·N·D; and two production cells, gemma-7b x train_4k on (16,
+   16) and phi-3-vision x decode_32k REPLICATED on (2, 16, 16) with its
+   session ring (GiB a rank, dominant term, collective and pod-crossing
+   bytes: 0 on the hot step, above 0 on the ring); each of the three in a
+   child process that runs beside phases 1 and 2 (the children's wall and
+   the seconds spent waiting for them printed apart);
 12. the smoke's seconds, the ``{"kernels": [...]}`` line (the merge
    kernel's launches by path: served, warm, runtime, replication and mesh;
    flash's by model and the tensor-parallel prefills', its give-ups (0)
@@ -238,7 +263,6 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 SLOTS = 64                      # KeygroupSpec.slots
 ROW_100KB, ROW_1MB = 25_600, 262_144
 SWEEP_SHAPES = [(256, 128), (512, 256), (64, 128),
@@ -267,11 +291,6 @@ SSD_SOURCE = "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_chunk/kernel.py:65"
 MLSTM_SOURCE = "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu"
 MLSTM_REPLACES = "src/repro/kernels/mlstm_chunk/kernel.py:80"
-BF16_FLOPS_PER_S = 989e12       # H100 SXM dense bf16 tensor cores (data sheet)
-F32_FLOPS_PER_S = 66.9e12       # H100 SXM f32 FMAs, no tensor cores (data sheet)
-TF32_FLOPS_PER_S = 495e12       # H100 SXM dense TF32 tensor cores (data sheet)
-# the SSD and mLSTM kernels run every product as three TF32 products (3xTF32)
-SSD_PRODUCT_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 # the kernels whose registers, shared memory and spills the build reports:
 # (library, kernel)
 RESOURCE_KERNELS = (("flash_attention", "flash_fwd_bf16_wgmma"),
@@ -361,9 +380,23 @@ SESSION_LAYERS = {"grok-1-314b": 4}
 PREFILL_ARCHS = ("gemma-7b",)
 WARM_PROMPT = 256               # the prefill that warms the path
 N_PODS, SESSIONS, CACHE_EXTRA = 2, 4, 64
-DECODE_STEPS, FAILOVER_STEPS = 60, 4
+# decode steps 60 -> 28 in PR 28, for the smoke's time (28 mod R = 4, as
+# 60 mod R was: the same staleness check)
+DECODE_STEPS, FAILOVER_STEPS = 28, 4
 GRAPH_CHECK_STEPS = 4           # decode graph against the eager pod-step
 PREFILL_REL_TOL = 5e-2          # tests/test_arch_smoke.py's prefill/decode bound
+
+
+def roofline():
+    """The port's cost module (``repro_torch.launch.roofline``): the
+    card's data-sheet peaks (``HBM_BYTES_PER_S``, ``BF16_FLOPS_PER_S``,
+    ``F32_FLOPS_PER_S``, ``SSD_PRODUCT_FLOPS_PER_S``: three TF32 products
+    a product) and each kernel's work (``flash_work``, ``ssd_work``,
+    ``mlstm_work``, ``merge_work``), so this script's kernel table and the
+    walker count the same work.  Imported once ``main`` has found the port
+    beside this script."""
+    from repro_torch.launch import roofline as rl
+    return rl
 
 
 def emit(obj) -> None:
@@ -487,9 +520,9 @@ def time_geometry(torch, kernel, width, k, flush, reps=20):
         best = torch.maximum(best, s[3])
     winners = int((best > pristine[3]).sum())
     row_bytes = width * 4
-    nbytes = ((k + 1) * SLOTS * 4 + winners * (2 * row_bytes + 20)
-              + (k + 2) * 64 * 4)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rl = roofline()
+    _, nbytes = rl.merge_work(k, SLOTS, row_bytes, 64, winners)
+    bound_ms = nbytes / rl.HBM_BYTES_PER_S * 1e3
 
     ms, host_ms = _median_ms(
         torch, lambda: kernel.enoki_merge_rows(acc, snaps), reset, flush,
@@ -1341,7 +1374,7 @@ def check_replication(torch, counters, flush, width=ROW_1MB):
         # A round's host enqueue reaches ~1.2 ms at P=4 (a clone, the
         # merges and a stack of five leaves a pod), past one SPIN_CYCLES
         nbytes = 2 * pods * arena_bytes
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = nbytes / roofline().HBM_BYTES_PER_S * 1e3
         none = lambda: None
         for topo, step in steps.items():
             ms, host_ms = _median_ms(torch, lambda: step(state), none, flush,
@@ -1501,11 +1534,11 @@ def time_flash(torch, fk, flush, geometry, reps=20):
     del want, got
     # causal attention needs the S(S+1)/2 query-key pairs on or below the
     # diagonal (a window >= S masks none of them): 2·D FLOPs for q·k and
-    # 2·D for p·v each, per head
-    flops = 4.0 * B * H * D * S * (S + 1) / 2
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    flop_ms = flops / BF16_FLOPS_PER_S * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # 2·D for p·v each, per head (``roofline.flash_work``)
+    rl = roofline()
+    flops, nbytes = rl.flash_work(B, H, KV, S, S, D, 2, True, window)
+    flop_ms = flops / rl.BF16_FLOPS_PER_S * 1e3
+    byte_ms = nbytes / rl.HBM_BYTES_PER_S * 1e3
     none = lambda: None
     ms, host_ms = _median_ms(torch, run, none, flush, reps)
     plain_ms, _ = _median_ms(
@@ -1600,24 +1633,6 @@ def check_ssd_sweep(torch, sk, sops):
     return worst, cases, named
 
 
-def ssd_work(B, H, S, P, N, chunk, itemsize):
-    """(FLOPs, bytes) the chunked scan needs on these shapes.  Per chunk of
-    l rows: C Bᵀ over the l(l+1)/2 pairs on or below the diagonal at 2N
-    FLOPs, once per (b, chunk) since B and C are shared across heads; per
-    (b, h, chunk) the (S ⊙ L) x product over the same pairs at 2P, and
-    2·l·N·P each for C stateᵀ and the state update.  The elementwise terms
-    (mask, decays, exps) are left out, so the bound stays a lower bound.
-    Bytes: x, a_dt, b, c read once, y and the f32 state written once."""
-    flops = 0.0
-    for s0 in range(0, S, chunk):
-        l = min(chunk, S - s0)
-        pairs = l * (l + 1) / 2
-        flops += B * pairs * 2 * N + B * H * (pairs * 2 * P + 4 * l * N * P)
-    nbytes = itemsize * (2 * B * H * S * P + B * H * S + 2 * B * S * N) \
-        + 4 * B * H * P * N
-    return flops, nbytes
-
-
 def time_ssd(torch, sk, flush, reps=20):
     """The kernels at the main-path geometry (one Mamba-2 layer's prefill,
     f32), beside their bound and their plain version.  The bound takes the
@@ -1632,10 +1647,11 @@ def time_ssd(torch, sk, flush, reps=20):
     run = lambda: sk.ssd_chunk_bhcp(x, a, b, c, chunk=chunk)
     err = _ssd_close(torch, run(), sk.ssd_chunk_bhcp_plain(
         x, a, b, c, chunk=chunk), "float32", "the main geometry")
-    flops, nbytes = ssd_work(B, H, S, P, N, chunk, 4)
-    flop_ms = flops / SSD_PRODUCT_FLOPS_PER_S * 1e3
-    fma_ms = flops / F32_FLOPS_PER_S * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rl = roofline()
+    flops, nbytes = rl.ssd_work(B, H, S, P, N, chunk, 4)
+    flop_ms = flops / rl.SSD_PRODUCT_FLOPS_PER_S * 1e3
+    fma_ms = flops / rl.F32_FLOPS_PER_S * 1e3
+    byte_ms = nbytes / rl.HBM_BYTES_PER_S * 1e3
     none = lambda: None
     ms, host_ms = _median_ms(torch, run, none, flush, reps)
     plain_ms, _ = _median_ms(
@@ -1724,23 +1740,6 @@ def check_mlstm_sweep(torch, mk, mops):
     return worst, cases, named
 
 
-def mlstm_work(B, H, S, d, chunk, itemsize):
-    """(FLOPs, bytes) the chunkwise mLSTM needs on these shapes.  Per chunk
-    of l rows and per (b, h): q kᵀ and W v over the l(l+1)/2 query-key
-    pairs on or below the diagonal at 2d FLOPs each, 2·l·d² each for q C
-    and the carry update (k w)ᵀ v.  The elementwise terms (gates, decays,
-    normaliser) are left out, so the bound stays a lower bound.  Bytes:
-    q, k, v and the f32 gates read once, h and the f32 final carry written
-    once."""
-    flops = 0.0
-    for _ in range(0, S, chunk):
-        pairs = chunk * (chunk + 1) / 2
-        flops += B * H * (2 * pairs * 2 * d + 2 * 2 * chunk * d * d)
-    nbytes = itemsize * 4 * B * H * S * d + 4 * 2 * B * H * S \
-        + 4 * B * H * (d * d + d + 1)
-    return flops, nbytes
-
-
 def time_mlstm(torch, mk, flush, reps=20):
     """The kernel at the main-path geometry (one xlstm-350m mLSTM layer's
     prefill, f32), beside its bound and its plain version.  The bound takes
@@ -1755,10 +1754,11 @@ def time_mlstm(torch, mk, flush, reps=20):
     run = lambda: mk.mlstm_chunk_bhsd(*ins, chunk=chunk)
     err = _mlstm_close(torch, run(), mk.mlstm_chunk_bhsd_plain(
         *ins, chunk=chunk), "float32", "the main geometry")
-    flops, nbytes = mlstm_work(B, H, S, d, chunk, 4)
-    flop_ms = flops / SSD_PRODUCT_FLOPS_PER_S * 1e3
-    fma_ms = flops / F32_FLOPS_PER_S * 1e3
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rl = roofline()
+    flops, nbytes = rl.mlstm_work(B, H, S, d, chunk, 4)
+    flop_ms = flops / rl.SSD_PRODUCT_FLOPS_PER_S * 1e3
+    fma_ms = flops / rl.F32_FLOPS_PER_S * 1e3
+    byte_ms = nbytes / rl.HBM_BYTES_PER_S * 1e3
     none = lambda: None
     ms, host_ms = _median_ms(torch, run, none, flush, reps)
     plain_ms, _ = _median_ms(
@@ -1811,8 +1811,10 @@ def profile_device(torch, fn):
     apart (``host_kernel_launches``: kernels launched one by one;
     ``graph_launches``: CUDA graph replays), and the seconds spent reading
     the trace.  The device fields are None when the trace holds no
-    kernel."""
-    from torch.autograd import DeviceType
+    kernel.  The trace is read from the profiler's kineto events as they
+    came (``_trace_events``), not through ``key_averages()``, which first
+    builds the tree of every host op: tens of seconds for a step of many
+    small ops."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1823,25 +1825,19 @@ def profile_device(torch, fn):
         wall = (time.perf_counter() - t0) * 1e3
     ms = {"flash_attention": 0.0, "ssd_chunk": 0.0, "mlstm_chunk": 0.0,
           "gemm": 0.0, "other": 0.0}
-    launches, other, host = 0, [], {"graph": 0, "kernel": 0}
     t_read = time.perf_counter()
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            if e.key.startswith("cudaGraphLaunch"):
-                host["graph"] += e.count
-            elif e.key.startswith("cudaLaunchKernel"):
-                host["kernel"] += e.count
-            continue
-        name = e.key.lower()
+    device, host = _trace_events(prof)
+    launches, other = 0, []
+    for key, (n, t) in device.items():
+        name = key.lower()
         kind = ("flash_attention" if "flash_fwd" in name else "ssd_chunk"
                 if "ssd_chunk" in name else "mlstm_chunk"
                 if "mlstm_chunk" in name else "gemm"
-                if any(t in name for t in GEMM_NAMES) else "other")
-        ms[kind] += e.self_device_time_total / 1e3
-        launches += e.count
+                if any(g in name for g in GEMM_NAMES) else "other")
+        ms[kind] += t
+        launches += n
         if kind == "other":
-            other.append((e.self_device_time_total / 1e3, e.count,
-                          e.key[:90]))
+            other.append((t, n, key[:90]))
     busy = sum(ms.values())
     return {"wall_ms": wall, "trace_read_s": time.perf_counter() - t_read,
             "device_ms": ms if launches else None,
@@ -1852,6 +1848,34 @@ def profile_device(torch, fn):
             "kernel_launches": launches or None,
             "host_kernel_launches": host["kernel"],
             "graph_launches": host["graph"]}
+
+
+def _trace_events(prof):
+    """A finished ``torch.profiler`` run's device work, ``{kernel name:
+    [count, ms]}``, and the host's launch calls, ``{"kernel": n, "graph":
+    n}`` (``cudaLaunchKernel*`` and ``cudaGraphLaunch*``), read from its
+    kineto events one by one.  What ``key_averages()`` would give for the
+    same keys: user annotations and hidden events are left out, and an
+    asynchronous event counts with no device time."""
+    from torch.autograd import DeviceType
+    device, host = {}, {"kernel": 0, "graph": 0}
+    no = lambda: False                  # noqa: E731 (a method torch lacks)
+    for e in prof.profiler.kineto_results.events():
+        if getattr(e, "is_user_annotation", no)() or \
+                getattr(e, "is_hidden_event", no)():
+            continue
+        name = e.name()
+        if e.device_type() != DeviceType.CUDA:
+            if name.startswith("cudaGraphLaunch"):
+                host["graph"] += 1
+            elif name.startswith("cudaLaunchKernel"):
+                host["kernel"] += 1
+            continue
+        row = device.setdefault(name, [0, 0.0])
+        row[0] += 1
+        if not (e.is_async() or e.start_thread_id() != e.end_thread_id()):
+            row[1] += e.duration_ns() / 1e6
+    return device, host
 
 
 def _rel_err(torch, a, b) -> float:
@@ -2155,9 +2179,9 @@ def run_sessions(torch, arch_id, counters, expect):
             "decode_graph": decode_graph, "slstm_scan_check": slstm_check,
             "prefill_tokens_per_s": tokens_in / (prefill_ms * 1e-3),
             "prefill_model_flops_share": mflops / (prefill_ms * 1e-3)
-            / BF16_FLOPS_PER_S,
+            / roofline().BF16_FLOPS_PER_S,
             "prefill_applied_flops_share": applied / (prefill_ms * 1e-3)
-            / BF16_FLOPS_PER_S,
+            / roofline().BF16_FLOPS_PER_S,
             "decode_steps": len(decode_ms), "decode_ms_per_step": step_ms,
             "decode_tokens_per_s": N_PODS * SESSIONS / (step_ms * 1e-3),
             "replications": replications,
@@ -2222,7 +2246,7 @@ def run_prefill_only(torch, arch_id, counters, expect):
             "prefill_ms": prefill_ms,
             "prefill_tokens_per_s": tokens_in / (prefill_ms * 1e-3),
             "prefill_model_flops_share": mflops / (prefill_ms * 1e-3)
-            / BF16_FLOPS_PER_S,
+            / roofline().BF16_FLOPS_PER_S,
             "flash_vs_reference_rel_err": versus["rel_err"],
             "flash_vs_reference": versus,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
@@ -2239,9 +2263,11 @@ TRAIN_STEPS = 4
 TRAIN_CFG = dict(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
 TWIN_LAYERS, TWIN_SEQ = 2, 128  # train.cpu_twin: depth 24 -> 2
 TWIN_TOL = 1e-4                 # loss, grad_norm and gradients, card vs CPU
-PODS_LAYERS, PODS = 4, 2        # train.replicated: depth 24 -> 4, 2 pods
+# train.replicated and the mesh's train_pods: depth 24 -> 2 (4 -> 2 in
+# PR 28, for the smoke's time), 2 pods
+PODS_LAYERS, PODS = 2, 2
 PODS_PERIOD = 2
-XLSTM_TRAIN_SEQ = 2048
+XLSTM_TRAIN_SEQ = 1024          # 2,048 -> 1,024 in PR 28, for the time
 
 
 def _finite_tree(torch, tree, what):
@@ -2316,7 +2342,8 @@ def train_full(torch, counters):
             "step_ms": step_ms,
             "tokens_per_s": TRAIN_SEQ / (step_ms * 1e-3),
             "model_flops": mflops,
-            "model_flops_share": mflops / (step_ms * 1e-3) / BF16_FLOPS_PER_S,
+            "model_flops_share": mflops / (step_ms * 1e-3)
+            / roofline().BF16_FLOPS_PER_S,
             "state_bytes": state_bytes, "peak_memory_bytes": peak,
             "kernel_launches": launches, "profile_step": profile}
 
@@ -2392,7 +2419,7 @@ def _pods_differ(torch, params) -> float:
 
 def train_replicated(torch, counters, compress):
     """REPLICATED, 2 pods stacked on the card: internlm2-1.8b at full width,
-    depth 24 -> 4, seq 4,096, batch 1 a pod, pod-sharded data, an
+    depth 24 -> 2, seq 4,096, batch 1 a pod, pod-sharded data, an
     anti-entropy round every 2 of 4 steps; the pods differ before each
     round and are bit-identical after it."""
     from repro_torch.configs import (EnokiConfig, ReplicationPolicy,
@@ -2464,7 +2491,7 @@ def train_replicated(torch, counters, compress):
 
 
 def train_xlstm_grads(torch, counters):
-    """xlstm-350m at full width and depth, seq 2,048, batch 1, the
+    """xlstm-350m at full width and depth, seq 1,024, batch 1, the
     groupnorm scales set to 1: one loss and backward (f32 params, bf16
     compute, remat "block"); every parameter leaf gets a finite gradient,
     the sLSTM leaves a non-zero one, and ``SLSTM_STEPS`` captures and
@@ -2576,12 +2603,267 @@ def expected_launches(arch):
 
 
 # ---------------------------------------------------------------------------
+# phases 9b and 9c: the cost walker and the dry-run
+# ---------------------------------------------------------------------------
+
+ROOFLINE_ARCHS = ("internlm2-1.8b", "zamba2-7b", "xlstm-350m")
+# the dry-run's cells, each in a child process: the train phase's ``full``
+# configuration on one card (seq 4,096, batch 1), and two production cells
+# (arch, shape, multi_pod)
+DRYRUN_FULL = {"arch": TRAIN_ARCH, "shape": "train_4k", "multi_pod": False,
+               "mesh_shape": [1], "seq": TRAIN_SEQ, "batch": 1}
+DRYRUN_CELLS = (("gemma-7b", "train_4k", False),
+                ("phi-3-vision-4.2b", "decode_32k", True))
+DRYRUN_PEAK_TOL = 0.10          # the dry-run's peak against train.full's
+DRYRUN_TIMEOUT_S = 600.0
+
+_DRYRUN_CHILD = """
+import dataclasses, json, sys
+sys.path.insert(0, "src")
+from repro_torch.configs import get_shape
+from repro_torch.launch import dryrun
+cell = json.loads(sys.argv[1])
+shape = get_shape(cell["shape"])
+if "seq" in cell:
+    shape = dataclasses.replace(shape, seq_len=cell["seq"],
+                                global_batch=cell["batch"])
+rec = dryrun.run_cell(cell["arch"], cell["shape"], cell["multi_pod"],
+                      "replicated", verbose=False, shape=shape,
+                      mesh_shape=cell.get("mesh_shape"))
+rec["fake_device"] = dryrun.fake_device()
+print(json.dumps(rec, default=str))
+"""
+
+
+def start_dryrun_cells():
+    """Start ``DRYRUN_FULL`` and each of ``DRYRUN_CELLS`` in a child process
+    (fake tensors: host work only, no card memory beyond a context), all
+    at once.  ``main`` starts them before the build, so they run beside
+    the build and the kernel sweeps, where nothing is timed, and
+    ``collect_dryrun_cells`` waits for them before the first timed phase.
+    Any child still running when this process exits is stopped."""
+    import atexit
+    cells = [DRYRUN_FULL] + [{"arch": a, "shape": s, "multi_pod": mp}
+                             for a, s, mp in DRYRUN_CELLS]
+    procs = {(c["arch"], c["shape"]): subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_CHILD, json.dumps(c)], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for c in cells}
+    atexit.register(_stop_children, list(procs.values()))
+    return {"started": time.perf_counter(), "procs": procs}
+
+
+def _stop_children(procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def collect_dryrun_cells(started):
+    """Every child's record (``_collect``) by (arch, shape), the children's
+    wall seconds from their start to the last record (``children_s``),
+    and the part of it this process spent waiting here (``waited_s``)."""
+    t0 = time.perf_counter()
+    try:
+        records = {key: _collect(proc)
+                   for key, proc in started["procs"].items()}
+    finally:
+        _stop_children(started["procs"].values())
+    end = time.perf_counter()
+    return {"records": records, "children_s": end - started["started"],
+            "waited_s": end - t0}
+
+
+def _collect(proc):
+    """The record a dry-run child printed."""
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    assert proc.returncode == 0, stderr[-4000:]
+    rec = json.loads(stdout.splitlines()[-1])
+    assert rec.get("ok") is True, rec.get("traceback")
+    return rec
+
+
+def _tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for _, x in _leaves(tree))
+
+
+def roofline_prefill(torch, arch_id, counters):
+    """One pod's FLASH prefill of ``arch_id`` (the sessions phase's
+    prompts and weights from the same seed) under the cost walker once,
+    then timed; the walker's kernel launches must equal the wrappers'
+    counter deltas around the walked call, and that delta and the one
+    around the timed call must each equal ``expected_launches``."""
+    from repro_torch.configs import AttnImpl, ShapeConfig, StepKind
+    from repro_torch.kernels.flash_attention.kernel import check_give_ups
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo as zoo
+    rl = roofline()
+    arch, _ = session_arch(arch_id)
+    prompt = PROMPTS[arch_id]
+    shape = ShapeConfig("roofline_prefill", prompt, SESSIONS,
+                        StepKind.PREFILL)
+    torch.cuda.empty_cache()
+    params = zoo.init_params(arch, seed=0, dtype=serve.serve_param_dtype(arch),
+                             device="cuda")
+    if zoo.transformer.plan(arch)["kind"] == "xlstm":
+        blocks = params["blocks"]       # unit groupnorm scales (run_sessions)
+        for cell in (blocks["mlstm"]["cell"], blocks["slstm"]["cell"]):
+            cell["norm"].fill_(1.0)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batch = {"tokens": torch.randint(0, arch.vocab_size, (SESSIONS, prompt),
+                                     generator=gen, device="cuda",
+                                     dtype=torch.int32),
+             **stub_inputs(torch, arch, SESSIONS, gen)}
+    prefill = serve.make_prefill_step(arch, shape, impl=AttnImpl.FLASH,
+                                      device="cuda")
+    torch.cuda.synchronize()
+    before = {k: fn.launches for k, fn in counters.items()}
+    t0 = time.perf_counter()
+    walk = rl.analyze_step(prefill, params, batch)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    check_give_ups()
+    delta = {k: fn.launches - before[k] for k, fn in counters.items()
+             if fn.launches != before[k]}
+    expect = expected_launches(arch)
+    assert walk["kernel_launches"] == delta == expect, \
+        f"{arch_id}: walker {walk['kernel_launches']}, counters {delta}, " \
+        f"expected {expect}"
+    arg_bytes = _tree_bytes(params) + _tree_bytes(batch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = {k: fn.launches for k, fn in counters.items()}
+    (logits, _), ms = _wall_ms(torch, lambda: prefill(params, batch))
+    peak = torch.cuda.max_memory_allocated()
+    check_give_ups()
+    timed = {k: fn.launches - before[k] for k, fn in counters.items()
+             if fn.launches != before[k]}
+    assert timed == expect, \
+        f"{arch_id}: timed prefill launched {timed}, expected {expect}"
+    assert torch.isfinite(logits.float()).all(), f"{arch_id} logits"
+    mflops = zoo.model_flops(arch, shape)
+    terms = rl.roofline_terms(walk, mflops, 1)
+    bound_ms = terms["bound_step_s"] * 1e3
+    del params, batch, logits
+    torch.cuda.empty_cache()
+    launches = {k: delta.get(k, 0) + timed.get(k, 0)
+                for k in sorted(set(delta) | set(timed))}
+    return {"arch": arch_id, "sessions": SESSIONS, "prompt": prompt,
+            "impl": "flash", "flops": walk["flops_per_device"],
+            "bytes": walk["bytes_per_device"],
+            "kernel_launches": walk["kernel_launches"],
+            "kernel_work": walk["kernel_work"],
+            "counter_delta": delta, "timed_counter_delta": timed,
+            "walk_s": walk_s,
+            "compute_ms": terms["compute_s"] * 1e3,
+            "memory_ms": terms["memory_s"] * 1e3, "bound_ms": bound_ms,
+            "dominant": terms["dominant"], "ms": ms,
+            "bound_over_ms": bound_ms / ms,
+            "roofline_fraction": terms["roofline_fraction"],
+            "useful_flops_ratio": terms["useful_flops_ratio"],
+            "model_flops": mflops,
+            "model_flops_share": mflops / (ms * 1e-3) / rl.BF16_FLOPS_PER_S,
+            "walker_peak_bytes": walk["peak_bytes"],
+            "argument_bytes": arg_bytes,
+            "max_memory_allocated": peak,
+            "measured_peak_bytes": peak - base + arg_bytes,
+            "launches": launches}
+
+
+def run_roofline(torch, counters):
+    """Phase ``roofline``: ``roofline_prefill`` for each of
+    ``ROOFLINE_ARCHS``, then ``serving_costs()`` on the card, whose merge
+    launches must equal the merge kernel's counter delta."""
+    rl = roofline()
+    out = {arch_id: roofline_prefill(torch, arch_id, counters)
+           for arch_id in ROOFLINE_ARCHS}
+    merge = counters["enoki_merge_rows"]
+    before = merge.launches
+    rows = rl.serving_costs()
+    torch.cuda.synchronize()
+    merges = merge.launches - before
+    walked = sum(r["kernel_launches"] for r in rows)
+    assert walked == merges, f"serving_costs: walker {walked}, counter " \
+        f"{merges}"
+    by = {(r["program"], r["size"]): r["bytes"] for r in rows}
+    assert 4.0 <= by[("fold", "bucket=64")] / by[("fold", "bucket=8")] \
+        <= 12.0, by
+    assert by[("merge/aligned", "K=4")] < 0.6 * by[("merge/fallback", "K=4")]
+    out["serving_costs"] = {"rows": rows, "merge_launches": merges}
+    return out
+
+
+def _cell_line(rec):
+    """What the phase prints of a dry-run record."""
+    line = {"arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
+            "ok": rec.get("ok"), "chips": rec.get("chips"),
+            "build_s": rec.get("build_s")}
+    if not rec.get("ok"):
+        line["error"] = rec.get("error") or rec.get("refuse_reason")
+        return line
+    hlo, mem = rec["hlo"], rec["memory"]
+    line.update(gib_a_rank=mem["peak_bytes"] / 2**30, fits=mem["fits"],
+                argument_bytes=mem["argument_bytes"],
+                dominant=rec["roofline"]["dominant"],
+                roofline_fraction=rec["roofline"]["roofline_fraction"],
+                flops=hlo["flops_per_device"],
+                model_flops=rec["model_flops"],
+                collective_bytes=hlo["collective_bytes_per_device"],
+                pod_crossing_bytes=hlo.get("pod_crossing_bytes_per_device"))
+    if "replication_step" in rec:
+        rep = rec["replication_step"]
+        line["replication_step"] = {
+            "collective_bytes": rep["collective_bytes_per_device"],
+            "pod_crossing_bytes": rep["pod_crossing_bytes_per_device"]}
+    return line
+
+
+def run_dryrun(torch, train_rec, cells=None):
+    """Phase ``dryrun``, on the records of the children of
+    ``start_dryrun_cells`` (``cells``, from ``collect_dryrun_cells``;
+    started and collected here when None): (a) the train phase's ``full``
+    configuration on fake tensors in a one-rank fake world, its peak
+    within ``DRYRUN_PEAK_TOL`` of ``train_rec["peak_memory_bytes"]``; (b)
+    the production cells: ok, and the REPLICATED multi-pod cell's pods
+    crossed on its ring only."""
+    if cells is None:
+        cells = collect_dryrun_cells(start_dryrun_cells())
+    records = dict(cells["records"])
+    rec = records.pop((DRYRUN_FULL["arch"], DRYRUN_FULL["shape"]))
+    measured = train_rec["peak_memory_bytes"]
+    peak = rec["memory"]["peak_bytes"]
+    rel = abs(peak - measured) / measured
+    assert rel <= DRYRUN_PEAK_TOL, \
+        f"dry-run peak {peak} against the train phase's {measured}"
+    full = {**_cell_line(rec), "fake_device": rec["fake_device"],
+            "seq": DRYRUN_FULL["seq"], "batch": DRYRUN_FULL["batch"],
+            "measured_peak_bytes": measured, "peak_rel_err": rel,
+            "six_n_d": rec["model_flops"],
+            "flops_over_six_n_d": rec["hlo"]["flops_per_device"]
+            / rec["model_flops"]}
+    lines = {}
+    for (arch_id, shape_id), cell in records.items():
+        lines[f"{arch_id} x {shape_id}"] = line = _cell_line(cell)
+        if "replication_step" in line:
+            assert line["pod_crossing_bytes"] == 0, line
+            assert line["replication_step"]["pod_crossing_bytes"] > 0, line
+    return {"train_full": full, "cells": lines,
+            "children_s": cells["children_s"], "waited_s": cells["waited_s"]}
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the mesh (torch.distributed), four ranks sharing the card
 # ---------------------------------------------------------------------------
 
 MESH_RANKS = 4
 MESH_TIMEOUT_S = 600.0          # the whole world, spawn to last answer
-MESH_REPS = 10                  # timed repeats (CUDA events, medians)
+MESH_REPS = 5                   # timed repeats (CUDA events, medians;
+                                # 10 -> 5 in PR 28, for the smoke's time)
 FD_ARCH = "qwen1.5-110b"        # flash_decode: one attention layer
 FD_BATCH = 32                   # decode_32k's 128 sessions cut to 32
 FD_SEQ = 32768                  # decode_32k's sequence
@@ -2592,7 +2874,10 @@ SESS_ARCH = TRAIN_ARCH          # sessions_pods, remesh: internlm2-1.8b
 SESS_SESSIONS = 4
 SESS_CACHE = 4096
 SESS_LENGTH = 4000
-SESS_STEPS = 8
+SESS_STEPS = 4                  # 8 -> 4 in PR 28, for the smoke's time
+SESS_LAYERS = 8                 # remesh, sessions_pods and the pods'
+                                # sessions: depth 24 -> 8 in PR 28, for
+                                # the smoke's time
 MESH_PARTS = ("flash_decode", "moe_ep", "pod_replicate", "remesh",
               "train_pods", "sessions_pods")
 
@@ -2605,7 +2890,7 @@ def mesh_config(device="cuda", reduce=None):
             "ep_tokens": EP_TOKENS, "repl_width": ROW_1MB,
             "train_layers": PODS_LAYERS, "train_seq": TRAIN_SEQ,
             "sess_cache": SESS_CACHE, "sess_length": SESS_LENGTH,
-            "reps": MESH_REPS}
+            "sess_layers": SESS_LAYERS, "reps": MESH_REPS}
 
 
 def _arch(cfg, arch_id, **changes):
@@ -2614,6 +2899,14 @@ def _arch(cfg, arch_id, **changes):
     if cfg["reduce"] is not None:
         arch = cfg["reduce"](arch)
     return dataclasses.replace(arch, **changes) if changes else arch
+
+
+def _depth_cut(arch_id, arch) -> dict:
+    """A record's ``reduced`` entry for ``arch`` cut in depth from
+    ``arch_id``'s published config."""
+    from repro_torch.configs import get_arch
+    return {"num_layers": f"{get_arch(arch_id).num_layers} -> "
+                          f"{arch.num_layers}"}
 
 
 def _sync(torch, dev):
@@ -2894,7 +3187,8 @@ def mesh_pod_replicate(torch, rank, cfg, dev, meshes, counters):
 
 
 def mesh_remesh(torch, rank, cfg, dev):
-    """internlm2-1.8b's bf16 parameters at full width placed by
+    """internlm2-1.8b's bf16 parameters at full width (depth
+    ``sess_layers``) placed by
     ``param_partition_specs`` on (pod 2, model 2); pod 1 lost: the pod axis
     collapses and ``remesh`` moves every leaf onto pod 0's two ranks."""
     from repro_torch.configs import MeshConfig, ParallelConfig
@@ -2902,7 +3196,7 @@ def mesh_remesh(torch, rank, cfg, dev):
     from repro_torch.parallel import sharding as sh
     from repro_torch.runtime.elastic import (degraded_mesh_config, make_mesh,
                                              remesh)
-    arch = _arch(cfg, SESS_ARCH)
+    arch = _arch(cfg, SESS_ARCH, num_layers=cfg["sess_layers"])
     params = zoo.init_params(arch, seed=0, dtype=torch.bfloat16, device=dev)
     mcfg = MeshConfig(shape=(2, 2), axes=("pod", "model"))
     mesh = make_mesh(mcfg)
@@ -2925,7 +3219,8 @@ def mesh_remesh(torch, rank, cfg, dev):
     _free(torch, dev)
     if rank != 0:
         return {}
-    rec = {"arch": SESS_ARCH, "params": arch.param_count(),
+    rec = {"arch": SESS_ARCH, "reduced": _depth_cut(SESS_ARCH, arch),
+           "params": arch.param_count(),
            "param_bytes": 2 * arch.param_count(),
            "mesh": {"pod": 2, "model": 2},
            "degraded": {"shape": list(degraded.shape),
@@ -2983,7 +3278,7 @@ def _stacked_pods_twin(torch, cfg, dev):
 
 
 def mesh_train_pods(torch, rank, cfg, dev, mesh):
-    """REPLICATED internlm2-1.8b (depth 24 -> 4, seq 4,096, batch 1 a pod)
+    """REPLICATED internlm2-1.8b (depth 24 -> 2, seq 4,096, batch 1 a pod)
     with one pod a rank on ranks 0 and 1: the pods differ before each
     round and are bit-identical after it, and equal to the stacked run's
     pods bit for bit."""
@@ -3064,13 +3359,14 @@ def _session_state(torch, arch, cfg, dev, pods):
 
 
 def mesh_sessions_pods(torch, rank, cfg, dev, mesh):
-    """internlm2-1.8b at full width, 2 ranks, 4 sessions a pod: 8 decode
+    """internlm2-1.8b at full width (depth ``sess_layers``), 2 ranks, 4
+    sessions a pod: 4 decode
     steps (a captured graph a step), replicate (a ``ppermute`` ring),
     pod 0 dead, migrate; caches and tokens equal to the stacked
     ``make_decode_step(n_pods=2)`` run."""
     from repro_torch.launch import serve
     from repro_torch.models import model_zoo as zoo
-    arch = _arch(cfg, SESS_ARCH)
+    arch = _arch(cfg, SESS_ARCH, num_layers=cfg["sess_layers"])
     group = mesh.get_group("pod")
     params = zoo.init_params(arch, seed=0, dtype=torch.bfloat16, device=dev)
     cache, token = _session_state(torch, arch, cfg, dev, rank)
@@ -3118,7 +3414,8 @@ def mesh_sessions_pods(torch, rank, cfg, dev, mesh):
     checks["tokens"] = [r["tokens"] for r in ranks] == [
         _digest(torch, toks[:, p]) for p in range(PODS)]
     assert all(checks.values()), checks
-    return {"arch": SESS_ARCH, "pods": PODS, "sessions_a_pod": SESS_SESSIONS,
+    return {"arch": SESS_ARCH, "reduced": _depth_cut(SESS_ARCH, arch),
+            "pods": PODS, "sessions_a_pod": SESS_SESSIONS,
             "cache_len": cfg["sess_cache"], "length": cfg["sess_length"],
             "decode_steps": SESS_STEPS, "equal_to_stacked": checks,
             "decode_ms": [r["decode_ms"] for r in ranks],
@@ -3197,8 +3494,10 @@ def run_mesh(torch, cfg=None):
 
 TP_ARCH = TRAIN_ARCH            # internlm2-1.8b
 TP_BATCH, TP_SEQ = 4, 4096      # prefill: 2 sessions a data rank
-TP_DECODE_STEPS = 8
-TP_TRAIN_LAYERS = 4             # depth 24 -> 4
+TP_SERVE_LAYERS = 8             # prefill, decode, seq_shard: depth 24 -> 8
+                                # in PR 28, for the smoke's time
+TP_DECODE_STEPS = 4             # 8 -> 4 in PR 28, for the smoke's time
+TP_TRAIN_LAYERS = 2             # depth 24 -> 2 (4 -> 2 in PR 28)
 TP_TRAIN_BATCH = 2              # 1 a data rank
 TP_TRAIN_STEPS = 1              # 3 -> 1 for the smoke's time (the audio
                                 # and seq_shard parts)
@@ -3224,7 +3523,8 @@ def tp_config(device="cuda", reduce=None):
             "train_layers": TP_TRAIN_LAYERS, "train_seq": TRAIN_SEQ,
             "train_batch": TP_TRAIN_BATCH, "train_steps": TP_TRAIN_STEPS,
             "sess_cache": SESS_CACHE, "sess_length": SESS_LENGTH,
-            "moe_layers": MOE_LAYERS, "block_layers": MOE_BLOCK_LAYERS,
+            "sess_layers": SESS_LAYERS, "serve_layers": TP_SERVE_LAYERS,
+            "vlm_layers": VLM_LAYERS, "moe_layers": MOE_LAYERS, "block_layers": MOE_BLOCK_LAYERS,
             "block_seq": MOE_BLOCK_SEQ, "moe_train_layers": MOE_TRAIN_LAYERS,
             "moe_train_batch": MOE_TRAIN_BATCH,
             "moe_train_steps": MOE_TRAIN_STEPS,
@@ -3300,8 +3600,8 @@ def _tp_tokens(torch, arch, cfg, dev):
 
 
 def tp_serve(torch, rank, cfg, dev, mesh, fk, kept=None):
-    """Parts ``prefill`` and ``decode``: internlm2-1.8b at full width and
-    depth on (data 2, model 2), FLASH, 4 prompts of ``seq`` tokens (2 a
+    """Parts ``prefill`` and ``decode``: internlm2-1.8b at full width,
+    depth ``serve_layers``, on (data 2, model 2), FLASH, 4 prompts of ``seq`` tokens (2 a
     data rank), then ``decode_steps`` greedy steps from that cache; rank 0
     then runs the unsharded prefill and the unsharded decode step (fed
     the ranks' tokens) on the same card.  Returns (prefill, decode)
@@ -3311,7 +3611,7 @@ def tp_serve(torch, rank, cfg, dev, mesh, fk, kept=None):
     from repro_torch.configs import AttnImpl
     from repro_torch.models import model_zoo as zoo
     from repro_torch.parallel import sharding as sh
-    arch = _arch(cfg, TP_ARCH)
+    arch = _arch(cfg, TP_ARCH, num_layers=cfg["serve_layers"])
     S = cfg["seq"]
     params = _tp_params(torch, arch, mesh, dev)
     tokens = _tp_tokens(torch, arch, cfg, dev)
@@ -3396,7 +3696,8 @@ def tp_serve(torch, rank, cfg, dev, mesh, fk, kept=None):
     if dev.type == "cuda":
         assert all(r["prefill"]["flash_launches"] == arch.num_layers
                    for r in ranks), [r["prefill"] for r in ranks]
-    prefill = {"arch": TP_ARCH, "mesh": {"data": 2, "model": 2},
+    prefill = {"arch": TP_ARCH, "reduced": _depth_cut(TP_ARCH, arch),
+               "mesh": {"data": 2, "model": 2},
                "batch": cfg["batch"], "seq": S, "layers": arch.num_layers,
                "impl": "flash", "rel_err_logits": rel_logits,
                "rel_err_cache": rel_cache, "tolerance": PREFILL_REL_TOL,
@@ -3432,7 +3733,8 @@ def tp_serve(torch, rank, cfg, dev, mesh, fk, kept=None):
     del full, dc0
     _free(torch, dev)
     assert max(rels) < PREFILL_REL_TOL, rels
-    decode = {"arch": TP_ARCH, "mesh": {"data": 2, "model": 2},
+    decode = {"arch": TP_ARCH, "reduced": _depth_cut(TP_ARCH, arch),
+              "mesh": {"data": 2, "model": 2},
               "sessions": cfg["batch"], "steps": cfg["decode_steps"],
               "from_length": S, "rel_err_logits": rels,
               "tolerance": PREFILL_REL_TOL,
@@ -3610,7 +3912,7 @@ def tp_pods(torch, rank, cfg, dev, mesh):
     out["replicated"] = {"steps": TP_POD_STEPS, "step_ms": ms, **rounds}
 
     # sessions: TP caches, one pod's 4 sessions on its 2 ranks
-    sarch = _arch(cfg, SESS_ARCH)
+    sarch = _arch(cfg, SESS_ARCH, num_layers=cfg["sess_layers"])
     params = _tp_params(torch, sarch, mesh, dev)
     full, token = _session_state(torch, sarch, cfg, dev, pod)
     cspecs = serve.session_cache_specs(sarch, mesh, SESS_SESSIONS)
@@ -3636,7 +3938,8 @@ def tp_pods(torch, rank, cfg, dev, mesh):
     failover = got[0]["restored"] == got[0]["backup"] and \
         got[1]["restored"] == got[1]["cache"]
     assert ring and failover, got
-    out["sessions"] = {"sessions_a_pod": SESS_SESSIONS,
+    out["sessions"] = {"reduced": _depth_cut(SESS_ARCH, sarch),
+                       "sessions_a_pod": SESS_SESSIONS,
                        "cache_len": cfg["sess_cache"],
                        "decode_steps": TP_SESS_STEPS, "decode_ms": dms,
                        "backup_is_ring_neighbour": ring,
@@ -3701,8 +4004,11 @@ MOE_BLOCK_SEQ = 4096            # one prompt
 MOE_TRAIN_LAYERS = 1            # moe_train: grok-1, depth 64 -> 1
 MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 2, 1   # steps 2 -> 1 for the time
 MOE_TRAIN_CFG = dict(lr=1e-4, warmup_steps=1, total_steps=10)
-VLM_ARCH = "phi-3-vision-4.2b"  # vlm: full depth (32 layers)
-VLM_TRAIN_LAYERS = 4            # its ZeRO-1 step: depth 32 -> 4
+VLM_ARCH = "phi-3-vision-4.2b"  # vlm
+VLM_LAYERS = 8                  # its prefill and decode: depth 32 -> 8 in
+                                # PR 28, for the smoke's time
+VLM_TRAIN_LAYERS = 2            # its ZeRO-1 step: depth 32 -> 2 (4 -> 2
+                                # in PR 28, for the smoke's time)
 VLM_TRAIN_STEPS = 1             # 2 -> 1 for the smoke's time (a second
                                 # loss read the first update)
 FAMILY_PARTS = ("moe_prefill", "moe_block", "moe_train", "vlm")
@@ -3723,21 +4029,30 @@ ZERO_LEAVES = ("ln1", "ln2", "final_norm", "ln_x", "enc_norm")
 TRAIN_MOVE_RATIO = 0.5
 
 
+#: elements one generator draws at a time in ``_seeded_fill`` (256 MB of f32)
+SEED_DRAW_ELEMS = 1 << 26
+
+
 def _seeded_fill(torch, out, seed, coords, scale):
     """``out`` (a block of a leaf, or a view of it in the whole leaf)
-    filled with normals x ``scale`` drawn one index of its first dim at a
-    time, each from a generator seeded by (``seed``, ``coords``, index):
-    the same numbers whether a rank draws its block or the twin the whole
-    leaf.  Drawn into a contiguous buffer, then copied (a view's strides
-    do not change what is drawn)."""
+    filled with normals x ``scale`` drawn a run of indices of its first
+    dim at a time (as many whole indices as fit in ``SEED_DRAW_ELEMS``, at
+    least one), each run from a generator seeded by (``seed``, ``coords``,
+    run): the same numbers whether a rank draws its block or the twin the
+    whole leaf, since both fill a block of one shape.  Drawn into a
+    contiguous buffer, then copied (a view's strides do not change what
+    is drawn)."""
     import hashlib
-    for j in range(out.shape[0]):
-        key = hashlib.sha256(repr((seed, coords, j)).encode()).digest()
+    import math
+    step = max(1, SEED_DRAW_ELEMS // max(1, math.prod(out.shape[1:])))
+    for run, j in enumerate(range(0, out.shape[0], step)):
+        rows = out[j:j + step]
+        key = hashlib.sha256(repr((seed, coords, run)).encode()).digest()
         gen = torch.Generator(device=out.device).manual_seed(
             int.from_bytes(key[:8], "little") >> 1)
-        buf = torch.empty(out.shape[1:], dtype=out.dtype, device=out.device)
+        buf = torch.empty(rows.shape, dtype=out.dtype, device=out.device)
         buf.normal_(generator=gen).mul_(scale)
-        out[j].copy_(buf)
+        rows.copy_(buf)
         del buf
 
 
@@ -4379,8 +4694,8 @@ def moe_train(torch, rank, cfg, dev, mesh):
 
 
 def vlm(torch, rank, cfg, dev, mesh, fk):
-    """Part ``vlm``: phi-3-vision at full width and depth on (data 2,
-    model 2): 4 prompts of ``seq`` (576 patch positions, 2 a data rank),
+    """Part ``vlm``: phi-3-vision at full width, depth ``vlm_layers``, on
+    (data 2, model 2): 4 prompts of ``seq`` (576 patch positions, 2 a data rank),
     FLASH, ``decode_steps`` greedy steps, each against the unsharded run;
     then ``vlm_train_steps`` ZeRO-1 AdamW steps at depth 32 ->
     ``vlm_train_layers`` (f32 params, bf16 compute, remat "block")."""
@@ -4390,7 +4705,7 @@ def vlm(torch, rank, cfg, dev, mesh, fk):
     from repro_torch.launch import train
     from repro_torch.models import model_zoo as zoo
     from repro_torch.parallel import sharding as sh
-    arch = _arch(cfg, VLM_ARCH)
+    arch = _arch(cfg, VLM_ARCH, num_layers=cfg["vlm_layers"])
     B, S = cfg["batch"], cfg["seq"]
     params = _family_params(torch, arch, mesh, dev, 28, torch.bfloat16)
     batch, shape = _family_batch(torch, arch, B, S, dev, 503)
@@ -4462,6 +4777,7 @@ def vlm(torch, rank, cfg, dev, mesh, fk):
         assert max(rels) < PREFILL_REL_TOL, rels
         serve_rec = {
             "batch": B, "seq": S, "patch_positions": arch.num_patches,
+            "reduced": _depth_cut(VLM_ARCH, arch),
             "layers": arch.num_layers, "impl": "flash",
             "rel_err_logits": rel, "tolerance": PREFILL_REL_TOL,
             "flash_launches": [r["prefill"]["flash_launches"] for r in ranks],
@@ -4519,7 +4835,7 @@ def family_give_ups(tp) -> int:
 
 AUDIO_ARCH = "whisper-tiny"     # audio: full width and depth (4 + 4 layers)
 AUDIO_SEQ = 384                 # audio: decoder tokens behind 1,500 frames
-AUDIO_TRAIN_STEPS = 2
+AUDIO_TRAIN_STEPS = 1           # 2 -> 1 in PR 28, for the smoke's time
 
 
 def tp_audio(torch, rank, cfg, dev, mesh, fk):
@@ -4684,8 +5000,8 @@ def tp_audio(torch, rank, cfg, dev, mesh, fk):
 
 def tp_seq_shard(torch, rank, cfg, dev, mesh, fk, prefill_rec=None,
                  prefill_out=None):
-    """Part ``seq_shard``: internlm2-1.8b's prefill at full width and depth
-    on (data 2, model 2) under ``ParallelConfig(seq_shard=True)``: the
+    """Part ``seq_shard``: internlm2-1.8b's prefill at full width, depth
+    ``serve_layers``, on (data 2, model 2) under ``ParallelConfig(seq_shard=True)``: the
     ``prefill`` part's 4 prompts of ``seq`` tokens, each rank holding
     (2, seq / 2) of them, FLASH; against the unsharded prefill on the
     card, and beside the ``prefill`` part's times and output (its last
@@ -4695,7 +5011,7 @@ def tp_seq_shard(torch, rank, cfg, dev, mesh, fk, prefill_rec=None,
     from repro_torch.configs import AttnImpl, ParallelConfig
     from repro_torch.models import model_zoo as zoo
     from repro_torch.parallel import sharding as sh
-    arch = _arch(cfg, TP_ARCH)
+    arch = _arch(cfg, TP_ARCH, num_layers=cfg["serve_layers"])
     S = cfg["seq"]
     par = ParallelConfig(seq_shard=True)
     params = _tp_params(torch, arch, mesh, dev)
@@ -4764,7 +5080,8 @@ def tp_seq_shard(torch, rank, cfg, dev, mesh, fk, prefill_rec=None,
     del whole
     _free(torch, dev)
     keys = ("ms", "transport_ms", "transport_bytes", "peak_bytes_a_rank")
-    return {"arch": TP_ARCH, "mesh": {"data": 2, "model": 2},
+    return {"arch": TP_ARCH, "reduced": _depth_cut(TP_ARCH, arch),
+            "mesh": {"data": 2, "model": 2},
             "batch": cfg["batch"], "seq": S, "layers": arch.num_layers,
             "impl": "flash", "rank_tokens": ranks[0]["rank_tokens"],
             "rel_err_logits": rel, "rel_err_cache": rel_cache,
@@ -4789,7 +5106,8 @@ HYBRID_ARCH, HYBRID_LAYERS = "zamba2-7b", 7    # hybrid_prefill: 81 -> 7
 HYBRID_TRAIN_LAYERS = 7         # hybrid_train: 81 -> 7 (one group, a tail)
 SSM_ARCH = "xlstm-350m"         # full depth: 21 mLSTM and 3 sLSTM layers
 SSM_SEQ = 2048                  # ssm_prefill's prompts (PROMPTS)
-SSM_TRAIN_SEQ = 256             # ssm_train: three eager sLSTM loops a step
+SSM_TRAIN_SEQ = 128             # ssm_train: three eager sLSTM loops a step
+                                # (256 -> 128 in PR 28, for the time)
                                 # (74.8 s for the part at 1,024; 512 until
                                 # the audio and seq_shard parts came)
 RECURRENT_TRAIN_BATCH = 2       # 1 a data rank
@@ -5196,9 +5514,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # -- 1. device and build
+    # -- 1. device and build; the dry-run's children (phase 9c) start first
+    # and run beside the build and the kernel sweeps, where nothing is timed
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
+    dry_cells = start_dryrun_cells()
     t0 = time.perf_counter()
     built = build.build_all()
     emit({"phase": "build", "device": torch.cuda.get_device_name(0),
@@ -5207,10 +5527,28 @@ def main() -> int:
           "nvcc_s": built, "build_s": time.perf_counter() - t0})
     emit({"phase": "resources", "kernels": resource_report(build)})
 
-    # -- 2. the merge kernel against its plain version
+    # -- 2. each kernel against its plain version, over its sweep
     worst, cases = check_sweep(torch, kernel)
     emit({"phase": "kernel_sweep", "kernel": "enoki_merge_rows",
           "cases": cases, "max_abs_err": worst})
+    fworst, fratio, fcases, fnamed = check_flash_sweep(torch, fk, fops)
+    emit({"phase": "kernel_sweep", "kernel": "flash_attention_bhsd",
+          "cases": fcases, "max_abs_err": fworst, "tolerance": FLASH_TOL,
+          "tp_family_ranks": fnamed,
+          "bf16_ratio_to_rounding": fratio,
+          "bf16_ratio_limit": BF16_ROUNDING_FACTOR,
+          "give_ups": fk.check_give_ups()})
+    sworst, scases, snamed = check_ssd_sweep(torch, sk, sops)
+    emit({"phase": "kernel_sweep", "kernel": "ssd_chunk_bhcp",
+          "cases": scases, "max_abs_err": sworst, "tolerance": SSD_TOL,
+          "tp_recurrent_ranks": snamed})
+    mworst, mcases, mnamed = check_mlstm_sweep(torch, mk, mops)
+    emit({"phase": "kernel_sweep", "kernel": "mlstm_chunk_bhsd",
+          "cases": mcases, "max_abs_err": mworst, "tolerance": MLSTM_TOL,
+          "tp_recurrent_ranks": mnamed})
+    dry_cells = collect_dryrun_cells(dry_cells)
+
+    # -- 2b. the merge kernel's times
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device="cuda")
     timings = {}
     for width, label in ((ROW_100KB, "100KB"), (ROW_1MB, "1MB")):
@@ -5281,14 +5619,7 @@ def main() -> int:
     emit({"phase": "replication", **repl, "kernel_launches": repl_launches,
           "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
 
-    # -- 5. the flash-attention kernel against its plain version
-    fworst, fratio, fcases, fnamed = check_flash_sweep(torch, fk, fops)
-    emit({"phase": "kernel_sweep", "kernel": "flash_attention_bhsd",
-          "cases": fcases, "max_abs_err": fworst, "tolerance": FLASH_TOL,
-          "tp_family_ranks": fnamed,
-          "bf16_ratio_to_rounding": fratio,
-          "bf16_ratio_limit": BF16_ROUNDING_FACTOR,
-          "give_ups": fk.check_give_ups()})
+    # -- 5. the flash-attention kernel's times (its sweep ran in phase 2)
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device="cuda")
     ft = time_flash(torch, fk, flush, MAIN_FLASH)
     emit({"phase": "kernel_time", "kernel": "flash_attention_bhsd",
@@ -5309,21 +5640,13 @@ def main() -> int:
     flash_times = {"internlm2-1.8b D=128": ft, "zamba2-7b D=112": fz,
                    "phi-3-vision-4.2b D=96": fp, "gemma-7b D=256": fg}
 
-    # -- 6. the SSD chunk kernel against its plain version
-    sworst, scases, snamed = check_ssd_sweep(torch, sk, sops)
-    emit({"phase": "kernel_sweep", "kernel": "ssd_chunk_bhcp",
-          "cases": scases, "max_abs_err": sworst, "tolerance": SSD_TOL,
-          "tp_recurrent_ranks": snamed})
+    # -- 6. the SSD chunk kernel's time
     sd = time_ssd(torch, sk, flush)
     emit({"phase": "kernel_time", "kernel": "ssd_chunk_bhcp",
           "geometry": "zamba2-7b Mamba-2 layer, prefill", "nvidia_smi": smi,
           **sd})
 
-    # -- 7. the mLSTM chunk kernel against its plain version
-    mworst, mcases, mnamed = check_mlstm_sweep(torch, mk, mops)
-    emit({"phase": "kernel_sweep", "kernel": "mlstm_chunk_bhsd",
-          "cases": mcases, "max_abs_err": mworst, "tolerance": MLSTM_TOL,
-          "tp_recurrent_ranks": mnamed})
+    # -- 7. the mLSTM chunk kernel's time
     ml = time_mlstm(torch, mk, flush)
     emit({"phase": "kernel_time", "kernel": "mlstm_chunk_bhsd",
           "geometry": "xlstm-350m mLSTM layer, prefill", "nvidia_smi": smi,
@@ -5350,7 +5673,21 @@ def main() -> int:
 
     # -- 9. the training stack (no kernel on its path: REFERENCE)
     torch.cuda.empty_cache()
-    emit({"phase": "train", "nvidia_smi": smi, **run_train(torch, counters)})
+    train_rec = run_train(torch, counters)
+    emit({"phase": "train", "nvidia_smi": smi, **train_rec})
+
+    # -- 9b. the cost walker on the sessions prefills and the served path
+    t_phase = time.perf_counter()
+    roof = run_roofline(torch, counters)
+    emit({"phase": "roofline", **roof,
+          "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
+
+    # -- 9c. the dry-run against the train phase, and two production cells
+    # (their children ran beside phases 1 and 2)
+    t_dry = time.perf_counter()
+    dry = run_dryrun(torch, train_rec["full"], dry_cells)
+    emit({"phase": "dryrun", **dry, "wall_s": time.perf_counter() - t_dry,
+          "phases_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
 
     # -- 10. the mesh: four ranks sharing the card over gloo
     torch.cuda.empty_cache()
@@ -5390,21 +5727,29 @@ def main() -> int:
         tp["audio"]["prefill"]["flash_launches"])
     flash_launches["tensor_parallel_seq_shard"] = sum(
         tp["seq_shard"]["flash_launches"])
+    roof_launches = {}
+    for arch_id in ROOFLINE_ARCHS:
+        for name, n in roof[arch_id]["launches"].items():
+            roof_launches[name] = roof_launches.get(name, 0) + n
+    flash_launches["roofline"] = roof_launches.get("flash_attention_bhsd", 0)
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start,
           "mesh_s": mesh_wall, "tensor_parallel_s": tp_wall,
           "tensor_parallel_recurrent_s": rtp_wall})
     ssd_launches = {
         "zamba2-7b": sessions["zamba2-7b"]["launches"]["ssd_chunk_bhcp"],
-        "tensor_parallel_recurrent": rlaunch["ssd_chunk_bhcp"]}
+        "tensor_parallel_recurrent": rlaunch["ssd_chunk_bhcp"],
+        "roofline": roof_launches.get("ssd_chunk_bhcp", 0)}
     mlstm_launches = {
         "xlstm-350m": sessions["xlstm-350m"]["launches"]["mlstm_chunk_bhsd"],
-        "tensor_parallel_recurrent": rlaunch["mlstm_chunk_bhsd"]}
+        "tensor_parallel_recurrent": rlaunch["mlstm_chunk_bhsd"],
+        "roofline": roof_launches.get("mlstm_chunk_bhsd", 0)}
     t = timings[("100KB", 1)]
     merge_launches = {"serve": st["launches"],
                       "warm": warm["kernel_launches"],
                       "runtime": sum(runtime_launches.values()),
                       "replication": repl_launches,
-                      "mesh": sum(mesh_launches)}
+                      "mesh": sum(mesh_launches),
+                      "roofline": roof["serving_costs"]["merge_launches"]}
     emit({"kernels": [{
         "name": "enoki_merge_rows", "route": "cuda", "source": MERGE_SOURCE,
         "replaces": MERGE_REPLACES,

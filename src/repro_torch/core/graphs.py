@@ -63,6 +63,7 @@ taken only inside a cache's lock; the bodies take no lock.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import threading
 import time
@@ -83,6 +84,8 @@ _CAPTURE_LOCK = threading.Lock()
 #: guards _COUNTERS, the active CompileCounters (``analysis.jitprof``)
 _COUNTERS_LOCK = threading.Lock()
 _COUNTERS: List[Any] = []
+#: ``on`` while this thread runs its steps eagerly (``eager_steps``)
+_EAGER = threading.local()
 
 
 def add_counter(counter) -> None:
@@ -93,6 +96,21 @@ def add_counter(counter) -> None:
 def remove_counter(counter) -> None:
     with _COUNTERS_LOCK:
         _COUNTERS.remove(counter)
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """Run every ``StepCache`` step called on this thread inside the block
+    as its eager body, with no entry (``StepCache.eager``): the same work,
+    bit for bit, whose ops a dispatch mode sees (a replay's kernels never
+    reach one) and which runs on fake tensors (nothing to capture).
+    Other threads keep their graphs."""
+    before = getattr(_EAGER, "on", False)
+    _EAGER.on = True
+    try:
+        yield
+    finally:
+        _EAGER.on = before
 
 
 def _freeze(treedef):
@@ -194,7 +212,12 @@ class StepCache:
     # -------------------------------------------------------------- public
     def __call__(self, *, state=(), params=(), inputs=(), static=()):
         """Run the step: replay its graph on CUDA (capturing it first for a
-        new key), or run the body eagerly on the CPU."""
+        new key), or run the body eagerly on the CPU.  Inside
+        ``eager_steps`` on this thread it runs the eager body, with no
+        entry."""
+        if getattr(_EAGER, "on", False):
+            return self.eager(state=state, params=params, inputs=inputs,
+                              static=static)
         key, shape = _keys(state, params, inputs, static)
         dev = _device_of(state, params, inputs)
         if dev.type != "cuda":

@@ -1,6 +1,43 @@
 """Hand-written Hopper kernels of the port, each beside its plain version."""
 
+import threading
+from typing import Any, Callable
+
 import torch
+
+#: the cost walker (``launch.roofline.CostMode``) while one is active; None
+#: costs the served path one read a wrapper call (``charged``)
+WALKER = None
+
+
+def walking() -> bool:
+    """Whether a cost walker is active on this thread, the one that entered
+    it: a call from another thread (a server's) is not the walked step's."""
+    walker = WALKER
+    return walker is not None and walker.thread == threading.get_ident()
+
+
+def is_fake(*trees) -> bool:
+    """Whether any tensor of ``trees`` is a fake tensor (shapes, no
+    storage: a dry-run's).  A fake tensor is not a device: a wrapper
+    launches nothing for it."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.utils._pytree import tree_flatten
+    return any(isinstance(t, FakeTensor) for t in tree_flatten(trees)[0])
+
+
+def charged(name: str, run: Callable[[], Any], fake: Callable[[], Any],
+            *args, **kwargs) -> Any:
+    """``run()``: a wrapper's launch, or its plain version on the CPU.
+    While a cost walker is active on this thread (``walking``), the call is
+    charged kernel ``name``'s work, reckoned from ``args`` and ``kwargs``
+    (``launch.roofline.KERNEL_CHARGES``), and none of the aten ops ``run``
+    does is counted; when ``args`` hold fake tensors, ``fake()`` (outputs
+    of the right shapes) is returned and nothing runs."""
+    if WALKER is None or not walking():
+        return run()
+    with WALKER.kernel(name, *args, **kwargs):
+        return fake() if is_fake(args) else run()
 
 
 def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:

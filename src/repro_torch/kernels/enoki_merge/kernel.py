@@ -32,6 +32,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels import build
 
 Rows = Tuple[Optional[torch.Tensor], torch.Tensor, Optional[torch.Tensor],
@@ -173,11 +174,18 @@ def _launch(acc: Rows, snaps: Sequence[Rows]) -> None:
 def enoki_merge_rows(acc: Rows, snaps: Sequence[Rows]) -> Rows:
     """Fold ``snaps`` into ``acc`` in place, in order; returns ``acc``.
     CPU operands take ``enoki_merge_rows_plain``; CUDA operands launch the
-    kernel once for every ``MAX_K`` snapshots (or raise)."""
+    kernel once for every ``MAX_K`` snapshots (or raise).  Under a cost
+    walker (``kernels.charged``) the call is charged its work; on fake
+    tensors it launches nothing."""
     snaps = tuple(snaps)
     _check(acc, snaps)
     if not snaps:
         return acc
+    return kernels.charged("enoki_merge_rows", lambda: _run(acc, snaps),
+                           lambda: acc, acc, snaps)
+
+
+def _run(acc: Rows, snaps: Tuple[Rows, ...]) -> Rows:
     device = acc[1].device
     if device.type == "cpu":
         return enoki_merge_rows_plain(acc, snaps)

@@ -45,6 +45,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels import build, refuse_grad
 
 NEG_INF = -1e30
@@ -313,9 +314,20 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     when given (any view of the right shape, e.g. a transposed model-layout
     buffer).  CPU tensors take ``flash_attention_bhsd_plain``; CUDA tensors
     launch the kernel once (or raise).
-    Under autograd it raises on every device (``kernels.refuse_grad``)."""
+    Under autograd it raises on every device (``kernels.refuse_grad``).
+    Under a cost walker (``kernels.charged``) the call is charged its
+    work; on fake tensors it returns an empty output and launches
+    nothing."""
     refuse_grad("flash_attention_bhsd", q, k, v)
     _check(q, k, v, out)
+    return kernels.charged(
+        "flash_attention_bhsd", lambda: _run(q, k, v, causal, window, out),
+        lambda: torch.empty_like(q) if out is None else out,
+        q, k, causal=causal, window=window)
+
+
+def _run(q, k, v, causal: bool, window: int,
+         out: Optional[torch.Tensor]) -> torch.Tensor:
     if q.device.type == "cpu":
         res = flash_attention_bhsd_plain(q, k, v, causal=causal,
                                          window=window)

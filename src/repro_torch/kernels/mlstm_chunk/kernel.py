@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels import build, refuse_grad
 
 MAX_CHUNK, MAX_D = 64, 512
@@ -201,9 +202,27 @@ def mlstm_chunk_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     f32, the carry after the last chunk).  CPU tensors take
     ``mlstm_chunk_bhsd_plain``; CUDA tensors run the two kernels once (or
     raise).
-    Under autograd it raises on every device (``kernels.refuse_grad``)."""
+    Under autograd it raises on every device (``kernels.refuse_grad``).
+    Under a cost walker (``kernels.charged``) the call is charged its
+    work; on fake tensors it returns empty outputs and launches nothing."""
     refuse_grad("mlstm_chunk_bhsd", q, k, v, log_i, log_f)
     chunk = _check(q, k, v, log_i, log_f, chunk, h)
+    return kernels.charged(
+        "mlstm_chunk_bhsd", lambda: _run(q, k, v, log_i, log_f, chunk, h),
+        lambda: _fake_out(q, h), q, chunk=chunk)
+
+
+def _fake_out(q: torch.Tensor, h: Optional[torch.Tensor]
+              ) -> Tuple[torch.Tensor, Carry]:
+    B, H, _, d = q.shape
+    f32 = dict(dtype=torch.float32)
+    return (torch.empty_like(q) if h is None else h,
+            (q.new_empty((B, H, d, d), **f32), q.new_empty((B, H, d), **f32),
+             q.new_empty((B, H), **f32)))
+
+
+def _run(q, k, v, log_i, log_f, chunk: int, h: Optional[torch.Tensor]
+         ) -> Tuple[torch.Tensor, Carry]:
     if q.device.type == "cpu":
         res, carry = mlstm_chunk_bhsd_plain(q, k, v, log_i, log_f,
                                             chunk=chunk)

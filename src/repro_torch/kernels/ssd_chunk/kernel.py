@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels import build, refuse_grad
 
 MAX_CHUNK, MAX_P, MAX_N = 128, 64, 64
@@ -221,9 +222,21 @@ def ssd_chunk_bhcp(x: torch.Tensor, a_dt: torch.Tensor, b: torch.Tensor,
     right shape, e.g. a transposed model-layout buffer), final state
     (B,H,P,N) f32).  CPU tensors take ``ssd_chunk_bhcp_plain``; CUDA
     tensors run the three kernels once (or raise).
-    Under autograd it raises on every device (``kernels.refuse_grad``)."""
+    Under autograd it raises on every device (``kernels.refuse_grad``).
+    Under a cost walker (``kernels.charged``) the call is charged its
+    work; on fake tensors it returns empty outputs and launches nothing."""
     refuse_grad("ssd_chunk_bhcp", x, a_dt, b, c)
     chunk = _check(x, a_dt, b, c, chunk, y)
+    return kernels.charged(
+        "ssd_chunk_bhcp", lambda: _run(x, a_dt, b, c, chunk, y),
+        lambda: (torch.empty_like(x) if y is None else y,
+                 x.new_empty(x.shape[:2] + (x.shape[-1], b.shape[-1]),
+                             dtype=torch.float32)),
+        x, b, chunk=chunk)
+
+
+def _run(x, a_dt, b, c, chunk: int, y: Optional[torch.Tensor]
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
     if x.device.type == "cpu":
         res, state = ssd_chunk_bhcp_plain(x, a_dt, b, c, chunk=chunk)
         return (res if y is None else y.copy_(res)), state

@@ -21,6 +21,11 @@ devices.
 rank), runs a function on every rank and returns what each returned; every
 wait has a time limit, and a rank that raises or never answers fails the
 call and stops the others.
+
+``init_fake_world`` joins a world of the ``fake`` backend as its rank 0
+alone, so a production mesh of 256 or 512 ranks builds in one process for
+the dry-run (``launch.dryrun``); its collectives answer at once and move
+nothing.  ``close_world`` leaves whichever world the process joined.
 """
 from __future__ import annotations
 
@@ -61,6 +66,27 @@ def init_world(rank: int, world_size: int, init_method: str, device=None
                                 seconds=COLLECTIVE_TIMEOUT_S))
     _WORLD["device"] = dev
     return dev
+
+
+def init_fake_world(world_size: int, device="cuda") -> torch.device:
+    """Join a fake world of ``world_size`` ranks as rank 0 (the counterpart
+    of the reference's forced host device count, for ``launch.dryrun``):
+    the ``fake`` backend answers every collective at once and moves no
+    byte, so a production mesh of 256 or 512 ranks builds in one process.
+    ``device`` is the device type the dry-run's fake tensors name; no
+    card is touched.  ``close_world`` leaves it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    _WORLD["device"] = torch.device(device)
+    return _WORLD["device"]
+
+
+def close_world() -> None:
+    """Leave the world this process joined (real or fake)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _WORLD.pop("device", None)
 
 
 def world_device() -> torch.device:

@@ -1575,3 +1575,134 @@ def test_tensor_parallel_audio_and_seq_shard_on_the_card(card, case,
         assert out[f"{case}/give_ups"] == 0
         assert out[f"{case}/prefill_rel"] < aranks.CARD_TOL
         assert out[f"{case}/cache_rel"] < aranks.CARD_TOL
+
+
+# ---------------------------------------------------------------------------
+# the cost walker and the dry-run on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_walker_kernel_launches_equal_the_counters_on_the_card(card):
+    """Each wrapper's real launches show in the walker as one op a launch
+    (the merge's K snapshots in groups of MAX_K), equal to its counter's
+    delta, with the analytic work charged."""
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bhsd
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_bhsd
+    from repro_torch.kernels.ssd_chunk.kernel import ssd_chunk_bhcp
+    from repro_torch.launch import roofline as rl
+    g = torch.Generator(device=card).manual_seed(0)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=card, dtype=dtype)
+    q = t(1, 4, 256, 64, dtype=torch.bfloat16)
+    kv = t(1, 2, 256, 64, dtype=torch.bfloat16)
+    x, a = t(1, 2, 128, 32), -t(1, 2, 128).abs()
+    bc = t(1, 1, 128, 16)
+    mq, gates = t(1, 2, 128, 32), -t(1, 2, 128).abs()
+    rng = np.random.default_rng(1)
+    acc = _arena(rng, 16, 32, "float32", card)
+    snaps = [_arena(rng, 16, 32, "float32", card) for _ in range(3)]
+    wrappers = {"flash_attention_bhsd": flash_attention_bhsd,
+                "ssd_chunk_bhcp": ssd_chunk_bhcp,
+                "mlstm_chunk_bhsd": mlstm_chunk_bhsd,
+                "enoki_merge_rows": enoki_merge_rows}
+    before = {k: f.launches for k, f in wrappers.items()}
+
+    def calls():
+        flash_attention_bhsd(q, kv, kv)
+        flash_attention_bhsd(q, kv, kv, causal=False)
+        ssd_chunk_bhcp(x, a, bc, bc, chunk=64)
+        mlstm_chunk_bhsd(mq, mq, mq, gates, gates, chunk=64)
+        enoki_merge_rows(acc, snaps)
+    walk = rl.analyze_step(calls)
+    torch.cuda.synchronize()
+    delta = {k: f.launches - before[k] for k, f in wrappers.items()}
+    assert walk["kernel_launches"] == delta == {
+        "flash_attention_bhsd": 2, "ssd_chunk_bhcp": 1,
+        "mlstm_chunk_bhsd": 1, "enoki_merge_rows": 1}
+    want = (rl.flash_work(1, 4, 2, 256, 256, 64, 2, True)[0]
+            + rl.flash_work(1, 4, 2, 256, 256, 64, 2, False)[0]
+            + rl.ssd_work(1, 2, 128, 32, 16, 64, 4)[0]
+            + rl.mlstm_work(1, 2, 128, 32, 64, 4)[0])
+    assert walk["flops_per_device"] == want
+
+
+@pytest.mark.cuda
+def test_trace_read_equals_key_averages(card):
+    """``chip_smoke.py``'s trace reader (``_trace_events``: the profiler's
+    kineto events one by one) gives what ``key_averages()`` gives for the
+    same profile: each kernel's count and device ms, and the host's
+    kernel launches and graph replays."""
+    import pathlib
+    import sys
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    x = torch.randn(256, 256, device=card)
+    y = torch.empty_like(x)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        torch.mm(x, x, out=y).relu_()
+        with torch.cuda.graph(graph, stream=stream):
+            torch.mm(x, x, out=y).relu_().add_(1.0)
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            (x @ x).relu_().add_(1.0)
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+    device, host = chip_smoke._trace_events(prof)
+    want, want_host = {}, {"kernel": 0, "graph": 0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            if e.key.startswith("cudaGraphLaunch"):
+                want_host["graph"] += e.count
+            elif e.key.startswith("cudaLaunchKernel"):
+                want_host["kernel"] += e.count
+            continue
+        want[e.key] = (e.count, e.self_device_time_total / 1e3)
+    assert host == want_host and host["graph"] == 3 and host["kernel"] > 0
+    assert set(device) == set(want)
+    for key, (n, ms) in device.items():
+        assert n == want[key][0], key
+        assert ms == pytest.approx(want[key][1], rel=1e-6, abs=1e-5), key
+
+
+@pytest.mark.cuda
+def test_dry_run_peak_near_the_real_train_step(card):
+    """The dry-run's peak of a reduced internlm2 train step (fake tensors
+    in a one-rank fake world) within 10 % of ``max_memory_allocated`` of
+    the same step run for real on the card."""
+    import dataclasses
+
+    from repro_torch import configs as tc
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models import model_zoo as zoo
+    arch = dataclasses.replace(tc.get_arch("internlm2-1.8b"), num_layers=4)
+    shape = tc.ShapeConfig("train_4k", 1024, 1, tc.StepKind.TRAIN)
+    rec = dryrun.run_cell("internlm2-1.8b", "train_4k", False, "replicated",
+                          arch=arch, shape=shape, mesh_shape=(1,),
+                          verbose=False)
+    assert rec["ok"] is True, rec.get("traceback")
+    par = train.default_parallel(arch, shape)
+    step, _ = train.make_train_step(arch, shape, parallel=par,
+                                    device=card)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = train.init_state(arch, 0, par, device=card)
+    batch = zoo.example_batch(arch, shape,
+                              torch.Generator(device=card).manual_seed(0))
+    step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert abs(rec["memory"]["peak_bytes"] - peak) <= 0.10 * peak, \
+        (rec["memory"], peak)

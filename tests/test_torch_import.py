@@ -6,7 +6,8 @@
   ``msgpack`` (the checkpoint serializer carries its own codec, so the
   port runs where it is not installed), and no import statement of the
   port or of ``chip_smoke.py`` names jax or the reference.
-* The reference's AST lock lint is clean on ``src/repro_torch``.
+* The reference's AST lock lint is clean on ``src/repro_torch``, and so
+  is the port's own (``repro_torch.analysis.lockcheck``).
 * No ``torch.`` call sits lexically under ``self._qlock`` in the port's
   engine: the queue lock is never held across device work (the lint's
   dispatch tables know only jax roots).
@@ -58,7 +59,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.data.pipeline",
             "repro_torch.launch.train", "repro_torch.launch.mesh",
             "repro_torch.parallel", "repro_torch.parallel.sharding",
-            "repro_torch.parallel.collectives"} <= set(mods)
+            "repro_torch.parallel.collectives",
+            "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+            "repro_torch.analysis.lockcheck",
+            "repro_torch.analysis.lock_order"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
@@ -153,6 +157,44 @@ def test_lockcheck_clean_on_port():
         env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "lockcheck: OK" in proc.stdout
+
+
+def test_port_lockcheck_clean_on_port():
+    """The port's own lint (its tables: ``torch`` roots, the kernel
+    wrappers and step-cache replays as dispatches) beside the reference's
+    above."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.lockcheck",
+         "src/repro_torch"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "lockcheck: OK" in proc.stdout
+
+
+def test_cost_and_dry_run_modules_touch_no_device_at_import():
+    """``launch.roofline``, ``launch.dryrun`` and the lint import without
+    jax, the reference, a process group or a walker; the served path's
+    costing defaults to the card (and raises here, with none), and the
+    kernels' walker flag is unset."""
+    code = ("import json, sys\n"
+            "import repro_torch.launch.roofline as rl\n"
+            "import repro_torch.launch.dryrun, "
+            "repro_torch.analysis.lockcheck\n"
+            "import torch.distributed as dist\n"
+            "from repro_torch import kernels\n"
+            "assert not dist.is_initialized() and kernels.WALKER is None\n"
+            "try:\n"
+            "    rl.serving_costs()\n"
+            "    raise SystemExit('serving_costs ran without a card')\n"
+            "except RuntimeError as e:\n"
+            "    assert 'no CUDA device' in str(e), e\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
+            "or m.startswith('repro.'))))\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.splitlines()[-1]) == []
 
 
 def _qlock_bodies(tree: ast.AST):
