@@ -220,6 +220,18 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    ``ParallelConfig(seq_shard=True)``: each rank holds (2, 2,048) tokens;
    the logits and cache against the twin's and the ``prefill`` part's);
    flash launches = the layers a rank runs, give-ups 0;
+11c. tensor parallelism where ``model`` exceeds the KV heads, part
+   ``kv_replicated`` of phase ``tensor_parallel``: a world of 16 ranks
+   on the card, internlm2-1.8b at full width, depth 24 -> 2, on (data 1,
+   model 16): one query head a rank, each of its 8 KV heads whole on the
+   2 ranks of its group (gathered once from the specs' column shards); 4
+   prompts of 4,096 tokens, FLASH (1 query and 1 KV head a rank, 2
+   launches a rank, give-ups 0), 4 greedy steps, one ZeRO-1 AdamW step:
+   logits and the cache gathered from the groups' leaders within 5e-2 of
+   the unsharded twin's, each group's copies of the cache bit for bit
+   equal (and the groups' apart), loss and grad norm within 1e-3, each
+   leaf's move within half the twin's; each rank's ms, transport and
+   peak bytes beside the twin's;
 9b. the cost walker, phase ``roofline`` (``launch.roofline``): one pod's
    FLASH prefill of internlm2-1.8b, zamba2-7b and xlstm-350m (the
    sessions phase's prompts) run once under ``CostMode``, untimed: FLOPs,
@@ -234,15 +246,18 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    ``full`` configuration (internlm2-1.8b, seq 4,096, batch 1, AdamW,
    remat "block") run on fake tensors in a one-rank fake world, its peak
    bytes within 10 % of the train phase's measured peak, its matmul FLOPs
-   beside 6·N·D; and two production cells, gemma-7b x train_4k on (16,
-   16) and phi-3-vision x decode_32k REPLICATED on (2, 16, 16) with its
+   beside 6·N·D; and three production cells, gemma-7b x train_4k on (16,
+   16), phi-3-vision x decode_32k REPLICATED on (2, 16, 16) with its
    session ring (GiB a rank, dominant term, collective and pod-crossing
-   bytes: 0 on the hot step, above 0 on the ring); each of the three in a
-   child process that runs beside phases 1 and 2 (the children's wall and
-   the seconds spent waiting for them printed apart);
+   bytes: 0 on the hot step, above 0 on the ring) and internlm2-1.8b x
+   prefill_32k on (16, 16), whose 8 KV heads ``model`` exceeds (each
+   group of 2 ranks gathers its head); each of the four in a child
+   process that runs beside phases 1 and 2 (the children's wall and the
+   seconds spent waiting for them printed apart);
 12. the smoke's seconds, the ``{"kernels": [...]}`` line (the merge
    kernel's launches by path: served, warm, runtime, replication and mesh;
-   flash's by model and the tensor-parallel prefills', its give-ups (0)
+   flash's by model and the tensor-parallel prefills' (the 16-rank world's
+   too), its give-ups (0)
    and its times at the four geometries), then the card's name and power
    limit
    as ``nvidia-smi`` reports them, then ``{"ok": true, "device": ...}``.
@@ -327,11 +342,13 @@ PHI_FLASH = (4, 4096, 32, 32, 96, 0)
 # name -> B, S, H, KV, D of one rank's prefill attention layer in phase
 # tensor_parallel's family parts (bf16, causal): grok-1 on (data 2, model
 # 2), kimi-k2 on (data 1, model 4) (GQA 8:1 at D=112), phi-3-vision on
-# (data 2, model 2)
+# (data 2, model 2), internlm2-1.8b on (data 1, model 16) (one query head
+# and its group's KV head)
 TP_FAMILY_FLASH = {"grok-1-314b rank": (2, 4096, 24, 4, 128),
                    "kimi-k2-1t-a32b rank": (1, 4096, 16, 2, 112),
                    "phi-3-vision-4.2b rank": (2, 4096, 16, 16, 96),
-                   "zamba2-7b shared block rank": (2, 4096, 16, 16, 112)}
+                   "zamba2-7b shared block rank": (2, 4096, 16, 16, 112),
+                   "internlm2-1.8b rank, model 16": (4, 4096, 1, 1, 128)}
 GEMMA_FLASH = (4, 4096, 16, 16, 256, 0)
 # name -> B, S, H, KV, D, causal of one rank's whisper-tiny attention in
 # phase tensor_parallel's audio part (bf16): its encoder over 1,500 frames,
@@ -2608,12 +2625,14 @@ def expected_launches(arch):
 
 ROOFLINE_ARCHS = ("internlm2-1.8b", "zamba2-7b", "xlstm-350m")
 # the dry-run's cells, each in a child process: the train phase's ``full``
-# configuration on one card (seq 4,096, batch 1), and two production cells
-# (arch, shape, multi_pod)
+# configuration on one card (seq 4,096, batch 1), and three production
+# cells (arch, shape, multi_pod), the last one where ``model`` exceeds the
+# KV heads
 DRYRUN_FULL = {"arch": TRAIN_ARCH, "shape": "train_4k", "multi_pod": False,
                "mesh_shape": [1], "seq": TRAIN_SEQ, "batch": 1}
 DRYRUN_CELLS = (("gemma-7b", "train_4k", False),
-                ("phi-3-vision-4.2b", "decode_32k", True))
+                ("phi-3-vision-4.2b", "decode_32k", True),
+                ("internlm2-1.8b", "prefill_32k", False))
 DRYRUN_PEAK_TOL = 0.10          # the dry-run's peak against train.full's
 DRYRUN_TIMEOUT_S = 600.0
 
@@ -3536,6 +3555,7 @@ def tp_config(device="cuda", reduce=None):
             "recurrent_train_batch": RECURRENT_TRAIN_BATCH,
             "recurrent_train_steps": RECURRENT_TRAIN_STEPS,
             "audio_seq": AUDIO_SEQ, "audio_train_steps": AUDIO_TRAIN_STEPS,
+            "kv_layers": KV_LAYERS, "kv_train_steps": KV_TRAIN_STEPS,
             "parts": TP_PARTS}
 
 
@@ -5388,6 +5408,180 @@ def recurrent_give_ups(rtp) -> int:
                                                  "ssm_prefill"))
 
 
+# ---------------------------------------------------------------------------
+# Phase tensor_parallel where model exceeds the KV heads (16 ranks)
+# ---------------------------------------------------------------------------
+
+KV_ARCH = TRAIN_ARCH            # kv_replicated: internlm2-1.8b, 8 KV heads
+KV_RANKS = 16                   # model 16: each KV head on a group of 2
+KV_LAYERS = 2                   # depth 24 -> 2
+KV_TRAIN_STEPS = 1
+KV_PARTS = ("kv_replicated",)
+
+
+def tp_kv_replicated(torch, rank, cfg, dev, mesh, fk):
+    """Part ``kv_replicated``: internlm2-1.8b at full width, depth
+    ``kv_layers``, bf16 weights drawn block by block (``_family_params``),
+    on (data 1, model = the world): H / model query heads a rank, each KV
+    head whole on the ``rep`` ranks of its group.  The FLASH prefill of
+    ``batch`` prompts of ``seq`` (``_family_prefill``: flash launches =
+    the layers, give-ups 0), ``decode_steps`` greedy steps after the
+    step's one gather of the group's ``wk``/``wv`` (``step.prepare``),
+    then ``kv_train_steps`` steps of the reference's choices for
+    internlm2-1.8b (``default_parallel``: AdamW ZeRO-1) at that depth;
+    rank 0 holds each against the unsharded run on the card, and every
+    group's copies of the prefill cache must be equal bit for bit, the
+    groups' apart."""
+    import repro_torch.launch.serve as serve
+    from repro_torch.configs import (AttnImpl, ShapeConfig, StepKind,
+                                     TrainConfig, get_arch)
+    from repro_torch.launch import train
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.transformer import kv_split
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.parallel.collectives import axis_size
+    arch = _arch(cfg, KV_ARCH, num_layers=cfg["kv_layers"])
+    model = axis_size(mesh, "model")
+    _, rep = kv_split(arch, model)
+    assert rep > 1, (arch.num_kv_heads, model)
+    B, S = cfg["batch"], cfg["seq"]
+    params = _family_params(torch, arch, mesh, dev, 31, torch.bfloat16)
+    batch, shape = _family_batch(torch, arch, B, S, dev, 504)
+    runs, cache = _family_prefill(torch, rank, cfg, dev, mesh, fk, arch,
+                                  batch, shape, params, ("auto",))
+    run = runs["auto"]
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    kv = {k: cache[k] for k in ("k", "v")}
+    digests = _gather_obj(_digest(torch, kv))
+    cspecs = serve.session_cache_specs(arch, mesh, B)
+    whole = _whole(kv, mesh, {k: cspecs[k] for k in kv})
+    if rank != 0:
+        del whole
+    room = S + cfg["decode_steps"] + 8
+    dcache = zoo.init_cache(arch, B, room, device=dev, mesh=mesh)
+    for k in kv:
+        dcache[k][:, :, :S].copy_(cache[k])
+    dcache["length"].copy_(cache["length"])
+    del cache, kv
+    seen, greedy = [], serve.greedy_sharded
+
+    def capture(lg, m):
+        seen.append(lg)
+        return greedy(lg, m)
+    serve.greedy_sharded = capture
+    dstep = serve.make_decode_step(arch, device=dev, mesh=mesh, batch=B)
+    (_, gather_ms, gather_tms, gather_tbytes) = _transport_ms(
+        torch, dev, lambda: dstep.prepare(params))
+    first = torch.argmax(run["logits"][:, -1, :], -1)[:, None].to(
+        torch.int32)
+    token = first
+    dms, dtms, toks, step_logits = [], [], [], []
+    try:
+        for _ in range(cfg["decode_steps"]):
+            (token, dcache), t, tt, _ = _transport_ms(
+                torch, dev, lambda: dstep(params, dcache, token))
+            dms.append(t)
+            dtms.append(tt)
+            toks.append(token.clone())
+            step_logits.append(sh.unlocal(seen.pop().float(), mesh,
+                                          sh.P(None, "model")))
+    finally:
+        serve.greedy_sharded = greedy
+    mine = {k: run[k] for k in ("ms", "transport_ms", "transport_bytes",
+                                "flash_launches", "give_ups")}
+    ranks = _gather_obj({"prefill": mine, "peak_bytes": peak,
+                         "decode_ms": dms, "decode_transport_ms": dtms,
+                         "gather": [gather_ms, gather_tms, gather_tbytes]})
+    del params, dcache
+    _free(torch, dev)
+    _gather_obj(None)
+    serve_rec = None
+    if rank == 0:
+        groups = [digests[g * rep:(g + 1) * rep]
+                  for g in range(model // rep)]
+        assert all(len(set(g)) == 1 for g in groups), groups
+        assert len({g[0] for g in groups}) == len(groups), groups
+        full = _family_params(torch, arch, mesh, dev, 31, torch.bfloat16,
+                              whole=True)
+        plain = serve.make_prefill_step(arch, shape, impl=AttnImpl.FLASH,
+                                        device=dev)
+        (logits0, cache0), ms0 = _rank_ms(torch, dev,
+                                          lambda: plain(full, batch))
+        if dev.type == "cuda":
+            fk.check_give_ups()
+        rel = _rel(torch, run["logits"], logits0)
+        rel_cache = max(_rel(torch, whole[k], cache0[k]) for k in whole)
+        assert rel < PREFILL_REL_TOL, rel
+        assert rel_cache < PREFILL_REL_TOL, rel_cache
+        del whole
+        dc0 = zoo.init_cache(arch, B, room, device=dev)
+        for k in ("k", "v"):
+            dc0[k][:, :, :S].copy_(cache0[k])
+        dc0["length"].copy_(cache0["length"])
+        del cache0
+        rels, differ, ms0s, token0 = [], 0, [], first
+        for i in range(cfg["decode_steps"]):
+            (lg0, dc0), t = _rank_ms(torch, dev, lambda: zoo.decode_step(
+                arch, full, dc0, token0))
+            ms0s.append(t)
+            lg0 = lg0[:, -1, :].float()
+            rels.append(_rel(torch, step_logits[i], lg0))
+            differ += int((torch.argmax(lg0, -1)[:, None].to(torch.int32)
+                           != toks[i]).sum())
+            token0 = toks[i]
+        del full, dc0
+        _free(torch, dev)
+        assert max(rels) < PREFILL_REL_TOL, rels
+        serve_rec = {
+            "batch": B, "seq": S, "impl": "flash",
+            "rel_err_logits": rel, "rel_err_cache": rel_cache,
+            "tolerance": PREFILL_REL_TOL,
+            "group_copies_identical": True, "groups_apart": True,
+            "flash_launches": [r["prefill"]["flash_launches"] for r in ranks],
+            "give_ups": [r["prefill"]["give_ups"] for r in ranks],
+            "ms": [r["prefill"]["ms"] for r in ranks],
+            "transport_ms": [r["prefill"]["transport_ms"] for r in ranks],
+            "transport_bytes": [r["prefill"]["transport_bytes"]
+                                for r in ranks],
+            "peak_bytes_a_rank": [r["peak_bytes"] for r in ranks],
+            "unsharded_ms": ms0,
+            "kv_gather": {"ms": [r["gather"][0] for r in ranks],
+                          "transport_ms": [r["gather"][1] for r in ranks],
+                          "transport_bytes": [r["gather"][2]
+                                              for r in ranks]},
+            "decode": {"steps": cfg["decode_steps"], "rel_err_logits": rels,
+                       "greedy_tokens_differing": differ,
+                       "greedy_tokens": B * cfg["decode_steps"],
+                       "tokens": [t[:, 0].tolist() for t in toks],
+                       "ms": [r["decode_ms"] for r in ranks],
+                       "transport_ms": [r["decode_transport_ms"]
+                                        for r in ranks],
+                       "unsharded_ms": ms0s}}
+    _gather_obj(None)
+
+    tshape = ShapeConfig("kv_train", cfg["train_seq"], cfg["train_batch"],
+                         StepKind.TRAIN)
+    par = train.default_parallel(get_arch(KV_ARCH), tshape)
+    dtype = train.param_dtype_for(get_arch(KV_ARCH))
+    assert par.optimizer == "adamw" and par.zero1 and not par.fsdp
+    steps = cfg["kv_train_steps"]
+    trec = _family_train(torch, rank, cfg, dev, mesh, arch, tshape, par,
+                         TrainConfig(**TP_TRAIN_CFG), steps, 32, ("data",),
+                         dtype, must_check=("blocks/attn/wk",
+                                            "blocks/attn/wv"))
+    if rank != 0:
+        return None
+    return {"arch": KV_ARCH, "mesh": {"data": 1, "model": model},
+            "kv_heads": arch.num_kv_heads, "rep": rep,
+            "query_heads_a_rank": arch.num_heads // model,
+            "reduced": _depth_cut(KV_ARCH, arch),
+            "prefill": serve_rec,
+            "train": {"global_batch": f"256 -> {tshape.global_batch}",
+                      "seq": tshape.seq_len, "steps": steps,
+                      "zero1": par.zero1, "fsdp": par.fsdp,
+                      "remat": par.remat, **trec}}
+
+
 def tp_rank(rank, cfg):
     """One rank of the ``tensor_parallel`` world: every part in turn with a
     barrier between; rank 0 returns the records, every rank its seconds a
@@ -5400,10 +5594,17 @@ def tp_rank(rank, cfg):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     _time_transport(torch)
-    dm = make_mesh_compat((2, 2), ("data", "model"))
-    pm = make_mesh_compat((2, 2), ("pod", "model"))
-    m4 = make_mesh_compat((1, 4), ("data", "model"))
     parts = cfg["parts"]
+    if set(parts) <= set(KV_PARTS):     # a world of its own, any size
+        import torch.distributed as dist
+        dm = pm = m4 = None
+        kvm = make_mesh_compat((1, dist.get_world_size()),
+                               ("data", "model"))
+    else:
+        dm = make_mesh_compat((2, 2), ("data", "model"))
+        pm = make_mesh_compat((2, 2), ("pod", "model"))
+        m4 = make_mesh_compat((1, 4), ("data", "model"))
+        kvm = None
     out, seconds, memory = {}, {}, {}
     # rank 0's host copy of the prefill part's output, for the seq_shard part
     kept = {} if "seq_shard" in parts else None
@@ -5437,7 +5638,9 @@ def tp_rank(rank, cfg):
                      ("hybrid_train", lambda: hybrid_train(torch, rank, cfg,
                                                            dev, dm)),
                      ("ssm_train", lambda: ssm_train(torch, rank, cfg, dev,
-                                                     dm))):
+                                                     dm)),
+                     ("kv_replicated", lambda: tp_kv_replicated(
+                         torch, rank, cfg, dev, kvm, fk))):
         if part not in parts:
             continue
         if dev.type == "cuda":
@@ -5454,10 +5657,10 @@ def tp_rank(rank, cfg):
             "memory": memory}
 
 
-def run_tp(torch, cfg=None):
-    """Phase ``tensor_parallel``: one world of 4 ranks on the card (gloo
-    over a ``file://`` store in ``build/``); returns (the parts' records,
-    wall seconds)."""
+def run_tp(torch, cfg=None, ranks=MESH_RANKS):
+    """Phase ``tensor_parallel``: one world of ``ranks`` ranks on the card
+    (gloo over a ``file://`` store in ``build/``); returns (the parts'
+    records, wall seconds)."""
     import os
     import shutil
     from repro_torch.launch.mesh import spawn_world
@@ -5473,7 +5676,7 @@ def run_tp(torch, cfg=None):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    results = spawn_world(tp_rank, MESH_RANKS,
+    results = spawn_world(tp_rank, ranks,
                           f"file://{store_dir / 'store'}", args=(cfg,),
                           device=cfg["device"], timeout_s=MESH_TIMEOUT_S)
     wall = time.perf_counter() - t0
@@ -5682,7 +5885,7 @@ def main() -> int:
     emit({"phase": "roofline", **roof,
           "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
 
-    # -- 9c. the dry-run against the train phase, and two production cells
+    # -- 9c. the dry-run against the train phase, and three production cells
     # (their children ran beside phases 1 and 2)
     t_dry = time.perf_counter()
     dry = run_dryrun(torch, train_rec["full"], dry_cells)
@@ -5715,6 +5918,16 @@ def main() -> int:
               "nvidia_smi": smi, **rtp[part]})
     rlaunch = recurrent_launches(rtp)
 
+    # -- 11c. tensor parallelism where model exceeds the KV heads: a world
+    # of 16 ranks of its own
+    torch.cuda.empty_cache()
+    ktp, ktp_wall = run_tp(torch, dict(tp_config(), parts=KV_PARTS),
+                           ranks=KV_RANKS)
+    for part in KV_PARTS:
+        emit({"phase": "tensor_parallel", "part": part, "ranks": KV_RANKS,
+              "transport": "gloo, staged through host memory",
+              "nvidia_smi": smi, **ktp[part]})
+
     # -- 12. the kernels line, the card, the result
     flash_launches = {a: ss["launches"]["flash_attention_bhsd"]
                       for a, ss in sessions.items()
@@ -5727,6 +5940,8 @@ def main() -> int:
         tp["audio"]["prefill"]["flash_launches"])
     flash_launches["tensor_parallel_seq_shard"] = sum(
         tp["seq_shard"]["flash_launches"])
+    flash_launches["tensor_parallel_kv"] = sum(
+        ktp["kv_replicated"]["prefill"]["flash_launches"])
     roof_launches = {}
     for arch_id in ROOFLINE_ARCHS:
         for name, n in roof[arch_id]["launches"].items():
@@ -5734,7 +5949,8 @@ def main() -> int:
     flash_launches["roofline"] = roof_launches.get("flash_attention_bhsd", 0)
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start,
           "mesh_s": mesh_wall, "tensor_parallel_s": tp_wall,
-          "tensor_parallel_recurrent_s": rtp_wall})
+          "tensor_parallel_recurrent_s": rtp_wall,
+          "tensor_parallel_kv_s": ktp_wall})
     ssd_launches = {
         "zamba2-7b": sessions["zamba2-7b"]["launches"]["ssd_chunk_bhcp"],
         "tensor_parallel_recurrent": rlaunch["ssd_chunk_bhcp"],
@@ -5765,7 +5981,8 @@ def main() -> int:
         "give_ups": fk.check_give_ups() + sum(tp["prefill"]["give_ups"])
         + family_give_ups(tp) + recurrent_give_ups(rtp)
         + sum(tp["audio"]["prefill"]["give_ups"])
-        + sum(tp["seq_shard"]["give_ups"]),
+        + sum(tp["seq_shard"]["give_ups"])
+        + sum(ktp["kv_replicated"]["prefill"]["give_ups"]),
         "max_abs_err": max([max(fworst.values())] + [
             t["max_abs_err"] for t in flash_times.values()]),
         "ms": ft["ms"], "plain_ms": ft["plain_ms"],

@@ -7,11 +7,13 @@
                                     # seq_shard beside the dense prefill
     python3 probes/tp_phase.py hybrid_prefill ssm_prefill hybrid_train \
         ssm_train                                   # the second world's
+    python3 probes/tp_phase.py kv_replicated        # the 16-rank world's
 
 Builds the kernels (flash is the phase's: each rank's prefill runs it on
 its heads), spawns the phase's world of 4 ranks sharing the card
-(``chip_smoke.run_tp``) and prints one JSON line a part after the card's
-name and power limit.  Any failed check raises, as in the smoke.
+(``chip_smoke.run_tp``; 16 ranks for ``kv_replicated``, whose world is
+its own) and prints one JSON line a part after the card's name and power
+limit.  Any failed check raises, as in the smoke.
 """
 import json
 import pathlib
@@ -39,7 +41,9 @@ def main() -> int:
     cfg = cs.tp_config()
     if sys.argv[1:]:
         cfg["parts"] = tuple(sys.argv[1:])
-    records, wall = cs.run_tp(torch, cfg)
+    ranks = cs.KV_RANKS if set(cfg["parts"]) <= set(cs.KV_PARTS) \
+        else cs.MESH_RANKS
+    records, wall = cs.run_tp(torch, cfg, ranks=ranks)
     for part in cfg["parts"]:
         print(json.dumps({"part": part, "nvidia_smi": smi, **records[part]}),
               flush=True)

@@ -213,6 +213,8 @@ def _walk(fn: Callable, args: tuple, device: str, pod_size: Optional[int]
     from repro_torch.launch.roofline import CostMode
     with FakeTensorMode():
         fargs = _fake(args, device)
+        if hasattr(fn, "prepare"):      # a serve step's once-per-weights
+            fn.prepare(fargs[0])        # gather, outside the walk
         mode = CostMode(pod_size)
         mode.track(fargs)
         with mode:

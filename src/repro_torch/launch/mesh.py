@@ -26,6 +26,14 @@ call and stops the others.
 alone, so a production mesh of 256 or 512 ranks builds in one process for
 the dry-run (``launch.dryrun``); its collectives answer at once and move
 nothing.  ``close_world`` leaves whichever world the process joined.
+
+``kv_groups`` splits a mesh's ``model`` axis into the key/value groups of
+tensor parallelism where ``model`` exceeds the KV heads: the same ranks as
+a mesh whose ``model`` is (``KV_HEAD_AXIS``, ``KV_GROUP_AXIS``), the
+groups of ``rep`` consecutive ``model`` ranks that serve one KV head.
+Every rank of the mesh builds every group once, in one order (a
+``DeviceMesh`` makes its groups so; ``dist.new_group`` asks it), at the
+first call on that mesh, the fake worlds' too.
 """
 from __future__ import annotations
 
@@ -128,6 +136,38 @@ def make_test_mesh(shape=(2, 2, 2), axes=("pod", "data", "model")):
     """Small mesh for the CPU tests (a world of ``prod(shape)`` ranks from
     ``init_world(..., device="cpu")``)."""
     return make_mesh_compat(shape, axes)
+
+
+#: the axes of ``kv_groups``' mesh that stand for ``model``: the KV head
+#: (``model / rep`` of them) and the rank inside its group (``rep``)
+KV_HEAD_AXIS, KV_GROUP_AXIS = "model_kv", "model_rep"
+
+
+def kv_groups(mesh, rep: int):
+    """``mesh`` with its ``model`` axis cut into (model / ``rep``,
+    ``rep``): its ``KV_GROUP_AXIS`` holds the ``rep`` consecutive ranks of
+    ``model`` that share a KV head.  Built once a mesh and ``rep`` (kept
+    on the mesh), by every rank of the mesh at its first call."""
+    held = mesh.__dict__.setdefault("_kv_groups", {})
+    if rep not in held:
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.utils._python_dispatch import _disable_current_modes
+        names = tuple(mesh.mesh_dim_names)
+        at = names.index("model")
+        with _disable_current_modes():      # a dry-run's fake tensor mode
+            ranks = mesh.mesh
+            shape = list(ranks.shape)
+            model = shape[at]
+            if model % rep:
+                raise ValueError(f"rep = {rep} does not divide model = "
+                                 f"{model}")
+            held[rep] = DeviceMesh(
+                world_device().type,
+                ranks.reshape(shape[:at] + [model // rep, rep] +
+                              shape[at + 1:]),
+                mesh_dim_names=names[:at] + (KV_HEAD_AXIS, KV_GROUP_AXIS) +
+                names[at + 1:])
+    return held[rep]
 
 
 def axis_sizes(mesh) -> dict:

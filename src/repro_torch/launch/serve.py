@@ -52,7 +52,12 @@ batch shard over ``data`` and its sessions' cache cut over ``model``
 (``session_cache_specs``: KV heads, and zamba2's and xlstm's recurrent
 states by heads or d_inner columns, where the reference's
 ``cache_partition_specs`` picks a dim by size; gathered, the two are the
-same tensor).  Prefill runs each rank's
+same tensor).  Where ``model`` exceeds the KV heads, the rank's cache
+holds its group's one KV head whole (``rep`` ranks hold each head alike:
+``sharding.Grouped``), and each factory's step gathers its group's
+``wk``/``wv`` columns once for the weights it is handed (``kv_prepare``:
+kept for later calls with those same tensors), so a decode step adds no
+collective for them.  Prefill runs each rank's
 heads through flash under FLASH and returns the last logits gathered to
 every rank; with ``ParallelConfig(seq_shard=True)`` its tokens are the
 rank's slice of the sequence too (``forward_seq(seq_shard=True)``), with
@@ -116,14 +121,19 @@ def session_cache_specs(arch: ArchConfig, mesh, batch: int) -> dict:
     ``n``, ``m`` and ``h`` whole.  The reference's
     ``cache_partition_specs`` picks a dim by size; gathered, the two are
     the same tensor.  whisper's ``self_k``/``self_v`` (L, B, S, KV, Dh)
-    and ``cross_k``/``cross_v`` (L, B, F, KV, Dh) by KV heads too."""
+    and ``cross_k``/``cross_v`` (L, B, F, KV, Dh) by KV heads too.  Where
+    ``model`` exceeds the KV heads every KV dim is ``Grouped``: a rank
+    holds its group's head (``transformer.kv_split``)."""
     from repro_torch.launch.mesh import axis_sizes
-    from repro_torch.models.transformer import plan
-    from repro_torch.parallel.sharding import P
+    from repro_torch.models.transformer import kv_split, plan
+    from repro_torch.parallel.sharding import Grouped, P
     sizes = axis_sizes(mesh)
     data = sizes.get("data", 1)
     b = "data" if data > 1 and batch % data == 0 else None
     m = "model" if sizes.get("model", 1) > 1 else None
+    heads = m
+    if m and kv_split(arch, sizes["model"])[1] > 1:
+        heads = Grouped(m, arch.num_kv_heads)
     p = plan(arch)
     if p["kind"] == "zamba":
         def mamba(*lead):
@@ -131,7 +141,7 @@ def session_cache_specs(arch: ArchConfig, mesh, batch: int) -> dict:
                     "conv_B": P(*lead, b, None, None),
                     "conv_C": P(*lead, b, None, None),
                     "state": P(*lead, b, m, None, None)}
-        kv = P(None, b, None, m, None)
+        kv = P(None, b, None, heads, None)
         out = {"mamba": mamba(None, None), "shared_k": kv, "shared_v": kv,
                "shared_pos": P(None, b, None), "length": P()}
         if p["tail"]:
@@ -147,11 +157,52 @@ def session_cache_specs(arch: ArchConfig, mesh, batch: int) -> dict:
                           "m": P(None, b, None),
                           "h": P(None, b, None, None)},
                 "length": P()}
-    kv = P(None, b, None, m, None)
+    kv = P(None, b, None, heads, None)
     if p["kind"] == "whisper":
         return {"self_k": kv, "self_v": kv, "cross_k": kv, "cross_v": kv,
                 "length": P()}
     return {"k": kv, "v": kv, "length": P()}
+
+
+def kv_prepare(arch: ArchConfig, mesh) -> Callable[[dict], dict]:
+    """``prepare(params) -> params'``: where ``model`` exceeds the KV
+    heads, ``params`` with every attention's ``wk``/``wv`` gathered to the
+    rank's KV head (``transformer.kv_view``, without autograd), once for
+    the tensors it is handed: a later call with the same leaves, unchanged
+    since, reuses the gathered ones (kept beside weak references to their
+    sources, so a step keeps no weights alive).  Elsewhere the identity.
+    Every rank of ``model`` calls it alike (the first call gathers)."""
+    import weakref
+    from repro_torch.launch.mesh import axis_sizes
+    from repro_torch.models.transformer import (KV_WEIGHTS, kv_split,
+                                                kv_view, map_attention,
+                                                tp_mesh)
+    held: dict = {}
+
+    def weights(params) -> list:
+        out: list = []
+
+        def note(ap):
+            out.extend(ap[k] for k in KV_WEIGHTS)
+            return ap
+        map_attention(note, params)
+        return out
+
+    def prepare(params: dict) -> dict:
+        tp = tp_mesh(arch, mesh)
+        if tp is None or kv_split(arch, axis_sizes(tp)["model"])[1] == 1:
+            return params
+        now = [(w, w._version) for w in weights(params)]
+        if not (held and all(ref() is w and was == v for (ref, was), (w, v)
+                             in zip(held["sources"], now))):
+            with torch.no_grad():
+                held["heads"] = weights(kv_view(params, tp, arch))
+            held["sources"] = [(weakref.ref(w), v) for w, v in now]
+        heads = iter(held["heads"])
+        return map_attention(lambda ap: {k: next(heads) if k in KV_WEIGHTS
+                                         else v for k, v in ap.items()},
+                             params)
+    return prepare
 
 
 def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
@@ -196,10 +247,12 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
         vocab = "model" if vocab_split(arch, mesh) else None
         logits_spec = P(bdim, None, vocab)
     axes = (bdim,) if mesh is not None and bdim else ()
+    prepare = kv_prepare(arch, mesh)
 
     def prefill(params: dict, batch: dict):
         check_on(dev, params, "params")
         check_on(dev, batch, "batch")
+        params = prepare(params)
         logits, _, cache = zoo.forward_seq(arch, params, batch["tokens"],
                                            extra=batch, impl=impl,
                                            return_cache=True, mesh=mesh,
@@ -216,6 +269,7 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
             last = unlocal(last, mesh, logits_spec)
         return last, cache
 
+    prefill.prepare = prepare
     return prefill
 
 
@@ -289,11 +343,13 @@ def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
             axes = ("data",) if data > 1 and (batch is None or
                                               batch % data == 0) else ()
             split = vocab_split(arch, mesh)
+            prepare = kv_prepare(arch, mesh)
 
             def tp_step(params: dict, cache: Cache, token: torch.Tensor):
                 check_on(dev, params, "params")
                 check_on(dev, cache, "cache")
                 check_on(dev, token, "token")
+                params = prepare(params)
                 logits, new = zoo.decode_step(arch, params, cache, token,
                                               mesh=mesh,
                                               compute_dtype=compute_dtype,
@@ -303,6 +359,7 @@ def make_decode_step(arch: ArchConfig, n_pods: int = 1, device=None,
                     return greedy_sharded(logits[:, -1, :], mesh), cache
                 nxt = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
                 return nxt.to(torch.int32), cache
+            tp_step.prepare = prepare
             return tp_step
         if fd:
             def sharded(params: dict, cache: Cache, token: torch.Tensor):

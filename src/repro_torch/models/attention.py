@@ -27,8 +27,11 @@ Tensor parallelism (``mesh`` given to ``self_attention``,
 ``decode_self_attention``, ``cross_attention`` and ``project_cross_kv``):
 ``wq``/``wk``/``wv`` hold the rank's columns,
 so its heads are read from the weights' widths (``_project_qkv``), never
-from ``arch``: ``H / model`` query and ``KV / model`` key/value heads,
-the grouping ``h // (H / KV)`` holding on each rank.  The input enters
+from ``arch``: ``H / model`` query and ``max(KV / model, 1)`` key/value
+heads, the grouping ``h // (H / KV)`` holding on each rank.  Where
+``model`` exceeds the KV heads, ``wk``/``wv`` (and ``bk``/``bv``) come in
+as the one head of the rank's group, whole (``transformer.kv_view``), and
+all ``H / model`` query heads of the rank read it.  The input enters
 through ``vary`` and ``wo`` (the rank's rows) leaves through one ``psum``
 over ``model``; a decode cache holds the rank's KV heads.
 

@@ -37,8 +37,13 @@ MLP sums its row-parallel output over ``model`` (``attention``,
 logits (gemma's tied ``embed.T`` too), which ``lm_loss`` reads through the
 vocab-parallel cross-entropy; a whole one gives every rank the whole
 logits.  The decode cache holds the rank's KV heads
-(``init_cache(mesh=)``).  The vlm's ``patch_proj`` and whisper's
-``frame_proj`` give the rank's d / model columns, gathered over ``model``
+(``init_cache(mesh=)``).  Where ``model`` exceeds the KV heads (a multiple
+of them: ``kv_split``), Megatron's replicated KV heads: rank ``r`` serves
+query heads ``[r H / model, (r + 1) H / model)``, which all read KV head
+``r // rep`` (``rep = model / KV``); the specs still cut ``wk``/``wv`` by
+columns, and the ``rep`` ranks of a head's group gather its columns at use
+(``kv_view``), so each holds and caches the head whole.  The vlm's
+``patch_proj`` and whisper's ``frame_proj`` give the rank's d / model columns, gathered over ``model``
 before the patches join the text or the frames enter the encoder;
 whisper's encoder and decoder layers are dense ones on the rank's heads,
 and its cross-attention reads the rank's KV heads of the encoder output.
@@ -393,10 +398,23 @@ def _cast(tree, compute_dtype):
 _COL_BIASES = frozenset({"bq", "bk", "bv", "b_up"})
 
 
+def kv_split(arch: ArchConfig, model: int) -> Tuple[int, int]:
+    """``(KV heads a rank holds, rep)`` over ``model`` ranks: ``KV /
+    model`` heads and rep 1 where ``model`` divides the KV heads; else
+    (``model`` a multiple of them, Megatron's replicated KV heads) the one
+    head ``rank // rep`` of its group of ``rep = model / KV`` consecutive
+    ranks, which all hold it."""
+    kv = arch.num_kv_heads
+    return (kv // model, 1) if kv % model == 0 else (1, model // kv)
+
+
 def check_tp_split(arch: ArchConfig, model: int) -> None:
     """``ValueError`` unless ``model`` divides every width the family
-    splits: the query and key/value heads of every family with attention
-    (the reference would split a head and let GSPMD reshard it); the
+    splits: the query heads of every family with attention, and its
+    key/value heads or a multiple of them (``kv_split``: then each group
+    of ``model / KV`` ranks holds one KV head whole, where the reference
+    splits the head and lets GSPMD reshard it; a KV count that neither
+    divides ``model`` nor is divided by it raises); the
     dense MLP's hidden width (dense, vlm, whisper and zamba2's shared
     block), the vlm's ``patch_proj`` and whisper's ``frame_proj`` columns
     (d_model), and for the moe family d_expert wherever the specs cut it
@@ -427,6 +445,8 @@ def check_tp_split(arch: ArchConfig, model: int) -> None:
     if arch.frontend_stub in ("clip_patches", "audio_frames"):
         widths["d_model"] = arch.d_model
     bad = {k: v for k, v in widths.items() if v % model}
+    if "key/value heads" in bad and model % arch.num_kv_heads == 0:
+        del bad["key/value heads"]
     if bad:
         raise ValueError(f"{arch.name}: {bad} do not split over model = "
                          f"{model}")
@@ -473,10 +493,59 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
 
 
+#: the leaves of an attention's params that a KV group shares
+KV_WEIGHTS, _KV_BIASES = ("wk", "wv"), ("bk", "bv")
+
+
+def map_attention(fn: Callable[[dict], dict], tree: dict) -> dict:
+    """``tree`` with every attention's params (a dict holding ``wk``)
+    replaced by ``fn`` of it, in the tree's order; the rest as it is."""
+    if "wk" in tree:
+        return fn(tree)
+    return {k: map_attention(fn, v) if isinstance(v, dict) else v
+            for k, v in tree.items()}
+
+
+def kv_view(params: dict, mesh, arch: ArchConfig) -> dict:
+    """Where ``model`` exceeds the KV heads (``kv_split``'s rep > 1): every
+    attention's ``wk``/``wv`` as its rank's KV head whole, the rest as it
+    is.  A leaf the specs cut by columns (``Dh / rep`` of the head a rank)
+    is gathered over the rank's KV group (``collectives.gather_param`` on
+    ``launch.mesh.kv_groups``: its cotangent reduce-scattered over the
+    group, so each shard's gradient sums every rank that read the head); a
+    leaf the specs leave whole (``model`` does not divide KV x Dh) gives
+    the rank its head (``collectives.take_part``: the cotangent summed
+    over ``model``); a leaf one head wide is the head already (the serve
+    factories gather once, ``launch.serve``).  Elsewhere ``params``
+    itself."""
+    from repro_torch.launch.mesh import KV_GROUP_AXIS, kv_groups
+    from repro_torch.parallel import collectives as col
+    model = col.axis_size(mesh, "model")
+    _, rep = kv_split(arch, model)
+    if rep == 1:
+        return params
+    dh, kv = arch.resolved_head_dim, arch.num_kv_heads
+    g = col.axis_index(mesh, "model") // rep
+
+    def head(w):
+        if w.shape[-1] == dh:
+            return w
+        if w.shape[-1] * model == kv * dh:
+            return col.gather_param(w, kv_groups(mesh, rep), KV_GROUP_AXIS,
+                                    w.ndim - 1)
+        return col.take_part(w, mesh, "model", w.ndim - 1, g, kv)
+
+    return map_attention(lambda ap: {k: head(v) if k in KV_WEIGHTS else v
+                                     for k, v in ap.items()}, params)
+
+
 def tp_view(params: dict, mesh, arch: ArchConfig) -> dict:
     """The rank's view of its parameter shards: each column-parallel
     bias cut to the rank's columns (``collectives.shard``, whose
-    cotangent is gathered back); a moe shared expert sharded on its layer
+    cotangent is gathered back), and where ``model`` exceeds the KV heads
+    ``wk``/``wv`` as the rank's KV head (``kv_view``) and ``bk``/``bv``
+    cut to it (``collectives.take_part``: the cotangent, placed at the
+    head, summed over ``model``); a moe shared expert sharded on its layer
     dim (``moe.expert_layout``) gathered over ``model``
     (``all_gather_dim``: every rank then runs it alike, so its cotangent
     is sliced back); the Mamba-2 and mLSTM leaves the specs replicate that
@@ -484,14 +553,23 @@ def tp_view(params: dict, mesh, arch: ArchConfig) -> dict:
     ``MAMBA_CUTS`` and ``MLSTM_CUTS``: ``w_if`` by heads in both its
     halves, the input gates ``[:H]`` and the forget gates ``[H:]``); the
     rest as they are."""
-    from repro_torch.parallel.collectives import (all_gather_dim, axis_size,
-                                                  shard)
+    from repro_torch.parallel.collectives import (all_gather_dim, axis_index,
+                                                  axis_size, shard,
+                                                  take_part)
+    _, rep = kv_split(arch, axis_size(mesh, "model"))
+    g = axis_index(mesh, "model") // rep
+
+    def cut(k, v):
+        if rep > 1 and k in _KV_BIASES:
+            return take_part(v, mesh, "model", v.ndim - 1, g,
+                             arch.num_kv_heads)
+        return shard(v, mesh, "model", v.ndim - 1)
 
     def walk(tree):
         return {k: (walk(v) if isinstance(v, dict) else
-                    shard(v, mesh, "model", v.ndim - 1) if k in _COL_BIASES
-                    else v) for k, v in tree.items()}
-    out = walk(params)
+                    cut(k, v) if k in _COL_BIASES else v)
+                for k, v in tree.items()}
+    out = walk(kv_view(params, mesh, arch))
     if arch.family == "moe" and moe_mod.expert_layout(
             arch, axis_size(mesh, "model"))["shared"] == "layer":
         moe = out["blocks"]["moe"]
@@ -811,8 +889,10 @@ def init_cache(arch: ArchConfig, batch: int, max_len: int,
     shorter than ``max_len``, else ``max_len``.  With a tensor-parallel
     ``mesh`` (``tp_mesh``): the rank's
     shape, ``batch / data`` sessions (the global ``batch`` when ``data``
-    does not divide it), ``KV / model`` heads and the recurrent states'
-    rank parts (``mamba2_cache_init``, ``mlstm_cache_init``)."""
+    does not divide it), ``max(KV / model, 1)`` heads (``kv_split``: where
+    ``model`` exceeds the KV heads, the rank's group's one head) and the
+    recurrent states' rank parts (``mamba2_cache_init``,
+    ``mlstm_cache_init``)."""
     p = plan(arch)
     dev = resolve_device(device)
     kv = arch.num_kv_heads, arch.resolved_head_dim
@@ -820,7 +900,7 @@ def init_cache(arch: ArchConfig, batch: int, max_len: int,
     if tp_mesh(arch, mesh) is not None:
         from repro_torch.parallel.collectives import axis_size
         model = axis_size(mesh, "model")
-        kv = arch.num_kv_heads // model, kv[1]
+        kv = kv_split(arch, model)[0], kv[1]
         if "data" in mesh.mesh_dim_names and \
                 batch % axis_size(mesh, "data") == 0:
             batch //= axis_size(mesh, "data")

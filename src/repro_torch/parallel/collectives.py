@@ -42,7 +42,13 @@ chunk of a batch cut over several axes and gather a small table (the moe
 layer's per-expert counts) in that chunk order, with no gradient.
 
 ``shard`` (a rank's slice of a value the same on every rank) gathers its
-cotangent back.  ``torch.distributed.nn``'s ``all_reduce`` sums cotangents
+cotangent back.  ``take_part`` cuts a part that several ranks take alike
+(a KV head cut from a whole leaf, where ``model`` exceeds the KV heads):
+its cotangent, placed at the part, is summed over the axis, so each part's
+gradient sums every rank that took it.  The KV groups' gather of a
+column-sharded ``wk``/``wv`` is ``gather_param`` over the group axis of
+``launch.mesh.kv_groups``' mesh, whose groups are process subgroups of
+``model`` (the transport and the walker read them as any group).  ``torch.distributed.nn``'s ``all_reduce`` sums cotangents
 instead, which would multiply an expert-parallel layer's gradients by the
 axis size.
 """
@@ -195,6 +201,21 @@ class _Shard(torch.autograd.Function):
         return _cat_gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
 
 
+class _TakePart(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, part, parts):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        ctx.shape, ctx.at = x.shape, part * (x.shape[dim] // parts)
+        return x.narrow(dim, ctx.at, x.shape[dim] // parts).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        full = g.new_zeros(ctx.shape)
+        full.narrow(ctx.dim, ctx.at, g.shape[ctx.dim]).copy_(g)
+        return _all_reduce(full, ctx.mesh, ctx.axis, dist.ReduceOp.SUM), \
+            None, None, None, None, None
+
+
 def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Sum over the ranks of ``axis`` (``jax.lax.psum``)."""
     return _PSum.apply(x, mesh, axis)
@@ -255,6 +276,18 @@ def shard(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """This rank's part of ``x`` (the same on every rank of ``axis``), cut
     evenly along ``dim`` in axis order: a body's in_spec."""
     return _Shard.apply(x, mesh, axis, dim)
+
+
+def take_part(x: torch.Tensor, mesh, axis: str, dim: int, part: int,
+              parts: int) -> torch.Tensor:
+    """Part ``part`` of ``parts`` equal parts of ``x`` (the same on every
+    rank of ``axis``) along ``dim``, which several ranks may take alike:
+    its cotangent, zero but at the part, is summed over ``axis`` (the
+    module docstring)."""
+    if x.shape[dim] % parts:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"into {parts} parts")
+    return _TakePart.apply(x, mesh, axis, dim, part, parts)
 
 
 def chunk_index(mesh, axes: Sequence[str]) -> Tuple[int, int]:

@@ -33,6 +33,9 @@ then ``to_local()`` gives) and names each leaf's sharded axes, which the
 gradient norm, the int8 scale and the ZeRO-1 update read; ``unlocal``
 gathers the full tensors back, and ``relayout`` moves a rank's shard from
 one spec to another (ZeRO-1's update regions, PEER_FETCH's pod shards).
+A ``Grouped`` entry cuts a dim into fewer parts than its axis has ranks,
+each part held alike by a group of consecutive ranks (a cache's KV heads
+where ``model`` exceeds them); ``unlocal`` takes each group's leader.
 """
 from __future__ import annotations
 
@@ -63,6 +66,26 @@ class PartitionSpec(tuple):
 
 
 P = PartitionSpec
+
+
+class Grouped(str):
+    """A spec entry: the dim cut into ``parts`` parts over ``axis``, whose
+    ``n`` ranks (a multiple of ``parts``) hold part ``index * parts // n``:
+    each part held alike by ``n / parts`` consecutive ranks (where
+    ``model`` exceeds the KV heads, a cache's KV dim: the rank's group's
+    head).  Equal to the axis name, so the axes a spec names read it as
+    its axis."""
+
+    def __new__(cls, axis: str, parts: int):
+        out = super().__new__(cls, axis)
+        out.parts = parts
+        return out
+
+    def __getnewargs__(self):
+        return str(self), self.parts
+
+    def __repr__(self) -> str:
+        return f"Grouped({str(self)!r}, {self.parts})"
 
 
 def tree_map_with_path(fn: Callable, tree: Any, path: Tuple = ()) -> Any:
@@ -329,6 +352,13 @@ def _cut(x: torch.Tensor, mesh, spec: P) -> torch.Tensor:
         for a in axes:
             n, i = n * axis_size(mesh, a), i * axis_size(mesh, a) + \
                 axis_index(mesh, a)
+        if isinstance(entry, Grouped):
+            if n % entry.parts or x.shape[d] % entry.parts:
+                raise ValueError(f"dim {d} of {tuple(x.shape)} does not "
+                                 f"split into {entry.parts} parts over "
+                                 f"{n} ranks")
+            x = x.chunk(entry.parts, d)[i * entry.parts // n]
+            continue
         if x.shape[d] % n:
             raise ValueError(f"dim {d} of {tuple(x.shape)} does not split "
                              f"over {axes}")
@@ -348,9 +378,16 @@ def local(tree: Any, mesh, specs: Any) -> Tuple[Any, Any]:
 
 def unlocal(x: torch.Tensor, mesh, spec: P) -> torch.Tensor:
     """The full tensor from this rank's shard ``x`` of ``spec``: gathered
-    over each sharded axis (every rank of the mesh takes part)."""
-    from repro_torch.parallel.collectives import _cat_gather
+    over each sharded axis (every rank of the mesh takes part); a
+    ``Grouped`` dim from its groups' leaders."""
+    from repro_torch.parallel.collectives import (_all_gather, _cat_gather,
+                                                  axis_size)
     for d, entry in enumerate(spec):
+        if isinstance(entry, Grouped):
+            parts = _all_gather(x.contiguous(), mesh, str(entry))
+            x = torch.cat(parts[::axis_size(mesh, str(entry)) //
+                                entry.parts].unbind(0), d)
+            continue
         for a in reversed(_entry_axes(entry)):    # minor first
             x = _cat_gather(x, mesh, a, d)
     return x

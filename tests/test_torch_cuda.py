@@ -1483,6 +1483,56 @@ def test_tensor_parallel_ranks_on_the_card(card, tp_card_world):
 
 
 @pytest.fixture(scope="module")
+def tp_kv_card_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the ranks share it")
+    import torch_tp_kv_ranks as kranks
+    from repro_torch.launch.mesh import spawn_world
+    store = tmp_path_factory.mktemp("tp_kv_card_world") / "store"
+    return spawn_world(kranks.card_kv_forms, 2, f"file://{store}",
+                       device="cuda", timeout_s=600)
+
+
+@pytest.mark.cuda
+def test_kv_replicated_ranks_on_the_card(card, tp_kv_card_world):
+    """internlm2-1.8b at full width with one KV head on (data 1, model 2),
+    depth 2, bf16: each rank's FLASH prefill launches the CUDA kernel once
+    a layer on its 8 query heads and the group's KV head (no give-up); the
+    logits and the cache gathered from the group's leader within 5e-2 of
+    the unsharded prefill, and after 2 greedy steps the cache within 5e-2
+    of the unsharded steps' (fed the ranks' tokens); both ranks' copies of
+    the head bit for bit equal throughout."""
+    import torch_tp_kv_ranks as kranks
+    for out in tp_kv_card_world:
+        assert out["rep"] == 2
+        assert out["flash_launches"] == kranks.CARD_LAYERS
+        assert out["give_ups"] == 0
+        assert out["prefill_rel"] < kranks.CARD_TOL
+        assert out["cache_rel"] < kranks.CARD_TOL
+        assert out["decode_cache_rel"] < kranks.CARD_TOL
+        assert out["copies_identical"] and out["decode_copies_identical"]
+
+
+@pytest.mark.cuda
+def test_flash_kernel_at_the_kv_replicated_rank_geometry(card):
+    """One rank's prefill layer of internlm2-1.8b on (data 1, model 16):
+    B=4, S=4096, one query head and its group's KV head, D=128, bf16,
+    causal: the wgmma kernel within the bf16 tolerance of the plain
+    version, one launch."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    g = torch.Generator(device=card).manual_seed(4)
+    q, k, v = (torch.randn((4, 1, 4096, 128), generator=g, device=card)
+               .bfloat16() for _ in range(3))
+    want = fk.flash_attention_bhsd_plain(q, k, v, causal=True)
+    n0 = fk.flash_attention_bhsd.launches
+    got = fk.flash_attention_bhsd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fk.flash_attention_bhsd.launches == n0 + 1
+    tol = _FLASH_TOL["bfloat16"]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.fixture(scope="module")
 def tp_family_card_world(tmp_path_factory):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the ranks share it")

@@ -14,6 +14,14 @@ them and walks their HLO (``analyze_hlo_text``), while the port runs rank
 * a REPLICATED (2, 2, 2) train cell: pod-crossing bytes 0 on the hot step
   and above 0 on the replication step, on both packages; the decode cell's
   session ring likewise on the port;
+* where ``model`` exceeds the KV heads (the reduced internlm2's 2 at
+  model 4: rep 2) the cells build: a prefill's argument bytes equal the
+  reference's (the parameters' storage is the reference's), its matmul
+  FLOPs within 5 % of the reference's plus the rep-fold K/V projection
+  (each rank projects its group's head whole, the reference 1/model of
+  the heads' columns), and a decode cell's argument bytes the
+  reference's plus (rep - 1) / rep of the rank's K/V cache (the rank holds
+  its group's head whole, the reference 1/model of the heads' columns);
 * a width ``model`` does not divide is ``refused``, not ``ok: False``; a
   spec that cuts a leaf along the wrong dim is ``ok: False`` with its
   error; no fake world outlives its cell.
@@ -41,6 +49,9 @@ CELLS = [("prefill", "internlm2-1.8b", "prefill_32k", (2, 2)),
          ("train", "internlm2-1.8b", "train_4k", (2, 2)),
          ("pods", "internlm2-1.8b", "train_4k", (2, 2, 2))]
 FLOP_TOL = {"prefill": 0.05, "train": 0.10, "pods": 0.10}
+#: the cells where model exceeds the KV heads (2 at model 4)
+KV_CELLS = [("prefill_kv", "internlm2-1.8b", "prefill_32k", (1, 4)),
+            ("decode_kv", "internlm2-1.8b", "decode_32k", (1, 4))]
 
 SCRIPT = textwrap.dedent("""
     import os, json, dataclasses
@@ -68,7 +79,7 @@ SCRIPT = textwrap.dedent("""
                                           pod_size=pod)
         out[name] = rec
     print(json.dumps(out))
-""" % ([list(c[:3]) + [list(c[3])] for c in CELLS], BATCH))
+""" % ([list(c[:3]) + [list(c[3])] for c in CELLS + KV_CELLS], BATCH))
 
 
 @pytest.fixture(scope="module")
@@ -108,10 +119,10 @@ def _cell(arch_id, shape_id, mesh_shape, arch=None, batch=BATCH, **kw):
 
 @pytest.fixture(scope="module")
 def port_cells(reference):
-    return {name: _cell(a, s, ms) for name, a, s, ms in CELLS}
+    return {name: _cell(a, s, ms) for name, a, s, ms in CELLS + KV_CELLS}
 
 
-@pytest.mark.parametrize("name", [c[0] for c in CELLS])
+@pytest.mark.parametrize("name", [c[0] for c in CELLS + KV_CELLS[:1]])
 def test_argument_bytes_equal_the_reference(reference, port_cells, name):
     got = port_cells[name]
     assert got["ok"] is True, got.get("traceback")
@@ -149,10 +160,49 @@ def test_decode_sessions_ring_crosses_pods():
 
 
 def test_refused_width_is_not_a_failure():
-    rec = _cell("internlm2-1.8b", "prefill_32k", (1, 4))   # 2 KV heads
+    rec = _cell("whisper-tiny", "prefill_32k", (1, 4),    # 6 (KV) heads
+                arch=tc.get_arch("whisper-tiny"))
     assert rec["ok"] is None and rec["refused"] is True
     assert "key/value heads" in rec["refuse_reason"]
     assert "error" not in rec
+
+
+def test_kv_heads_below_model_build(port_cells):
+    """The reduced internlm2's 2 KV heads at model 4, refused until the
+    KV groups, build: each rank holds its group's head."""
+    for name, *_ in KV_CELLS:
+        rec = port_cells[name]
+        assert rec["ok"] is True and "refused" not in rec, \
+            rec.get("traceback")
+        assert rec["hlo"]["collective_count"] > 0
+
+
+def test_kv_replicated_cells_against_the_reference(reference, port_cells):
+    """rep = 2: the prefill's FLOPs are the reference's plus the rep-fold
+    K/V projection (each rank projects its head's Dh columns where the
+    reference projects Dh / rep), within the prefill's 5 %; the decode
+    cell's argument bytes are the reference's plus the rep-fold K/V cache
+    (each rank holds its head whole, the reference 1/model of the heads'
+    columns: rep x its bytes)."""
+    from repro_torch.models import transformer
+    arch = tc.reduced(tc.get_arch("internlm2-1.8b"))
+    rep = transformer.kv_split(arch, 4)[1]
+    assert rep == 2
+    L, d, dh = arch.num_layers, arch.d_model, arch.resolved_head_dim
+    ref = _ref(reference)
+    shape = _shape("prefill_32k")
+    extra = L * 2 * 2 * shape.global_batch * shape.seq_len * d * dh * \
+        (1 - 1 / rep)
+    got = port_cells["prefill_kv"]["hlo"]["flops_per_device"]
+    want = ref["prefill_kv"]["walk"]["flops_per_device"]
+    print(f"prefill_kv: port {got:.6e}, reference {want:.6e} + K/V "
+          f"{extra:.6e}")
+    assert abs(got - (want + extra)) <= FLOP_TOL["prefill"] * want
+    shape = _shape("decode_32k")
+    cache = 2 * L * shape.global_batch * shape.seq_len * dh * 2  # bf16 K, V
+    got = port_cells["decode_kv"]["memory"]["argument_bytes"]
+    want = ref["decode_kv"]["argument_bytes"]
+    assert got - want == cache - cache // rep
 
 
 def test_mutant_spec_fails_the_cell(monkeypatch):
@@ -200,13 +250,13 @@ def test_one_card_peak_equals_a_real_cpu_step(monkeypatch):
 
 
 def test_cli_lists_refusals_and_ends_with_the_summary(capsys):
-    assert dryrun.main(["--arch", "internlm2-1.8b", "--shape",
+    assert dryrun.main(["--arch", "whisper-tiny", "--shape",
                         "decode_32k"]) == 0
     assert dryrun.main(["--arch", "gemma-7b", "--shape",
                         "long_500k"]) == 0
     out = capsys.readouterr().out.strip().splitlines()
     assert out[-1] == "dry-run complete: 1 cells, 0 failures"
-    assert any("[refused] internlm2-1.8b × decode_32k (16x16)" in line
+    assert any("[refused] whisper-tiny × decode_32k (16x16)" in line
                for line in out)
     assert any(line.startswith("[skip] gemma-7b × long_500k")
                for line in out)
