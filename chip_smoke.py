@@ -41,6 +41,21 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    replicas byte-identical and equal to a CPU twin, one launch per merge,
    and one batched dispatch of 64 at >= 2.5x the throughput of 64
    sequential invokes (the reference's floor and method);
+3c. the example twins, phase ``examples``: quickstart, batched_invoke,
+   smart_city and serve_wallclock (``examples/torch_*.py``) each run on the
+   card with ``measure_compute=False`` and on the CPU: every result,
+   arena, clock and stat bit for bit equal (smart_city's float payloads
+   within 1e-6 relative: CUDA's ``tanhf`` is not the CPU's), merge launches
+   = the clusters' merge dispatches (> 0 for quickstart and
+   serve_wallclock), serve_wallclock's hedges fired only with the hedge and
+   its hedged p50 below the unhedged; then each once more with compute
+   measured, for the readings (ms at the edge and with the cloud store,
+   ops/s, p50/p99, hedges, p50/p90 per function); serve_sessions in f32
+   on the card against the CPU (logits within 1e-3 on every step whose
+   tokens so far agree, differing tokens counted with their top-2 gaps,
+   staleness 2) and in bf16 (staleness 2); ``torch_train_local_sgd.py``'s
+   ``main`` for 8 steps with a crash at step 6; one line a twin with its
+   ``wall_s`` and merge launches;
 4. crash, partition and checkpoint recovery (``repro_torch.runtime`` and
    ``repro_torch.checkpoint``) at the served width, every catch-up, drain
    and delivery merge through ``enoki_merge_rows``: (a) the seeded chaos
@@ -255,7 +270,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    process that runs beside phases 1 and 2 (the children's wall and the
    seconds spent waiting for them printed apart);
 12. the smoke's seconds, the ``{"kernels": [...]}`` line (the merge
-   kernel's launches by path: served, warm, runtime, replication and mesh;
+   kernel's launches by path: served, warm, examples, runtime, replication,
+   mesh and roofline;
    flash's by model and the tensor-parallel prefills' (the 16-rank world's
    too), its give-ups (0)
    and its times at the four geometries), then the card's name and power
@@ -917,6 +933,203 @@ def check_warm(torch, counters, width):
             "merge_dispatches": merges, "kernel_launches": launches,
             "replicas_identical": True, "cpu_twin_identical": True,
             "batched_vs_sequential": ratio}
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the example twins (examples/torch_*.py), card against CPU
+# ---------------------------------------------------------------------------
+
+FAAS_EXAMPLES = ("quickstart", "batched_invoke", "smart_city",
+                 "serve_wallclock")
+#: a twin's results that follow the wall clock: read, compared nowhere
+WALL_KEYS = frozenset({"sequential_ops_per_s", "batched_ops_per_s",
+                       "wall_s", "ops_per_s", "p50_ms", "p99_ms", "pumps",
+                       "hedges_fired", "hedge_wins"})
+#: smart_city's float payloads (outputs, arena values), card against CPU:
+#: CUDA's tanhf and the CPU's differ in a last bit, and object_recognition's
+#: score feeds the plans and stats arenas; everything else is bit for bit
+SMART_CITY_RTOL = 1e-6
+SESSIONS_REL_TOL = 1e-3         # serve_sessions' f32 logits, card vs CPU
+SESSIONS_STALENESS = 2          # 10 tokens, a backup every R = 4
+SGD_ARGS = ["--steps", "8", "--crash-at", "6"]
+
+
+def example(name):
+    """The twin ``examples/torch_<name>.py`` as a module."""
+    import importlib
+    where = str(ROOT / "examples")
+    if where not in sys.path:
+        sys.path.insert(0, where)
+    return importlib.import_module(f"torch_{name}")
+
+
+def same_host(a, b, path="", rtol=0.0, seen=None) -> None:
+    """Equality of two twins' results (dicts, lists, host arrays, numbers),
+    the keys in ``WALL_KEYS`` left out: bit for bit, but float arrays within
+    ``rtol`` (relative) where it is > 0; ``seen`` counts the float arrays
+    that differ at all and their largest relative difference."""
+    import numpy as np
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and a.keys() == b.keys(), \
+            f"{path}: keys differ"
+        for k in a:
+            if k not in WALL_KEYS:
+                same_host(a[k], b[k], f"{path}/{k}", rtol, seen)
+    elif isinstance(a, (list, tuple)):
+        assert isinstance(b, (list, tuple)) and len(a) == len(b), \
+            f"{path}: lengths differ"
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_host(x, y, f"{path}[{i}]", rtol, seen)
+    elif isinstance(a, np.ndarray):
+        b = np.asarray(b)
+        assert a.shape == b.shape, f"{path}: shapes differ"
+        if rtol and a.dtype.kind == "f" and not np.array_equal(a, b):
+            rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(a),
+                                                          1e-30)))
+            assert rel <= rtol, f"{path}: {rel} apart"
+            if seen is not None:
+                seen["arrays_differing"] += 1
+                seen["max_rel"] = max(seen["max_rel"], rel)
+        else:
+            assert np.array_equal(a, b), f"{path} differs"
+    else:
+        assert a == b, f"{path}: {a!r} != {b!r}"
+
+
+def _counted(torch, counters, fn):
+    """``fn()`` with the counters zeroed just before and read just after:
+    (result, wall s, merge launches)."""
+    _zero(counters)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _merge_launches(counters)
+
+
+def example_readings(name, out) -> dict:
+    """What ``main`` prints of one measured run on the card."""
+    import numpy as np
+    if name == "quickstart":
+        return {"edge_ms": [c["response_ms"] for c in out["calls"]],
+                "cloud_ms": out["cloud_ms"]}
+    if name == "batched_invoke":
+        return {k: out[k] for k in ("sequential_ops_per_s",
+                                    "batched_ops_per_s")} | {
+            "ratio": out["batched_ops_per_s"] / out["sequential_ops_per_s"]}
+    if name == "smart_city":
+        return {policy: {fn: {"p50_ms": float(np.percentile(xs, 50)),
+                              "p90_ms": float(np.percentile(xs, 90)),
+                              "n": len(xs)}
+                         for fn, xs in sorted(out[policy]["latencies"]
+                                              .items())}
+                for policy in ("replicated", "cloud_central")}
+    return {part: {k: v for k, v in rec.items() if k != "totals"}
+            for part, rec in out.items() if isinstance(rec, dict)}
+
+
+def check_faas_example(torch, counters, name) -> dict:
+    """One FaaS twin on the card with ``measure_compute=False``: one merge
+    launch per merge dispatch, and every result bit for bit equal to the
+    same twin on the CPU (``same_host``; smart_city's float payloads within
+    ``SMART_CITY_RTOL``); then once more with compute measured, for the
+    readings."""
+    twin = example(name)
+    card, wall, launches = _counted(
+        torch, counters, lambda: twin.run(device="cuda",
+                                          measure_compute=False))
+    assert launches == card["merge_dispatches"], \
+        (name, launches, card["merge_dispatches"])
+    if name in ("quickstart", "serve_wallclock"):
+        assert launches > 0, f"{name}: no merge on the card"
+    seen = {"arrays_differing": 0, "max_rel": 0.0}
+    same_host(twin.run(device="cpu", measure_compute=False), card, name,
+              SMART_CITY_RTOL if name == "smart_city" else 0.0, seen)
+    if name == "serve_wallclock":
+        assert card["hedged"]["hedges_fired"] > 0, card["hedged"]
+        assert card["unhedged"]["hedges_fired"] == 0, card["unhedged"]
+        assert card["hedged"]["p50_ms"] < card["unhedged"]["p50_ms"], card
+    measured, mwall, mlaunches = _counted(
+        torch, counters, lambda: twin.run(device="cuda",
+                                          measure_compute=True))
+    assert mlaunches == measured["merge_dispatches"], \
+        (name, mlaunches, measured["merge_dispatches"])
+    return {"example": name, "wall_s": wall,
+            "merge_launches": launches,
+            "merge_dispatches": card["merge_dispatches"],
+            "cpu_twin_identical": not seen["arrays_differing"],
+            "cpu_twin_float_arrays_differing": seen["arrays_differing"],
+            "cpu_twin_max_rel": seen["max_rel"], "measured_wall_s": mwall,
+            "measured_merge_launches": mlaunches,
+            "readings": example_readings(name, measured)}
+
+
+def check_sessions_example(torch, counters) -> dict:
+    """serve_sessions in f32 on the card against the CPU (the same host-drawn
+    weights): every step's logits whose inputs agree (every earlier token
+    equal) within ``SESSIONS_REL_TOL``; tokens that differ counted, each
+    with the CPU's top-2 logit gap; the staleness; then the example's bf16
+    on the card.  Decode attention is plain einsums: no kernel runs."""
+    import numpy as np
+    twin = example("serve_sessions")
+    card, wall, launches = _counted(
+        torch, counters, lambda: twin.run(device="cuda", dtype=torch.float32,
+                                          logits=True))
+    assert launches == 0, launches
+    cpu = twin.run(device="cpu", dtype=torch.float32, logits=True)
+    worst, compared = 0.0, 0
+    for t, (a, b) in enumerate(zip(card["logits"], cpu["logits"])):
+        if t and not np.array_equal(card["tokens"][:t], cpu["tokens"][:t]):
+            break
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+        compared += 1
+    assert compared and worst < SESSIONS_REL_TOL, (compared, worst)
+    differ = [{"step": int(t), "pod": int(p), "session": int(s),
+               "top2_gap": float(np.diff(np.sort(cpu["logits"][t][p, s])
+                                         [-2:])[0])}
+              for t, p, s in np.argwhere(card["tokens"] != cpu["tokens"])]
+    assert card["staleness"] == cpu["staleness"] == SESSIONS_STALENESS
+    bf16, bwall, blaunches = _counted(
+        torch, counters, lambda: twin.run(device="cuda"))
+    assert blaunches == 0, blaunches
+    assert bf16["staleness"] == SESSIONS_STALENESS, bf16["staleness"]
+    return {"example": "serve_sessions", "wall_s": wall + bwall,
+            "merge_launches": 0, "f32_steps_compared": compared,
+            "f32_logits_rel_err": worst, "f32_rel_tol": SESSIONS_REL_TOL,
+            "f32_tokens": int(card["tokens"].size),
+            "f32_tokens_differ": len(differ), "f32_differ": differ,
+            "staleness": card["staleness"],
+            "bf16_staleness": bf16["staleness"], "bf16_wall_s": bwall}
+
+
+def check_train_example(torch, counters) -> dict:
+    """``examples/torch_train_local_sgd.py``'s ``main`` on the card: 8
+    steps, a crash at step 6 restored from its checkpoint (written under
+    ``build/``); its lines kept apart from the smoke's."""
+    import contextlib
+    import io
+    twin = example("train_local_sgd")
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        with contextlib.redirect_stdout(io.StringIO()) as lines:
+            out, wall, launches = _counted(
+                torch, counters, lambda: twin.main(SGD_ARGS +
+                                                   ["--ckpt-dir", d]))
+    losses = out["losses"]
+    assert len(losses) == 8 and all(math.isfinite(x) for step in losses
+                                    for x in step), losses
+    assert "simulated crash at step 6" in lines.getvalue()
+    assert out["checkpoints"], out["checkpoints"]
+    return {"example": "train_local_sgd", "args": SGD_ARGS, "wall_s": wall,
+            "merge_launches": launches, "losses": losses[-1],
+            "checkpoints": out["checkpoints"]}
+
+
+def run_examples(torch, counters) -> list:
+    """Every example twin on the card, one record each."""
+    recs = [check_faas_example(torch, counters, name)
+            for name in FAAS_EXAMPLES]
+    recs.append(check_sessions_example(torch, counters))
+    recs.append(check_train_example(torch, counters))
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -5799,6 +6012,13 @@ def main() -> int:
     emit({"phase": "warm", **warm,
           "wall_s": time.perf_counter() - t_phase, "nvidia_smi": smi})
 
+    # -- 3c. the example twins, each on the card against the CPU
+    t_phase = time.perf_counter()
+    examples = run_examples(torch, kernels)
+    for rec in examples:
+        emit({"phase": "examples", **rec, "nvidia_smi": smi})
+    examples_s = time.perf_counter() - t_phase
+
     # -- 4. crash, partition and checkpoint recovery (the runtime)
     t_phase = time.perf_counter()
     register_handlers(torch, enoki_function, ROW_1MB, prefix="ckpt")
@@ -5948,6 +6168,7 @@ def main() -> int:
             roof_launches[name] = roof_launches.get(name, 0) + n
     flash_launches["roofline"] = roof_launches.get("flash_attention_bhsd", 0)
     emit({"phase": "done", "smoke_s": time.perf_counter() - t_start,
+          "examples_s": examples_s,
           "mesh_s": mesh_wall, "tensor_parallel_s": tp_wall,
           "tensor_parallel_recurrent_s": rtp_wall,
           "tensor_parallel_kv_s": ktp_wall})
@@ -5962,6 +6183,9 @@ def main() -> int:
     t = timings[("100KB", 1)]
     merge_launches = {"serve": st["launches"],
                       "warm": warm["kernel_launches"],
+                      "examples": sum(r["merge_launches"]
+                                      + r.get("measured_merge_launches", 0)
+                                      for r in examples),
                       "runtime": sum(runtime_launches.values()),
                       "replication": repl_launches,
                       "mesh": sum(mesh_launches),

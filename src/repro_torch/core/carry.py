@@ -10,6 +10,7 @@ values, never framework objects of the reference.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -46,6 +47,36 @@ def store_to_numpy(store: Store) -> Tuple[np.ndarray, ...]:
     """``(keys, values, lengths, versions, vv)`` as host arrays (bfloat16
     payloads widen to float32)."""
     return tuple(to_numpy(t) for t in store)
+
+
+def stats_to_dict(stats) -> dict:
+    """A stats dataclass's counters (its lock left out)."""
+    return {f.name: getattr(stats, f.name) for f in dataclasses.fields(stats)
+            if not f.name.startswith("_")}
+
+
+def result_to_numpy(r) -> dict:
+    """An ``InvokeResult`` as host values: its output as an array, its
+    timeline, kv ops, serving node and call chain."""
+    out = r.output
+    return {"output": to_numpy(out) if isinstance(out, torch.Tensor)
+            else np.asarray(out),
+            "response_ms": r.response_ms, "t_sent": r.t_sent,
+            "t_received": r.t_received, "t_applied": r.t_applied,
+            "kv_ops": [tuple(op) for op in r.kv_ops], "node": r.node,
+            "chain": list(r.chain)}
+
+
+def cluster_to_numpy(cluster) -> dict:
+    """A cluster's stats, and every node's clock and arenas (``<node>/clock``,
+    ``<node>/<keygroup>``: ``store_to_numpy``)."""
+    out = {"stats": stats_to_dict(cluster.stats)}
+    for name in sorted(cluster.nodes):
+        nd = cluster.nodes[name]
+        out[f"{name}/clock"] = int(nd.clock)
+        for kg in sorted(nd.stores):
+            out[f"{name}/{kg}"] = store_to_numpy(nd.stores[kg])
+    return out
 
 
 def keygroup_spec_from_reference(name: str, policy: str, slots: int,

@@ -130,11 +130,14 @@ def test_no_kernel_library_loads_at_import():
 
 
 def test_no_jax_or_reference_import_anywhere():
-    """Every import statement of the port and of ``chip_smoke.py``,
-    function-level ones included (the smoke imports the port inside
-    ``main``), names neither jax nor the reference package."""
+    """Every import statement of the port, of its example twins
+    (``examples/torch_*.py``) and of ``chip_smoke.py``, function-level
+    ones included (the smoke imports the port inside ``main``), names
+    neither jax nor the reference package."""
     bad = []
-    for path in sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+    twins = sorted((REPO / "examples").glob("torch_*.py"))
+    assert len(twins) >= 6, twins
+    for path in sorted(PORT.rglob("*.py")) + twins + [REPO / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
