@@ -36,6 +36,12 @@ reference's sharding, parallelism, donation and ``EnokiConfig`` arguments
 have no counterpart here: the replication period is the caller's loop
 (every R decode steps).
 
+The steps record where they spend their time in ``core.spans`` (off
+unless a profiler runs or ``spans.recording()`` is open): prefill in
+``serve.prefill`` (the model's sub-layers in spans of their own, the last
+position's copy in ``model.head``), a replication in ``serve.replicate``
+with the ``bytes`` it reads and writes.
+
 With ``mesh=`` (a ``torch.distributed`` mesh), a ``pod`` axis puts one pod
 on each rank: the rank's cache and tokens are its pod's, with no pod dim;
 decode touches only them, ``replicate_sessions`` is a ``ppermute`` ring
@@ -82,8 +88,9 @@ import torch
 
 from repro_torch.configs.base import (ArchConfig, AttnImpl, ParallelConfig,
                                       ShapeConfig)
+from repro_torch.core import spans
 from repro_torch.core.graphs import StepCache
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_flatten, tree_map
 from repro_torch.device import check_on, resolve_device
 from repro_torch.models import model_zoo as zoo
 
@@ -252,21 +259,21 @@ def make_prefill_step(arch: ArchConfig, shape: ShapeConfig,
     def prefill(params: dict, batch: dict):
         check_on(dev, params, "params")
         check_on(dev, batch, "batch")
-        params = prepare(params)
-        logits, _, cache = zoo.forward_seq(arch, params, batch["tokens"],
-                                           extra=batch, impl=impl,
-                                           return_cache=True, mesh=mesh,
-                                           moe_impl=moe_impl,
-                                           compute_dtype=compute_dtype,
-                                           batch_axes=axes,
-                                           seq_shard=seq_shard)
-        cache["length"] = torch.tensor(shape.seq_len, dtype=torch.int32,
-                                       device=dev)
-        # a copy, so the (B, S, V) logits are freed as the step returns
-        last = logits[:, -1:, :].clone()
-        del logits
-        if mesh is not None:
-            last = unlocal(last, mesh, logits_spec)
+        with spans.span("serve.prefill"):
+            params = prepare(params)
+            logits, _, cache = zoo.forward_seq(
+                arch, params, batch["tokens"], extra=batch, impl=impl,
+                return_cache=True, mesh=mesh, moe_impl=moe_impl,
+                compute_dtype=compute_dtype, batch_axes=axes,
+                seq_shard=seq_shard)
+            cache["length"] = torch.tensor(shape.seq_len, dtype=torch.int32,
+                                           device=dev)
+            # a copy, so the (B, S, V) logits are freed as the step returns
+            with spans.span("model.head"):
+                last = logits[:, -1:, :].clone()
+            del logits
+            if mesh is not None:
+                last = unlocal(last, mesh, logits_spec)
         return last, cache
 
     prefill.prepare = prepare
@@ -436,7 +443,10 @@ def make_replicate_sessions_step(device=None, mesh=None
 
     def replicate(live: Cache) -> Cache:
         check_on(dev, live, "live sessions")
-        return tree_map(lambda v: torch.roll(v, 1, 0), live)
+        # every leaf read once and written once
+        with spans.span("serve.replicate", bytes=lambda: 2 * sum(
+                v.nbytes for v in tree_flatten(live)[0])):
+            return tree_map(lambda v: torch.roll(v, 1, 0), live)
 
     return replicate
 

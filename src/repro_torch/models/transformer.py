@@ -82,6 +82,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig, AttnImpl
+from repro_torch.core import spans
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -300,14 +301,16 @@ def _dense_block_seq(lp, x, positions, arch, impl, window=0, causal=True,
     ``SeqSharded`` one: ``x`` the rank's slice of the sequence, each
     sublayer's normed input gathered whole).  With ``return_kv``: ``(x,
     (k, v))``, the attention's K/V for a prefill cache."""
-    y = attn.self_attention(lp["attn"], seq_gather(rmsnorm(x, lp["ln1"]),
-                                                   mesh), positions, arch,
-                            causal=causal, window=window, impl=impl,
-                            mesh=mesh, return_kv=return_kv)
-    y, kv = y if return_kv else (y, None)
-    x = x + y
-    x = x + mlp_apply(lp["mlp"], seq_gather(rmsnorm(x, lp["ln2"]), mesh),
-                      arch.activation, mesh)
+    with spans.span("model.attention"):
+        y = attn.self_attention(lp["attn"],
+                                seq_gather(rmsnorm(x, lp["ln1"]), mesh),
+                                positions, arch, causal=causal, window=window,
+                                impl=impl, mesh=mesh, return_kv=return_kv)
+        y, kv = y if return_kv else (y, None)
+        x = x + y
+    with spans.span("model.mlp"):
+        x = x + mlp_apply(lp["mlp"], seq_gather(rmsnorm(x, lp["ln2"]), mesh),
+                          arch.activation, mesh)
     return (x, kv) if return_kv else x
 
 
@@ -676,7 +679,12 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
     positions with their ``shared_pos`` (G, B, win), ``win`` being the
     sliding window when it is shorter than S, else S.  Under tensor
     parallelism each recurrent leaf holds the rank's columns or heads
-    (``ssm``, ``xlstm``; the sLSTM state whole)."""
+    (``ssm``, ``xlstm``; the sLSTM state whole).
+
+    Each dense layer's two sub-layers (whisper's encoder's and zamba2's
+    shared block's too), each Mamba-2 layer and the head run in a
+    ``core.spans`` span: ``model.attention``, ``model.mlp``,
+    ``model.mamba``, ``model.head``."""
     p = plan(arch)
     tp = tp_mesh(arch, mesh)
     if tp is not None:
@@ -762,14 +770,13 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
         win = arch.sliding_window if 0 < arch.sliding_window < S else S
 
         def mamba_body(x, lp):
-            y = ssm_mod.mamba2_seq(lp["mamba"],
-                                   seq_gather(rmsnorm(x, lp["ln"]), sp),
-                                   arch, return_state=return_cache,
-                                   impl=impl, mesh=sp)
-            if return_cache:
-                y, mc = y
+            with spans.span("model.mamba"):
+                y = ssm_mod.mamba2_seq(lp["mamba"],
+                                       seq_gather(rmsnorm(x, lp["ln"]), sp),
+                                       arch, return_state=return_cache,
+                                       impl=impl, mesh=sp)
+                y, mc = y if return_cache else (y, None)
                 return x + y, mc
-            return x + y, None
 
         def group(x, gp):
             gp = _cast(gp, compute_dtype)
@@ -797,9 +804,10 @@ def forward_seq(arch: ArchConfig, params: dict, tokens: torch.Tensor,
                 p["tail"])
             if return_cache:
                 cache["tail"] = tcs
-    if sp is not tp:
-        x = _last_position(x, tp)
-    logits = _head(arch, params, x, compute_dtype, tp)
+    with spans.span("model.head"):
+        if sp is not tp:
+            x = _last_position(x, tp)
+        logits = _head(arch, params, x, compute_dtype, tp)
     return logits, aux_total, cache
 
 
