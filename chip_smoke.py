@@ -10,7 +10,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    (one ``nvcc`` per source, all started together); then the registers,
    static shared memory and spills that ``-Xptxas=-v`` reported for the
    wgmma flash kernel (by head dim, D=256 included), the three SSD
-   kernels, the two mLSTM kernels and the merge kernel.  The dry-run's
+   kernels, the two mLSTM kernels, the merge kernel and the ring decode
+   attention kernel.  The dry-run's
    three children (phase 9c) start before the build, and the sweeps of
    phases 2, 5, 6 and 7 run right after it, before anything is timed:
    the children run beside untimed work only;
@@ -116,6 +117,16 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    64, f32), directly and through the model-layout wrapper; then timed there
    beside its bound (3xTF32 tensor cores or bytes), its f32 FMA bound, its
    plain version (no single PyTorch call computes the chunkwise mLSTM);
+7b. ``decode_attention`` (zamba2's ring decode: one block a session and KV
+   head, K and V read once in place) at zamba2-7b's decode cell, a pod of
+   8 sessions, the ring of 4,096 slots, 32 KV heads of 112, bf16, filled
+   to 2,050 and 2,970 slots and wrapped, every masked slot holding the key
+   q would attend most: within one bf16 step of its plain version, and
+   within ``decode_bound`` of a float64 truth that a lower-precision
+   variant of the plain version (bf16 P.V sums on flat scores, bf16
+   scores on sharp ones) falls outside; then timed at each fill beside its
+   bound (the bytes of the attended slots at 3.35 TB/s) and its plain
+   version (no single PyTorch call computes it);
 8. the sessions path, served, for each of six models at full width with
    bf16 weights from a seed — internlm2-1.8b (dense), zamba2-7b (hybrid:
    Mamba-2 states and a ring-cached shared attention block), xlstm-350m
@@ -126,7 +137,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    seeded frame embeddings, a decoder with cross-attention): 2 pods x 4
    sessions prefill 4,096-token prompts (xlstm: 2,048; whisper: 384)
    through the kernels (internlm2: 2 x 24 attention launches; zamba2: 2 x
-   81 SSD and 2 x 13 attention launches; xlstm: 2 x 21 mLSTM launches;
+   81 SSD and 2 x 13 attention launches, and in its decode 3 x 2 x 13
+   ring decode launches, 13 a pod for each run of the captured step's
+   body: warm-up and capture of the live cache's graph, capture of the
+   migrated one's; xlstm: 2 x 21 mLSTM launches;
    grok-1: 2 x 4; phi-3-vision: 2 x 32; whisper: 2 x (4 encoder + 4
    decoder) attention launches), the FLASH prefill's logits agree with the
    REFERENCE path's (rel < 5e-2; grok-1's on the tokens whose routes agree
@@ -271,7 +285,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
    seconds spent waiting for them printed apart);
 12. the smoke's seconds, the ``{"kernels": [...]}`` line (the merge
    kernel's launches by path: served, warm, examples, runtime, replication,
-   mesh and roofline;
+   mesh and roofline; the ring decode kernel's: zamba2's sessions decode
+   and the tensor-parallel hybrid's decode steps, its times at each fill;
    flash's by model and the tensor-parallel prefills' (the 16-rank world's
    too), its give-ups (0)
    and its times at the four geometries), then the card's name and power
@@ -330,7 +345,25 @@ RESOURCE_KERNELS = (("flash_attention", "flash_fwd_bf16_wgmma"),
                     ("ssd_chunk", "ssd_chunk_scan_kernel"),
                     ("mlstm_chunk", "mlstm_qk_kernel"),
                     ("mlstm_chunk", "mlstm_chunk_kernel"),
-                    ("enoki_merge", "enoki_merge_rows_kernel"))
+                    ("enoki_merge", "enoki_merge_rows_kernel"),
+                    ("decode_attention", "decode_attention_kernel"))
+DECODE_ATTN_SOURCE = ("src/repro_torch/kernels/decode_attention/csrc/"
+                      "decode_attention.cu")
+# ring decode attention at zamba2-7b's decode cell: a pod of 8 sessions, the
+# ring of 4,096 slots, 32 KV heads of 112, G = 1, bf16; the ring filled to
+# 2,050 and 2,970 slots (the cell's window), then wrapped
+DECODE_RING = (8, 4096, 32, 1, 112)
+DECODE_LENGTHS = (2050, 2970, 5000)
+# (q's scale over 1/sqrt(Dh), the lower-precision variant the error bound
+# must refuse there): bf16 P.V sums show on flat scores, bf16 scores on
+# sharp ones
+DECODE_CONTROLS = ((1.0, "bf16_pv"), (8.0, "bf16_scores"))
+# an f32 output's allowance for f32 sums taken in another order, in f32
+# eps x sqrt(attended slots) x the largest output
+DECODE_F32_SUMS = 2.0
+# body runs of the sessions phase's counted decode: a warm-up and a capture
+# for the live cache, a capture alone for the migrated one (same shape)
+DECODE_BODY_RUNS = 3
 # (B, Sq, Skv, H, KV, D): tests/test_kernels.py's sweep, head dim 112 (zamba2's
 # shared block), a ragged S, Sq != Skv, head dims 96 (phi-3-vision) and 256
 # (gemma-7b) square, ragged and uneven, D=256 over five 128-row query tiles
@@ -2010,6 +2043,165 @@ def time_mlstm(torch, mk, flush, reps=20):
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: the ring decode attention kernel
+# ---------------------------------------------------------------------------
+
+def decode_ring(torch, device, B, W, KV, G, dh, length, dtype, q_dtype,
+                sharp=1.0, seed=0):
+    """(q, k, v, pos, length) for ``decode_attention``: q (B,1,KV,G,Dh), a
+    unit normal times ``sharp``/sqrt(Dh); a ring k, v (B,W,KV,Dh) after
+    ``length`` + 1 tokens, slot s holding the newest position p <= length
+    with p % W == s (-1 where none has landed); the odd sessions with
+    every third slot emptied (-1) and a position past the token (length +
+    1) in every seventh, masks inside a tile.  Every masked slot's key is
+    the one q's first head of its group would attend most (score 32), so a
+    slot attended that should not be moves the output by about the
+    output."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((B, 1, KV, G, dh), generator=gen, device=device) \
+        * (sharp * dh ** -0.5)
+    k = torch.randn((B, W, KV, dh), generator=gen, device=device)
+    v = torch.randn((B, W, KV, dh), generator=gen, device=device)
+    s = torch.arange(W, device=device)
+    newest = s + (length - s).div(W, rounding_mode="floor") * W
+    pos = torch.where(s <= length, newest, -1).to(torch.int32)
+    pos = pos.expand(B, W).clone()
+    pos[1::2, ::3] = -1
+    pos[1::2, 1::7] = length + 1
+    masked = (pos < 0) | (pos > length)
+    q0 = q[:, 0, :, 0, :]
+    heavy = q0 * (32.0 / (q0 * q0).sum(-1, keepdim=True))
+    k = torch.where(masked[:, :, None, None], heavy[:, None], k)
+    return (q.to(q_dtype), k.to(dtype), v.to(dtype), pos,
+            torch.full((), length, dtype=torch.int32, device=device))
+
+
+def decode_truth(torch, q, k, v, pos, length):
+    """The ring decode in float64, P rounded to v's dtype as the model
+    rounds it: the (B,1,KV·G·Dh) output, and the largest P before the
+    rounding."""
+    B = q.shape[0]
+    s = torch.einsum("bkgd,bwkd->bkgw", q[:, 0].double(), k.double())
+    keep = (pos >= 0) & (pos <= length)
+    p = torch.softmax(s.masked_fill(~keep[:, None, None, :], float("-inf")),
+                      dim=-1)
+    out = torch.einsum("bkgw,bwkd->bkgd", p.to(v.dtype).double(), v.double())
+    return out.reshape(B, 1, -1), float(p.max())
+
+
+def decode_bound(torch, q, v, truth, pmax, plain_err, attended):
+    """The largest error against ``decode_truth`` that ring decode attention
+    in the reference's precision may have: the plain version's own, plus,
+    for a bf16 output, half a bf16 step of the largest output (2**-9 of
+    it: the last bits of the f32 sum it rounds); for an f32 output,
+    DECODE_F32_SUMS f32 eps x sqrt(``attended``) of the largest output
+    (f32 sums taken in another order), and where v is bf16, one P on the
+    other side of a bf16 step (2**-8 of the largest P times the largest
+    v)."""
+    big = float(truth.abs().max())
+    if q.dtype == torch.bfloat16:
+        return plain_err + 2 ** -9 * big
+    eps = torch.finfo(torch.float32).eps
+    bound = plain_err + DECODE_F32_SUMS * eps * math.sqrt(attended) * big
+    if v.dtype == torch.bfloat16:
+        bound += 2 ** -8 * pmax * float(v.abs().max())
+    return bound
+
+
+def decode_lower_precision(torch, q, k, v, pos, length, control, tile=128):
+    """The plain version with one step taken in bf16, which
+    ``decode_bound`` must refuse: ``bf16_scores`` rounds every score to
+    bf16 before the softmax; ``bf16_pv`` keeps the P.V sum in bf16,
+    rounded after each ``tile`` slots as a kernel's accumulator would
+    be."""
+    from repro_torch.models import attention as attn
+    s = attn._einsum_f32("bqkgd,bskd->bqkgs", q, k)
+    if control == "bf16_scores":
+        s = s.to(torch.bfloat16).float()
+    keep = (pos >= 0) & (pos <= length)
+    s = torch.where(keep[:, None, None, None, :], s, attn.NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    if control == "bf16_scores":
+        out = attn._einsum_f32("bqkgs,bskd->bqkgd", p, v)
+    else:
+        out = None
+        for t in range(0, v.shape[1], tile):
+            part = attn._einsum_f32("bqkgs,bskd->bqkgd", p[..., t:t + tile],
+                                    v[:, t:t + tile])
+            out = (part if out is None else out.float() + part
+                   ).to(torch.bfloat16)
+    return out.reshape(q.shape[0], 1, -1).to(q.dtype)
+
+
+def check_decode_attention(torch, dk, flush, reps=20):
+    """``decode_attention`` at zamba2-7b's decode cell (DECODE_RING, bf16),
+    the ring filled as DECODE_LENGTHS says.  At each fill and each
+    sharpness of DECODE_CONTROLS: the kernel within one bf16 step of its
+    plain version (2**-7 of the largest output), within ``decode_bound``
+    of the float64 truth, and the sharpness's lower-precision control past
+    that bound (the bound tells the reference's precision from a lower
+    one); the same bits at a second launch.  Then, on the flat ring, the
+    kernel timed (CUDA events, medians, the card spinning first so the
+    events time device work only) beside its bound (the bytes of the
+    attended slots at 3.35 TB/s) and its plain version."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    rl = roofline()
+    B, W, KV, G, dh = DECODE_RING
+    out = {"ring": {"B": B, "W": W, "KV": KV, "G": G, "Dh": dh,
+                    "dtype": "bfloat16"}, "by_length": {}}
+    worst = 0.0
+    for length in DECODE_LENGTHS:
+        attended = min(length + 1, W)
+        rec = {"attended": attended, "checks": {}}
+        for sharp, control in DECODE_CONTROLS:
+            args = decode_ring(torch, "cuda", B, W, KV, G, dh, length,
+                               torch.bfloat16, torch.bfloat16, sharp=sharp,
+                               seed=length)
+            want = decode_attention_ref(*args)
+            got = dk.decode_attention(*args)
+            again = dk.decode_attention(*args)
+            low = decode_lower_precision(torch, *args, control)
+            truth, pmax = decode_truth(torch, *args)
+            torch.cuda.synchronize()
+            vs_plain = float((got.double() - want.double()).abs().max())
+            err = float((got.double() - truth).abs().max())
+            plain_err = float((want.double() - truth).abs().max())
+            low_err = float((low.double() - truth).abs().max())
+            bound = decode_bound(torch, args[0], args[2], truth, pmax,
+                                 plain_err, attended)
+            big = float(truth.abs().max())
+            what = f"decode_attention length={length} sharp={sharp}"
+            assert torch.equal(got, again), f"{what}: launches differ"
+            assert vs_plain <= 2 ** -7 * big, f"{what}: {vs_plain} from plain"
+            assert err <= bound, f"{what}: err {err} > bound {bound}"
+            assert low_err > bound, \
+                f"{what}: {control} err {low_err} within bound {bound}"
+            worst = max(worst, vs_plain)
+            rec["checks"][str(sharp)] = {
+                "max_abs_err": vs_plain, "err": err, "plain_err": plain_err,
+                "bound": bound, "control": control, "control_err": low_err,
+                "max_abs_out": big}
+            del args, want, got, again, low, truth
+        args = decode_ring(torch, "cuda", B, W, KV, G, dh, length,
+                           torch.bfloat16, torch.bfloat16, seed=length)
+        flops, nbytes = rl.decode_attention_work(B, KV, G, W, dh, 2, 2,
+                                                 attended=attended)
+        bound_ms = nbytes / rl.HBM_BYTES_PER_S * 1e3
+        ms, host_ms = _median_ms(torch, lambda: dk.decode_attention(*args),
+                                 lambda: None, flush, reps)
+        plain_ms, _ = _median_ms(torch, lambda: decode_attention_ref(*args),
+                                 lambda: None, flush, reps)
+        rec.update(flops=flops, bytes=nbytes, ms=ms, host_ms=host_ms,
+                   plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                   bound_by="bytes", share_of_bound=bound_ms / ms)
+        out["by_length"][str(length)] = rec
+        del args
+        torch.cuda.empty_cache()
+    out["max_abs_err"] = worst
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the sessions path, served
 # ---------------------------------------------------------------------------
 
@@ -2830,6 +3022,14 @@ def expected_launches(arch):
         return {"mlstm_chunk_bhsd": p["groups"] * p["mlstm_per"]}
     return {"flash_attention_bhsd": p["groups"],
             "ssd_chunk_bhcp": arch.num_layers}
+
+
+def expected_decode_launches(arch) -> int:
+    """The ring decode attention launches of one pod's eager decode step:
+    one a shared-block application of the hybrid, none elsewhere."""
+    from repro_torch.models.transformer import plan as layer_plan
+    p = layer_plan(arch)
+    return p["groups"] if p["kind"] == "zamba" else 0
 
 
 # ---------------------------------------------------------------------------
@@ -5350,12 +5550,14 @@ RECURRENT_PARTS = ("hybrid_prefill", "ssm_prefill", "hybrid_train",
 
 
 def _kernel_counters():
+    from repro_torch.kernels.decode_attention import kernel as dk
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.mlstm_chunk import kernel as mk
     from repro_torch.kernels.ssd_chunk import kernel as sk
     return {"flash_attention_bhsd": fk.flash_attention_bhsd,
             "ssd_chunk_bhcp": sk.ssd_chunk_bhcp,
-            "mlstm_chunk_bhsd": mk.mlstm_chunk_bhsd}
+            "mlstm_chunk_bhsd": mk.mlstm_chunk_bhsd,
+            "decode_attention": dk.decode_attention}
 
 
 def _tp_cut_leaves(arch):
@@ -5422,6 +5624,7 @@ def _recurrent_serve(torch, rank, cfg, dev, mesh, fk, arch, S, seed, pseed):
     first = torch.argmax(logits[:, -1, :], -1)[:, None].to(torch.int32)
     token = sh.local({"t": first}, mesh, {"t": sh.P("data", None)})[0]["t"]
     dms, dtms, toks, step_logits = [], [], [], []
+    d0 = counters["decode_attention"].launches
     try:
         for _ in range(cfg["decode_steps"]):
             (token, cache), t, tt, _ = _transport_ms(
@@ -5433,8 +5636,15 @@ def _recurrent_serve(torch, rank, cfg, dev, mesh, fk, arch, S, seed, pseed):
                                           sh.P("data", "model")))
     finally:
         serve.greedy_sharded = greedy
+    # the sharded step runs eagerly: the ring decode kernel once a
+    # shared-block application a step (the CPU takes the plain version)
+    dlaunch = counters["decode_attention"].launches - d0
+    if dev.type == "cuda":
+        assert dlaunch == cfg["decode_steps"] \
+            * expected_decode_launches(arch), dlaunch
     ranks = _gather_obj({"ms": ms, "transport_ms": tms,
                          "transport_bytes": tbytes, "launches": launches,
+                         "decode_launches": dlaunch,
                          "give_ups": give_ups, "peak_bytes": peak,
                          "weight_bytes": sum(x.numel() * x.element_size()
                                              for _, x in _leaves(params)),
@@ -5488,6 +5698,8 @@ def _recurrent_serve(torch, rank, cfg, dev, mesh, fk, arch, S, seed, pseed):
             "decode": {"steps": cfg["decode_steps"], "rel_err_logits": rels,
                        "greedy_tokens_differing": differ,
                        "greedy_tokens": B * cfg["decode_steps"],
+                       "decode_attention_launches": [r["decode_launches"]
+                                                     for r in ranks],
                        "ms": [r["decode_ms"] for r in ranks],
                        "transport_ms": [r["decode_transport_ms"]
                                         for r in ranks],
@@ -5606,13 +5818,15 @@ def ssm_train(torch, rank, cfg, dev, mesh):
 
 
 def recurrent_launches(rtp) -> dict:
-    """Each kernel's launches in the recurrent parts' timed prefills,
-    every rank."""
+    """Each kernel's launches in the recurrent parts' timed prefills, and
+    the ring decode kernel's in their decode steps, every rank."""
     out = {}
     for part in ("hybrid_prefill", "ssm_prefill"):
         for r in rtp[part]["launches"]:
             for k, n in r.items():
                 out[k] = out.get(k, 0) + n
+        out["decode_attention"] += sum(
+            rtp[part]["decode"]["decode_attention_launches"])
     return out
 
 
@@ -5914,6 +6128,7 @@ def main() -> int:
     try:
         from repro_torch.core import enoki_function
         from repro_torch.kernels import build
+        from repro_torch.kernels.decode_attention import kernel as dk
         from repro_torch.kernels.enoki_merge import kernel
         from repro_torch.kernels.flash_attention import kernel as fk
         from repro_torch.kernels.flash_attention import ops as fops
@@ -6074,17 +6289,27 @@ def main() -> int:
     emit({"phase": "kernel_time", "kernel": "mlstm_chunk_bhsd",
           "geometry": "xlstm-350m mLSTM layer, prefill", "nvidia_smi": smi,
           **ml})
+
+    # -- 7b. the ring decode attention kernel, held and timed
+    da = check_decode_attention(torch, dk, flush)
+    emit({"phase": "kernel_time", "kernel": "decode_attention",
+          "geometry": "zamba2-7b decode cell's pod, the shared block's ring",
+          "nvidia_smi": smi, **da})
     del flush
 
     # -- 8. the sessions path, served, for each model
     counters = {"enoki_merge_rows": kernel.enoki_merge_rows,
                 "flash_attention_bhsd": fk.flash_attention_bhsd,
                 "ssd_chunk_bhcp": sk.ssd_chunk_bhcp,
-                "mlstm_chunk_bhsd": mk.mlstm_chunk_bhsd}
+                "mlstm_chunk_bhsd": mk.mlstm_chunk_bhsd,
+                "decode_attention": dk.decode_attention}
     sessions = {}
     for arch_id in SESSION_ARCHS:
-        expect = {k: N_PODS * n for k, n in
-                  expected_launches(session_arch(arch_id)[0]).items()}
+        arch = session_arch(arch_id)[0]
+        expect = {k: N_PODS * n for k, n in expected_launches(arch).items()}
+        if expected_decode_launches(arch):
+            expect["decode_attention"] = DECODE_BODY_RUNS * N_PODS \
+                * expected_decode_launches(arch)
         sessions[arch_id] = ss = run_sessions(torch, arch_id, counters,
                                               expect)
         emit({"phase": "sessions", "nvidia_smi": smi, **ss})
@@ -6180,6 +6405,10 @@ def main() -> int:
         "xlstm-350m": sessions["xlstm-350m"]["launches"]["mlstm_chunk_bhsd"],
         "tensor_parallel_recurrent": rlaunch["mlstm_chunk_bhsd"],
         "roofline": roof_launches.get("mlstm_chunk_bhsd", 0)}
+    decode_launches = {
+        "zamba2-7b": sessions["zamba2-7b"]["launches"]["decode_attention"],
+        "tensor_parallel_recurrent": rlaunch["decode_attention"]}
+    dt = da["by_length"][str(DECODE_LENGTHS[0])]
     t = timings[("100KB", 1)]
     merge_launches = {"serve": st["launches"],
                       "warm": warm["kernel_launches"],
@@ -6234,7 +6463,17 @@ def main() -> int:
         "ms": ml["ms"], "plain_ms": ml["plain_ms"],
         "bound_ms": ml["bound_ms"], "bound_by": ml["bound_by"],
         "bound_units": ml["bound_units"], "fma_bound_ms": ml["fma_bound_ms"],
-        "library_ms": None}]})
+        "library_ms": None}, {
+        "name": "decode_attention", "route": "cuda",
+        "source": DECODE_ATTN_SOURCE, "replaces": None,
+        "launches": sum(decode_launches.values()),
+        "launches_by_path": decode_launches,
+        "max_abs_err": da["max_abs_err"], "ms": dt["ms"],
+        "plain_ms": dt["plain_ms"], "bound_ms": dt["bound_ms"],
+        "bound_by": dt["bound_by"], "library_ms": None,
+        "by_length": {n: {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "share_of_bound")}
+            for n, r in da["by_length"].items()}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,8 @@ KERNEL_SOURCES: Dict[str, pathlib.Path] = {
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "ssd_chunk": _PKG / "ssd_chunk" / "csrc" / "ssd_chunk.cu",
     "mlstm_chunk": _PKG / "mlstm_chunk" / "csrc" / "mlstm_chunk.cu",
+    "decode_attention": _PKG / "decode_attention" / "csrc"
+    / "decode_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -185,6 +185,22 @@ def merge_work(k: int, rows: int, row_bytes: int, nvv: int,
     return 0.0, float(nbytes)
 
 
+def decode_attention_work(B: int, KV: int, G: int, W: int, Dh: int,
+                          q_itemsize: int, kv_itemsize: int,
+                          attended: Optional[int] = None
+                          ) -> Tuple[float, float]:
+    """(FLOPs, bytes) ring decode attention needs: 2·Dh FLOPs for q·k and
+    2·Dh for p·v for each of ``attended`` slots a session (the ring's W
+    where None: what a walker charges, it reads no positions) and query
+    head; K and V of those slots and every slot's position read once, q
+    read and the output written once."""
+    n = W if attended is None else attended
+    flops = 4.0 * B * KV * G * n * Dh
+    nbytes = 2 * B * n * KV * Dh * kv_itemsize + 4 * B * W \
+        + 2 * B * KV * G * Dh * q_itemsize
+    return flops, float(nbytes)
+
+
 def _flash_charge(q, k, *, causal, window):
     B, H, Sq, D = q.shape
     return 1, flash_work(B, H, k.shape[1], Sq, k.shape[2], D,
@@ -199,6 +215,12 @@ def _ssd_charge(x, b, *, chunk):
 def _mlstm_charge(q, *, chunk):
     B, H, S, d = q.shape
     return 1, mlstm_work(B, H, S, d, chunk, q.element_size())
+
+
+def _decode_attention_charge(q, k):
+    B, _, KV, G, Dh = q.shape
+    return 1, decode_attention_work(B, KV, G, k.shape[1], Dh,
+                                    q.element_size(), k.element_size())
 
 
 def _merge_charge(acc, snaps):
@@ -217,6 +239,7 @@ KERNEL_CHARGES: Dict[str, Callable] = {
     "ssd_chunk_bhcp": _ssd_charge,
     "mlstm_chunk_bhsd": _mlstm_charge,
     "enoki_merge_rows": _merge_charge,
+    "decode_attention": _decode_attention_charge,
 }
 
 

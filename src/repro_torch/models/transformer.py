@@ -84,6 +84,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ArchConfig, AttnImpl
 from repro_torch.core import spans
 from repro_torch.device import resolve_device
+from repro_torch.kernels.decode_attention.kernel import decode_attention
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -1091,12 +1092,8 @@ def _ring_decode_attn(ap, x1, ck, cv, cpos, length, arch, mesh=None):
     cpos.index_copy_(1, slot, pos)
     G = q.shape[2] // KV
     qg = attn._scaled(q, dh ** -0.5).reshape(B, 1, KV, G, dh)
-    s = attn._einsum_f32("bqkgd,bskd->bqkgs", qg, ck)
-    valid = (cpos >= 0) & (cpos <= length)
-    s = torch.where(valid[:, None, None, None, :], s, attn.NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = attn._einsum_f32("bqkgs,bskd->bqkgd", p.to(cv.dtype), cv)
-    return tp_out(out.reshape(B, 1, -1).to(x1.dtype) @ ap["wo"], mesh)
+    out = decode_attention(qg, ck, cv, cpos, length)
+    return tp_out(out @ ap["wo"], mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: ``enoki_merge_rows``,
 ``flash_attention_bhsd`` (wgmma, TMA), ``ssd_chunk_bhcp`` (three kernels a
-call) and ``mlstm_chunk_bhsd`` against their plain versions on the same card
-inputs, at the main paths' full geometries too, the served merge path
+call), ``mlstm_chunk_bhsd`` and ``decode_attention`` (zamba2's ring decode,
+also inside a captured pod-step) against their plain versions on the same
+card inputs, at the main paths' full geometries too, the served merge path
 launching the merge once per fused merge, and a prefill launching the
 attention kernel once per attention layer, the SSD kernel once per Mamba-2
 layer and the mLSTM kernel once per mLSTM layer.  The warm paths run as
@@ -1220,6 +1221,132 @@ def test_decode_graph_matches_eager(card, arch_id):
         assert torch.equal(x, y)
     assert step.steps.captures == 1 and step.steps.replays == 8
     assert int(live["length"][0]) == 68
+
+
+# (B, W, KV, G, Dh, length): zamba2-7b's decode cell (a pod of 8 sessions,
+# the ring of 4,096 slots filled to 2,050 and 2,970, then wrapped), the
+# reduced model's 64-slot ring wrapped, G = 2, a rank where model exceeds
+# the KV heads (G = 8), G = 9 (two P.V passes), scores past shared memory
+# (W·G > 16,384: the scratch), Dh = 256 and Dh = 8 with a ragged last tile
+DECODE_RINGS = [(8, 4096, 32, 1, 112, 2050), (8, 4096, 32, 1, 112, 2970),
+                (8, 4096, 32, 1, 112, 5000), (2, 64, 4, 1, 32, 67),
+                (2, 256, 4, 2, 64, 150), (2, 4096, 1, 8, 112, 3000),
+                (1, 128, 2, 9, 64, 100), (2, 4096, 2, 8, 128, 5000),
+                (1, 512, 2, 1, 256, 300), (1, 100, 1, 1, 8, 50)]
+DECODE_DTYPES = pytest.mark.parametrize("dtype,q_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32)], ids=["bf16", "f32_q", "f32"])
+
+
+def _decode_errors(card, ring, dtype, q_dtype, sharp=1.0, control=None):
+    """The kernel and the plain version (and ``control``, a lower-precision
+    variant of it) on one ``chip_smoke.decode_ring``, each one's largest
+    error against the float64 truth, and ``chip_smoke.decode_bound``."""
+    import chip_smoke as cs
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    B, W, KV, G, dh, length = ring
+    args = cs.decode_ring(torch, card, B, W, KV, G, dh, length, dtype,
+                          q_dtype, sharp=sharp, seed=length)
+    want = decode_attention_ref(*args)
+    n0 = dk.decode_attention.launches
+    got = dk.decode_attention(*args)
+    again = dk.decode_attention(*args)
+    torch.cuda.synchronize()
+    assert dk.decode_attention.launches == n0 + 2
+    assert got.dtype == q_dtype and got.shape == want.shape
+    assert torch.equal(got, again)
+    truth, pmax = cs.decode_truth(torch, *args)
+    out = {"got": got, "want": want, "big": float(truth.abs().max())}
+    out["err"], out["plain_err"] = (float((x.double() - truth).abs().max())
+                                    for x in (got, want))
+    if control is not None:
+        low = cs.decode_lower_precision(torch, *args, control)
+        out["control_err"] = float((low.double() - truth).abs().max())
+    out["bound"] = cs.decode_bound(torch, args[0], args[2], truth, pmax,
+                                   out["plain_err"], min(length + 1, W))
+    return out
+
+
+@pytest.mark.cuda
+@DECODE_DTYPES
+@pytest.mark.parametrize("ring", DECODE_RINGS,
+                         ids=["-".join(map(str, r)) for r in DECODE_RINGS])
+def test_decode_attention_matches_plain_on_cuda(card, ring, dtype, q_dtype):
+    """The ring decode kernel and its plain version on the same card inputs
+    (every masked slot, positions -1 and past the token, holding the key q
+    would attend most) against the float64 function: the kernel's largest
+    error within ``chip_smoke.decode_bound``, the plain version's plus, for
+    a bf16 output, half a bf16 step of the largest output (both round the
+    same f32 sum, whose last bits differ), for an f32 output 2 f32 eps x
+    sqrt(attended slots) of it (f32 sums in another order) and, where P is
+    rounded to bf16, one P on the other side of a bf16 step.  In bf16 the
+    two also agree within one bf16 step (2**-7 relative, 1e-4 absolute).
+    One launch a call, the same bits at every launch."""
+    e = _decode_errors(card, ring, dtype, q_dtype)
+    assert e["err"] <= e["bound"], e
+    if q_dtype == torch.bfloat16:
+        torch.testing.assert_close(e["got"].float(), e["want"].float(),
+                                   rtol=2 ** -7, atol=1e-4)
+
+
+@pytest.mark.cuda
+@DECODE_DTYPES
+@pytest.mark.parametrize("length", [2050, 2970, 5000])
+def test_decode_attention_bound_refuses_lower_precision(card, length, dtype,
+                                                        q_dtype):
+    """At zamba2-7b's decode cell the bound above tells the reference's
+    precision from a lower one: on flat scores the kernel falls within it
+    and the plain version with P.V summed in bf16 (rounded after each tile
+    of 128 slots) outside it; on sharp scores (q 8x) the kernel within,
+    the plain version with every score rounded to bf16 outside."""
+    import chip_smoke as cs
+    for sharp, control in cs.DECODE_CONTROLS:
+        e = _decode_errors(card, (8, 4096, 32, 1, 112, length), dtype,
+                           q_dtype, sharp=sharp, control=control)
+        assert e["err"] <= e["bound"] < e["control_err"], (sharp, control, {
+            k: v for k, v in e.items() if k not in ("got", "want")})
+
+
+@pytest.mark.cuda
+def test_zamba2_decode_graph_launches_decode_attention(card):
+    """zamba2 (reduced widths, 27 layers: 13 shared-block applications as
+    the full model has) decoding 2 pods x 2 sessions from position 60 of
+    its 64-slot ring: the captured pod-step equals the eager one bit for
+    bit over eight steps, and ``decode_attention`` counts 13 x 2 pods a
+    run of the body (the warm-up and the capture), none at a replay."""
+    import dataclasses
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core.tree import tree_flatten, tree_map
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.launch import serve
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.transformer import plan
+    arch = dataclasses.replace(reduced(get_arch("zamba2-7b")), num_layers=27)
+    per_body = plan(arch)["groups"] * 2
+    assert per_body == 26
+    params = zoo.init_params(arch, seed=0, dtype=torch.bfloat16)
+    live = tree_map(lambda v: torch.stack([v] * 2),
+                    zoo.init_cache(arch, 2, 72, device=card))
+    live["length"].fill_(60)
+    twin = tree_map(torch.clone, live)
+    step = serve.make_decode_step(arch, n_pods=2)
+    tok = torch.randint(0, arch.vocab_size, (2, 2, 1), device=card,
+                        dtype=torch.int32)
+    etok = tok
+    for i in range(8):
+        n0 = dk.decode_attention.launches
+        tok, live = step(params, live, tok)
+        assert dk.decode_attention.launches - n0 == (2 * per_body if i == 0
+                                                     else 0)
+        n0 = dk.decode_attention.launches
+        etok, twin = step.eager(params, twin, etok)
+        assert dk.decode_attention.launches - n0 == per_body
+        torch.cuda.synchronize()
+        assert torch.equal(tok, etok)
+    for x, y in zip(tree_flatten(live)[0], tree_flatten(twin)[0]):
+        assert torch.equal(x, y)
+    assert step.steps.captures == 1 and step.steps.replays == 8
 
 
 @pytest.mark.cuda

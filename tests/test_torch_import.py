@@ -126,7 +126,7 @@ def test_no_kernel_library_loads_at_import():
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split()[-1] == \
-        "enoki_merge,flash_attention,mlstm_chunk,ssd_chunk"
+        "decode_attention,enoki_merge,flash_attention,mlstm_chunk,ssd_chunk"
 
 
 def test_no_jax_or_reference_import_anywhere():
